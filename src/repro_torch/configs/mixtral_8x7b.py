@@ -1,0 +1,13 @@
+"""mixtral-8x7b — MoE 8 experts top-2, sliding-window attention
+[arXiv:2401.04088; hf]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x7b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=14336, vocab=32000,
+    n_experts=8, top_k=2,
+    attn_pattern="sliding", window=4096,
+    rope_theta=1e6,
+    fsdp_axes=("pod", "data"),
+)

@@ -1,0 +1,335 @@
+"""Unified LM of the PyTorch port.
+
+An architecture is a sequence of *stages*; each stage is `(repeat, kinds)`:
+`kinds` is a tuple of block kinds executed in order, and the stage is run
+`repeat` times with per-kind parameters stacked along a leading "layers" axis
+(the reference's layout, kept so that weights cross between the packages as
+they are; the reference scans that axis, this port loops over it).
+
+Block kinds ported so far:
+  attn         dense attention (+MLP); window per cfg.attn_pattern
+  local/global gemma3 5:1 interleave (sliding window vs full)
+The kinds moe, mamba, shared_attn, mlstm, slstm, enc and dec raise
+`NotImplementedError` naming the ROADMAP.md queue item that brings them.
+
+Entry points: `init`, `train_logits`, `prefill` + `serve_step` (inference).
+Each takes `device`, which defaults to "cuda" and raises without a card; the
+CPU is used only on request.  The serving cache is updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import require_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# stage layout
+# ---------------------------------------------------------------------------
+
+
+def stages(cfg: ModelConfig) -> List[Tuple[int, Tuple[str, ...]]]:
+    nl = cfg.n_layers
+    if cfg.family in ("dense", "vlm"):
+        return [(nl, ("attn",))]
+    if cfg.family == "moe":
+        return [(nl, ("moe",))]
+    if cfg.attn_pattern == "local_global" and cfg.local_global_ratio:
+        r = cfg.local_global_ratio
+        group = ("local",) * r + ("global",)
+        full, rem = divmod(nl, r + 1)
+        out = [(full, group)]
+        if rem:
+            out.append((1, ("local",) * rem))
+        return out
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        e = cfg.hybrid_attn_every
+        group = ("mamba",) * (e - 1) + ("shared_attn",)
+        full, rem = divmod(nl, e)
+        out = [(full, group)]
+        if rem:
+            out.append((1, ("mamba",) * rem))
+        return out
+    if cfg.family == "ssm" and cfg.slstm_ratio:
+        r = cfg.slstm_ratio
+        group = ("mlstm",) * (r - 1) + ("slstm",)
+        full, rem = divmod(nl, r)
+        out = [(full, group)]
+        if rem:
+            out.append((1, ("mlstm",) * rem))
+        return out
+    if cfg.family == "audio":
+        return [(nl, ("dec",))]
+    raise ValueError(f"cannot derive stages for {cfg.name}")
+
+
+PORTED_KINDS = ("attn", "local", "global")
+
+_QUEUE_ITEM = {
+    "mamba": "Queue 1, zamba2 / xlstm slice (apply_mamba, ops.ssm, the ssm_scan kernel)",
+    "shared_attn": "Queue 1, zamba2 / xlstm slice (shared attention block)",
+    "mlstm": "Queue 1, zamba2 / xlstm slice (apply_mlstm, ops.ssm)",
+    "slstm": "Queue 1, zamba2 / xlstm slice (apply_slstm)",
+    "moe": "Queue 1, moe slice (apply_moe)",
+    "enc": "Queue 1, enc/dec + M-RoPE slice (encode, apply_cross_attention)",
+    "dec": "Queue 1, enc/dec + M-RoPE slice (encode, apply_cross_attention)",
+}
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise `NotImplementedError` if `cfg` needs a block kind not ported yet."""
+    for _, kinds in stages(cfg):
+        for kind in kinds:
+            if kind not in PORTED_KINDS:
+                raise NotImplementedError(
+                    f"{cfg.name}: block kind {kind!r} is not ported to repro_torch yet "
+                    f"(ROADMAP.md: {_QUEUE_ITEM.get(kind, 'Queue 1')})")
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder is not ported yet (ROADMAP.md: {_QUEUE_ITEM['enc']})")
+
+
+def _kind_window(cfg: ModelConfig, kind: str) -> int:
+    if kind == "local":
+        return cfg.window
+    if kind == "global":
+        return 0
+    if kind in ("attn", "moe"):
+        return cfg.window if cfg.attn_pattern == "sliding" else 0
+    if kind == "shared_attn":
+        return cfg.window
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_blocks(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
+                 repeat: int) -> Params:
+    """`repeat` blocks of one kind, leaves stacked on a leading layer axis."""
+    if kind in PORTED_KINDS:
+        p = {"attn": L.init_attention(cfg, gen, device=device, layers=repeat)}
+        if cfg.d_ff:
+            p["mlp"] = L.init_mlp(cfg, gen, device=device, layers=repeat)
+        return p
+    raise NotImplementedError(kind)
+
+
+def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random f32 master weights in the reference's layout, drawn from a
+    seeded `torch.Generator` on `device` (not the reference's numbers: parity
+    tests carry the reference's weights over with `convert.params_from_reference`)."""
+    device = require_device(device)
+    require_ported(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    emb_scale = cfg.d_model ** -0.5
+    p: Params = {}
+    p["embed"] = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                             device=device).mul_(emb_scale)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
+                                   device=device).mul_(emb_scale)
+    p["final_norm"] = torch.zeros((cfg.d_model,), device=device)
+    p["stages"] = []
+    for repeat, kinds in stages(cfg):
+        sp = {}
+        for j, kind in enumerate(kinds):
+            sp[f"{kind}_{j}"] = _init_blocks(cfg, kind, gen, device, repeat)
+        p["stages"].append(sp)
+    return p
+
+
+def params_device(params: Params) -> torch.device:
+    return params["embed"].device
+
+
+def check_params_device(params: Params, device) -> torch.device:
+    """Resolve `device` (raising without a card) and require that `params`
+    lie on that kind of device."""
+    device = require_device(device)
+    have = params_device(params)
+    if have.type != device.type:
+        raise ValueError(f"parameters lie on {have} but device={device} was requested")
+    return have
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
+    """Zeroed KV cache: per stage, per block name, {'k','v'} of shape
+    (layers, batch, kv_heads, length, head_dim); windowed kinds keep at most
+    `window` positions."""
+    device = require_device(device)
+    require_ported(cfg)
+    dt = L.compute_dtype(cfg)
+    hk, dh = cfg.n_kv_heads, cfg.head_dim_
+    cache = []
+    for repeat, kinds in stages(cfg):
+        cs = {}
+        for j, kind in enumerate(kinds):
+            w = _kind_window(cfg, kind)
+            length = min(w, cache_len) if w else cache_len
+            shape = (repeat, batch, hk, length, dh)
+            cs[f"{kind}_{j}"] = {"k": torch.zeros(shape, dtype=dt, device=device),
+                                 "v": torch.zeros(shape, dtype=dt, device=device)}
+        cache.append(cs)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
+                 cache, cache_pos, cache_pos_max):
+    """Returns (x, cache)."""
+    if kind in PORTED_KINDS:
+        w = _kind_window(cfg, kind)
+        x, nc = L.apply_attention(cfg, p["attn"], x, positions, window=w,
+                                  cache=cache, cache_pos=cache_pos,
+                                  cache_pos_max=cache_pos_max)
+        if "mlp" in p:
+            x = L.apply_mlp(cfg, p["mlp"], x)
+        return x, nc
+    raise NotImplementedError(
+        f"block kind {kind!r} is not ported yet (ROADMAP.md: {_QUEUE_ITEM.get(kind, 'Queue 1')})")
+
+
+def _layer(tree: Params, i: int) -> Params:
+    """Views of layer `i` of a layer-stacked parameter or cache tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
+                cache=None, cache_pos=None, cache_pos_max: int = 0):
+    """Run every stage, layer by layer.  `cache`, when given, is updated in
+    place (each block writes into its layer's view).  Returns (x, cache)."""
+    for si, (repeat, kinds) in enumerate(stages(cfg)):
+        sp = params["stages"][si]
+        scache = cache[si] if cache is not None else None
+        for i in range(repeat):
+            for j, kind in enumerate(kinds):
+                name = f"{kind}_{j}"
+                c_j = _layer(scache[name], i) if scache is not None else None
+                x, _ = _apply_block(cfg, kind, _layer(sp.get(name, {}), i), x, positions,
+                                    cache=c_j, cache_pos=cache_pos,
+                                    cache_pos_max=cache_pos_max)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# embedding / heads
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
+    # index first, then cast: the same values as casting the whole table
+    return params["embed"][tokens].to(L.compute_dtype(cfg))
+
+
+def logits_head(cfg: ModelConfig, params: Params, h: torch.Tensor):
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return L.linear(cfg, w, h).to(torch.float32)
+
+
+def default_positions(cfg: ModelConfig, batch: int, seq: int, offset=0, device="cuda"):
+    """offset: scalar, or (B,) vector (continuous batching: per-slot positions)."""
+    if cfg.mrope:
+        raise NotImplementedError(
+            "M-RoPE positions are not ported yet (ROADMAP.md: " + _QUEUE_ITEM["enc"] + ")")
+    off = torch.as_tensor(offset, dtype=torch.int32, device=device)
+    if off.ndim == 1:
+        off = off[:, None]
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + off
+    return torch.broadcast_to(pos, (batch, seq))
+
+
+# ---------------------------------------------------------------------------
+# train / serve entry points
+# ---------------------------------------------------------------------------
+
+
+def _tokens(batch: Dict[str, Any], device) -> torch.Tensor:
+    return torch.as_tensor(batch["tokens"]).to(device=device, dtype=torch.long)
+
+
+def forward_hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any], device="cuda"):
+    """Full-sequence forward.  Returns (hidden (B,S,M), aux); `aux` is the
+    auxiliary loss of the blocks, zero for every kind ported so far."""
+    device = check_params_device(params, device)
+    require_ported(cfg)
+    tokens = _tokens(batch, device)
+    b, s = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = default_positions(cfg, b, s, device=device)
+    else:
+        positions = torch.as_tensor(positions).to(device)
+    x, _ = _run_stages(cfg, params, x, positions)
+    return L.rms_norm(x, params["final_norm"]), torch.zeros((), device=device)
+
+
+def train_logits(cfg: ModelConfig, params: Params, batch, device="cuda"):
+    """Small-scale helper (tests/examples): full logits (B,S,V) f32."""
+    h, _ = forward_hidden(cfg, params, batch, device=device)
+    return logits_head(cfg, params, h)
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+            cache_len: Optional[int] = None, device="cuda"):
+    """Run the full prompt, return (last_logits (B,1,V), cache).  `cache_len`
+    sizes the KV cache (>= prompt length; default prompt + 1 so at least one
+    decode step fits)."""
+    device = check_params_device(params, device)
+    require_ported(cfg)
+    tokens = _tokens(batch, device)
+    b, s = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = default_positions(cfg, b, s, device=device)
+    else:
+        positions = torch.as_tensor(positions).to(device)
+    cache = init_cache(cfg, b, cache_len or (s + 1), device=device)
+    x, cache = _run_stages(cfg, params, x, positions, cache=cache, cache_pos=0)
+    h = L.rms_norm(x[:, -1:], params["final_norm"])
+    return logits_head(cfg, params, h), cache
+
+
+@torch.no_grad()
+def serve_step(cfg: ModelConfig, params: Params, cache, tokens, pos, device="cuda"):
+    """One decode step: tokens (B,1) at absolute position `pos`, a scalar or
+    a (B,) vector (int, numpy array or tensor; a CUDA tensor costs one
+    synchronisation, because the host must know whether a cache rolls).
+    Returns (logits (B,1,V), cache); the cache is updated in place."""
+    device = check_params_device(params, device)
+    require_ported(cfg)
+    tokens = torch.as_tensor(tokens).to(device=device, dtype=torch.long)
+    b = tokens.shape[0]
+    pos_host = pos.detach().cpu().numpy() if isinstance(pos, torch.Tensor) else np.asarray(pos)
+    pos_dev = torch.as_tensor(pos_host.astype(np.int64), device=device)
+    x = embed_tokens(cfg, params, tokens)
+    positions = default_positions(cfg, b, 1, offset=pos_dev, device=device)
+    x, cache = _run_stages(cfg, params, x, positions, cache=cache, cache_pos=pos_dev,
+                           cache_pos_max=int(pos_host.max()))
+    h = L.rms_norm(x, params["final_norm"])
+    return logits_head(cfg, params, h), cache

@@ -1,0 +1,162 @@
+"""Continuous-batching serving engine (iteration-level scheduling).
+
+A fixed pool of `n_slots` cache slots decodes in lockstep, but each slot sits
+at its OWN position (`serve_step` takes a (B,) position vector); finished
+requests free their slot, which is immediately refilled by prefilling the
+next queued request into that slot's cache rows.  Prompts are right-padded to
+a multiple of `prompt_bucket`, so prefill sees few distinct lengths.
+
+Why it matters here: decode is memory-bound, so throughput comes from
+batching; continuous batching keeps the batch full under ragged request
+lengths (the paper's bandwidth-matching argument applied to serving: keep the
+provisioned lanes busy).
+
+Cache leaves are layer-stacked, (L, B, ...): slot `i` owns batch row `i`.
+The pooled cache is updated in place.
+
+Not ported yet: the modeled photonic fabric under the decode collectives
+(`fabric=`, `inject_fault`, `net_stats["modeled_net_s"]`), which needs the
+analytic engine (`core/fabric.py`, `core/faults.py`, `core/planner.py`); a
+non-None `fabric` raises `NotImplementedError` (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _slot_update(cache_tree, slot_tree, slot: int, n_slots: int):
+    """Write `slot_tree` (batch=1 cache) into slot `slot` of the pooled cache
+    (batch=n_slots), in place.  Cache leaves are layer-stacked: (L, B*ratio,
+    ...), batch on axis 1 (ratio > 1 for fused batch*heads leaves)."""
+    if isinstance(cache_tree, dict):
+        for key in cache_tree:
+            _slot_update(cache_tree[key], slot_tree[key], slot, n_slots)
+    elif isinstance(cache_tree, (list, tuple)):
+        for pool, one in zip(cache_tree, slot_tree):
+            _slot_update(pool, one, slot, n_slots)
+    else:
+        ratio = cache_tree.shape[1] // n_slots
+        assert slot_tree.shape[1] == ratio, (cache_tree.shape, slot_tree.shape, n_slots)
+        cache_tree[:, slot * ratio:(slot + 1) * ratio].copy_(slot_tree)
+    return cache_tree
+
+
+class ContinuousBatcher:
+    def __init__(self, cfg: ModelConfig, params, n_slots: int, max_len: int,
+                 eos_id: Optional[int] = None, prompt_bucket: int = 16,
+                 fabric=None, device="cuda"):
+        if fabric is not None:
+            raise NotImplementedError(
+                "ContinuousBatcher(fabric=...) needs core/fabric.py, core/faults.py and "
+                "core/planner.py, which are not ported yet (ROADMAP.md, Queue 1)")
+        self.device = M.check_params_device(params, device)
+        self.cfg, self.params = cfg, params
+        self.n_slots, self.max_len = n_slots, max_len
+        self.eos_id = eos_id
+        # recurrent states integrate every input token, so right-padding
+        # would corrupt them: recurrent families prefill at exact length
+        self.bucket = 1 if cfg.family in ("ssm", "hybrid") else prompt_bucket
+        self.cache = M.init_cache(cfg, n_slots, max_len, device=self.device)
+        self.pos = np.zeros(n_slots, np.int32)       # next write position
+        self.last_tok = np.zeros(n_slots, np.int32)
+        self.slot_req: List[Optional[Request]] = [None] * n_slots
+        self.queue: List[Request] = []
+        self._next_rid = 0
+        # phase times are taken with the device synchronised around every
+        # prefill call; a decode step ends in a copy to the host anyway
+        self.stats = {"decode_iters": 0, "decode_tokens": 0, "decode_s": 0.0,
+                      "prefill_calls": 0, "prefill_tokens": 0, "prefill_s": 0.0}
+
+    def _clock(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    # ------------------------------------------------------------------
+    def submit(self, prompt: List[int], max_new: int) -> Request:
+        r = Request(self._next_rid, list(prompt), max_new)
+        self._next_rid += 1
+        self.queue.append(r)
+        return r
+
+    # ------------------------------------------------------------------
+    def _admit(self, slot: int, req: Request):
+        """Prefill prompt[:-1] into the slot, then seed decode with the last
+        prompt token at pos len-1: the first decode step processes that token
+        fresh and yields the first generated token.  Right-pad KV beyond the
+        real length is position-masked and overwritten as decode advances."""
+        core = req.prompt[:-1]
+        if not core:
+            # empty prefill: reset the slot to the zero cache
+            fresh = M.init_cache(self.cfg, 1, self.max_len, device=self.device)
+            _slot_update(self.cache, fresh, slot, self.n_slots)
+        else:
+            plen = max(self.bucket,
+                       ((len(core) + self.bucket - 1) // self.bucket) * self.bucket)
+            if plen >= self.max_len:
+                raise ValueError(f"request {req.rid}: padded prompt length {plen} does not "
+                                 f"fit max_len={self.max_len}")
+            toks = np.zeros((1, plen), np.int64)
+            toks[0, :len(core)] = core
+            t0 = self._clock()
+            _, slot_cache = M.prefill(self.cfg, self.params, {"tokens": toks},
+                                      cache_len=self.max_len, device=self.device)
+            _slot_update(self.cache, slot_cache, slot, self.n_slots)
+            self.stats["prefill_s"] += self._clock() - t0
+            self.stats["prefill_calls"] += 1
+            self.stats["prefill_tokens"] += plen
+        self.slot_req[slot] = req
+        self.pos[slot] = len(req.prompt) - 1
+        self.last_tok[slot] = req.prompt[-1]
+
+    # ------------------------------------------------------------------
+    def run(self) -> List[Request]:
+        """Drain the queue; returns all finished requests."""
+        finished: List[Request] = []
+        while self.queue or any(r is not None for r in self.slot_req):
+            # admit into free slots
+            for s in range(self.n_slots):
+                if self.slot_req[s] is None and self.queue:
+                    self._admit(s, self.queue.pop(0))
+            # lockstep decode at per-slot positions
+            t0 = self._clock()
+            logits, self.cache = M.serve_step(
+                self.cfg, self.params, self.cache, self.last_tok[:, None],
+                self.pos, device=self.device)
+            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            self.stats["decode_s"] += self._clock() - t0
+            self.stats["decode_iters"] += 1
+            self.stats["decode_tokens"] += sum(r is not None for r in self.slot_req)
+            for s in range(self.n_slots):
+                req = self.slot_req[s]
+                if req is None:
+                    continue
+                tok = int(nxt[s])
+                req.out.append(tok)
+                self.pos[s] += 1
+                self.last_tok[s] = tok
+                hit_eos = self.eos_id is not None and tok == self.eos_id
+                if (len(req.out) >= req.max_new or hit_eos
+                        or self.pos[s] >= self.max_len - 1):
+                    req.done = True
+                    finished.append(req)
+                    self.slot_req[s] = None
+        return finished

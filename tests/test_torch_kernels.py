@@ -1,0 +1,277 @@
+"""Parity of the PyTorch port's kernel layer with the JAX package, on the CPU.
+
+The same numpy inputs go through the JAX function and its counterpart in
+`repro_torch`.  The JAX side runs as its own tests run it here: the jnp
+oracles, and the Pallas kernels in interpret mode.  The port runs on CPU
+tensors and therefore through its plain versions (the CUDA kernels are held
+against those plain versions on the card by `chip_smoke.py`).
+
+Tolerances: quantized levels and scales are exact (same IEEE f32 divide and
+round-half-even on both sides); f32 products differ only in summation order
+(rtol 1e-4 for the MAC, 2e-5 for attention, the reference's own bounds);
+bf16 inputs are rounded identically on both sides, so the f32 bounds hold.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.photonic_mac import photonic_mac as j_mac
+from repro.kernels.photonic_mac import quantize_weights as j_quantize
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.photonic_mac import photonic_mac, quantize_weights
+
+
+def _rng(*seed):
+    return np.random.default_rng(list(seed))
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(dtype) if dtype is not None else t
+
+
+def _j(a, bf16=False):
+    return jnp.asarray(a, jnp.bfloat16 if bf16 else None)
+
+
+# ---------------------------------------------------------------------------
+# quantize_weights
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,n", [(256, 384), (128, 128), (200, 300), (130, 129), (1, 50)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_weights_levels_and_scales_equal(k, n, bits):
+    w = _rng(k, n, bits).standard_normal((k, n)).astype(np.float32)
+    wq_j, sc_j = j_quantize(_j(w), bits=bits)
+    wq_t, sc_t = quantize_weights(_t(w), bits=bits)
+    assert wq_t.dtype == torch.int8 and sc_t.dtype == torch.float32
+    assert tuple(wq_t.shape) == (k, n)
+    assert tuple(sc_t.shape) == (-(-k // 128), -(-n // 128))
+    np.testing.assert_array_equal(wq_t.numpy(), np.asarray(wq_j))
+    np.testing.assert_array_equal(sc_t.numpy(), np.asarray(sc_j))
+
+
+def test_quantize_weights_all_zero_tile():
+    """A tile of zeros takes the epsilon scale and zero levels on both sides."""
+    w = _rng(5).standard_normal((256, 256)).astype(np.float32)
+    w[128:, :128] = 0.0
+    wq_j, sc_j = j_quantize(_j(w))
+    wq_t, sc_t = quantize_weights(_t(w))
+    np.testing.assert_array_equal(wq_t.numpy(), np.asarray(wq_j))
+    np.testing.assert_array_equal(sc_t.numpy(), np.asarray(sc_j))
+    assert float(sc_t[1, 0]) == pytest.approx(1e-8 / 127, rel=1e-6)
+    assert not wq_t[128:, :128].any()
+
+
+def test_quantize_padding_is_exact_on_shared_tiles():
+    w = _rng(3).standard_normal((256, 256)).astype(np.float32)
+    wq_a, sc_a = quantize_weights(_t(w))
+    wq_b, sc_b = quantize_weights(_t(w[:200, :250]))
+    assert torch.equal(sc_b[:1, :1], sc_a[:1, :1])
+    assert torch.equal(wq_b[:128, :128], wq_a[:128, :128])
+
+
+# ---------------------------------------------------------------------------
+# photonic MAC: plain version vs the jnp oracle and the Pallas kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 384, 128),
+                                   (128, 256, 512), (384, 128, 256)])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_photonic_mac_ref_matches_reference(m, k, n, bf16, bits):
+    r = _rng(m, k, n, bits)
+    x = r.standard_normal((m, k)).astype(np.float32)
+    w = r.standard_normal((k, n)).astype(np.float32)
+    wq_j, sc_j = j_quantize(_j(w), bits=bits)
+    wq_t, sc_t = quantize_weights(_t(w), bits=bits)
+    xj, xt = _j(x, bf16), _t(x, torch.bfloat16 if bf16 else None)
+    out_t = photonic_mac(xt, wq_t, sc_t)        # CPU tensor -> plain version
+    assert out_t.dtype == torch.float32 and tuple(out_t.shape) == (m, n)
+    oracle = np.asarray(jref.photonic_mac_ref(xj, wq_j, sc_j))
+    kernel = np.asarray(j_mac(xj, wq_j, sc_j, interpret=True))
+    np.testing.assert_allclose(out_t.numpy(), oracle, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(out_t.numpy(), kernel, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 128, 128), (128, 200, 300),
+                                   (1, 128, 50257 % 512), (130, 129, 131)])
+def test_photonic_mac_ref_non_aligned_shapes(m, k, n):
+    r = _rng(m, k, n)
+    x = r.standard_normal((m, k)).astype(np.float32)
+    w = r.standard_normal((k, n)).astype(np.float32)
+    wq_j, sc_j = j_quantize(_j(w))
+    wq_t, sc_t = quantize_weights(_t(w))
+    out_t = photonic_mac(_t(x), wq_t, sc_t)
+    assert tuple(out_t.shape) == (m, n)
+    kernel = np.asarray(j_mac(_j(x), wq_j, sc_j, interpret=True))
+    np.testing.assert_allclose(out_t.numpy(), kernel, rtol=1e-4, atol=1e-3)
+
+
+def test_dequantize_ref_matches_reference():
+    w = _rng(11).standard_normal((200, 300)).astype(np.float32)
+    wq_t, sc_t = quantize_weights(_t(w))
+    wq_j, sc_j = j_quantize(_j(w))
+    np.testing.assert_array_equal(ref.dequantize_ref(wq_t, sc_t).numpy(),
+                                  np.asarray(jref.dequantize_ref(wq_j, sc_j)))
+
+
+def test_photonic_mac_wrapper_rejects_bad_inputs():
+    x = torch.zeros(4, 128)
+    wq = torch.zeros(128, 128, dtype=torch.int8)
+    sc = torch.ones(1, 1)
+    with pytest.raises(ValueError):
+        photonic_mac(x, wq, torch.ones(2, 1))
+    with pytest.raises(TypeError):
+        photonic_mac(x, wq.to(torch.int32), sc)
+    with pytest.raises(TypeError):
+        photonic_mac(x.to(torch.float16), wq, sc)
+    with pytest.raises(ValueError):
+        photonic_mac(torch.zeros(4, 64), wq, sc)
+
+
+# ---------------------------------------------------------------------------
+# attention: plain version vs the jnp oracle and the Pallas kernel
+# ---------------------------------------------------------------------------
+
+def _qkv(r, b, hq, hk, sq, sk, d):
+    q = r.standard_normal((b, hq, sq, d)).astype(np.float32)
+    k = r.standard_normal((b, hk, sk, d)).astype(np.float32)
+    v = r.standard_normal((b, hk, sk, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("sq,sk,hq,hk,d", [
+    (128, 128, 4, 4, 64),      # MHA
+    (256, 256, 8, 2, 64),      # GQA 4:1
+    (128, 256, 8, 1, 128),     # MQA, longer KV
+    (512, 512, 2, 2, 32),      # long, small heads
+    (128, 384, 16, 8, 64),     # GQA 2:1, 3x KV
+])
+@pytest.mark.parametrize("window", [0, 64])
+def test_attention_ref_matches_reference(sq, sk, hq, hk, d, window):
+    q, k, v = _qkv(_rng(sq, sk, hq, window), 1, hq, hk, sq, sk, d)
+    off = sk - sq
+    out_t = flash_attention(_t(q), _t(k), _t(v), causal=True, window=window,
+                            q_offset=off)     # CPU tensors -> plain version
+    assert out_t.dtype == torch.float32
+    oracle = jref.attention_ref(_j(q), _j(k), _j(v), causal=True, window=window,
+                                q_offset=off)
+    kernel = j_flash(_j(q), _j(k), _j(v), causal=True, window=window,
+                     q_offset=off, interpret=True)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(oracle), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(kernel), rtol=2e-5, atol=2e-5)
+
+
+def test_attention_ref_bf16_inputs():
+    q, k, v = _qkv(_rng(7), 1, 4, 4, 128, 128, 64)
+    bf = torch.bfloat16
+    out_t = ref.attention_ref(_t(q, bf), _t(k, bf), _t(v, bf))
+    exp = jref.attention_ref(_j(q, True), _j(k, True), _j(v, True))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(exp), rtol=2e-5, atol=2e-5)
+
+
+def test_attention_ref_noncausal():
+    q, k, v = _qkv(_rng(9), 1, 2, 2, 128, 128, 32)
+    out_t = ref.attention_ref(_t(q), _t(k), _t(v), causal=False)
+    exp = j_flash(_j(q), _j(k), _j(v), causal=False, interpret=True)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(exp), rtol=2e-5, atol=2e-5)
+
+
+def test_attention_fully_masked_rows_average_all_keys():
+    """Rows with no visible key (q_offset + Sq > Sk under a window) give the
+    plain average of V in the reference kernel, the jnp oracle and the port."""
+    q, k, v = _qkv(_rng(13), 1, 2, 2, 16, 16, 16)
+    kw = dict(causal=True, window=4, q_offset=32)
+    out_t = ref.attention_ref(_t(q), _t(k), _t(v), **kw)
+    exp = j_flash(_j(q), _j(k), _j(v), interpret=True, **kw)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(exp), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out_t.numpy()[0, :, -1], v[0].mean(axis=1),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_flash_attention_wrapper_rejects_bad_inputs():
+    q = torch.zeros(1, 4, 16, 16)
+    k = torch.zeros(1, 3, 16, 16)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)                       # 4 % 3 != 0
+    k = torch.zeros(1, 2, 16, 16)
+    with pytest.raises(TypeError):
+        flash_attention(q, k.to(torch.bfloat16), k)    # mixed dtypes
+    with pytest.raises(ValueError):
+        flash_attention(q, k, torch.zeros(1, 2, 8, 16))
+
+
+# ---------------------------------------------------------------------------
+# ops: dispatch predicates and gradients
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,tiled", [(128, 128, 128, True), (256, 128, 256, True),
+                                         (64, 64, 128, False), (100, 128, 128, False),
+                                         (128, 128, 96, False)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_photonic_matmul_both_sides_of_the_predicate(m, k, n, tiled, bits):
+    """Tiled shapes use per-tile scales, the rest one scale per column; the
+    port reproduces the reference's predicate and both numerics."""
+    assert ops.uses_tiled_path(m, k, n) == tiled
+    r = _rng(m, k, n, bits)
+    x = r.standard_normal((m, k)).astype(np.float32)
+    w = r.standard_normal((k, n)).astype(np.float32)
+    for use_kernel in (False, True):
+        out_t = ops.photonic_matmul(_t(x), _t(w), bits, use_kernel)
+        exp = jops.photonic_matmul(_j(x), _j(w), bits, use_kernel)
+        np.testing.assert_allclose(out_t.numpy(), np.asarray(exp), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (64, 64, 128)])
+def test_photonic_matmul_straight_through_gradients(m, k, n):
+    r = _rng(m, k, n)
+    x = r.standard_normal((m, k)).astype(np.float32)
+    w = r.standard_normal((k, n)).astype(np.float32)
+    g = r.standard_normal((m, n)).astype(np.float32)
+    xt, wt = _t(x).requires_grad_(True), _t(w).requires_grad_(True)
+    (ops.photonic_matmul(xt, wt, 8, False) * _t(g)).sum().backward()
+    dx_j, dw_j = jax.grad(
+        lambda x_, w_: jnp.sum(jops.photonic_matmul(x_, w_, 8, False) * _j(g)),
+        argnums=(0, 1))(_j(x), _j(w))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(dw_j), rtol=1e-4, atol=1e-4)
+    # straight-through: dw is the unquantized matmul's gradient
+    np.testing.assert_allclose(wt.grad.numpy(), x.T @ g, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sq,sk,off,use_kernel,expect", [
+    (128, 128, 0, True, True), (40, 40, 0, True, True), (256, 384, 128, True, True),
+    (130, 130, 0, True, False), (4, 4, 0, True, False), (64, 128, 32, True, False),
+    (128, 128, 0, False, False)])
+def test_attention_dispatch_predicate(sq, sk, off, use_kernel, expect):
+    assert ops.uses_flash_kernel(sq, sk, off, use_kernel) == expect
+
+
+@pytest.mark.parametrize("sq,sk,window,use_kernel", [(64, 64, 0, True), (64, 64, 16, True),
+                                                     (33, 33, 0, True), (32, 64, 0, False)])
+def test_ops_attention_forward_and_gradients(sq, sk, window, use_kernel):
+    q, k, v = _qkv(_rng(sq, sk, window), 2, 4, 2, sq, sk, 16)
+    g = _rng(1, sq).standard_normal((2, 4, sq, 16)).astype(np.float32)
+    off = sk - sq
+    ts = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    out_t = ops.attention(*ts, True, window, None, off, use_kernel)
+    (out_t * _t(g)).sum().backward()
+
+    def f(q_, k_, v_):
+        return jops.attention(q_, k_, v_, True, window, None, off, use_kernel)
+    out_j = f(_j(q), _j(k), _j(v))
+    grads_j = jax.grad(lambda *a: jnp.sum(f(*a) * _j(g)), argnums=(0, 1, 2))(
+        _j(q), _j(k), _j(v))
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               rtol=2e-5, atol=2e-5)
+    for t, gj in zip(ts, grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj), rtol=1e-4, atol=1e-5)

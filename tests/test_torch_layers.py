@@ -1,0 +1,201 @@
+"""Parity of `repro_torch.models.layers` with `repro.models.layers` on the
+CPU: the same numpy inputs and weights through both, in f32.
+
+Tolerance 1e-5 (rtol and atol) unless stated: the two sides do the same f32
+arithmetic and differ in summation order and in the libm behind exp, sin and
+cos.  Blocks that end in a matmul over the model width use 1e-4, the bound
+the model-level parity tests use for logits.
+"""
+
+import dataclasses
+
+import jax
+import jax.experimental
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+# `repro.models` pulls in `repro.core`, whose power model imports
+# `jax.experimental.enable_x64`; newer jax only has `jax.enable_x64`.
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = jax.enable_x64
+
+from repro import configs as JC  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+
+from repro_torch import configs as C  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+TOL_BLOCK = dict(rtol=1e-4, atol=1e-4)
+
+
+def _rng(*seed):
+    return np.random.default_rng(list(seed))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _cfgs(arch="yi_6b", **kw):
+    return (dataclasses.replace(JC.get_reduced(arch), **kw),
+            dataclasses.replace(C.get_reduced(arch), **kw))
+
+
+def _attn_params(cfg, r):
+    m, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    p = {"wq": r.standard_normal((m, h, dh)) / np.sqrt(m),
+         "wk": r.standard_normal((m, hk, dh)) / np.sqrt(m),
+         "wv": r.standard_normal((m, hk, dh)) / np.sqrt(m),
+         "wo": r.standard_normal((h, dh, m)) / np.sqrt(h * dh),
+         "norm": 0.1 * r.standard_normal((m,))}
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+def _both(p):
+    return ({k: jnp.asarray(v) for k, v in p.items()}, {k: _t(v) for k, v in p.items()})
+
+
+def test_config_copies_agree():
+    """The port keeps its own ModelConfig and config files; they must say
+    what the reference's say."""
+    assert C.ARCH_IDS == JC.ARCH_IDS and C.ALIASES == JC.ALIASES
+    for arch in C.ARCH_IDS:
+        assert dataclasses.asdict(C.get(arch)) == dataclasses.asdict(JC.get(arch))
+        assert dataclasses.asdict(C.get_reduced(arch)) == dataclasses.asdict(JC.get_reduced(arch))
+        assert C.get(arch).param_count() == JC.get(arch).param_count()
+
+
+def test_rms_norm():
+    r = _rng(0)
+    x = r.standard_normal((2, 5, 64)).astype(np.float32)
+    s = r.standard_normal((64,)).astype(np.float32)
+    np.testing.assert_allclose(L.rms_norm(_t(x), _t(s)).numpy(),
+                               np.asarray(JL.rms_norm(jnp.asarray(x), jnp.asarray(s))), **TOL)
+
+
+@pytest.mark.parametrize("offset", [0, 1000])
+def test_apply_rope(offset):
+    jcfg, cfg = _cfgs()
+    r = _rng(1, offset)
+    x = r.standard_normal((2, 7, 4, 16)).astype(np.float32)
+    pos = (np.arange(7)[None, :] + np.array([[offset], [offset + 3]])).astype(np.int32)
+    # angles reach 1e3 rad: f32 sin/cos argument reduction differs by ~1e-4 rad
+    tol = TOL if offset == 0 else dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(
+        L.apply_rope(cfg, _t(x), _t(pos)).numpy(),
+        np.asarray(JL.apply_rope(jcfg, jnp.asarray(x), jnp.asarray(pos))), **tol)
+
+
+def test_apply_rope_rejects_mrope_streams():
+    _, cfg = _cfgs()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        L.apply_rope(cfg, torch.zeros(1, 2, 4, 16), torch.zeros(3, 1, 2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("photonic", [False, True])
+def test_linear(photonic):
+    jcfg, cfg = _cfgs(use_photonic_mac=photonic)
+    r = _rng(2)
+    x = r.standard_normal((2, 9, 64)).astype(np.float32)
+    w = r.standard_normal((64, 4, 16)).astype(np.float32)
+    out = L.linear(cfg, _t(w), _t(x))
+    assert tuple(out.shape) == (2, 9, 4, 16)
+    np.testing.assert_allclose(out.numpy(),
+                               np.asarray(JL.linear(jcfg, jnp.asarray(w), jnp.asarray(x))),
+                               **TOL_BLOCK)
+
+
+@pytest.mark.parametrize("photonic", [False, True])
+def test_apply_mlp(photonic):
+    jcfg, cfg = _cfgs(use_photonic_mac=photonic)
+    r = _rng(3)
+    m, f = cfg.d_model, cfg.d_ff
+    p = {"wi": r.standard_normal((m, f)) / 8, "wg": r.standard_normal((m, f)) / 8,
+         "wo": r.standard_normal((f, m)) / 11, "norm": 0.1 * r.standard_normal((m,))}
+    pj, pt = _both({k: v.astype(np.float32) for k, v in p.items()})
+    x = r.standard_normal((2, 6, m)).astype(np.float32)
+    np.testing.assert_allclose(L.apply_mlp(cfg, pt, _t(x)).numpy(),
+                               np.asarray(JL.apply_mlp(jcfg, pj, jnp.asarray(x))), **TOL_BLOCK)
+
+
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("s", [24, 5])
+def test_apply_attention_no_cache(window, s):
+    jcfg, cfg = _cfgs()
+    r = _rng(4, window, s)
+    pj, pt = _both(_attn_params(cfg, r))
+    x = r.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (2, s)).copy()
+    out_t, c = L.apply_attention(cfg, pt, _t(x), _t(pos), window=window)
+    out_j, _ = JL.apply_attention(jcfg, pj, jnp.asarray(x), jnp.asarray(pos), window=window)
+    assert c is None
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL_BLOCK)
+
+
+def _zero_cache(cfg, b, length):
+    shape = (b, cfg.n_kv_heads, length, cfg.head_dim_)
+    return np.zeros(shape, np.float32)
+
+
+@pytest.mark.parametrize("s,wlen", [(12, 32), (40, 16), (16, 16)])
+def test_apply_attention_prefill_short_of_and_beyond_the_window(s, wlen):
+    """Prefill writes K/V at the front of a longer cache, or keeps the last
+    `wlen` positions of a prompt that fills or overruns it."""
+    jcfg, cfg = _cfgs()
+    r = _rng(5, s, wlen)
+    pj, pt = _both(_attn_params(cfg, r))
+    x = r.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (2, s)).copy()
+    window = wlen if wlen < 32 else 0
+    z = _zero_cache(cfg, 2, wlen)
+    out_t, ct = L.apply_attention(cfg, pt, _t(x), _t(pos), window=window,
+                                  cache={"k": _t(z.copy()), "v": _t(z.copy())}, cache_pos=0)
+    out_j, cj = JL.apply_attention(jcfg, pj, jnp.asarray(x), jnp.asarray(pos), window=window,
+                                   cache={"k": jnp.asarray(z), "v": jnp.asarray(z)},
+                                   cache_pos=jnp.int32(0))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL_BLOCK)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(ct[name].numpy(), np.asarray(cj[name]), **TOL_BLOCK)
+
+
+@pytest.mark.parametrize("pos", [3, 15, 16, 40, [2, 16, 30], [0, 5, 15]])
+def test_apply_attention_rolling_decode(pos):
+    """Single-step decode over a 16-long cache: below the window the new K/V
+    land at `pos`; from the window on, that slot's cache rolls left by one.
+    Scalar and per-slot (B,) positions."""
+    jcfg, cfg = _cfgs()
+    wlen, b = 16, 3
+    r = _rng(6, *np.atleast_1d(pos))
+    pj, pt = _both(_attn_params(cfg, r))
+    x = r.standard_normal((b, 1, cfg.d_model)).astype(np.float32)
+    ck = r.standard_normal((b, cfg.n_kv_heads, wlen, cfg.head_dim_)).astype(np.float32)
+    cv = r.standard_normal((b, cfg.n_kv_heads, wlen, cfg.head_dim_)).astype(np.float32)
+    pos_np = np.asarray(pos, np.int32)
+    positions = np.broadcast_to(pos_np.reshape(-1, 1), (b, 1)).astype(np.int32)
+    out_t, ct = L.apply_attention(
+        cfg, pt, _t(x), _t(positions), cache={"k": _t(ck.copy()), "v": _t(cv.copy())},
+        cache_pos=torch.as_tensor(pos_np.astype(np.int64)), cache_pos_max=int(pos_np.max()))
+    out_j, cj = JL.apply_attention(
+        jcfg, pj, jnp.asarray(x), jnp.asarray(positions),
+        cache={"k": jnp.asarray(ck), "v": jnp.asarray(cv)}, cache_pos=jnp.asarray(pos_np))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL_BLOCK)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(ct[name].numpy(), np.asarray(cj[name]), **TOL_BLOCK)
+
+
+@pytest.mark.parametrize("pos", [7, [3, 9]])
+@pytest.mark.parametrize("window,sq", [(0, 1), (4, 1), (0, 3)])
+def test_decode_attention(pos, window, sq):
+    r = _rng(8, window, sq)
+    q = r.standard_normal((2, 4, sq, 16)).astype(np.float32)
+    k = r.standard_normal((2, 2, 12, 16)).astype(np.float32)
+    v = r.standard_normal((2, 2, 12, 16)).astype(np.float32)
+    pos_np = np.asarray(pos, np.int32)
+    out_t = L.decode_attention(_t(q), _t(k), _t(v), torch.as_tensor(pos_np.astype(np.int64)),
+                               window=window)
+    out_j = JL.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                jnp.asarray(pos_np), window=window)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)

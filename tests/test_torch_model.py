@@ -1,0 +1,215 @@
+"""Parity of the whole ported path (`repro_torch.models.model`) with the JAX
+package on the CPU, at a small size: the reference's random weights cross as
+numpy through `params_from_reference`, and the same token ids go to both.
+
+Tolerance: logits and caches agree to rtol/atol 1e-4 in f32.  Both sides do
+the same f32 arithmetic; they differ in summation order and libm, and with
+photonic numerics a product that falls within rounding of a quantization
+boundary could flip a level, which has not occurred at these seeds.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.experimental
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+# `repro.models` pulls in `repro.core`, whose power model imports
+# `jax.experimental.enable_x64`; newer jax only has `jax.enable_x64`.
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = jax.enable_x64
+
+from repro import configs as JC  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+
+from repro_torch import configs as C  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.convert import params_from_reference  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+# a small config whose linears are all 128-aligned, so that with B*S = 128
+# every layer takes the tiled photonic path (the reduced widths never do)
+ALIGNED = dict(d_model=128, n_heads=4, n_kv_heads=1, head_dim=32, d_ff=256, vocab=512,
+               use_photonic_mac=True)
+
+
+def _pair(arch, seed=0, **kw):
+    jcfg = dataclasses.replace(JC.get_reduced(arch), **kw)
+    cfg = dataclasses.replace(C.get_reduced(arch), **kw)
+    jparams, _ = JM.init(jcfg, jax.random.PRNGKey(seed))
+    params = params_from_reference(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    return jcfg, jparams, cfg, params
+
+
+def _tokens(cfg, b, s, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(np.int32)
+
+
+def _assert_cache_close(cache_t, cache_j):
+    assert len(cache_t) == len(cache_j)
+    for st, sj in zip(cache_t, cache_j):
+        assert set(st) == set(sj)
+        for name in st:
+            for leaf in ("k", "v"):
+                np.testing.assert_allclose(st[name][leaf].numpy(),
+                                           np.asarray(sj[name][leaf]), **TOL)
+
+
+LOCAL_GLOBAL = dict(family="interleaved")
+
+CASES = {
+    "reduced": ("yi_6b", {}, 2, 24),
+    "reduced_photonic": ("yi_6b", {"use_photonic_mac": True}, 2, 24),
+    "reduced_photonic_4bit": ("yi_6b", {"use_photonic_mac": True, "photonic_bits": 4}, 2, 24),
+    # tiled path: JAX runs the Pallas kernels in interpret mode
+    "aligned_tiled_kernels": ("yi_6b", {**ALIGNED, "use_kernels": True}, 1, 128),
+    "aligned_tiled_plain": ("yi_6b", {**ALIGNED, "use_kernels": False}, 2, 64),
+    # tied embeddings (gemma3's family is "dense", so its stages are plain `attn`)
+    "gemma3": ("gemma3_27b", {}, 2, 24),
+    # the local/global kinds with window 32: reachable only from a family
+    # that `stages` does not catch first, in the reference and in the port
+    "local_global": ("gemma3_27b", {**LOCAL_GLOBAL}, 2, 40),
+    "local_global_photonic": ("gemma3_27b", {**LOCAL_GLOBAL, "use_photonic_mac": True}, 2, 40),
+    "sliding": ("yi_6b", {"attn_pattern": "sliding", "window": 16}, 2, 24),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_train_logits_match_reference(case):
+    arch, kw, b, s = CASES[case]
+    jcfg, jparams, cfg, params = _pair(arch, **kw)
+    toks = _tokens(cfg, b, s)
+    out_t = M.train_logits(cfg, params, {"tokens": toks}, device="cpu")
+    out_j = JM.train_logits(jcfg, jparams, {"tokens": jnp.asarray(toks)})
+    assert tuple(out_t.shape) == (b, s, cfg.vocab) and out_t.dtype == torch.float32
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_prefill_and_three_serve_steps_match_reference(case):
+    arch, kw, b, s = CASES[case]
+    jcfg, jparams, cfg, params = _pair(arch, seed=1, **kw)
+    toks = _tokens(cfg, b, s + 3, seed=1)
+    lg_t, cache_t = M.prefill(cfg, params, {"tokens": toks[:, :s]}, cache_len=s + 8,
+                              device="cpu")
+    lg_j, cache_j = JM.prefill(jcfg, jparams, {"tokens": jnp.asarray(toks[:, :s])},
+                               cache_len=s + 8)
+    assert tuple(lg_t.shape) == (b, 1, cfg.vocab)
+    np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg_j), **TOL)
+    _assert_cache_close(cache_t, cache_j)
+    for i in range(3):
+        tok = toks[:, s + i:s + i + 1]
+        lg_t, cache_t = M.serve_step(cfg, params, cache_t, tok, s + i, device="cpu")
+        lg_j, cache_j = JM.serve_step(jcfg, jparams, cache_j, jnp.asarray(tok),
+                                      jnp.int32(s + i))
+        np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg_j), **TOL)
+    _assert_cache_close(cache_t, cache_j)
+
+
+def test_rolling_window_decode_matches_reference():
+    """Local blocks keep a 32-long cache: decode past it, so those caches roll."""
+    jcfg, jparams, cfg, params = _pair("gemma3_27b", seed=2, **LOCAL_GLOBAL)
+    assert M.stages(cfg) == [(1, ("local",) * 5 + ("global",))]
+    s, extra = 28, 8
+    toks = _tokens(cfg, 1, s + extra, seed=2)
+    _, cache_t = M.prefill(cfg, params, {"tokens": toks[:, :s]}, cache_len=s + extra,
+                           device="cpu")
+    _, cache_j = JM.prefill(jcfg, jparams, {"tokens": jnp.asarray(toks[:, :s])},
+                            cache_len=s + extra)
+    assert cache_t[0]["local_0"]["k"].shape[3] == 32
+    for i in range(extra):
+        tok = toks[:, s + i:s + i + 1]
+        lg_t, cache_t = M.serve_step(cfg, params, cache_t, tok, s + i, device="cpu")
+        lg_j, cache_j = JM.serve_step(jcfg, jparams, cache_j, jnp.asarray(tok),
+                                      jnp.int32(s + i))
+        np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg_j), **TOL)
+    _assert_cache_close(cache_t, cache_j)
+
+
+@pytest.mark.parametrize("arch,kw", [("yi_6b", {}), ("gemma3_27b", {}),
+                                     ("gemma3_27b", LOCAL_GLOBAL)])
+def test_prefill_plus_decode_equals_full_forward(arch, kw):
+    """Inside the port: the last position's logits from a full forward equal
+    those of prefill(s-1) + one decode step (f32, no photonic numerics)."""
+    cfg = dataclasses.replace(C.get_reduced(arch), **kw)
+    params = M.init(cfg, seed=3, device="cpu")
+    b, s = 2, 33
+    toks = _tokens(cfg, b, s, seed=3)
+    full = M.train_logits(cfg, params, {"tokens": toks}, device="cpu")[:, -1]
+    _, cache = M.prefill(cfg, params, {"tokens": toks[:, :s - 1]}, cache_len=s, device="cpu")
+    lg, _ = M.serve_step(cfg, params, cache, toks[:, s - 1:s], s - 1, device="cpu")
+    np.testing.assert_allclose(lg[:, 0].numpy(), full.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_init_shapes_and_statistics():
+    cfg = C.get_reduced("yi_6b")
+    p = M.init(cfg, seed=0, device="cpu")
+    jp, _ = JM.init(JC.get_reduced("yi_6b"), jax.random.PRNGKey(0))
+    shapes_t = jax.tree.map(lambda t: tuple(t.shape), p)
+    shapes_j = jax.tree.map(lambda a: tuple(a.shape), jp)
+    assert shapes_t == shapes_j
+    wq = p["stages"][0]["attn_0"]["attn"]["wq"]
+    assert abs(float(wq.std()) - cfg.d_model ** -0.5) < 0.01
+    assert not torch.equal(wq[0], wq[1])              # layers drawn independently
+    again = M.init(cfg, seed=0, device="cpu")
+    assert torch.equal(again["embed"], p["embed"])     # seeded
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "grok1_314b", "zamba2_1p2b", "xlstm_350m",
+                                  "seamless_m4t_medium"])
+def test_unported_kinds_raise(arch):
+    cfg = C.get_reduced(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        M.init(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        M.init_cache(cfg, 1, 8, device="cpu")
+
+
+def test_mrope_raises():
+    cfg = C.get_reduced("qwen2_vl_72b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        M.default_positions(cfg, 1, 4, device="cpu")
+
+
+def test_default_device_is_cuda_and_raises_without_a_card():
+    """No silent CPU fallback: the default device is the card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the behaviour without one")
+    cfg = C.get_reduced("yi_6b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        M.init(cfg)
+    params = M.init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        M.prefill(cfg, params, {"tokens": _tokens(cfg, 1, 4)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        M.init_cache(cfg, 1, 8)
+
+
+def test_stage_layout_matches_reference():
+    for arch in C.ARCH_IDS:
+        assert M.stages(C.get(arch)) == JM.stages(JC.get(arch))
+
+
+def test_port_imports_without_jax_or_the_reference_package():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.env, repro_torch.configs\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.models.model, repro_torch.models.convert\n"
+        "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"

@@ -1,0 +1,165 @@
+"""The port's continuous-batching engine against the JAX engine, on the CPU:
+ragged requests through shared cache slots must produce the same greedy
+token ids as the JAX `ContinuousBatcher` on the same weights and prompts, and
+the same as the port's own independent per-request decode.  Token ids are
+compared exactly; logits to 1e-5 (same f32 arithmetic, other summation
+order)."""
+
+import jax
+import jax.experimental
+import numpy as np
+import pytest
+import torch
+
+# `repro.serve.engine` imports `repro.core`, whose power model imports
+# `jax.experimental.enable_x64`; newer jax only has `jax.enable_x64`.
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = jax.enable_x64
+
+from repro import configs as JC  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.serve.engine import ContinuousBatcher as JContinuousBatcher  # noqa: E402
+
+from repro_torch import configs as C  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.convert import params_from_reference  # noqa: E402
+from repro_torch.serve.engine import ContinuousBatcher, _slot_update  # noqa: E402
+
+LENGTHS = [5, 9, 3, 7]
+MAX_NEWS = [6, 4, 5, 3]
+MAX_LEN = 64
+
+
+def _setup(seed=0):
+    jcfg, cfg = JC.get_reduced("yi_6b"), C.get_reduced("yi_6b")
+    jparams, _ = JM.init(jcfg, jax.random.PRNGKey(seed))
+    params = params_from_reference(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab, n)] for n in LENGTHS]
+    return jcfg, jparams, cfg, params, prompts
+
+
+def _independent_decode(cfg, params, prompt, max_new, max_len):
+    if len(prompt) > 1:
+        _, cache = M.prefill(cfg, params, {"tokens": np.asarray([prompt[:-1]])},
+                             cache_len=max_len, device="cpu")
+    else:
+        cache = M.init_cache(cfg, 1, max_len, device="cpu")
+    out, tok, pos = [], prompt[-1], len(prompt) - 1
+    for _ in range(max_new):
+        logits, cache = M.serve_step(cfg, params, cache, np.asarray([[tok]]), pos,
+                                     device="cpu")
+        tok = int(torch.argmax(logits[0, -1]))
+        out.append(tok)
+        pos += 1
+    return out
+
+
+@pytest.mark.parametrize("bucket", [16, 8])
+def test_continuous_batching_matches_the_reference_engine(bucket):
+    jcfg, jparams, cfg, params, prompts = _setup()
+    jeng = JContinuousBatcher(jcfg, jparams, n_slots=2, max_len=MAX_LEN, prompt_bucket=bucket)
+    jreqs = [jeng.submit(p, mn) for p, mn in zip(prompts, MAX_NEWS)]
+    jeng.run()
+
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=MAX_LEN, prompt_bucket=bucket,
+                            device="cpu")
+    reqs = [eng.submit(p, mn) for p, mn in zip(prompts, MAX_NEWS)]
+    finished = eng.run()
+    assert len(finished) == len(reqs) and all(r.done for r in reqs)
+    assert eng.stats["decode_iters"] == jeng.net_stats["decode_iters"]
+    for r, jr, mn in zip(reqs, jreqs, MAX_NEWS):
+        assert len(r.out) == mn
+        assert r.out == jr.out, (r.prompt, r.out, jr.out)
+
+
+def test_continuous_batching_matches_independent_decode():
+    _, _, cfg, params, prompts = _setup()
+    prompts = prompts + [[7]]                  # a one-token prompt: empty prefill
+    max_news = MAX_NEWS + [3]
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=MAX_LEN, device="cpu")
+    reqs = [eng.submit(p, mn) for p, mn in zip(prompts, max_news)]
+    eng.run()
+    for p, mn, r in zip(prompts, max_news, reqs):
+        assert r.out == _independent_decode(cfg, params, p, mn, MAX_LEN), p
+
+
+def test_eos_and_length_limits_stop_requests():
+    _, _, cfg, params, prompts = _setup()
+    probe = ContinuousBatcher(cfg, params, n_slots=1, max_len=MAX_LEN, device="cpu")
+    r0 = probe.submit(prompts[0], 6)
+    probe.run()
+    eng = ContinuousBatcher(cfg, params, n_slots=1, max_len=MAX_LEN, eos_id=r0.out[2],
+                            device="cpu")
+    r1 = eng.submit(prompts[0], 6)
+    eng.run()
+    assert r1.out == r0.out[:r0.out.index(r0.out[2]) + 1]
+    short = ContinuousBatcher(cfg, params, n_slots=1, max_len=len(prompts[1]) + 2,
+                              prompt_bucket=1, device="cpu")
+    r2 = short.submit(prompts[1], 10)
+    short.run()
+    assert r2.done and len(r2.out) == 2          # pos reaches max_len - 1
+
+
+def test_prompt_that_does_not_fit_the_cache_is_rejected():
+    _, _, cfg, params, prompts = _setup()
+    eng = ContinuousBatcher(cfg, params, n_slots=1, max_len=16, prompt_bucket=16, device="cpu")
+    eng.submit(prompts[1], 2)                      # 8 prompt tokens pad to 16 = max_len
+    with pytest.raises(ValueError, match="max_len"):
+        eng.run()
+
+
+def test_vector_position_decode_matches_scalar():
+    """serve_step with a (B,) position vector == the scalar call."""
+    _, _, cfg, params, _ = _setup()
+    b, s, max_len = 3, 12, 32
+    rng = np.random.default_rng(2)
+    toks = rng.integers(2, cfg.vocab, (b, s))
+    nxt = rng.integers(2, cfg.vocab, (b, 1))
+    _, cache = M.prefill(cfg, params, {"tokens": toks}, cache_len=max_len, device="cpu")
+    lg_scalar, _ = M.serve_step(cfg, params, cache, nxt, s, device="cpu")
+    lg_vec, _ = M.serve_step(cfg, params, cache, nxt, np.full((b,), s), device="cpu")
+    lg_tensor, _ = M.serve_step(cfg, params, cache, nxt, torch.full((b,), s), device="cpu")
+    np.testing.assert_allclose(lg_scalar.numpy(), lg_vec.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lg_scalar.numpy(), lg_tensor.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_ragged_vector_positions_match_the_reference():
+    jcfg, jparams, cfg, params, _ = _setup()
+    b, s, max_len = 3, 12, 32
+    rng = np.random.default_rng(3)
+    toks = rng.integers(2, cfg.vocab, (b, s)).astype(np.int32)
+    nxt = rng.integers(2, cfg.vocab, (b, 1)).astype(np.int32)
+    pos = np.asarray([4, 12, 9], np.int32)
+    _, cache = M.prefill(cfg, params, {"tokens": toks}, cache_len=max_len, device="cpu")
+    _, jcache = JM.prefill(jcfg, jparams, {"tokens": jax.numpy.asarray(toks)}, cache_len=max_len)
+    lg, _ = M.serve_step(cfg, params, cache, nxt, pos, device="cpu")
+    jlg, _ = JM.serve_step(jcfg, jparams, jcache, jax.numpy.asarray(nxt), jax.numpy.asarray(pos))
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), rtol=1e-4, atol=1e-4)
+
+
+def test_slot_update_writes_one_slot_in_place():
+    cfg = C.get_reduced("yi_6b")
+    pool = M.init_cache(cfg, 3, 8, device="cpu")
+    one = M.init_cache(cfg, 1, 8, device="cpu")
+    one[0]["attn_0"]["k"].fill_(2.0)
+    same = _slot_update(pool, one, 1, 3)
+    assert same is pool
+    k = pool[0]["attn_0"]["k"]
+    assert bool((k[:, 1] == 2.0).all()) and not k[:, 0].any() and not k[:, 2].any()
+
+
+def test_fabric_hook_is_not_ported():
+    _, _, cfg, params, _ = _setup()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ContinuousBatcher(cfg, params, n_slots=1, max_len=8, fabric="trine", device="cpu")
+
+
+def test_launch_serve_main_runs_on_the_cpu_on_request(capsys):
+    from repro_torch.launch import serve
+    res = serve.main(["--arch", "yi-6b", "--reduced", "--batch", "2", "--prompt-len", "16",
+                      "--max-new", "4", "--device", "cpu", "--photonic", "--kernels"])
+    assert tuple(res["tokens"].shape) == (2, 4)
+    assert int(res["tokens"].min()) >= 0
+    assert bool(torch.isfinite(res["logits"]).all())
+    assert "prefill:" in capsys.readouterr().out
