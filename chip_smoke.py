@@ -3,36 +3,45 @@
 
     python3 chip_smoke.py                  # everything, as the acceptance check runs it
     python3 chip_smoke.py --only kernels   # stop after the kernel comparisons
-    python3 chip_smoke.py --profile        # also: device time by kernel of one decode step
+    python3 chip_smoke.py --profile        # also: device time by kernel per model
 
 Needs one NVIDIA Hopper GPU, `nvcc` and PyTorch built for CUDA; it raises
 (non-zero exit, no result line) without a card.  It builds the CUDA kernels
-from `src/repro_torch/csrc/`, then runs four phases, each printing one JSON
+from `src/repro_torch/csrc/`, then runs these phases, each printing one JSON
 line, and fails if any phase fails:
 
   device            card name and power limit, versions, build seconds
-  kernels           `photonic_mac` and `flash_attention` against their plain
-                    PyTorch versions on the card, at the shapes of the
-                    reference's kernel tests and at yi-6b's serving shapes,
-                    with times, a library call's time as yardstick, and the
-                    card's bound for the same work
-  serve_continuous  yi-6b at full width and depth (bf16, photonic numerics,
-                    kernels on, random weights from a seed) behind the
-                    `ContinuousBatcher`: ragged requests churn through slots
-  serve_batch128    the `launch/serve.py` path at batch 128 x prompt 128, the
-                    decode shape whose linears all reach `photonic_mac`; then
-                    kernels-on vs kernels-off logits of one prefill
+  kernels           `photonic_mac`, `flash_attention` and `ssm_scan` against
+                    their plain PyTorch versions on the card, at the shapes of
+                    the reference's kernel tests, at ragged and edge shapes,
+                    and at the serving shapes of the three models below, with
+                    times, a library call's time as yardstick where one
+                    PyTorch call computes the same function, and the card's
+                    bound for the same work
 
-The launch counters are set to 0 before `serve_continuous` and read after
-`serve_batch128`; they must equal the counts reckoned from the code.  The
-last lines are the `{"kernels": [...]}` summary, the card's name and power
-limit, and `{"ok": true, "device": {...}}`.
+then three serving paths at full published width and depth (bf16, photonic
+numerics, kernels on, random weights from a seed), one model at a time:
+
+  yi-6b       serve_continuous (ContinuousBatcher, bucketed prefill) and
+              serve_batch128 (`launch/serve.py`, batch 128 x prompt 128)
+  zamba2-1.2b serve_continuous (exact-length prefill of 24..1024 tokens),
+              serve_batch128, and long_prefill (B=1, 4096 tokens: the shared
+              attention's whole window, 32 scan chunks in sequence)
+  xlstm-350m  serve_batch128
+
+Before each path the launch counters are set to 0; just after it they are
+read and must equal the counts reckoned from the dispatch predicates in
+`kernels/ops.py`, and every kernel of that path must have launched.  After
+each path, `end_to_end` holds kernels-on against kernels-off logits of one
+prefill.  The last lines are the `{"kernels": [...]}` summary, the card's
+name and power limit, and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -50,6 +59,7 @@ from repro_torch import configs as C  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.photonic_mac import photonic_mac, quantize_weights  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve.engine import ContinuousBatcher  # noqa: E402
@@ -63,8 +73,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # yi-6b's linears as (K, N): wq/wo, wk/wv, wg/wi, mlp wo, lm_head
 YI_KN = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)]
+# the tiled linears of zamba2 (out_proj, shared attention, head) and of xlstm
+# (wqkv, wo, sLSTM wx, tied head); in_proj (N = 8384) and wif (N = 8) never tile
+ZAMBA2_KN = [(4096, 2048), (2048, 2048), (2048, 32000)]
+XLSTM_KN = [(1024, 3072), (1024, 1024), (1024, 4096), (1024, 50304)]
 MAC_HEADLINE = (128, 4096, 11008)        # the shape reported in the summary line
 ATTN_HEADLINE = (1, 128)                 # (batch, prompt length) reported in the summary
+SSM_HEADLINE = "zamba2 B=128 L=128"      # the scan shape reported in the summary
+
+KERNELS = {"photonic_mac": photonic_mac, "flash_attention": flash_attention,
+           "ssm_scan": ssm_scan}
+ATTN_KINDS = ("attn", "local", "global", "shared_attn")
 
 
 def emit(obj) -> None:
@@ -176,19 +195,21 @@ def check_photonic_mac(gen) -> dict:
                 raise AssertionError("photonic_mac: rows differ with and without padded rows "
                                      f"({dtype}, tensor_cores={tc})")
         checks.append({"what": f"mac bit-identity 100 of 128 rows {dtype}", "max_abs_err": 0.0})
-    # yi-6b's serving shapes, bf16 activations as on the path
-    shapes = [(m, k, n) for m in (128, 512) for (k, n) in YI_KN]
-    shapes.append((128 * 128, 4096, 11008))      # the batch-128 prefill's widest linear
-    for (m, k, n) in shapes:
+    # the serving shapes, bf16 activations as on the path
+    shapes = [("yi-6b", m, k, n) for m in (128, 512) for (k, n) in YI_KN]
+    shapes.append(("yi-6b", 128 * 128, 4096, 11008))   # the batch-128 prefill's widest linear
+    shapes += [("zamba2-1.2b", 128, k, n) for (k, n) in ZAMBA2_KN]
+    shapes += [("xlstm-350m", 128, k, n) for (k, n) in XLSTM_KN]
+    for (model, m, k, n) in shapes:
         x, w_q, sc = _mac_inputs(gen, m, k, n, torch.bfloat16, 8)
         want = ref.photonic_mac_ref(x, w_q, sc)
         checks.append(compare(photonic_mac(x, w_q, sc), want, 2e-2, 2e-1,
-                              f"mac yi-6b {m}x{k}x{n} bf16"))
+                              f"mac {model} {m}x{k}x{n} bf16"))
         checks.append(compare(photonic_mac(x, w_q, sc, tensor_cores=False), want, 2e-2, 2e-1,
-                              f"mac yi-6b {m}x{k}x{n} bf16, f32 FMA kernel"))
+                              f"mac {model} {m}x{k}x{n} bf16, f32 FMA kernel"))
         del want
         w_bf16 = ref.dequantize_ref(w_q, sc).to(torch.bfloat16)
-        row = {"shape": [m, k, n], "dtype": "bfloat16",
+        row = {"model": model, "shape": [m, k, n], "dtype": "bfloat16",
                "ms": time_ms(lambda: photonic_mac(x, w_q, sc)),
                "fma_kernel_ms": time_ms(lambda: photonic_mac(x, w_q, sc, tensor_cores=False)),
                "plain_ms": time_ms(lambda: ref.photonic_mac_ref(x, w_q, sc)),
@@ -258,25 +279,115 @@ def check_flash_attention(gen) -> dict:
                                   2e-2, 2e-2, what + ", f32 FMA kernel"))
         else:
             checks.append(compare(flash_attention(q, k, v, **kw), want, 2e-5, 2e-5, what))
-    # yi-6b's prefill shapes: strided (B,S,H,D) projections, bf16, causal
-    for (b, s) in [(1, 128), (1, 256), (1, 512), (128, 128)]:
-        q, k, v = _attn_inputs(gen, b, 32, 4, s, s, 128, bf16, model_layout=True)
+    # the prefill shapes: strided (B,S,H,D) projections, bf16, causal; yi-6b
+    # (32/4 heads of 128) and zamba2's shared attention (32/32 heads of 64,
+    # window 4096, which at S <= 4096 masks nothing that causality keeps)
+    for (model, b, s, hq, hk, d, window) in [
+            ("yi-6b", 1, 128, 32, 4, 128, 0), ("yi-6b", 1, 256, 32, 4, 128, 0),
+            ("yi-6b", 1, 512, 32, 4, 128, 0), ("yi-6b", 128, 128, 32, 4, 128, 0),
+            ("zamba2-1.2b", 1, 4096, 32, 32, 64, 4096), ("zamba2-1.2b", 128, 128, 32, 32, 64, 4096)]:
+        q, k, v = _attn_inputs(gen, b, hq, hk, s, s, d, bf16, model_layout=True)
+        what = f"attn {model} b{b} s{s} bf16"
         if b == 1:
-            checks.append(compare(flash_attention(q, k, v), ref.attention_ref(q, k, v),
-                                  2e-2, 2e-2, f"attn yi-6b b{b} s{s} bf16"))
-        else:   # the plain version would hold (128,32,128,128) f32 scores twice: check 4 rows
-            out = flash_attention(q, k, v)
-            checks.append(compare(out[:4], ref.attention_ref(q[:4], k[:4], v[:4]),
-                                  2e-2, 2e-2, f"attn yi-6b b{b} s{s} bf16 (first 4 of batch)"))
-        kr, vr = k.repeat_interleave(8, dim=1), v.repeat_interleave(8, dim=1)
-        row = {"shape": {"b": b, "hq": 32, "hk": 4, "s": s, "d": 128}, "dtype": "bfloat16",
-               "ms": time_ms(lambda: flash_attention(q, k, v)),
-               "fma_kernel_ms": time_ms(lambda: flash_attention(q, k, v, tensor_cores=False)),
-               "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v)),
+            checks.append(compare(flash_attention(q, k, v, window=window),
+                                  ref.attention_ref(q, k, v, window=window), 2e-2, 2e-2, what))
+        else:   # the plain version would hold (128,H,128,128) f32 scores twice: check 4 rows
+            out = flash_attention(q, k, v, window=window)
+            checks.append(compare(out[:4], ref.attention_ref(q[:4], k[:4], v[:4], window=window),
+                                  2e-2, 2e-2, what + " (first 4 of batch)"))
+        kr, vr = k.repeat_interleave(hq // hk, dim=1), v.repeat_interleave(hq // hk, dim=1)
+        row = {"model": model, "shape": {"b": b, "hq": hq, "hk": hk, "s": s, "d": d},
+               "window": window, "dtype": "bfloat16",
+               "ms": time_ms(lambda: flash_attention(q, k, v, window=window)),
+               "fma_kernel_ms": time_ms(lambda: flash_attention(q, k, v, window=window,
+                                                                tensor_cores=False)),
+               "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, window=window)),
                "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                    q, kr, vr, is_causal=True)),
-               **attn_bound_ms(b, 32, 4, s, s, 128, bf16, True, 0, 0)}
+               **attn_bound_ms(b, hq, hk, s, s, d, bf16, True, window, 0)}
         timed.append(row)
+        del q, k, v, kr, vr
+    return {"checks": checks, "timed": timed}
+
+
+def _ssm_inputs(gen, bh, l, p, n, dtypes=("f32", "f32", "f32"), decay=(0.68, 0.98)):
+    """The reference tests' distribution (x * 0.5, b and c * 0.3, a in
+    `decay`); x, b and c each cast to its own dtype, a f32."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    x = (torch.randn((bh, l, p), generator=gen, device=DEV) * 0.5).to(dt[dtypes[0]])
+    a = decay[0] + (decay[1] - decay[0]) * torch.sigmoid(
+        torch.randn((bh, l), generator=gen, device=DEV))
+    b = (torch.randn((bh, l, n), generator=gen, device=DEV) * 0.3).to(dt[dtypes[1]])
+    c = (torch.randn((bh, l, n), generator=gen, device=DEV) * 0.3).to(dt[dtypes[2]])
+    return x, a, b, c
+
+
+def ssm_bound_ms(x, a, b, c) -> dict:
+    """Bytes: each input read once, y (BH,L,P) f32 written once.  Operations:
+    the recurrence's 5 per state entry and step (a*S, x*b, their sum, and
+    the multiply-add of S c), on the f32 pipe: the kernel must compute in f32
+    from these values.  (The chunked closed form takes more: 2C(N+P) + 4PN
+    per step for chunk C.)"""
+    bh, l, p = x.shape
+    n = b.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (x, a, b, c)) + 4 * bh * l * p
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 5.0 * bh * l * p * n / PEAK_FLOPS[torch.float32] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# the scan's shapes on the serving paths: (name, BH, L, P, N, dtypes of x, b, c)
+SSM_PATH = [
+    ("zamba2 B=128 L=128", 128 * 64, 128, 64, 64, ("bf16", "bf16", "bf16")),
+    ("zamba2 B=1 L=97", 64, 97, 64, 64, ("bf16", "bf16", "bf16")),
+    ("zamba2 B=1 L=4096", 64, 4096, 64, 64, ("bf16", "bf16", "bf16")),
+    ("xlstm B=128 L=128", 128 * 4, 128, 256, 256, ("bf16", "bf16", "bf16")),
+    ("xlstm normaliser B=128 L=128", 128 * 4, 128, 1, 256, ("f32", "bf16", "bf16")),
+]
+
+
+def check_ssm_scan(gen) -> dict:
+    """The kernel against the sequential oracle `ref.ssm_scan_ref` fed the
+    same values upcast to f32, at rtol = atol = 2e-4 (the reference test's
+    bound): both scan in f32, and differ in the order of the sum over N and
+    in one fused multiply-add per update."""
+    checks, timed = [], []
+    tol = 2e-4
+
+    def check(x, a, b, c, what):
+        checks.append(compare(ssm_scan(x, a, b, c), ref.ssm_scan_ref(x, a, b, c), tol, tol, what))
+
+    # the reference's kernel-test shapes, f32, and its bf16 case
+    for (bh, l, p, n) in [(2, 128, 16, 8), (4, 256, 32, 16), (1, 512, 64, 64), (8, 128, 8, 4),
+                          (2, 1024, 32, 32)]:
+        check(*_ssm_inputs(gen, bh, l, p, n), f"ssm {bh}x{l}x{p}x{n} f32")
+    check(*_ssm_inputs(gen, 2, 256, 16, 8, ("bf16",) * 3), "ssm 2x256x16x8 bf16")
+    # ragged chunk lengths (L <= 128 reaches the kernel whole), P = 1, mixed
+    # dtypes, N that is not a multiple of the 16 entries a thread holds
+    for l in (24, 97):
+        for (p, dts) in ((1, ("f32", "bf16", "bf16")), (16, ("bf16",) * 3), (64, ("f32",) * 3)):
+            check(*_ssm_inputs(gen, 3, l, p, 64, dts), f"ssm 3x{l}x{p}x64 {'/'.join(dts)}")
+    check(*_ssm_inputs(gen, 2, 100, 5, 100, ("bf16", "f32", "bf16")), "ssm 2x100x5x100 mixed")
+    # wide enough for four rows a thread: a ragged last time tile and a
+    # partial tile of rows (40 of 64), and two tiles of rows (100 of 128)
+    check(*_ssm_inputs(gen, 16384, 97, 40, 64, ("f32", "bf16", "bf16")), "ssm 16384x97x40x64 mixed")
+    check(*_ssm_inputs(gen, 2048, 64, 100, 256, ("bf16",) * 3), "ssm 2048x64x100x256 bf16")
+    # strong decay, where a ratio of cumulative products would underflow
+    for decay in ((0.3, 0.6), (0.05, 0.35)):
+        check(*_ssm_inputs(gen, 2, 128, 8, 4, decay=decay), f"ssm 2x128x8x4 decay {decay}")
+        check(*_ssm_inputs(gen, 64, 512, 64, 64, ("bf16",) * 3, decay=decay),
+              f"ssm 64x512x64x64 bf16 decay {decay}")
+    # the serving paths' shapes, timed
+    for (name, bh, l, p, n, dts) in SSM_PATH:
+        x, a, b, c = _ssm_inputs(gen, bh, l, p, n, dts)
+        check(x, a, b, c, f"ssm {name}")
+        timed.append({"shape": {"name": name, "bh": bh, "l": l, "p": p, "n": n},
+                      "dtypes": {"x": dts[0], "b": dts[1], "c": dts[2]},
+                      "ms": time_ms(lambda: ssm_scan(x, a, b, c)),
+                      "plain_ms": time_ms(lambda: ref.ssm_scan_ref(x, a, b, c)),
+                      "chunked_plain_ms": time_ms(lambda: ref.ssm_scan_chunked_ref(x, a, b, c)),
+                      "library_ms": None, **ssm_bound_ms(x, a, b, c)})
+        del x, a, b, c
     return {"checks": checks, "timed": timed}
 
 
@@ -297,12 +408,13 @@ def quantize_cost_ms(gen) -> dict:
 def phase_kernels() -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
-    before = (photonic_mac.launches, flash_attention.launches)
+    before = counters()
     mac = check_photonic_mac(gen)
     attn = check_flash_attention(gen)
+    ssm = check_ssm_scan(gen)
     quant = quantize_cost_ms(gen)
-    if photonic_mac.launches == before[0] or flash_attention.launches == before[1]:
-        raise AssertionError("a kernel comparison launched no kernel")
+    if any(n == before[name] for name, n in counters().items()):
+        raise AssertionError(f"a kernel comparison launched no kernel: {before} -> {counters()}")
     out = {"phase": "kernels",
            "photonic_mac": {"n_checks": len(mac["checks"]),
                             "max_abs_err": max(c["max_abs_err"] for c in mac["checks"]),
@@ -315,46 +427,91 @@ def phase_kernels() -> dict:
                                "max_rel_err": max(c["max_rel_err"] for c in attn["checks"]),
                                "tolerance": "f32 rtol=atol 2e-5; bf16 rtol=atol 2e-2",
                                "timed": attn["timed"]},
+           "ssm_scan": {"n_checks": len(ssm["checks"]),
+                        "max_abs_err": max(c["max_abs_err"] for c in ssm["checks"]),
+                        "max_rel_err": max(c["max_rel_err"] for c in ssm["checks"]),
+                        "tolerance": "rtol=atol 2e-4 against the sequential oracle fed the "
+                                     "same values in f32",
+                        "timed": ssm["timed"]},
            "quantize_weights": quant}
     emit(out)
-    out["checks"] = mac["checks"] + attn["checks"]
+    out["checks"] = mac["checks"] + attn["checks"] + ssm["checks"]
     return out
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 4: the serving path at yi-6b's full width and depth
+# the serving paths at full width and depth
 # ---------------------------------------------------------------------------
 
 
-LINEARS_PER_LAYER = 7     # wq, wk, wv, wo, wg, wi, mlp wo
+def counters() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def expected_prefill_launches(cfg, batch: int, plen: int) -> tuple:
-    """(photonic_mac, flash_attention) launches of one prefill call, from the
-    dispatch predicates in `kernels/ops.py`."""
-    m, f, h, hk, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    rows = batch * plen
-    shapes = [(m, h * dh), (m, hk * dh), (m, hk * dh), (h * dh, m), (m, f), (m, f), (f, m)]
-    assert len(shapes) == LINEARS_PER_LAYER
-    mac = cfg.n_layers * sum(ops.uses_tiled_path(rows, k, n) for k, n in shapes)
-    mac += int(ops.uses_tiled_path(batch, m, cfg.vocab))        # the head sees x[:, -1:]
-    attn = cfg.n_layers * int(ops.uses_flash_kernel(plen, plen, 0))
-    return mac, attn
+def zero_counters() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
-def expected_decode_launches(cfg, batch: int) -> int:
-    return expected_prefill_launches(cfg, batch, 1)[0]
+def _since(before: dict) -> dict:
+    return {name: n - before[name] for name, n in counters().items()}
 
 
-def phase_serve_continuous(cfg, params) -> dict:
-    n_slots, max_len, bucket = 4, 512, 128
+def block_linears(cfg, kind: str) -> list:
+    """(K, N) of every product one block of `kind` runs through
+    `layers.linear`, from `models/layers.py`."""
+    m, f = cfg.d_model, cfg.d_ff
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if kind in ATTN_KINDS:
+        out = [(m, h * dh), (m, hk * dh), (m, hk * dh), (h * dh, m)]   # wq, wk, wv, wo
+        if kind != "shared_attn" and f:                                 # shared_attn: no MLP
+            out += [(m, f), (m, f), (f, m)]                             # wg, wi, mlp wo
+        return out
+    if kind == "mamba":   # in_proj [z, x, B, C, dt], out_proj; no MLP
+        return [(m, 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads), (cfg.d_inner, m)]
+    if kind == "mlstm":   # wqkv, wif, wo
+        return [(m, 3 * h * dh), (m, 2 * h), (h * dh, m)]
+    if kind == "slstm":   # wx, wo (the recurrent h @ wr is a plain product)
+        return [(m, 4 * m), (m, m)]
+    raise ValueError(kind)
+
+
+def expected_launches(cfg, batch: int, seq: int) -> dict:
+    """Launches of each kernel in one prefill (seq > 1) or decode step
+    (seq == 1) call of `batch` rows, from the dispatch predicates in
+    `kernels/ops.py`: a linear launches `photonic_mac` when its product
+    tiles, an attention block `flash_attention` and a mamba block `ssm_scan`
+    (an mLSTM block two, numerator and normaliser) when the length passes
+    theirs.  Decode runs no attention or scan kernel."""
+    rows = batch * seq
+    n = {"photonic_mac": 0, "flash_attention": 0, "ssm_scan": 0}
+    for repeat, kinds in M.stages(cfg):
+        for kind in kinds:
+            n["photonic_mac"] += repeat * sum(ops.uses_tiled_path(rows, k, nn)
+                                              for k, nn in block_linears(cfg, kind))
+            if seq > 1 and kind in ATTN_KINDS:
+                n["flash_attention"] += repeat * int(ops.uses_flash_kernel(seq, seq, 0))
+            if seq > 1 and kind in ("mamba", "mlstm"):
+                n["ssm_scan"] += repeat * (2 if kind == "mlstm" else 1) * int(
+                    ops.uses_ssm_kernel(seq))
+    n["photonic_mac"] += int(ops.uses_tiled_path(batch, cfg.d_model, cfg.vocab))  # the head
+    return n
+
+
+def _add(total: dict, part: dict) -> dict:
+    return {k: total[k] + part[k] for k in total}
+
+
+def phase_serve_continuous(cfg, params, lengths, max_news, max_len, bucket=128) -> dict:
+    """Ragged requests churn through 4 slots of the `ContinuousBatcher`;
+    prompts are padded to `bucket`, or prefilled at exact length for the
+    recurrent families (the engine's own rule)."""
+    n_slots = 4
     rng = torch.Generator()
     rng.manual_seed(SEED + 1)
-    lengths = [60, 250, 131, 97, 200, 129, 77, 180]
-    max_news = [4, 8, 6, 5, 7, 4, 8, 6]
     prompts = [torch.randint(2, cfg.vocab, (n,), generator=rng).tolist() for n in lengths]
 
-    mac0, attn0 = photonic_mac.launches, flash_attention.launches
+    before = counters()
     eng = ContinuousBatcher(cfg, params, n_slots=n_slots, max_len=max_len,
                             prompt_bucket=bucket, device=DEV)
     reqs = [eng.submit(p, mn) for p, mn in zip(prompts, max_news)]
@@ -367,45 +524,50 @@ def phase_serve_continuous(cfg, params) -> dict:
     for r, mn in zip(reqs, max_news):
         assert len(r.out) == mn, (r.rid, len(r.out), mn)
         assert all(0 <= t < cfg.vocab for t in r.out), "token id out of range"
-    want_mac = want_attn = 0
+    want = {k: 0 for k in KERNELS}
+    plens = []
     for n in lengths:
-        plen = -(-(n - 1) // bucket) * bucket
-        a, b = expected_prefill_launches(cfg, 1, plen)
-        want_mac, want_attn = want_mac + a, want_attn + b
-    want_mac += eng.stats["decode_iters"] * expected_decode_launches(cfg, n_slots)
-    got_mac, got_attn = photonic_mac.launches - mac0, flash_attention.launches - attn0
-    assert (got_mac, got_attn) == (want_mac, want_attn), \
-        f"launch counts {(got_mac, got_attn)} differ from the code's {(want_mac, want_attn)}"
+        plen = max(eng.bucket, -(-(n - 1) // eng.bucket) * eng.bucket)
+        plens.append(plen)
+        want = _add(want, expected_launches(cfg, 1, plen))
+    for _ in range(eng.stats["decode_iters"]):
+        want = _add(want, expected_launches(cfg, n_slots, 1))
+    got = _since(before)
+    assert got == want, f"launch counts {got} differ from the code's {want}"
     # one more decode step by hand to look at the logits themselves
     logits, _ = M.serve_step(cfg, params, eng.cache, eng.last_tok[:, None], eng.pos, device=DEV)
     assert tuple(logits.shape) == (n_slots, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
     st = eng.stats
     out = {"phase": "serve_continuous", "model": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype,
-           "n_slots": n_slots, "max_len": max_len, "prompt_bucket": bucket,
-           "requests": len(reqs), "prompt_lengths": lengths, "max_new": max_news,
+           "n_slots": n_slots, "max_len": max_len, "prompt_bucket": eng.bucket,
+           "requests": len(reqs), "prompt_lengths": lengths, "prefill_lengths": plens,
+           "max_new": max_news,
            "prefill_calls": st["prefill_calls"], "prefill_tokens": st["prefill_tokens"],
            "prefill_s": st["prefill_s"], "prefill_tokens_per_s": st["prefill_tokens"] / st["prefill_s"],
            "decode_iters": st["decode_iters"], "decode_tokens": st["decode_tokens"],
            "decode_s": st["decode_s"], "decode_tokens_per_s": st["decode_tokens"] / st["decode_s"],
-           "wall_s": wall, "photonic_mac_launches": got_mac, "flash_attention_launches": got_attn,
-           "sample": reqs[0].out}
+           "wall_s": wall, "launches": got, "sample": reqs[0].out}
     emit(out)
     return out
 
 
-def phase_serve_batch128(cfg, params) -> dict:
+def phase_serve_batch128(cfg, params, arch: str) -> dict:
     batch, plen, max_new = 128, 128, 4
-    mac0, attn0 = photonic_mac.launches, flash_attention.launches
-    res = serve.main(["--arch", "yi-6b", "--batch", str(batch), "--prompt-len", str(plen),
+    torch.cuda.reset_peak_memory_stats()
+    before = counters()
+    res = serve.main(["--arch", arch, "--batch", str(batch), "--prompt-len", str(plen),
                       "--max-new", str(max_new), "--seed", str(SEED), "--photonic", "--kernels"],
                      params=params)
-    got_mac, got_attn = photonic_mac.launches - mac0, flash_attention.launches - attn0
-    pf_mac, pf_attn = expected_prefill_launches(cfg, batch, plen)
-    per_step = expected_decode_launches(cfg, batch)
-    assert per_step == cfg.n_layers * LINEARS_PER_LAYER + 1, per_step
-    want = (pf_mac + (max_new - 1) * per_step, pf_attn)
-    assert (got_mac, got_attn) == want, f"launch counts {(got_mac, got_attn)} differ from {want}"
+    got = _since(before)
+    pf = expected_launches(cfg, batch, plen)
+    per_step = expected_launches(cfg, batch, 1)
+    if cfg.family == "dense":    # every linear of yi-6b tiles at 128 rows
+        assert per_step["photonic_mac"] == cfg.n_layers * 7 + 1, per_step
+    want = pf
+    for _ in range(max_new - 1):
+        want = _add(want, per_step)
+    assert got == want, f"launch counts {got} differ from {want}"
     toks, logits = res["tokens"], res["logits"]
     assert tuple(toks.shape) == (batch, max_new)
     assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab
@@ -415,42 +577,100 @@ def phase_serve_batch128(cfg, params) -> dict:
            "prefill_tokens_per_s": res["prefill_tokens"] / res["prefill_s"],
            "decode_s": res["decode_s"], "decode_steps": max_new - 1,
            "decode_tokens_per_s": res["decode_tokens"] / res["decode_s"],
-           "photonic_mac_launches": got_mac, "flash_attention_launches": got_attn,
-           "launches_per_prefill": [pf_mac, pf_attn], "photonic_mac_launches_per_decode_step": per_step,
+           "launches": got, "launches_per_prefill": pf, "launches_per_decode_step": per_step,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     return out
 
 
-def phase_end_to_end(cfg, params) -> dict:
-    """The same prefill with the CUDA kernels and with their plain versions
-    (the reference's own `use_kernels=False` configuration: same tiled
-    quantization, plain matmul and attention).  bf16 activations are rounded
-    after every linear, so the two runs drift apart by bf16 rounding over 32
-    layers; they are held to 3e-2 of the largest logit."""
+def phase_long_prefill(cfg, params, seq: int = 4096) -> dict:
+    """One B=1 prefill of `seq` tokens (zamba2: its shared attention's whole
+    window; the scan carries its state through seq/128 chunks in sequence)."""
     gen = torch.Generator(device=DEV)
-    gen.manual_seed(SEED + 2)
-    toks = torch.randint(2, cfg.vocab, (1, 128), generator=gen, device=DEV)
+    gen.manual_seed(SEED + 4)
+    toks = torch.randint(2, cfg.vocab, (1, seq), generator=gen, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    before = counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(cfg, params, {"tokens": toks}, device=DEV)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got, want = _since(before), expected_launches(cfg, 1, seq)
+    assert got == want, f"launch counts {got} differ from {want}"
+    assert tuple(logits.shape) == (1, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    step, _ = M.serve_step(cfg, params, cache, nxt, seq, device=DEV)
+    assert bool(torch.isfinite(step).all())
+    out = {"phase": "long_prefill", "model": cfg.name, "batch": 1, "prompt_len": seq,
+           "prefill_s": dt, "prefill_tokens_per_s": seq / dt, "launches": got,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    return out
+
+
+E2E_TOLERANCE = {
+    # (compute dtype of the check, tolerance relative to the largest logit).
+    # yi-6b: bf16 activations are rounded after every linear, so the kernel
+    # and plain runs drift apart by bf16 rounding over 32 layers.
+    # zamba2, xlstm: checked in f32.  At random initialisation these networks
+    # amplify any perturbation layer by layer (tools/torch_perturbation_growth.py:
+    # at zamba2's full width a 1e-3 change of the embeddings moves the last
+    # hidden state by 1e-2 after 2 layers and 7e-2 after 13), so in bf16 two orders of
+    # summation, and the plain chunked scan's own bf16 roundings, decorrelate
+    # the logits before the last layer.  In f32 the kernels and their plain
+    # versions differ by about 1e-6 per operation, which the depth grows to
+    # well under the tolerance.  The bf16 difference is measured and printed.
+    "yi-6b": ("bfloat16", 3e-2), "zamba2-1.2b": ("float32", 2e-2),
+    "xlstm-350m": ("float32", 2e-2),
+}
+
+
+def _prefill_pair(cfg, params, toks) -> tuple:
+    """Last-token logits of one prefill with the kernels and with their plain
+    versions (the reference's own `use_kernels=False` configuration), and
+    the kernel launches of the first."""
     plain_cfg = dataclasses.replace(cfg, use_kernels=False)
-    mac0 = photonic_mac.launches
+    before = counters()
     lg_k, _ = M.prefill(cfg, params, {"tokens": toks}, device=DEV)
-    used = photonic_mac.launches - mac0
+    used = _since(before)
     lg_p, _ = M.prefill(plain_cfg, params, {"tokens": toks}, device=DEV)
     torch.cuda.synchronize()
-    assert photonic_mac.launches - mac0 == used, "use_kernels=False launched a kernel"
+    assert _since(before) == used, "use_kernels=False launched a kernel"
     assert bool(torch.isfinite(lg_k).all()) and bool(torch.isfinite(lg_p).all())
+    return lg_k, lg_p, used
+
+
+def phase_end_to_end(cfg, params, seq: int = 128) -> dict:
+    """The same prefill with the CUDA kernels (same tiled quantization, plain
+    matmul, attention and chunked scan otherwise) and with their plain
+    versions, held to `E2E_TOLERANCE` of the largest logit, with the same
+    argmax."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 2)
+    toks = torch.randint(2, cfg.vocab, (1, seq), generator=gen, device=DEV)
+    dtype, tol = E2E_TOLERANCE[cfg.name]
+    lg_k, lg_p, used = _prefill_pair(dataclasses.replace(cfg, dtype=dtype), params, toks)
     rel = float((lg_k - lg_p).abs().max() / lg_p.abs().max())
-    out = {"phase": "end_to_end", "what": "last-token logits, kernels vs plain versions, B=1 S=128",
-           "max_rel_to_largest_logit": rel, "tolerance": 3e-2,
-           "argmax_equal": bool(lg_k.argmax() == lg_p.argmax())}
+    top2 = torch.topk(lg_p[0, -1], 2).values
+    out = {"phase": "end_to_end", "model": cfg.name,
+           "what": f"last-token logits, kernels vs plain versions, B=1 S={seq}, {dtype}",
+           "kernel_launches": used, "max_rel_to_largest_logit": rel, "tolerance": tol,
+           "argmax_equal": bool(lg_k.argmax() == lg_p.argmax()),
+           "plain_top2_gap_rel": float((top2[0] - top2[1]) / lg_p.abs().max())}
+    if dtype != cfg.dtype:     # the serving dtype too, for the record
+        lg_k, lg_p, _ = _prefill_pair(cfg, params, toks)
+        out[f"{cfg.dtype}_max_rel_to_largest_logit"] = float(
+            (lg_k - lg_p).abs().max() / lg_p.abs().max())
+        out[f"{cfg.dtype}_argmax_equal"] = bool(lg_k.argmax() == lg_p.argmax())
     emit(out)
-    assert rel < 3e-2, out
+    assert rel < tol and out["argmax_equal"], out
     return out
 
 
 def phase_profile(cfg, params) -> dict:
-    """Device time by kernel of one batch-128 decode step and of one
-    B=1, S=128 prefill, from `torch.profiler` (optional, `--profile`)."""
+    """Device time by kernel of one batch-128 decode step, one B=1, S=128
+    prefill and one batch-128 prefill, from `torch.profiler` (`--profile`)."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=DEV)
@@ -478,10 +698,12 @@ def phase_profile(cfg, params) -> dict:
                 "top_kernels": [{"name": e.key[:60], "calls": e.count, "ms": dev_us(e) / 1e3}
                                 for e in top]}
 
-    out = {"phase": "profile",
+    out = {"phase": "profile", "model": cfg.name,
            "decode_step_b128": window(lambda: M.serve_step(cfg, params, cache, tok, 128, device=DEV)),
            "prefill_b1_s128": window(lambda: M.prefill(cfg, params, {"tokens": prompts[:1]},
-                                                       device=DEV))}
+                                                       device=DEV)),
+           "prefill_b128_s128": window(lambda: M.prefill(cfg, params, {"tokens": prompts},
+                                                         device=DEV))}
     emit(out)
     return out
 
@@ -489,17 +711,19 @@ def phase_profile(cfg, params) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def kernel_summary(kern: dict, launches: dict) -> dict:
+def kernel_summary(kern: dict, launches: dict, by_path: dict) -> dict:
     def pick(rows, match):
         return next(r for r in rows if match(r))
     mac = pick(kern["photonic_mac"]["timed"], lambda r: tuple(r["shape"]) == MAC_HEADLINE)
     att = pick(kern["flash_attention"]["timed"],
-               lambda r: (r["shape"]["b"], r["shape"]["s"]) == ATTN_HEADLINE)
+               lambda r: r["model"] == "yi-6b" and (r["shape"]["b"], r["shape"]["s"]) == ATTN_HEADLINE)
+    ssm = pick(kern["ssm_scan"]["timed"], lambda r: r["shape"]["name"] == SSM_HEADLINE)
+    paths = {name: {model: n[name] for model, n in by_path.items()} for name in KERNELS}
     return {"kernels": [
         {"name": "photonic_mac", "route": "cuda",
          "source": "src/repro_torch/csrc/photonic_mac.cu",
          "replaces": "src/repro/kernels/photonic_mac.py:60",
-         "launches": launches["photonic_mac"],
+         "launches": launches["photonic_mac"], "launches_by_path": paths["photonic_mac"],
          "max_abs_err": kern["photonic_mac"]["max_abs_err"],
          "ms": mac["ms"], "plain_ms": mac["plain_ms"], "bound_ms": mac["bound_ms"],
          "bound_by": mac["bound_by"], "library_ms": mac["library_ms"],
@@ -508,12 +732,66 @@ def kernel_summary(kern: dict, launches: dict) -> dict:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:81",
-         "launches": launches["flash_attention"],
+         "launches": launches["flash_attention"], "launches_by_path": paths["flash_attention"],
          "max_abs_err": kern["flash_attention"]["max_abs_err"],
          "ms": att["ms"], "plain_ms": att["plain_ms"], "bound_ms": att["bound_ms"],
          "bound_by": att["bound_by"], "library_ms": att["library_ms"],
          "shape": {**att["shape"], "qkv": "bfloat16", "causal": True}},
+        {"name": "ssm_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan.py:77",
+         "launches": launches["ssm_scan"], "launches_by_path": paths["ssm_scan"],
+         "max_abs_err": kern["ssm_scan"]["max_abs_err"],
+         "ms": ssm["ms"], "plain_ms": ssm["plain_ms"], "bound_ms": ssm["bound_ms"],
+         "bound_by": ssm["bound_by"], "library_ms": None,
+         "shape": {**ssm["shape"], **ssm["dtypes"]}},
     ]}
+
+
+# each serving path: (config id, `launch/serve.py` arch, kernels it must launch)
+PATHS = [
+    ("yi_6b", "yi-6b", ("photonic_mac", "flash_attention")),
+    ("zamba2_1p2b", "zamba2-1.2b", ("photonic_mac", "flash_attention", "ssm_scan")),
+    ("xlstm_350m", "xlstm-350m", ("photonic_mac", "ssm_scan")),
+]
+
+
+def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
+    """Initialise one model, drive its serving path with the counters at 0
+    just before and read just after, then the end-to-end check.  Returns the
+    path's launches; its weights are freed on return."""
+    cfg = dataclasses.replace(C.get(cfg_id), use_photonic_mac=True, use_kernels=True)
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    emit({"phase": "init", "model": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "parameters": sum(t.numel() for t in _leaves(params)),
+          "master_dtype": "float32", "seconds": time.perf_counter() - t0})
+
+    zero_counters()
+    if arch == "yi-6b":
+        phase_serve_continuous(cfg, params, [60, 250, 131, 97, 200, 129, 77, 180],
+                               [4, 8, 6, 5, 7, 4, 8, 6], max_len=512, bucket=128)
+        phase_serve_batch128(cfg, params, arch)
+    elif arch == "zamba2-1.2b":
+        # exact-length prefills of 97 and 24 (<= 128, no power of two), 128,
+        # 256, 384, 512, 1024 (multiples of 128) and 200 (neither: the scan
+        # falls to the sequential plain version and launches no kernel)
+        lengths = [n + 1 for n in (97, 128, 256, 200, 512, 24, 1024, 384)]
+        phase_serve_continuous(cfg, params, lengths, [4, 8, 6, 5, 7, 4, 8, 6], max_len=1056)
+        phase_serve_batch128(cfg, params, arch)
+        phase_long_prefill(cfg, params, 4096)
+    else:
+        phase_serve_batch128(cfg, params, arch)
+    launches = counters()
+
+    phase_end_to_end(cfg, params, 512 if arch == "zamba2-1.2b" else 128)
+    if profile:
+        phase_profile(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -521,7 +799,7 @@ def main() -> None:
     ap.add_argument("--only", choices=["kernels"], default=None,
                     help="stop after this phase (for work on a kernel); prints no ok line")
     ap.add_argument("--profile", action="store_true",
-                    help="also print device time by kernel for one decode step and one prefill")
+                    help="also print device time by kernel for decode and prefill, per model")
     args = ap.parse_args()
     t_start = time.perf_counter()
     dev = phase_device()
@@ -532,29 +810,15 @@ def main() -> None:
         print(dev["nvidia_smi"], flush=True)
         return
 
-    cfg = dataclasses.replace(C.get("yi_6b"), use_photonic_mac=True, use_kernels=True)
-    t0 = time.perf_counter()
-    params = M.init(cfg, seed=SEED, device=DEV)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    emit({"phase": "init", "model": cfg.name, "parameters": n_params,
-          "master_dtype": "float32", "seconds": time.perf_counter() - t0})
-
-    # the main path: counters to 0 just before, read just after
-    photonic_mac.launches = 0
-    flash_attention.launches = 0
-    phase_serve_continuous(cfg, params)
-    phase_serve_batch128(cfg, params)
-    launches = {"photonic_mac": photonic_mac.launches, "flash_attention": flash_attention.launches}
-    for name, n in launches.items():
-        assert n > 0, f"the main path never launched {name}"
-
-    phase_end_to_end(cfg, params)
-    if args.profile:
-        phase_profile(cfg, params)
+    by_path = {}
+    for cfg_id, arch, needs in PATHS:
+        by_path[arch] = run_path(cfg_id, arch, args.profile)
+        for name in needs:
+            assert by_path[arch][name] > 0, f"the {arch} path never launched {name}"
+    launches = {name: sum(n[name] for n in by_path.values()) for name in KERNELS}
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    emit(kernel_summary(kern, launches))
+    emit(kernel_summary(kern, launches, by_path))
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

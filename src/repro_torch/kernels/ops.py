@@ -8,11 +8,15 @@ Dispatch, decided by shape alone as in the reference:
   * `attention` reaches the `flash_attention` kernel when both sequence
     lengths are >= 8 and each is <= 128 or a multiple of 128, and `q_offset`
     is a multiple of the query block; other shapes take `attention_ref`.
+  * `ssm` reaches the `ssm_scan` kernel when the length L is >= 8 and is
+    <= 128 or a multiple of 128; other lengths take `ssm_scan_chunked_ref`
+    (which itself falls to the sequential oracle when L does not tile).
 
 Training: kernel forward, plain backward.  The kernels are forward-only;
 `photonic_matmul` is straight-through (gradients as if w were unquantized,
-the photonic weight banks being programmed from the master weights), and
-`attention` differentiates `attention_ref`.
+the photonic weight banks being programmed from the master weights),
+`attention` differentiates `attention_ref` and `ssm` differentiates
+`ssm_scan_chunked_ref`.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_fwd
 from repro_torch.kernels.photonic_mac import BANK, photonic_mac as _mac_fwd, quantize_weights
+from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_fwd
 
 
 # ---------------------------------------------------------------------------
@@ -126,3 +131,40 @@ def attention(q, k, v, causal: bool = True, window: int = 0, scale=None,
     """Flash attention (kernel forward, plain backward).  q (B,Hq,Sq,D);
     k,v (B,Hk,Sk,D) -> (B,Hq,Sq,D) f32."""
     return _Attention.apply(q, k, v, causal, window, scale, q_offset, use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# ssm scan
+# ---------------------------------------------------------------------------
+
+
+def uses_ssm_kernel(l: int, use_kernel: bool = True) -> bool:
+    """True when `ssm` takes the `ssm_scan` kernel for length `l`."""
+    return bool(use_kernel and l % min(128, l) == 0 and l >= 8)
+
+
+def _ssm_impl(x, a, b, c, use_kernel):
+    if uses_ssm_kernel(x.shape[1], use_kernel):
+        return _ssm_fwd(x.contiguous(), a.contiguous(), b.contiguous(), c.contiguous())
+    return _ref.ssm_scan_chunked_ref(x, a, b, c)
+
+
+class _SSM(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a, b, c, use_kernel):
+        ctx.save_for_backward(x, a, b, c)
+        return _ssm_impl(x, a, b, c, use_kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            xabc = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = _ref.ssm_scan_chunked_ref(*xabc)
+            dx, da, db, dc = torch.autograd.grad(out, xabc, g)
+        return dx, da, db, dc, None
+
+
+def ssm(x, a, b, c, use_kernel: bool = True) -> torch.Tensor:
+    """Chunked selective scan (kernel forward, plain backward).
+    x (BH,L,P), a (BH,L), b/c (BH,L,N) -> y (BH,L,P) f32."""
+    return _SSM.apply(x, a, b, c, use_kernel)

@@ -2,8 +2,9 @@
 
 The CPU tests run these, the kernel wrappers take them for a CPU tensor, and
 the on-card smoke run holds each CUDA kernel against them.  `ops.attention`
-differentiates `attention_ref` for its backward (kernel forward / plain
-backward).  f32 products here are full f32: `allow_tf32` is False (set in
+differentiates `attention_ref` and `ops.ssm` differentiates
+`ssm_scan_chunked_ref` for their backward (kernel forward / plain backward).
+f32 products here are full f32: `allow_tf32` is False (set in
 `repro_torch/__init__.py`), matching the reference's `Precision.HIGHEST`.
 """
 
@@ -54,3 +55,77 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32))
+
+
+def ssm_scan_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor) -> torch.Tensor:
+    """Sequential scan oracle, in f32 from whatever dtypes arrive:
+    S_t = a_t S_{t-1} + x_t (outer) b_t, y_t = S_t c_t.
+    x (BH,L,P), a (BH,L), b/c (BH,L,N) -> y (BH,L,P) f32."""
+    bh, l, p = x.shape
+    n = b.shape[-1]
+    f32 = torch.float32
+    x, a, b, c = x.to(f32), a.to(f32), b.to(f32), c.to(f32)
+    s = torch.zeros((bh, p, n), dtype=f32, device=x.device)
+    ys = []
+    for t in range(l):
+        s = a[:, t, None, None] * s + x[:, t, :, None] * b[:, t, None, :]
+        ys.append(torch.einsum("zpn,zn->zp", s, c[:, t]))
+    return torch.stack(ys, dim=1)
+
+
+def ssm_scan_chunked_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                         c: torch.Tensor, chunk: int = 128) -> torch.Tensor:
+    """Chunked (SSD block-decomposition) scan, the same math as the TPU
+    kernel: what `ops.ssm` runs without the kernel, and what its backward
+    differentiates.  A length that does not tile into chunks falls to the
+    sequential oracle.
+
+    The decay math is f32 and in log space (no ratio of cumulative products).
+    The big operands are rounded where the reference rounds them: to bf16 when
+    x is bf16 (b and c follow x's dtype, not their own), and `(m*g)`, the
+    decay-weighted x and the decayed c are rounded to that dtype before their
+    products.  Every product itself is taken in f32 from those values (the
+    reference's `preferred_element_type=f32`), and its result stays f32.
+
+    x (BH,L,P), a (BH,L), b/c (BH,L,N) -> y (BH,L,P) f32."""
+    bh, l, p = x.shape
+    n = b.shape[-1]
+    ch = min(chunk, l)
+    if l % ch:
+        return ssm_scan_ref(x, a, b, c)
+    nc = l // ch
+    f32 = torch.float32
+    dt = torch.bfloat16 if x.dtype == torch.bfloat16 else f32
+    xf = x.reshape(bh, nc, ch, p).to(dt)
+    af = a.reshape(bh, nc, ch).to(f32)
+    bf = b.reshape(bh, nc, ch, n).to(dt)
+    cf = c.reshape(bh, nc, ch, n).to(dt)
+
+    cum_log = torch.cumsum(torch.log(torch.clamp_min(af, 1e-37)), dim=-1)   # (bh,nc,ch)
+    # intra-chunk: decay(s,t) = exp(cum_t - cum_s) for s <= t
+    dlog = cum_log[..., None, :] - cum_log[..., :, None]                     # (bh,nc,s,t)
+    idx = torch.arange(ch, device=x.device)
+    mask = idx[:, None] <= idx[None, :]
+    m = torch.where(mask, torch.exp(torch.clamp(dlog, -80.0, 0.0)), 0.0)
+    g = torch.einsum("zksn,zktn->zkst", bf.to(f32), cf.to(f32))             # gram B C^T
+    y_intra = torch.einsum("zkst,zksp->zktp", (m * g).to(dt).to(f32), xf.to(f32))
+
+    # per-chunk state contribution and decay
+    cum = torch.exp(cum_log)
+    wgt = torch.exp(torch.clamp(cum_log[..., -1:] - cum_log, -80.0, 0.0))
+    s_chunk = torch.einsum("zksp,zksn->zkpn", (xf * wgt[..., None].to(dt)).to(f32),
+                           bf.to(f32))
+    a_chunk = cum[..., -1]                                                   # (bh,nc)
+
+    # inter-chunk scan: the carry-in state of each chunk, f32
+    s = torch.zeros((bh, p, n), dtype=f32, device=x.device)
+    s_in = []
+    for k in range(nc):
+        s_in.append(s)
+        s = a_chunk[:, k, None, None] * s + s_chunk[:, k]
+    s_in = torch.stack(s_in, dim=1)                                          # (bh,nc,p,n)
+
+    c_dec = (cf.to(f32) * cum[..., None]).to(dt).to(f32)
+    y_carry = torch.einsum("zktn,zkpn->zktp", c_dec, s_in.to(dt).to(f32))
+    return (y_carry + y_intra).reshape(bh, l, p)

@@ -22,7 +22,20 @@ Params = Dict[str, Any]
 _BLOCK_LEAVES = {
     "attn": ("wq", "wk", "wv", "wo", "norm"),
     "mlp": ("wi", "wg", "wo", "norm"),
+    "mamba": ("in_proj", "conv", "A_log", "D", "dt_bias", "out_proj", "norm", "gate_norm"),
+    "mlstm": ("wqkv", "wif", "wo", "norm"),
+    "slstm": ("wx", "wr", "bias", "wo", "norm"),
 }
+
+
+def _subs(cfg: ModelConfig, kind: str):
+    """The parameter groups a block of `kind` holds (shared_attn holds none:
+    its parameters live once, at the top of the tree)."""
+    if kind in ("attn", "local", "global"):
+        return ("attn", "mlp") if cfg.d_ff else ("attn",)
+    if kind == "shared_attn":
+        return ()
+    return (kind,)
 
 
 def _leaf(a, device, dtype) -> torch.Tensor:
@@ -50,15 +63,16 @@ def params_from_reference(cfg: ModelConfig, np_params: Params, device="cuda",
         raise ValueError(f"{cfg.name}: embed has shape {tuple(out['embed'].shape)}")
     if not cfg.tie_embeddings:
         out["lm_head"] = _leaf(np_params["lm_head"], device, dtype)
+    if M.has_shared_attn(cfg):
+        out["shared_attn"] = {leaf: _leaf(np_params["shared_attn"][leaf], device, dtype)
+                              for leaf in _BLOCK_LEAVES["attn"]}
     out["stages"] = []
     for (repeat, kinds), src in zip(layout, np_params["stages"]):
         sp = {}
         for j, kind in enumerate(kinds):
             name = f"{kind}_{j}"
             block = {}
-            for sub in ("attn", "mlp"):
-                if sub == "mlp" and not cfg.d_ff:
-                    continue
+            for sub in _subs(cfg, kind):
                 block[sub] = {}
                 for leaf in _BLOCK_LEAVES[sub]:
                     t = _leaf(src[name][sub][leaf], device, dtype)

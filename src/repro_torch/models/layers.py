@@ -1,4 +1,5 @@
-"""Building blocks of the dense / local-global architecture families.
+"""Building blocks of the dense, local-global, hybrid (Mamba2 + shared
+attention) and xLSTM architecture families.
 
 Plain functions over explicit parameter dicts of tensors.  Each `init_*`
 returns the parameters of one block; each `apply_*` takes `(cfg, params, x,
@@ -10,8 +11,12 @@ Every matmul routes through `linear()`, which optionally applies the
 photonic-MAC numerics (2.5D-CrossLight broadcast-and-weight quantization):
 the paper's compute engine as a first-class model feature.
 
-Blocks of the other families (MoE, Mamba2, xLSTM, cross-attention) and the
-M-RoPE position streams are not ported yet; see ROADMAP.md, Queue 1.
+The recurrent blocks (`apply_mamba`, `apply_mlstm`, `apply_slstm`) take a
+cache of views into the model's layer-stacked buffers and write their new
+state into it in place (`copy_`), as `apply_attention` does with K/V.
+
+The MoE and cross-attention blocks and the M-RoPE position streams are not
+ported yet; see ROADMAP.md, Queue 1.
 """
 
 from __future__ import annotations
@@ -43,6 +48,10 @@ def _dense_init(gen: torch.Generator, shape, in_axes=(0,), *, device, layers: in
 
 def _zeros(shape, *, device, layers: int = 0):
     return torch.zeros(((layers,) if layers else ()) + tuple(shape), device=device)
+
+
+def _full(shape, value: float, *, device, layers: int = 0):
+    return torch.full(((layers,) if layers else ()) + tuple(shape), value, device=device)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -236,3 +245,219 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     g = torch.nn.functional.silu(linear(cfg, p["wg"], xn).to(torch.float32)).to(x.dtype)
     h = linear(cfg, p["wi"], xn) * g
     return x + linear(cfg, p["wo"], h)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (zamba2 hybrid)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0) -> Params:
+    m, din, n, hm = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    kw = {"device": device, "layers": layers}
+    proj_out = 2 * din + 2 * n + hm  # [z, x, B, C, dt]
+    return {
+        "in_proj": _dense_init(gen, (m, proj_out), **kw),
+        "conv": _dense_init(gen, (cfg.conv_width, din), **kw).mul_(0.1),
+        "A_log": _full((hm,), math.log(0.5), **kw),
+        "D": _full((hm,), 1.0, **kw),
+        "dt_bias": _zeros((hm,), **kw),
+        "out_proj": _dense_init(gen, (din, m), **kw),
+        "norm": _zeros((m,), **kw),
+        "gate_norm": _zeros((din,), **kw),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x (B,L,C), w (W,C), state (B,W-1,C) or None.
+    Returns (y, new_state).  The reference's explicit shifted sum, term by
+    term in x's dtype: a cuDNN convolution would run f32 in TF32."""
+    b, l, c = x.shape
+    wlen = w.shape[0]
+    if state is None:
+        state = torch.zeros((b, wlen - 1, c), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)  # (B, L+W-1, C)
+    y = xp[:, 0:l] * w[0]
+    for i in range(1, wlen):
+        y = y + xp[:, i:i + l] * w[i]
+    new_state = xp[:, l:] if wlen > 1 else state
+    return y, new_state
+
+
+def apply_mamba(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                cache: Optional[Params] = None):
+    """Mamba2-style selective SSM block (scalar per-head decay, matrix state),
+    with residual and no MLP (zamba2's blocks apply none, whatever d_ff says).
+    Returns (x, cache).
+
+    No cache: the chunked scan over the sequence.  Prefill (S > 1): the same,
+    then the final state and the conv window are written into `cache`
+    {'state' (B,Hm,P,N) f32, 'conv' (B,W-1,din)}.  Decode (S == 1): one step of
+    the recurrence on the cached state."""
+    b, l, m = x.shape
+    din, n, hm, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    f32 = torch.float32
+    xn = rms_norm(x, p["norm"])
+    proj = linear(cfg, p["in_proj"], xn)
+    z, xs, bmat, cmat, dt = torch.split(proj, [din, din, n, n, hm], dim=-1)
+
+    conv_state = cache["conv"] if cache is not None else None
+    xs, new_conv = _causal_conv(xs, p["conv"].to(xs.dtype), conv_state)
+    xs = torch.nn.functional.silu(xs.to(f32)).to(x.dtype)
+
+    dt = torch.nn.functional.softplus(dt.to(f32) + p["dt_bias"])       # (B,L,Hm)
+    a = torch.exp(-torch.exp(p["A_log"])[None, None, :] * dt)         # (B,L,Hm)
+    xh = xs.reshape(b, l, hm, pdim)
+
+    if cache is None or l > 1:
+        # (B,L,Hm,P) -> (B*Hm, L, P); decay (B*Hm, L); b and c are shared
+        # across heads and repeated per head here, as the reference does
+        sdt = compute_dtype(cfg)
+        xf = xh.movedim(2, 1).reshape(b * hm, l, pdim).to(sdt)
+        af = a.movedim(2, 1).reshape(b * hm, l)
+        bf = bmat.to(sdt).repeat_interleave(hm, dim=0)
+        cf = cmat.to(sdt).repeat_interleave(hm, dim=0)
+        y = ops.ssm(xf, af, bf, cf, cfg.use_kernels)
+        y = y.reshape(b, hm, l, pdim).movedim(1, 2)                   # (B,L,Hm,P)
+        if cache is not None:  # prefill: also the final state
+            cum = torch.cumsum(torch.log(torch.clamp_min(a, 1e-37)), dim=1)
+            w = torch.exp(cum[:, -1:, :] - cum)                        # prod_{r>s} a_r
+            s_fin = torch.einsum("blhp,bln->bhpn", xh.to(f32) * w[..., None], bmat.to(f32))
+            cache["state"].copy_(s_fin)
+            cache["conv"].copy_(new_conv)
+    else:
+        s_prev = cache["state"]                                        # (B,Hm,P,N)
+        upd = xh[:, 0].to(f32)[..., None] * bmat[:, 0].to(f32)[:, None, None, :]
+        s_new = a[:, 0, :, None, None] * s_prev + upd
+        y = torch.einsum("bhpn,bn->bhp", s_new, cmat[:, 0].to(f32))[:, None]
+        cache["state"].copy_(s_new)
+        cache["conv"].copy_(new_conv)
+
+    y = y + p["D"][None, None, :, None] * xh.to(f32)
+    y = y.reshape(b, l, din).to(x.dtype)
+    y = rms_norm(y * torch.nn.functional.silu(z.to(f32)).to(x.dtype), p["gate_norm"])
+    return x + linear(cfg, p["out_proj"], y), cache
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks
+# ---------------------------------------------------------------------------
+
+
+def init_mlstm(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0) -> Params:
+    m, dh, h = cfg.d_model, cfg.head_dim_, cfg.n_heads
+    din = h * dh
+    kw = {"device": device, "layers": layers}
+    return {
+        "wqkv": _dense_init(gen, (m, 3 * din), **kw),
+        "wif": _dense_init(gen, (m, 2 * h), **kw).mul_(0.1),
+        "wo": _dense_init(gen, (din, m), **kw),
+        "norm": _zeros((m,), **kw),
+    }
+
+
+def apply_mlstm(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                cache: Optional[Params] = None):
+    """mLSTM, matrix-memory LSTM: C_t = f_t C + i_t v k^T, h = C q / max(|n.q|, 1).
+    The numerator and the normaliser n are two selective scans (the state C,
+    and a one-row state for n).  Returns (x, cache); the cache is
+    {'C' (B*H,D,D), 'n' (B*H,1,D)} f32, written in place at prefill and decode."""
+    b, l, m = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim_
+    din = h * dh
+    f32 = torch.float32
+    xn = rms_norm(x, p["norm"])
+    qkv = linear(cfg, p["wqkv"], xn)
+    q, k, v = torch.split(qkv, din, dim=-1)
+    gates = linear(cfg, p["wif"], xn).to(f32)
+    ig, fg = torch.split(gates, h, dim=-1)                             # (B,L,H)
+    i = torch.sigmoid(ig)
+    f = torch.sigmoid(fg + 3.0)  # bias toward remembering
+
+    qh = q.reshape(b, l, h, dh) * dh ** -0.5
+    kh = k.reshape(b, l, h, dh) * dh ** -0.5
+    vh = v.reshape(b, l, h, dh)
+
+    def flat(t):  # (B,L,H,D) -> (B*H, L, D) in the compute dtype
+        return t.movedim(2, 1).reshape(b * h, l, -1).to(compute_dtype(cfg))
+
+    xf = flat(vh * i[..., None].to(vh.dtype))
+    af = f.movedim(2, 1).reshape(b * h, l)
+    bf, cf = flat(kh), flat(qh)
+    iflat = i.movedim(2, 1).reshape(b * h, l)                          # f32
+
+    if cache is None or l > 1:
+        y = ops.ssm(xf, af, bf, cf, cfg.use_kernels)                   # (BH,L,D)
+        nsum = ops.ssm(iflat[..., None], af, bf, cf, cfg.use_kernels)  # (BH,L,1)
+        if cache is not None:  # prefill: the final (C, n) state
+            cum = torch.cumsum(torch.log(torch.clamp_min(af, 1e-37)), dim=1)
+            w = torch.exp(cum[:, -1:] - cum)                           # (BH,L)
+            # the reference's mixed bf16/f32 products promote to f32
+            cache["C"].copy_(torch.einsum("zlp,zln->zpn", xf.to(f32) * w[..., None],
+                                          bf.to(f32)))
+            cache["n"].copy_(torch.einsum("zl,zln->zn", w * iflat, bf.to(f32))[:, None])
+    else:
+        a1 = af[:, 0, None, None]
+        # x_t b_t^T in the compute dtype (one product per entry, rounded to
+        # it as in the reference), added to the f32 state
+        c_new = a1 * cache["C"] + xf[:, 0, :, None] * bf[:, 0, None, :]
+        n_new = a1 * cache["n"] + (iflat[:, 0, None] * bf[:, 0].to(f32))[:, None]
+        y = torch.einsum("zpn,zn->zp", c_new, cf[:, 0].to(f32))[:, None]
+        nsum = torch.einsum("zqn,zn->zq", n_new, cf[:, 0].to(f32))[:, None]
+        cache["C"].copy_(c_new)
+        cache["n"].copy_(n_new)
+
+    hout = y / torch.clamp_min(torch.abs(nsum), 1.0)
+    hout = hout.reshape(b, h, l, dh).movedim(1, 2).reshape(b, l, din)
+    return x + linear(cfg, p["wo"], hout.to(x.dtype)), cache
+
+
+def init_slstm(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0) -> Params:
+    m = cfg.d_model
+    kw = {"device": device, "layers": layers}
+    return {
+        "wx": _dense_init(gen, (m, 4 * m), **kw),
+        "wr": _dense_init(gen, (m, 4 * m), **kw).mul_(0.5),
+        "bias": _zeros((4 * m,), **kw),
+        "wo": _dense_init(gen, (m, m), **kw),
+        "norm": _zeros((m,), **kw),
+    }
+
+
+def apply_slstm(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                cache: Optional[Params] = None):
+    """sLSTM with stabilised exponential gating: a sequential loop over the
+    sequence in f32 (the inherently recurrent xLSTM component; plain tensor
+    code, as in the reference).  Returns (x, cache); the cache {'h','c','n','m'}
+    (B,M) f32 is written in place."""
+    b, l, m = x.shape
+    f32 = torch.float32
+    xn = rms_norm(x, p["norm"])
+    xproj = (linear(cfg, p["wx"], xn) + p["bias"].to(xn.dtype)).to(f32)
+
+    if cache is None:
+        h0 = torch.zeros((b, m), dtype=f32, device=x.device)
+        hprev, cprev, nprev, mprev = h0, h0, h0, h0 - 10.0
+    else:
+        hprev, cprev, nprev, mprev = cache["h"], cache["c"], cache["n"], cache["m"]
+
+    wr = p["wr"].to(f32)
+    hs = []
+    for t in range(l):
+        pre = xproj[:, t] + hprev @ wr
+        zt, it, ft, ot = torch.split(pre, m, dim=-1)
+        z = torch.tanh(zt)
+        o = torch.sigmoid(ot)
+        mnew = torch.maximum(ft + mprev, it)
+        ig = torch.exp(it - mnew)
+        fg = torch.exp(ft + mprev - mnew)
+        cprev = fg * cprev + ig * z
+        nprev = fg * nprev + ig
+        hprev = o * cprev / torch.clamp_min(nprev, 1.0)
+        mprev = mnew
+        hs.append(hprev)
+    hs = torch.stack(hs, dim=1).to(x.dtype)                            # (B,L,M)
+    if cache is not None:
+        for name, t in (("h", hprev), ("c", cprev), ("n", nprev), ("m", mprev)):
+            cache[name].copy_(t)
+    return x + linear(cfg, p["wo"], hs), cache

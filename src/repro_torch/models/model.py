@@ -9,8 +9,13 @@ they are; the reference scans that axis, this port loops over it).
 Block kinds ported so far:
   attn         dense attention (+MLP); window per cfg.attn_pattern
   local/global gemma3 5:1 interleave (sliding window vs full)
-The kinds moe, mamba, shared_attn, mlstm, slstm, enc and dec raise
-`NotImplementedError` naming the ROADMAP.md queue item that brings them.
+  mamba        Mamba2 selective-SSM block (zamba2)
+  shared_attn  zamba2's weight-shared attention block (one parameter set at
+               params["shared_attn"], used by every such block; window
+               cfg.window)
+  mlstm/slstm  xLSTM blocks
+The kinds moe, enc and dec raise `NotImplementedError` naming the
+ROADMAP.md queue item that brings them.
 
 Entry points: `init`, `train_logits`, `prefill` + `serve_step` (inference).
 Each takes `device`, which defaults to "cuda" and raises without a card; the
@@ -71,13 +76,10 @@ def stages(cfg: ModelConfig) -> List[Tuple[int, Tuple[str, ...]]]:
     raise ValueError(f"cannot derive stages for {cfg.name}")
 
 
-PORTED_KINDS = ("attn", "local", "global")
+_ATTN_KINDS = ("attn", "local", "global", "shared_attn")
+PORTED_KINDS = _ATTN_KINDS + ("mamba", "mlstm", "slstm")
 
 _QUEUE_ITEM = {
-    "mamba": "Queue 1, zamba2 / xlstm slice (apply_mamba, ops.ssm, the ssm_scan kernel)",
-    "shared_attn": "Queue 1, zamba2 / xlstm slice (shared attention block)",
-    "mlstm": "Queue 1, zamba2 / xlstm slice (apply_mlstm, ops.ssm)",
-    "slstm": "Queue 1, zamba2 / xlstm slice (apply_slstm)",
     "moe": "Queue 1, moe slice (apply_moe)",
     "enc": "Queue 1, enc/dec + M-RoPE slice (encode, apply_cross_attention)",
     "dec": "Queue 1, enc/dec + M-RoPE slice (encode, apply_cross_attention)",
@@ -117,11 +119,20 @@ def _kind_window(cfg: ModelConfig, kind: str) -> int:
 def _init_blocks(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
                  repeat: int) -> Params:
     """`repeat` blocks of one kind, leaves stacked on a leading layer axis."""
-    if kind in PORTED_KINDS:
-        p = {"attn": L.init_attention(cfg, gen, device=device, layers=repeat)}
+    kw = {"device": device, "layers": repeat}
+    if kind in ("attn", "local", "global"):
+        p = {"attn": L.init_attention(cfg, gen, **kw)}
         if cfg.d_ff:
-            p["mlp"] = L.init_mlp(cfg, gen, device=device, layers=repeat)
+            p["mlp"] = L.init_mlp(cfg, gen, **kw)
         return p
+    if kind == "shared_attn":
+        return {}  # the parameters live once, at params["shared_attn"]
+    if kind == "mamba":
+        return {"mamba": L.init_mamba(cfg, gen, **kw)}
+    if kind == "mlstm":
+        return {"mlstm": L.init_mlstm(cfg, gen, **kw)}
+    if kind == "slstm":
+        return {"slstm": L.init_slstm(cfg, gen, **kw)}
     raise NotImplementedError(kind)
 
 
@@ -147,7 +158,14 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         for j, kind in enumerate(kinds):
             sp[f"{kind}_{j}"] = _init_blocks(cfg, kind, gen, device, repeat)
         p["stages"].append(sp)
+    if has_shared_attn(cfg):
+        p["shared_attn"] = L.init_attention(cfg, gen, device=device)
     return p
+
+
+def has_shared_attn(cfg: ModelConfig) -> bool:
+    """True when the model holds zamba2's one shared attention block."""
+    return any("shared_attn" in kinds for _, kinds in stages(cfg))
 
 
 def params_device(params: Params) -> torch.device:
@@ -169,24 +187,45 @@ def check_params_device(params: Params, device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
+def _kind_cache(cfg: ModelConfig, kind: str, repeat: int, batch: int, cache_len: int,
+                device) -> Params:
+    """The zeroed cache of `repeat` blocks of one kind, layer axis first."""
+    dt = L.compute_dtype(cfg)
+    f32 = torch.float32
+
+    def zeros(*shape, dtype=f32):
+        return torch.zeros((repeat,) + shape, dtype=dtype, device=device)
+
+    if kind in _ATTN_KINDS:
+        w = _kind_window(cfg, kind)
+        length = min(w, cache_len) if w else cache_len
+        shape = (batch, cfg.n_kv_heads, length, cfg.head_dim_)
+        return {"k": zeros(*shape, dtype=dt), "v": zeros(*shape, dtype=dt)}
+    if kind == "mamba":
+        return {"state": zeros(batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
+                "conv": zeros(batch, cfg.conv_width - 1, cfg.d_inner, dtype=dt)}
+    if kind == "mlstm":  # batch and heads fused on one axis
+        h, dh = cfg.n_heads, cfg.head_dim_
+        return {"C": zeros(batch * h, dh, dh), "n": zeros(batch * h, 1, dh)}
+    if kind == "slstm":
+        m = cfg.d_model
+        return {"h": zeros(batch, m), "c": zeros(batch, m), "n": zeros(batch, m),
+                "m": zeros(batch, m).fill_(-10.0)}
+    raise NotImplementedError(kind)
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
-    """Zeroed KV cache: per stage, per block name, {'k','v'} of shape
-    (layers, batch, kv_heads, length, head_dim); windowed kinds keep at most
-    `window` positions."""
+    """Zeroed serving cache: per stage, per block name, the leaves of that
+    kind with a leading layer axis and batch next.  Attention kinds keep
+    {'k','v'} (layers, batch, kv_heads, length, head_dim), windowed kinds at
+    most `window` positions; mamba {'state' f32, 'conv'}; mlstm {'C','n'}
+    f32 with batch*heads fused; slstm {'h','c','n','m'} f32, 'm' at -10."""
     device = require_device(device)
     require_ported(cfg)
-    dt = L.compute_dtype(cfg)
-    hk, dh = cfg.n_kv_heads, cfg.head_dim_
     cache = []
     for repeat, kinds in stages(cfg):
-        cs = {}
-        for j, kind in enumerate(kinds):
-            w = _kind_window(cfg, kind)
-            length = min(w, cache_len) if w else cache_len
-            shape = (repeat, batch, hk, length, dh)
-            cs[f"{kind}_{j}"] = {"k": torch.zeros(shape, dtype=dt, device=device),
-                                 "v": torch.zeros(shape, dtype=dt, device=device)}
-        cache.append(cs)
+        cache.append({f"{kind}_{j}": _kind_cache(cfg, kind, repeat, batch, cache_len, device)
+                      for j, kind in enumerate(kinds)})
     return cache
 
 
@@ -196,16 +235,22 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
 
 
 def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
-                 cache, cache_pos, cache_pos_max):
-    """Returns (x, cache)."""
-    if kind in PORTED_KINDS:
+                 shared: Optional[Params], cache, cache_pos, cache_pos_max):
+    """Returns (x, cache); the cache views are updated in place."""
+    if kind in _ATTN_KINDS:
         w = _kind_window(cfg, kind)
-        x, nc = L.apply_attention(cfg, p["attn"], x, positions, window=w,
-                                  cache=cache, cache_pos=cache_pos,
+        x, nc = L.apply_attention(cfg, shared if kind == "shared_attn" else p["attn"], x,
+                                  positions, window=w, cache=cache, cache_pos=cache_pos,
                                   cache_pos_max=cache_pos_max)
         if "mlp" in p:
             x = L.apply_mlp(cfg, p["mlp"], x)
         return x, nc
+    if kind == "mamba":
+        return L.apply_mamba(cfg, p["mamba"], x, cache=cache)
+    if kind == "mlstm":
+        return L.apply_mlstm(cfg, p["mlstm"], x, cache=cache)
+    if kind == "slstm":
+        return L.apply_slstm(cfg, p["slstm"], x, cache=cache)
     raise NotImplementedError(
         f"block kind {kind!r} is not ported yet (ROADMAP.md: {_QUEUE_ITEM.get(kind, 'Queue 1')})")
 
@@ -221,6 +266,7 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
                 cache=None, cache_pos=None, cache_pos_max: int = 0):
     """Run every stage, layer by layer.  `cache`, when given, is updated in
     place (each block writes into its layer's view).  Returns (x, cache)."""
+    shared = params.get("shared_attn")
     for si, (repeat, kinds) in enumerate(stages(cfg)):
         sp = params["stages"][si]
         scache = cache[si] if cache is not None else None
@@ -229,7 +275,7 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
                 name = f"{kind}_{j}"
                 c_j = _layer(scache[name], i) if scache is not None else None
                 x, _ = _apply_block(cfg, kind, _layer(sp.get(name, {}), i), x, positions,
-                                    cache=c_j, cache_pos=cache_pos,
+                                    shared=shared, cache=c_j, cache_pos=cache_pos,
                                     cache_pos_max=cache_pos_max)
     return x, cache
 

@@ -10,6 +10,9 @@ Tolerances: quantized levels and scales are exact (same IEEE f32 divide and
 round-half-even on both sides); f32 products differ only in summation order
 (rtol 1e-4 for the MAC, 2e-5 for attention, the reference's own bounds);
 bf16 inputs are rounded identically on both sides, so the f32 bounds hold.
+The scan's plain versions match the jnp oracles to 1e-5 (same f32
+recurrence, other summation order); the port's scan against the Pallas
+kernel uses the reference test's 2e-4, gradients its 5e-4.
 """
 
 import jax
@@ -23,10 +26,12 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.photonic_mac import photonic_mac as j_mac
 from repro.kernels.photonic_mac import quantize_weights as j_quantize
+from repro.kernels.ssm_scan import ssm_scan as j_ssm_scan
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.photonic_mac import photonic_mac, quantize_weights
+from repro_torch.kernels.ssm_scan import ssm_scan
 
 
 def _rng(*seed):
@@ -275,3 +280,132 @@ def test_ops_attention_forward_and_gradients(sq, sk, window, use_kernel):
                                rtol=2e-5, atol=2e-5)
     for t, gj in zip(ts, grads_j):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj), rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# ssm scan: plain versions vs the jnp oracles and the Pallas kernel
+# ---------------------------------------------------------------------------
+
+def _ssm_inputs(r, bh, l, p, n, decay=(0.68, 0.98)):
+    """The reference tests' distribution: x * 0.5, b and c * 0.3, a in `decay`."""
+    x = (r.standard_normal((bh, l, p)) * 0.5).astype(np.float32)
+    lo, hi = decay
+    a = (lo + (hi - lo) / (1.0 + np.exp(-r.standard_normal((bh, l))))).astype(np.float32)
+    b = (r.standard_normal((bh, l, n)) * 0.3).astype(np.float32)
+    c = (r.standard_normal((bh, l, n)) * 0.3).astype(np.float32)
+    return x, a, b, c
+
+
+SSM_SHAPES = [(2, 128, 16, 8), (4, 256, 32, 16), (1, 512, 64, 64), (8, 128, 8, 4),
+              (2, 1024, 32, 32)]       # the reference's kernel-test shapes
+
+
+@pytest.mark.parametrize("bh,l,p,n", SSM_SHAPES + [(3, 97, 8, 4), (2, 24, 1, 16)])
+def test_ssm_scan_ref_matches_reference(bh, l, p, n):
+    x, a, b, c = _ssm_inputs(_rng(bh, l, p, n), bh, l, p, n)
+    out_t = ref.ssm_scan_ref(_t(x), _t(a), _t(b), _t(c))
+    assert out_t.dtype == torch.float32 and tuple(out_t.shape) == (bh, l, p)
+    exp = jref.ssm_scan_ref(_j(x), _j(a), _j(b), _j(c))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(exp), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bh,l,p,n,chunk", [
+    (2, 128, 16, 8, 128), (4, 256, 32, 16, 128), (1, 512, 64, 64, 128),
+    (2, 256, 16, 8, 64), (3, 96, 8, 4, 128), (2, 200, 8, 4, 128)])   # last two: sequential
+@pytest.mark.parametrize("dtypes", ["f32", "bf16", "x_f32_bc_bf16"])
+def test_ssm_scan_chunked_ref_matches_reference(bh, l, p, n, chunk, dtypes):
+    """Including the reference's bf16 rounding: with bf16 x every big operand
+    is rounded to bf16 before its product; with f32 x (mLSTM's normaliser)
+    bf16 b and c are widened and nothing is rounded."""
+    x, a, b, c = _ssm_inputs(_rng(bh, l, p, n, chunk), bh, l, p, n)
+    bx, bbc = dtypes == "bf16", dtypes != "f32"
+    args = (_t(x, torch.bfloat16 if bx else None), _t(a),
+            _t(b, torch.bfloat16 if bbc else None), _t(c, torch.bfloat16 if bbc else None))
+    out_t = ref.ssm_scan_chunked_ref(*args, chunk=chunk)
+    exp = np.asarray(jref.ssm_scan_chunked_ref(_j(x, bx), _j(a), _j(b, bbc), _j(c, bbc),
+                                               chunk=chunk), np.float32)
+    assert out_t.dtype == torch.float32
+    if not (bx and l % min(chunk, l) == 0):
+        np.testing.assert_allclose(out_t.numpy(), exp, rtol=1e-5, atol=1e-5)
+        return
+    # bf16 roundings inside the chunked form: a product within one f32 ulp of
+    # a bf16 rounding boundary (the two sides sum in other orders) rounds the
+    # other way and moves its outputs by up to one bf16 step of that term.
+    # So: nearly every element at 1e-5, and none beyond one such step ...
+    close = np.isclose(out_t.numpy(), exp, rtol=1e-5, atol=1e-5)
+    assert close.mean() > 0.99, close.mean()
+    np.testing.assert_allclose(out_t.numpy(), exp, rtol=2e-3, atol=2e-3)
+    # ... while the same scan without the roundings misses most elements
+    unrounded = ref.ssm_scan_chunked_ref(*(t.to(torch.float32) for t in args), chunk=chunk)
+    assert np.isclose(unrounded.numpy(), exp, rtol=1e-5, atol=1e-5).mean() < 0.5
+
+
+@pytest.mark.parametrize("bh,l,p,n", [(2, 128, 16, 8), (4, 256, 32, 16), (8, 128, 8, 4),
+                                      (3, 97, 8, 4), (2, 24, 1, 16)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ssm_scan_wrapper_matches_the_pallas_kernel(bh, l, p, n, bf16):
+    """The wrapper on CPU tensors (the sequential oracle) against the Pallas
+    kernel in interpret mode, in the reference tests' decay range, with a
+    ragged chunk (97), P = 1 and bf16 x, b, c (both sides scan in f32 from the
+    same bf16 values)."""
+    x, a, b, c = _ssm_inputs(_rng(bh, l, p, n, 1), bh, l, p, n)
+    bf = torch.bfloat16 if bf16 else None
+    out_t = ssm_scan(_t(x, bf), _t(a), _t(b, bf), _t(c, bf))
+    kernel = j_ssm_scan(_j(x, bf16), _j(a), _j(b, bf16), _j(c, bf16), interpret=True)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(kernel), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("decay", [(0.3, 0.6), (0.05, 0.35)])
+def test_ssm_scan_strong_decay_matches_the_sequential_oracle(decay):
+    """Strong decay: the reference's Pallas kernel forms the decay as a ratio
+    of cumulative products, which underflows here, so the port is held to the
+    sequential oracle alone; its chunked plain version stays exact too."""
+    bh, l, p, n = 2, 128, 8, 4
+    x, a, b, c = _ssm_inputs(_rng(int(decay[0] * 100)), bh, l, p, n, decay)
+    exp = np.asarray(jref.ssm_scan_ref(_j(x), _j(a), _j(b), _j(c)))
+    out_t = ssm_scan(_t(x), _t(a), _t(b), _t(c))
+    np.testing.assert_allclose(out_t.numpy(), exp, rtol=2e-4, atol=2e-4)
+    chunked = ref.ssm_scan_chunked_ref(_t(x), _t(a), _t(b), _t(c))
+    np.testing.assert_allclose(chunked.numpy(), exp, rtol=2e-4, atol=2e-4)
+
+
+def test_ssm_scan_wrapper_rejects_bad_inputs():
+    x, a, b = torch.zeros(2, 16, 4), torch.zeros(2, 16), torch.zeros(2, 16, 8)
+    with pytest.raises(ValueError):
+        ssm_scan(x, a, b, torch.zeros(2, 16, 4))               # c differs from b
+    with pytest.raises(ValueError):
+        ssm_scan(x, torch.zeros(2, 15), b, b)                  # a too short
+    with pytest.raises(ValueError):
+        ssm_scan(x[:, :, 0], a, b, b)                          # x not 3-d
+    with pytest.raises(TypeError):
+        ssm_scan(x, a.to(torch.bfloat16), b, b)                # a must be f32
+    with pytest.raises(TypeError):
+        ssm_scan(x.to(torch.float16), a, b, b)
+
+
+@pytest.mark.parametrize("l,use_kernel,expect", [
+    (128, True, True), (24, True, True), (97, True, True), (256, True, True),
+    (4, True, False), (200, True, False), (1, True, False), (128, False, False)])
+def test_ssm_dispatch_predicate(l, use_kernel, expect):
+    assert ops.uses_ssm_kernel(l, use_kernel) == expect
+
+
+@pytest.mark.parametrize("l,use_kernel", [(128, True), (48, True), (96, False), (200, True)])
+def test_ops_ssm_forward_and_gradients(l, use_kernel):
+    """Both sides of the predicate; the backward differentiates the chunked
+    plain version, as the reference's VJP does."""
+    bh, p, n = 2, 8, 4
+    x, a, b, c = _ssm_inputs(_rng(l, 3), bh, l, p, n)
+    g = _rng(l, 4).standard_normal((bh, l, p)).astype(np.float32)
+    ts = [_t(v).requires_grad_(True) for v in (x, a, b, c)]
+    out_t = ops.ssm(*ts, use_kernel)
+    (out_t * _t(g)).sum().backward()
+
+    def f(*args):
+        return jops.ssm(*args, use_kernel)
+    out_j = f(_j(x), _j(a), _j(b), _j(c))
+    grads_j = jax.grad(lambda *t: jnp.sum(f(*t) * _j(g)), argnums=(0, 1, 2, 3))(
+        _j(x), _j(a), _j(b), _j(c))
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), rtol=2e-4, atol=2e-4)
+    for t, gj in zip(ts, grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj), rtol=5e-4, atol=5e-4)

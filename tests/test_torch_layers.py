@@ -199,3 +199,120 @@ def test_decode_attention(pos, window, sq):
     out_j = JL.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                 jnp.asarray(pos_np), window=window)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# recurrent blocks: Mamba2 (zamba2), mLSTM and sLSTM (xlstm)
+# ---------------------------------------------------------------------------
+
+
+def _np_tree(p):
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+def _mamba_params(cfg, r):
+    m, din, n, hm = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return _np_tree({
+        "in_proj": r.standard_normal((m, 2 * din + 2 * n + hm)) / np.sqrt(m),
+        "conv": 0.05 * r.standard_normal((cfg.conv_width, din)),
+        "A_log": np.log(0.5) + 0.3 * r.standard_normal((hm,)),
+        "D": 1.0 + 0.1 * r.standard_normal((hm,)),
+        "dt_bias": 0.2 * r.standard_normal((hm,)),
+        "out_proj": r.standard_normal((din, m)) / np.sqrt(din),
+        "norm": 0.1 * r.standard_normal((m,)),
+        "gate_norm": 0.1 * r.standard_normal((din,))})
+
+
+def _mlstm_params(cfg, r):
+    m, din, h = cfg.d_model, cfg.n_heads * cfg.head_dim_, cfg.n_heads
+    return _np_tree({
+        "wqkv": r.standard_normal((m, 3 * din)) / np.sqrt(m),
+        "wif": 0.1 * r.standard_normal((m, 2 * h)) / np.sqrt(m),
+        "wo": r.standard_normal((din, m)) / np.sqrt(din),
+        "norm": 0.1 * r.standard_normal((m,))})
+
+
+def _slstm_params(cfg, r):
+    m = cfg.d_model
+    return _np_tree({
+        "wx": r.standard_normal((m, 4 * m)) / np.sqrt(m),
+        "wr": 0.5 * r.standard_normal((m, 4 * m)) / np.sqrt(m),
+        "bias": 0.1 * r.standard_normal((4 * m,)),
+        "wo": r.standard_normal((m, m)) / np.sqrt(m),
+        "norm": 0.1 * r.standard_normal((m,))})
+
+
+def _recurrent_caches(cfg, kind, b, r):
+    """A non-trivial cache of one block (the decode regime starts from it)."""
+    if kind == "mamba":
+        return _np_tree({
+            "state": 0.3 * r.standard_normal((b, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)),
+            "conv": r.standard_normal((b, cfg.conv_width - 1, cfg.d_inner))})
+    if kind == "mlstm":
+        h, dh = cfg.n_heads, cfg.head_dim_
+        return _np_tree({"C": 0.3 * r.standard_normal((b * h, dh, dh)),
+                         "n": np.abs(r.standard_normal((b * h, 1, dh)))})
+    m = cfg.d_model
+    return _np_tree({"h": 0.3 * r.standard_normal((b, m)), "c": r.standard_normal((b, m)),
+                     "n": 1.0 + np.abs(r.standard_normal((b, m))),
+                     "m": r.standard_normal((b, m))})
+
+
+def _zero_recurrent_cache(cache):
+    out = {k: np.zeros_like(v) for k, v in cache.items()}
+    if "m" in out:
+        out["m"] -= 10.0
+    return out
+
+
+_RECURRENT = {
+    "mamba": ("zamba2_1p2b", _mamba_params, L.apply_mamba, JL.apply_mamba),
+    "mlstm": ("xlstm_350m", _mlstm_params, L.apply_mlstm, JL.apply_mlstm),
+    "slstm": ("xlstm_350m", _slstm_params, L.apply_slstm, JL.apply_slstm),
+}
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("l", [7, 1])
+def test_causal_conv(state, l):
+    r = _rng(20, int(state), l)
+    x = r.standard_normal((2, l, 12)).astype(np.float32)
+    w = r.standard_normal((4, 12)).astype(np.float32)
+    st = r.standard_normal((2, 3, 12)).astype(np.float32) if state else None
+    y_t, ns_t = L._causal_conv(_t(x), _t(w), None if st is None else _t(st))
+    y_j, ns_j = JL._causal_conv(jnp.asarray(x), jnp.asarray(w),
+                                None if st is None else jnp.asarray(st))
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(ns_t.numpy(), np.asarray(ns_j), **TOL)
+
+
+@pytest.mark.parametrize("kind", list(_RECURRENT))
+@pytest.mark.parametrize("regime", ["no_cache", "prefill", "decode"])
+@pytest.mark.parametrize("photonic", [False, True])
+def test_recurrent_blocks_match_reference(kind, regime, photonic):
+    """Each recurrent block in its three regimes: the whole sequence without a
+    cache, prefill into a zeroed cache (the final state is written in place),
+    and one decode step from a non-trivial cache."""
+    arch, make_params, apply_t, apply_j = _RECURRENT[kind]
+    jcfg, cfg = _cfgs(arch, use_photonic_mac=photonic)
+    r = _rng(21, len(kind), len(regime), int(photonic))
+    pj, pt = _both(make_params(cfg, r))
+    b, l = 2, (1 if regime == "decode" else 20)
+    x = r.standard_normal((b, l, cfg.d_model)).astype(np.float32)
+    cache = None
+    if regime != "no_cache":
+        cache = _recurrent_caches(cfg, kind, b, r)
+        if regime == "prefill":
+            cache = _zero_recurrent_cache(cache)
+    ct = None if cache is None else {k: _t(v.copy()) for k, v in cache.items()}
+    cj = None if cache is None else {k: jnp.asarray(v) for k, v in cache.items()}
+    out_t, new_t = apply_t(cfg, pt, _t(x), cache=ct)
+    out_j, new_j = apply_j(jcfg, pj, jnp.asarray(x), cache=cj)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL_BLOCK)
+    if cache is None:
+        assert new_j is None
+        return
+    assert new_t is ct                      # written into the views it was given
+    assert set(ct) == set(new_j)
+    for name in ct:
+        np.testing.assert_allclose(ct[name].numpy(), np.asarray(new_j[name]), **TOL_BLOCK)

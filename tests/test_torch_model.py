@@ -54,11 +54,13 @@ def _tokens(cfg, b, s, seed=0):
 
 
 def _assert_cache_close(cache_t, cache_j):
+    """Every leaf of every block: K/V and the recurrent states alike."""
     assert len(cache_t) == len(cache_j)
     for st, sj in zip(cache_t, cache_j):
         assert set(st) == set(sj)
         for name in st:
-            for leaf in ("k", "v"):
+            assert set(st[name]) == set(sj[name]), name
+            for leaf in st[name]:
                 np.testing.assert_allclose(st[name][leaf].numpy(),
                                            np.asarray(sj[name][leaf]), **TOL)
 
@@ -79,6 +81,15 @@ CASES = {
     "local_global": ("gemma3_27b", {**LOCAL_GLOBAL}, 2, 40),
     "local_global_photonic": ("gemma3_27b", {**LOCAL_GLOBAL, "use_photonic_mac": True}, 2, 40),
     "sliding": ("yi_6b", {"attn_pattern": "sliding", "window": 16}, 2, 24),
+    # the recurrent families; zamba2's shared attention has window 32 here,
+    # so S = 40 keeps the last 32 positions at prefill and rolls in decode
+    "zamba2": ("zamba2_1p2b", {}, 2, 40),
+    "zamba2_photonic": ("zamba2_1p2b", {"use_photonic_mac": True}, 2, 40),
+    # S <= 128: JAX runs the Pallas scan and attention in interpret mode
+    "zamba2_kernels": ("zamba2_1p2b", {"use_photonic_mac": True, "use_kernels": True}, 1, 40),
+    "xlstm": ("xlstm_350m", {}, 2, 24),
+    "xlstm_photonic": ("xlstm_350m", {"use_photonic_mac": True}, 2, 24),
+    "xlstm_kernels": ("xlstm_350m", {"use_photonic_mac": True, "use_kernels": True}, 1, 24),
 }
 
 
@@ -135,7 +146,8 @@ def test_rolling_window_decode_matches_reference():
 
 
 @pytest.mark.parametrize("arch,kw", [("yi_6b", {}), ("gemma3_27b", {}),
-                                     ("gemma3_27b", LOCAL_GLOBAL)])
+                                     ("gemma3_27b", LOCAL_GLOBAL), ("zamba2_1p2b", {}),
+                                     ("xlstm_350m", {})])
 def test_prefill_plus_decode_equals_full_forward(arch, kw):
     """Inside the port: the last position's logits from a full forward equal
     those of prefill(s-1) + one decode step (f32, no photonic numerics)."""
@@ -163,8 +175,29 @@ def test_init_shapes_and_statistics():
     assert torch.equal(again["embed"], p["embed"])     # seeded
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x7b", "grok1_314b", "zamba2_1p2b", "xlstm_350m",
-                                  "seamless_m4t_medium"])
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_350m"])
+def test_recurrent_init_and_cache_trees_match_reference(arch):
+    """The port's parameter and cache trees have the reference's leaves,
+    shapes and dtypes, and the initial values the reference gives
+    (slstm 'm' at -10, mamba decay and skip parameters)."""
+    cfg, jcfg = C.get_reduced(arch), JC.get_reduced(arch)
+    p = M.init(cfg, seed=0, device="cpu")
+    jp, _ = JM.init(jcfg, jax.random.PRNGKey(0))
+    assert jax.tree.map(lambda t: tuple(t.shape), p) == jax.tree.map(lambda a: tuple(a.shape), jp)
+    for leaf in ("A_log", "D", "dt_bias"):
+        for sp, jsp in zip(p["stages"], jp["stages"]):
+            for name in (n for n in sp if n.startswith("mamba")):
+                np.testing.assert_array_equal(sp[name]["mamba"][leaf].numpy(),
+                                              np.asarray(jsp[name]["mamba"][leaf]))
+    cache = M.init_cache(cfg, 3, 16, device="cpu")
+    jcache, _ = JM.init_cache(jcfg, 3, 16)
+    dt = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    assert (jax.tree.map(lambda t: (tuple(t.shape), dt[t.dtype]), cache)
+            == jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jcache))
+    _assert_cache_close(cache, jcache)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "grok1_314b", "seamless_m4t_medium"])
 def test_unported_kinds_raise(arch):
     cfg = C.get_reduced(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -203,6 +236,7 @@ def test_port_imports_without_jax_or_the_reference_package():
         "import sys\n"
         "import repro_torch, repro_torch.env, repro_torch.configs\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.kernels.ssm_scan\n"
         "import repro_torch.models.model, repro_torch.models.convert\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"

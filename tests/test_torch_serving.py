@@ -30,8 +30,8 @@ MAX_NEWS = [6, 4, 5, 3]
 MAX_LEN = 64
 
 
-def _setup(seed=0):
-    jcfg, cfg = JC.get_reduced("yi_6b"), C.get_reduced("yi_6b")
+def _setup(seed=0, arch="yi_6b"):
+    jcfg, cfg = JC.get_reduced(arch), C.get_reduced(arch)
     jparams, _ = JM.init(jcfg, jax.random.PRNGKey(seed))
     params = params_from_reference(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
     rng = np.random.default_rng(1)
@@ -71,6 +71,26 @@ def test_continuous_batching_matches_the_reference_engine(bucket):
     for r, jr, mn in zip(reqs, jreqs, MAX_NEWS):
         assert len(r.out) == mn
         assert r.out == jr.out, (r.prompt, r.out, jr.out)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_350m"])
+def test_recurrent_families_match_the_reference_engine(arch):
+    """Exact-length prefill (the recurrent state integrates every input token)
+    and slot churn through mamba / shared-attention / mLSTM / sLSTM caches,
+    against the JAX engine and against independent per-request decode."""
+    jcfg, jparams, cfg, params, prompts = _setup(arch=arch)
+    jeng = JContinuousBatcher(jcfg, jparams, n_slots=2, max_len=MAX_LEN)
+    jreqs = [jeng.submit(p, mn) for p, mn in zip(prompts, MAX_NEWS)]
+    jeng.run()
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=MAX_LEN, device="cpu")
+    assert eng.bucket == 1
+    reqs = [eng.submit(p, mn) for p, mn in zip(prompts, MAX_NEWS)]
+    eng.run()
+    assert eng.stats["prefill_tokens"] == sum(n - 1 for n in LENGTHS)
+    for p, r, jr, mn in zip(prompts, reqs, jreqs, MAX_NEWS):
+        assert r.done and len(r.out) == mn
+        assert r.out == jr.out, (p, r.out, jr.out)
+        assert r.out == _independent_decode(cfg, params, p, mn, MAX_LEN), p
 
 
 def test_continuous_batching_matches_independent_decode():
@@ -149,6 +169,22 @@ def test_slot_update_writes_one_slot_in_place():
     assert bool((k[:, 1] == 2.0).all()) and not k[:, 0].any() and not k[:, 2].any()
 
 
+def test_slot_update_writes_fused_batch_heads_leaves():
+    """mLSTM's (C, n) put batch and heads on one axis: slot i owns rows
+    i*H .. (i+1)*H - 1 of it."""
+    cfg = C.get_reduced("xlstm_350m")
+    h = cfg.n_heads
+    pool = M.init_cache(cfg, 3, 8, device="cpu")
+    one = M.init_cache(cfg, 1, 8, device="cpu")
+    one[0]["mlstm_0"]["C"].fill_(2.0)
+    one[0]["slstm_3"]["m"].fill_(5.0)
+    _slot_update(pool, one, 2, 3)
+    c = pool[0]["mlstm_0"]["C"]
+    assert bool((c[:, 2 * h:] == 2.0).all()) and not c[:, :2 * h].any()
+    m = pool[0]["slstm_3"]["m"]
+    assert bool((m[:, 2] == 5.0).all()) and bool((m[:, :2] == -10.0).all())
+
+
 def test_fabric_hook_is_not_ported():
     _, _, cfg, params, _ = _setup()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -163,3 +199,14 @@ def test_launch_serve_main_runs_on_the_cpu_on_request(capsys):
     assert int(res["tokens"].min()) >= 0
     assert bool(torch.isfinite(res["logits"]).all())
     assert "prefill:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m"])
+def test_launch_serve_main_serves_the_recurrent_families_on_the_cpu(capsys, arch):
+    from repro_torch.launch import serve
+    res = serve.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "16",
+                      "--max-new", "4", "--device", "cpu", "--photonic", "--kernels"])
+    assert tuple(res["tokens"].shape) == (2, 4)
+    assert int(res["tokens"].min()) >= 0 and int(res["tokens"].max()) < 512
+    assert bool(torch.isfinite(res["logits"]).all())
+    assert "decode :" in capsys.readouterr().out
