@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # everything, as the acceptance check runs it
     python3 chip_smoke.py --only kernels   # stop after the kernel comparisons
+    python3 chip_smoke.py --only photonic_mac   # stop after photonic_mac's comparisons
     python3 chip_smoke.py --profile        # also: device time by kernel per model
 
 Needs one NVIDIA Hopper GPU, `nvcc` and PyTorch built for CUDA; it raises
@@ -58,7 +59,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import configs as C  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.photonic_mac import photonic_mac, quantize_weights  # noqa: E402
+from repro_torch.kernels.photonic_mac import (  # noqa: E402
+    dispatch, mac_plan, photonic_mac, quantize_weights)
 from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -166,6 +168,16 @@ def mac_bound_ms(m, k, n, dtype) -> dict:
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _same_rows(x, w_q, sc, rows: int, what: str) -> None:
+    """The first `rows` rows of x alone give bit for bit the rows they give
+    among all of x's rows."""
+    full = photonic_mac(x, w_q, sc)
+    part = photonic_mac(x[:rows].contiguous(), w_q, sc)
+    torch.cuda.synchronize()
+    if not torch.equal(part, full[:rows]):
+        raise AssertionError(f"photonic_mac: rows differ with and without rows below them ({what})")
+
+
 def check_photonic_mac(gen) -> dict:
     checks, timed = [], []
     # the reference's kernel-test shapes
@@ -176,7 +188,8 @@ def check_photonic_mac(gen) -> dict:
                 tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
                 checks.append(compare(photonic_mac(x, w_q, sc), ref.photonic_mac_ref(x, w_q, sc),
                                       tol, tol * 10, f"mac {m}x{k}x{n} {dtype} bits{bits}"))
-    # ragged shapes; (130, 136, 144) still meets the tensor-core kernel's alignment
+    # ragged shapes (bf16 ones with K or N off the bank grid take the FMA
+    # kernel), and ragged M on shapes whose K the tensor-core kernel splits
     for (m, k, n) in [(100, 128, 128), (128, 200, 300), (1, 128, 50257 % 512), (130, 129, 131),
                       (130, 136, 144)]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -184,7 +197,16 @@ def check_photonic_mac(gen) -> dict:
             tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
             checks.append(compare(photonic_mac(x, w_q, sc), ref.photonic_mac_ref(x, w_q, sc),
                                   tol, tol * 10, f"mac ragged {m}x{k}x{n} {dtype}"))
-    # rows must not depend on how many rows lie below them
+    for (m, k, n) in [(1, 4096, 512), (130, 4096, 512), (1, 11008, 4096), (130, 11008, 4096),
+                      (100, 1024, 1024)]:
+        x, w_q, sc = _mac_inputs(gen, m, k, n, torch.bfloat16, 8)
+        _, plan = dispatch(x, w_q)
+        checks.append({**compare(photonic_mac(x, w_q, sc), ref.photonic_mac_ref(x, w_q, sc),
+                                 2e-2, 2e-1, f"mac ragged {m}x{k}x{n} bf16"),
+                       "plan": plan.as_dict()})
+    # rows must not depend on how many rows lie below them: both kernels,
+    # and the tensor-core kernel on shapes it splits along K, where the row
+    # tile it picks changes with M and the K ranges must not
     for dtype in (torch.float32, torch.bfloat16):
         x, w_q, sc = _mac_inputs(gen, 128, 256, 256, dtype, 8)
         for tc in (True, False):
@@ -195,6 +217,14 @@ def check_photonic_mac(gen) -> dict:
                 raise AssertionError("photonic_mac: rows differ with and without padded rows "
                                      f"({dtype}, tensor_cores={tc})")
         checks.append({"what": f"mac bit-identity 100 of 128 rows {dtype}", "max_abs_err": 0.0})
+    for (k, n) in [(11008, 4096), (4096, 512)]:
+        for m_full in (128, 512):
+            x, w_q, sc = _mac_inputs(gen, m_full, k, n, torch.bfloat16, 8)
+            for rows in (16, 100):
+                _same_rows(x, w_q, sc, rows, f"{rows} of {m_full} rows, K={k} N={n}")
+            checks.append({"what": f"mac bit-identity 16 and 100 of {m_full} rows, K={k} N={n}, "
+                                   f"{mac_plan(m_full, k, n).splits} K ranges",
+                           "max_abs_err": 0.0})
     # the serving shapes, bf16 activations as on the path
     shapes = [("yi-6b", m, k, n) for m in (128, 512) for (k, n) in YI_KN]
     shapes.append(("yi-6b", 128 * 128, 4096, 11008))   # the batch-128 prefill's widest linear
@@ -209,12 +239,15 @@ def check_photonic_mac(gen) -> dict:
                               f"mac {model} {m}x{k}x{n} bf16, f32 FMA kernel"))
         del want
         w_bf16 = ref.dequantize_ref(w_q, sc).to(torch.bfloat16)
+        kernel, plan = dispatch(x, w_q)
         row = {"model": model, "shape": [m, k, n], "dtype": "bfloat16",
+               "kernel": kernel, "plan": plan.as_dict() if plan else None,
                "ms": time_ms(lambda: photonic_mac(x, w_q, sc)),
                "fma_kernel_ms": time_ms(lambda: photonic_mac(x, w_q, sc, tensor_cores=False)),
                "plain_ms": time_ms(lambda: ref.photonic_mac_ref(x, w_q, sc)),
                "library_ms": time_ms(lambda: torch.matmul(x, w_bf16)),
                **mac_bound_ms(m, k, n, torch.bfloat16)}
+        row["tflops"] = 2.0 * m * k * n / row["ms"] / 1e9
         timed.append(row)
         del w_bf16
     return {"checks": checks, "timed": timed}
@@ -405,23 +438,29 @@ def quantize_cost_ms(gen) -> dict:
     return {"per_matrix_ms": per, "per_decode_step_ms": 32 * layer + per["4096x64000"]}
 
 
-def phase_kernels() -> dict:
+def phase_kernels(only_mac: bool = False) -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
     before = counters()
     mac = check_photonic_mac(gen)
+    mac_out = {"n_checks": len(mac["checks"]),
+               "max_abs_err": max(c["max_abs_err"] for c in mac["checks"]),
+               "max_rel_err": max(c.get("max_rel_err", 0.0) for c in mac["checks"]),
+               "tolerance": "f32 rtol 1e-4 atol 1e-3; bf16 rtol 2e-2 atol 2e-1; "
+                            "padded rows bit-identical",
+               "timed": mac["timed"]}
+    if only_mac:
+        if photonic_mac.launches == before["photonic_mac"]:
+            raise AssertionError("the photonic_mac comparisons launched no kernel")
+        emit({"phase": "kernels", "photonic_mac": mac_out})
+        return {"photonic_mac": mac_out, "checks": mac["checks"]}
     attn = check_flash_attention(gen)
     ssm = check_ssm_scan(gen)
     quant = quantize_cost_ms(gen)
     if any(n == before[name] for name, n in counters().items()):
         raise AssertionError(f"a kernel comparison launched no kernel: {before} -> {counters()}")
     out = {"phase": "kernels",
-           "photonic_mac": {"n_checks": len(mac["checks"]),
-                            "max_abs_err": max(c["max_abs_err"] for c in mac["checks"]),
-                            "max_rel_err": max(c.get("max_rel_err", 0.0) for c in mac["checks"]),
-                            "tolerance": "f32 rtol 1e-4 atol 1e-3; bf16 rtol 2e-2 atol 2e-1; "
-                                         "padded rows bit-identical",
-                            "timed": mac["timed"]},
+           "photonic_mac": mac_out,
            "flash_attention": {"n_checks": len(attn["checks"]),
                                "max_abs_err": max(c["max_abs_err"] for c in attn["checks"]),
                                "max_rel_err": max(c["max_rel_err"] for c in attn["checks"]),
@@ -796,15 +835,15 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels"], default=None,
+    ap.add_argument("--only", choices=["kernels", "photonic_mac"], default=None,
                     help="stop after this phase (for work on a kernel); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for decode and prefill, per model")
     args = ap.parse_args()
     t_start = time.perf_counter()
     dev = phase_device()
-    kern = phase_kernels()
-    if args.only == "kernels":
+    kern = phase_kernels(only_mac=args.only == "photonic_mac")
+    if args.only is not None:
         for c in kern["checks"]:
             emit(c)
         print(dev["nvidia_smi"], flush=True)

@@ -40,3 +40,39 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&h);
 }
+
+// ---- asynchronous copies (cp.async) -----------------------------------------
+
+// 16 bytes from device to shared memory, bypassing L1; `src_bytes` = 0 writes
+// 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, int src_bytes) {
+    const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(addr), "l"(gmem), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four int8 levels r = [e0, o0, e1, o1] (low byte first) as two bf16x2
+// registers, even = (e0, e1) and odd = (o0, o1), `0` halves low.  Exact: each
+// level is biased to 0..255 and set into the mantissa of 2^23, the bias
+// 2^23 + 128 is subtracted in f32 (exact), and the f32's upper half is kept,
+// which is the value itself in bf16 (|level| <= 128 has at most 8 significant
+// bits).
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t r, uint32_t& even, uint32_t& odd) {
+    const uint32_t u = r ^ 0x80808080u;
+    const float e0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+    const float o0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+    const float e1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
+    const float o1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
+    even = __byte_perm(__float_as_uint(e0), __float_as_uint(e1), 0x7632);
+    odd = __byte_perm(__float_as_uint(o0), __float_as_uint(o1), 0x7632);
+}

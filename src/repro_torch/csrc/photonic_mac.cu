@@ -2,44 +2,55 @@
 //
 // Replaces the TPU kernel `photonic_mac` (body `_mac_kernel`) of
 // src/repro/kernels/photonic_mac.py.  There the grid's third axis walks K in
-// order and carries an f32 accumulator in VMEM; here one thread block owns a
-// 64x64 output tile and loops over K itself, 32 deep per step.  The scale of
-// a 128x128 weight bank changes with every K bank, so it cannot be hoisted
-// out of the loop.  Two kernels share that shape:
+// order and carries an f32 accumulator in VMEM; here a thread block loops
+// over K itself.  The scale of a 128x128 weight bank changes with every K
+// bank, so it cannot be hoisted out of the loop.  Two kernels:
 //
-//  * `mac_kernel` (f32 activations, and bf16 activations whose shape or
-//    alignment the tensor-core kernel does not take): every step dequantises
-//    its int8 tile into shared memory, exactly `w_q.astype(f32) * scale` as
-//    the reference does, and accumulates with f32 FMAs in registers.  The
-//    reference multiplies in true f32, which the tensor cores cannot (TF32
-//    keeps 10 mantissa bits).
-//  * `mac_kernel_tc` (bf16 activations): int8 levels are exact in bf16, so
-//    the tile is converted, not dequantised, and `mma.sync` m16n8k16 forms
-//    the exact products x*level and sums them in f32 into a per-bank partial
-//    sum; at the end of each 128-deep bank the partial sum is folded in as
-//    acc = fma(scale, partial, acc).  That is the reference's sum with
-//    other rounding (one multiply by the scale per bank instead of per
-//    weight).  Global loads of step t+1 are issued before the products of
-//    step t and land in the other of two shared-memory buffers.
+//  * `mac_kernel_sm90` (bf16 activations, K and N multiples of 128: every
+//    shape the serving path sends).  What bounds it on an H100: at M = 128
+//    the bytes (int8 weights read once, 1 byte a product column), from
+//    M = 512 on the bf16 operations.  What the design does about each:
+//      - bytes: a ring of 3-4 shared-memory stages, each one weight bank deep
+//        (128 K rows: 16 KB of int8 weights and BM x 128 of x), filled with
+//        16-byte cp.async copies two or three banks ahead of the tensor
+//        cores, one barrier a stage.  The weights stay int8 in shared memory
+//        and are read raw by `ldmatrix.trans` (a b16 pair is two neighbouring
+//        columns of one K row), then widened in registers with a byte-permute
+//        and bias trick that is exact for every level; the permutation puts
+//        even columns in one m16n8k16 product and odd ones in another, which
+//        the store undoes (each thread then owns 4 neighbouring columns).
+//      - too few blocks at M = 128 (N/128 column tiles): K is split into S
+//        bank-aligned ranges, S a function of K and N only, run by the S
+//        blocks of one thread-block cluster; their f32 tiles meet in
+//        distributed shared memory and are summed in rank order, so the
+//        partials never reach device memory.
+//      - operations: a 128 x 128 block tile over 8 warps of 64 x 32 (B read
+//        at 1 byte a level), so each shared-memory byte feeds twice the
+//        products of the former 64 x 64 tile.  `mma.sync`, not `wgmma`.
+//    Inside each bank the exact products x*level are summed in f32 into a
+//    partial sum, folded in at the bank's end as acc = fma(scale, part, acc),
+//    in bank order; the scale never meets a bf16 operand.
+//  * `mac_kernel` (f32 activations, bf16 activations of other shapes, and
+//    `tensor_cores=False`): every 32-deep step dequantises its int8 tile into
+//    shared memory, exactly `w_q.astype(f32) * scale` as the reference does,
+//    and accumulates with f32 FMAs in registers (64x64 tiles).  The reference
+//    multiplies in true f32, which the tensor cores cannot (TF32 keeps 10
+//    mantissa bits).  Held by the f32 pipe.
 //
-// What bounds it on an H100: at the serving shapes (M = 128..512 rows against
-// 4096..64000-wide weights) the card's least time is set by the bytes at
-// M = 128 (int8 weights read once) and by the operations from M = 512 on.
-// Neither kernel is near it yet: the FMA kernel is held by the f32 pipe, the
-// tensor-core kernel by its synchronous loads (no cp.async/TMA ring, no
-// wgmma) and by the int8->bf16 conversion on the way into shared memory.
-// The 64x64 tile keeps >= 128 blocks in flight for N = 4096 at M = 128.
-//
-// The K order of every output element is fixed by the kernel, not by M, so
-// rows are bit-identical with and without extra rows below them.  Ragged M,
-// K and N are masked here: out-of-range loads give 0, out-of-range stores
-// are dropped.
+// The K order of every output element is fixed by K and N alone (the tile
+// height and the number of row tiles may follow M, the split may not), so
+// rows are bit-identical with and without extra rows below them.  Ragged M
+// is masked in both kernels (out-of-range rows load 0, their stores are
+// dropped); `mac_kernel` masks ragged K and N too.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -188,143 +199,201 @@ mac_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
     }
 }
 
+// ---- bf16 activations, bank-aligned K and N: mac_kernel_sm90 ----------------
 
-// ---- bf16 activations on the tensor cores -----------------------------------
+constexpr int S_NT = 256;                 // 8 warps: 2 along M x 4 along N, each (TM/2) x 32
+constexpr int S_BN = BANK;                // one bank wide: one scale per block and bank
+constexpr int S_BK = BANK;                // one bank deep per ring stage
+constexpr int A_PITCH = S_BK * 2 + 16;    // bytes per x row of a stage (272: the 8 rows of an
+                                          // ldmatrix land on distinct banks)
+constexpr int B_PITCH = S_BN + 16;        // bytes per w_q row of a stage (144, likewise)
+constexpr int B_STAGE = S_BK * B_PITCH;
+constexpr int RED_PITCH = S_BN + 4;       // f32 per row of the tile a split block hands over
+constexpr int MAX_SPLITS = 16;            // non-portable cluster size limit of an H100
 
-constexpr int TNT = 128;          // 4 warps, 2 x 2, each a 32 x 32 warp tile
-constexpr int A_LD = BK + 8;      // bf16 row pitch 80 B: ldmatrix rows hit distinct banks
-constexpr int B_LD = BN + 8;      // bf16 row pitch 144 B
+template <int TM>
+struct SmCfg {
+    static constexpr int STAGES = TM == 32 ? 4 : 3;
+    static constexpr int A_STAGE = TM * A_PITCH;
+    static constexpr int STAGE = A_STAGE + B_STAGE;
+    static constexpr int SMEM = STAGES * STAGE;          // 159744 / 107520 / 108544 bytes
+    static constexpr int MIN_BLOCKS = TM == 128 ? 1 : 2; // blocks an SM must hold (registers)
+    static_assert(TM * RED_PITCH * 4 <= SMEM, "the hand-over tile reuses the ring");
+};
 
-// Needs K % 8 == 0, N % 16 == 0, x and w_q 16-byte aligned, out 8-byte aligned.
-__global__ void __launch_bounds__(TNT)
-mac_kernel_tc(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wq,
-              const float* __restrict__ scale, float* __restrict__ out,
-              int M, int K, int N, int scale_cols) {
-    __shared__ __align__(16) __nv_bfloat16 As[2][BM][A_LD];   // [m][k]
-    __shared__ __align__(16) __nv_bfloat16 Bs[2][BK][B_LD];   // [k][n], levels as bf16
+// grid (splits, row tiles, column tiles) when m_fast, else (splits, column
+// tiles, row tiles); cluster (splits, 1, 1), so a block's cluster rank is
+// blockIdx.x and the K range it sums.  Needs K % 128 == N % 128 == 0 and x,
+// w_q, out 16-byte aligned.
+template <int TM>
+__global__ void __launch_bounds__(S_NT, SmCfg<TM>::MIN_BLOCKS)
+mac_kernel_sm90(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wq,
+                const float* __restrict__ scale, float* __restrict__ out,
+                int M, int K, int N, int m_fast) {
+    using C = SmCfg<TM>;
+    constexpr int MI = TM / 32;           // m16 tiles per warp
+    extern __shared__ __align__(128) unsigned char smem[];
 
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-    const int wm = warp / 2, wn = warp % 2;
-    const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-    const int sj = n0 / BANK;
+    const int wm = warp / 4, wn = warp % 4;
+    const int g = lane / 4, t = lane % 4;
+    const int splits = gridDim.x, rank = blockIdx.x;
+    const int ti = m_fast ? blockIdx.y : blockIdx.z, tj = m_fast ? blockIdx.z : blockIdx.y;
+    const int m0 = ti * TM, n0 = tj * S_BN;
+    const int banks = K / BANK, scale_cols = N / BANK;
+    const int b_lo = rank * banks / splits;             // this block's banks: [b_lo, b_hi)
+    const int nb = (rank + 1) * banks / splits - b_lo;
 
-    float acc[2][4][4], part[2][4][4];
+    // copy bank b_lo + b into ring slot s: TM rows of x (rows past M read as
+    // zeros), 128 rows of w_q as they lie, int8
+    auto issue = [&](int b, int s) {
+        const int k0 = (b_lo + b) * BANK;
+        unsigned char* as = smem + s * C::STAGE;
+        unsigned char* bs = as + C::A_STAGE;
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+        for (int i = 0; i < TM * 16 / S_NT; ++i) {
+            const int idx = tid + i * S_NT, r = idx / 16, c = idx % 16;
+            const bool in = m0 + r < M;
+            cp_async_16(as + r * A_PITCH + c * 16, x + (size_t)(in ? m0 + r : 0) * K + k0 + c * 8,
+                        in ? 16 : 0);
+        }
+#pragma unroll
+        for (int i = 0; i < S_BK * 8 / S_NT; ++i) {
+            const int idx = tid + i * S_NT, r = idx / 8, c = idx % 8;
+            cp_async_16(bs + r * B_PITCH + c * 16, wq + (size_t)(k0 + r) * N + n0 + c * 16, 16);
+        }
+    };
+
+    float acc[MI][4][4], part[MI][4][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) { acc[mi][ni][e] = 0.f; part[mi][ni][e] = 0.f; }
-
-    // this thread's share of a tile: two 8-wide bf16 vectors of x, 16 levels of w_q
-    const int a_row[2] = {tid / 4, (tid + TNT) / 4};
-    const int a_kv = (tid % 4) * 8;
-    const int b_kr = tid / 4, b_nv = (tid % 4) * 16;
-    uint4 ra[2], rb;
-
-    auto gload = [&](int k0) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            ra[i] = make_uint4(0u, 0u, 0u, 0u);
-            if (m0 + a_row[i] < M && k0 + a_kv < K)
-                ra[i] = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + a_row[i]) * K + k0 + a_kv);
-        }
-        rb = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + b_kr < K && n0 + b_nv < N)
-            rb = *reinterpret_cast<const uint4*>(wq + (size_t)(k0 + b_kr) * N + n0 + b_nv);
-    };
-    auto sstore = [&](int buf) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-            *reinterpret_cast<uint4*>(&As[buf][a_row[i]][a_kv]) = ra[i];
-        const int8_t* c = reinterpret_cast<const int8_t*>(&rb);
-        __align__(16) __nv_bfloat16 h[16];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) h[j] = __float2bfloat16((float)c[j]);   // exact
-        *reinterpret_cast<uint4*>(&Bs[buf][b_kr][b_nv]) = *reinterpret_cast<const uint4*>(&h[0]);
-        *reinterpret_cast<uint4*>(&Bs[buf][b_kr][b_nv + 8]) = *reinterpret_cast<const uint4*>(&h[8]);
-    };
-
-    const int steps = (K + BK - 1) / BK;
-    gload(0);
-    sstore(0);
-    __syncthreads();
-
-    for (int t = 0; t < steps; ++t) {
-        const int buf = t & 1;
-        if (t + 1 < steps) gload((t + 1) * BK);
+            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            uint32_t a[2][4], b[4][2];
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-                ldmatrix_x4(a[mi], &As[buf][wm * 32 + mi * 16 + (lane % 16)][kk + (lane / 16) * 8]);
-#pragma unroll
-            for (int nj = 0; nj < 2; ++nj) {
-                uint32_t r[4];
-                ldmatrix_x4_trans(r, &Bs[buf][kk + (lane % 8) + 8 * ((lane / 8) % 2)]
-                                        [wn * 32 + nj * 16 + 8 * (lane / 16)]);
-                b[nj * 2][0] = r[0]; b[nj * 2][1] = r[1];
-                b[nj * 2 + 1][0] = r[2]; b[nj * 2 + 1][1] = r[3];
-            }
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni) mma_bf16(part[mi][ni], a[mi], b[ni][0], b[ni][1]);
-        }
-
-        // end of a 128-deep weight bank (or of K): fold the partial sum in
-        if (((t + 1) * BK) % BANK == 0 || t + 1 == steps) {
-            const float s = scale[(size_t)((t * BK) / BANK) * scale_cols + sj];
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        acc[mi][ni][e] = fmaf(s, part[mi][ni][e], acc[mi][ni][e]);
-                        part[mi][ni][e] = 0.f;
-                    }
-        }
-
-        if (t + 1 < steps) sstore(buf ^ 1);
-        __syncthreads();
+    for (int s = 0; s < C::STAGES - 1; ++s) {
+        if (s < nb) issue(s, s);
+        cp_async_commit();               // one group per bank, empty past the end
     }
 
+    for (int b = 0; b < nb; ++b) {
+        cp_async_wait<C::STAGES - 2>();  // bank b has landed for this thread ...
+        __syncthreads();                 // ... and for all; slot (b-1) % STAGES is free
+        if (b + C::STAGES - 1 < nb) issue(b + C::STAGES - 1, (b + C::STAGES - 1) % C::STAGES);
+        cp_async_commit();
+        const float s = __ldg(scale + (size_t)(b_lo + b) * scale_cols + tj);
+        const unsigned char* as = smem + (b % C::STAGES) * C::STAGE;
+        const unsigned char* bs = as + C::A_STAGE;
+
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+        for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-            const int col = n0 + wn * 32 + ni * 8 + 2 * (lane % 4);
-            if (col >= N) continue;
+            for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int row = m0 + wm * 32 + mi * 16 + lane / 4 + half * 8;
-                if (row < M)
-                    *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
-                        make_float2(acc[mi][ni][half * 2], acc[mi][ni][half * 2 + 1]);
+                for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
+
+#pragma unroll
+        for (int kk = 0; kk < S_BK; kk += 16) {
+            // The warp's 16 x 32 int8 slice as four 8x8 b16 matrices (a b16
+            // is two neighbouring columns): 0 and 1 are K rows 0-7 and 8-15
+            // of columns 0-15, 2 and 3 the same of columns 16-31.  Transposed,
+            // lane 4g+t holds levels (k 2t, 2t+1) x (columns 2g, 2g+1) of each:
+            // the B fragments of the even columns (product 0, 2) and of the
+            // odd ones (product 1, 3).
+            uint32_t bf[4][2];
+            {
+                uint32_t r[4];
+                const int j = lane / 8;
+                ldmatrix_x4_trans(r, bs + (kk + (j % 2) * 8 + lane % 8) * B_PITCH + wn * 32 + (j / 2) * 16);
+                i8x4_to_bf16x2(r[0], bf[0][0], bf[1][0]);
+                i8x4_to_bf16x2(r[1], bf[0][1], bf[1][1]);
+                i8x4_to_bf16x2(r[2], bf[2][0], bf[3][0]);
+                i8x4_to_bf16x2(r[3], bf[2][1], bf[3][1]);
+            }
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi) {
+                uint32_t a[4];
+                ldmatrix_x4(a, as + (wm * (TM / 2) + mi * 16 + lane % 16) * A_PITCH +
+                                   (kk + (lane / 16) * 8) * 2);
+#pragma unroll
+                for (int ni = 0; ni < 4; ++ni) mma_bf16(part[mi][ni], a, bf[ni][0], bf[ni][1]);
             }
         }
+
+        // end of the bank: fold its exact partial sum in
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[mi][ni][e] = fmaf(s, part[mi][ni][e], acc[mi][ni][e]);
+    }
+    cp_async_wait<0>();
+
+    // Thread (g, t) holds, for row g (+8) of each m16 tile, columns 4t..4t+3
+    // of each 16-column half p: (even c0, odd c0, even c1, odd c1).
+    if (splits == 1) {
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int row = m0 + wm * (TM / 2) + mi * 16 + g + h * 8;
+                if (row >= M) continue;
+#pragma unroll
+                for (int p = 0; p < 2; ++p)
+                    *reinterpret_cast<float4*>(out + (size_t)row * N + n0 + wn * 32 + p * 16 + 4 * t) =
+                        make_float4(acc[mi][2 * p][2 * h], acc[mi][2 * p + 1][2 * h],
+                                    acc[mi][2 * p][2 * h + 1], acc[mi][2 * p + 1][2 * h + 1]);
+            }
+        return;
+    }
+
+    // Split K: each block lays its tile in its own shared memory; block q
+    // then sums a 1/splits share of the tile over ranks 0, 1, ... in order
+    // and stores it.
+    __syncthreads();                     // every warp is done with the ring
+    float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+                *reinterpret_cast<float4*>(red + (wm * (TM / 2) + mi * 16 + g + h * 8) * RED_PITCH +
+                                           wn * 32 + p * 16 + 4 * t) =
+                    make_float4(acc[mi][2 * p][2 * h], acc[mi][2 * p + 1][2 * h],
+                                acc[mi][2 * p][2 * h + 1], acc[mi][2 * p + 1][2 * h + 1]);
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    constexpr int VECS = TM * S_BN / 4;
+    const int per = (VECS + splits - 1) / splits;
+    const int e_hi = min(VECS, (rank + 1) * per);
+    for (int e = rank * per + tid; e < e_hi; e += S_NT) {
+        const int row = e / (S_BN / 4), col = (e % (S_BN / 4)) * 4;
+        if (m0 + row >= M) continue;
+        const int off = row * RED_PITCH + col;
+        float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, 0) + off);
+        for (int q = 1; q < splits; ++q) {
+            const float4 w = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, q) + off);
+            v.x += w.x; v.y += w.y; v.z += w.z; v.w += w.w;
+        }
+        *reinterpret_cast<float4*>(out + (size_t)(m0 + row) * N + n0 + col) = v;
+    }
+    cluster.sync();                      // no block leaves while another reads its tile
 }
 
 inline bool aligned(const void* p, uintptr_t a) { return (reinterpret_cast<uintptr_t>(p) % a) == 0; }
 
 template <typename T>
-int launch(const void* x, const void* wq, const void* scale, void* out,
-           int M, int K, int N, bool tensor_cores, cudaStream_t stream) {
+int launch_fma(const void* x, const void* wq, const void* scale, void* out,
+               int M, int K, int N, cudaStream_t stream) {
     const int kvec = sizeof(T) == 2 ? 8 : 4;
     const bool vec = (K % kvec == 0) && (N % 4 == 0) && aligned(x, 16) && aligned(wq, 4) &&
                      aligned(out, 16);
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     const int scale_cols = (N + BANK - 1) / BANK;
-    if (sizeof(T) == 2 && tensor_cores && (K % 8 == 0) && (N % 16 == 0) && aligned(x, 16) && aligned(wq, 16) &&
-        aligned(out, 8)) {
-        mac_kernel_tc<<<grid, TNT, 0, stream>>>(
-            (const __nv_bfloat16*)x, (const int8_t*)wq, (const float*)scale, (float*)out,
-            M, K, N, scale_cols);
-        return (int)cudaGetLastError();
-    }
     if (vec)
         mac_kernel<T, true><<<grid, NT, 0, stream>>>(
             (const T*)x, (const int8_t*)wq, (const float*)scale, (float*)out, M, K, N, scale_cols);
@@ -334,16 +403,70 @@ int launch(const void* x, const void* wq, const void* scale, void* out,
     return (int)cudaGetLastError();
 }
 
+template <int TM>
+int launch_sm90(const void* x, const void* wq, const void* scale, void* out,
+                int M, int K, int N, int splits, int m_fast, cudaStream_t stream) {
+    using C = SmCfg<TM>;
+    static bool configured = false;      // the attributes, once per process
+    if (!configured) {
+        cudaError_t e = cudaFuncSetAttribute(mac_kernel_sm90<TM>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(mac_kernel_sm90<TM>,
+                                     cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return (int)e;
+        configured = true;
+    }
+    const int mt = (M + TM - 1) / TM, nt = N / S_BN;
+    if ((m_fast ? nt : mt) > 65535 || (m_fast ? mt : nt) > 65535)
+        return (int)cudaErrorInvalidConfiguration;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = m_fast ? dim3(splits, mt, nt) : dim3(splits, nt, mt);
+    cfg.blockDim = dim3(S_NT);
+    cfg.dynamicSmemBytes = C::SMEM;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = splits;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, mac_kernel_sm90<TM>,
+                                             (const __nv_bfloat16*)x, (const int8_t*)wq,
+                                             (const float*)scale, (float*)out, M, K, N, m_fast);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x_bf16: 1 when x holds bf16, 0 when f32.  tensor_cores: 0 keeps bf16 activations on
-// the f32 FMA kernel too.  Returns cudaGetLastError().
+// The f32 FMA kernel.  x_bf16: 1 when x holds bf16, 0 when f32.  Returns
+// cudaGetLastError().
 extern "C" int photonic_mac_launch(const void* x, const void* wq, const void* scale, void* out,
-                                   int M, int K, int N, int x_bf16, int tensor_cores,
-                                   void* stream) {
+                                   int M, int K, int N, int x_bf16, void* stream) {
     if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
     if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidConfiguration;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    return x_bf16 ? launch<__nv_bfloat16>(x, wq, scale, out, M, K, N, tensor_cores != 0, s)
-                  : launch<float>(x, wq, scale, out, M, K, N, false, s);
+    return x_bf16 ? launch_fma<__nv_bfloat16>(x, wq, scale, out, M, K, N, s)
+                  : launch_fma<float>(x, wq, scale, out, M, K, N, s);
+}
+
+// The bf16 tensor-core kernel, on the plan `mac_plan` of
+// kernels/photonic_mac.py gives: row tile bm (128, 64 or 32), `splits` K
+// ranges (1..16, at most K/128), row tiles fastest in the grid when m_fast.
+// Refuses what it cannot take with cudaErrorInvalidValue.
+extern "C" int photonic_mac_sm90_launch(const void* x, const void* wq, const void* scale,
+                                        void* out, int M, int K, int N, int bm, int splits,
+                                        int m_fast, void* stream) {
+    if (M <= 0 || K <= 0 || N <= 0 || K % BANK || N % BANK || splits < 1 ||
+        splits > MAX_SPLITS || splits > K / BANK || !aligned(x, 16) || !aligned(wq, 16) ||
+        !aligned(out, 16))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+    switch (bm) {
+        case 128: return launch_sm90<128>(x, wq, scale, out, M, K, N, splits, m_fast, s);
+        case 64: return launch_sm90<64>(x, wq, scale, out, M, K, N, splits, m_fast, s);
+        case 32: return launch_sm90<32>(x, wq, scale, out, M, K, N, splits, m_fast, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

@@ -10,20 +10,26 @@ bf16/f32 and the sum is f32 (the photodetector's analog accumulation).
   w_scale  (ceil(K/128), ceil(N/128)) f32 per-tile scales
   out      (M, N)   f32
 
-`photonic_mac` launches the CUDA kernel of `csrc/photonic_mac.cu` for a CUDA
+`photonic_mac` launches a CUDA kernel of `csrc/photonic_mac.cu` for a CUDA
 tensor and takes the plain version (`ref.photonic_mac_ref`) only for a CPU
-tensor.  `photonic_mac.launches` counts kernel launches.
+tensor.  `photonic_mac.launches` counts kernel launches.  Which kernel, and
+on what plan, is `dispatch`'s answer: bf16 activations with K and N
+multiples of 128 go to the tensor-core kernel `mac_kernel_sm90` on the tiles
+and K split `mac_plan` gives; everything else to the f32 FMA kernel
+`mac_kernel`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-BANK = 128   # weight-bank tile edge; the CUDA kernel is written for this value
+BANK = 128   # weight-bank tile edge; the CUDA kernels are written for this value
+SMS = 132    # streaming multiprocessors of an H100 SXM
 
 
 def quantize_weights(w: torch.Tensor, bits: int = 8, bk: int = BANK, bn: int = BANK):
@@ -47,22 +53,96 @@ def quantize_weights(w: torch.Tensor, bits: int = 8, bk: int = BANK, bn: int = B
     return w_q.reshape(kp, np_)[:k, :n].contiguous(), scale.to(torch.float32)
 
 
-def _entry():
-    fn = _build.library().photonic_mac_launch
+@dataclass(frozen=True)
+class MacPlan:
+    """Launch plan of `mac_kernel_sm90` for one (M, K, N): a grid of
+    `splits` x `m_tiles` x `n_tiles` blocks of `bm` x 128 outputs; the
+    `splits` blocks of one output tile form a thread-block cluster and sum
+    the K ranges `k_ranges` in that order.  `m_fast` puts row tiles fastest
+    in the grid (so blocks that share a weight tile run together)."""
+    bm: int
+    splits: int
+    m_tiles: int
+    n_tiles: int
+    m_fast: bool
+
+    @property
+    def blocks(self) -> int:
+        return self.splits * self.m_tiles * self.n_tiles
+
+    @property
+    def stages(self) -> int:       # ring depth, as `SmCfg` in the source sets it
+        return 4 if self.bm == 32 else 3
+
+    def k_ranges(self, k: int) -> list:
+        """[(k_lo, k_hi)] of each split, bank-aligned, in summation order."""
+        banks = k // BANK
+        return [(q * banks // self.splits * BANK, (q + 1) * banks // self.splits * BANK)
+                for q in range(self.splits)]
+
+    def as_dict(self) -> dict:
+        return {"bm": self.bm, "bn": BANK, "bk": BANK, "stages": self.stages,
+                "splits": self.splits, "cluster": [self.splits, 1, 1], "m_tiles": self.m_tiles,
+                "n_tiles": self.n_tiles, "blocks": self.blocks, "m_fast": self.m_fast}
+
+
+def mac_splits(k: int, n: int) -> int:
+    """How many bank-aligned K ranges `mac_kernel_sm90` splits a (K, N)
+    weight into: a function of K and N alone, so that the order in which any
+    output's terms are summed never depends on M.
+
+    The largest power of two that keeps the column tiles times the ranges
+    within 128 (a split costs its blocks a ring fill and a cluster reduction,
+    so it only pays while the column tiles alone leave SMs idle), at most one
+    range per bank and at most 16 (the cluster size limit)."""
+    banks, n_tiles = k // BANK, n // BANK
+    splits = 1
+    while splits * 2 * n_tiles <= 128 and splits * 2 <= min(banks, 16):
+        splits *= 2
+    return splits
+
+
+def mac_plan(m: int, k: int, n: int) -> MacPlan:
+    """The plan for an (m,k) by (k,n) product with K, N multiples of 128:
+    the split from `mac_splits`, then the tallest row tile (128, 64, 32, no
+    taller than m needs) that still gives at least one block per SM."""
+    if k % BANK or n % BANK or m <= 0:
+        raise ValueError(f"mac_plan: ({m},{k},{n}) is not a bank-aligned product")
+    splits, n_tiles = mac_splits(k, n), n // BANK
+    fits = [bm for bm in (128, 64, 32) if bm <= max(32, m)]
+    bm = next((b for b in fits if -(-m // b) * n_tiles * splits >= SMS), fits[-1])
+    m_tiles = -(-m // bm)
+    return MacPlan(bm=bm, splits=splits, m_tiles=m_tiles, n_tiles=n_tiles, m_fast=m_tiles <= 8)
+
+
+def dispatch(x: torch.Tensor, w_q: torch.Tensor, tensor_cores: bool = True):
+    """("mac_kernel_sm90", plan) when the tensor-core kernel takes this
+    product (bf16 x, K and N multiples of 128, x and w_q 16-byte aligned,
+    `tensor_cores`), else ("mac_kernel", None), the f32 FMA kernel."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    if (tensor_cores and x.dtype == torch.bfloat16 and k % BANK == 0 and n % BANK == 0
+            and x.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0):
+        return "mac_kernel_sm90", mac_plan(m, k, n)
+    return "mac_kernel", None
+
+
+def _entry(name: str, n_int: int):
+    fn = getattr(_build.library(), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def photonic_mac(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
                  tensor_cores: bool = True) -> torch.Tensor:
-    """Quantized-weight matmul; shapes need not be tile-aligned (the kernel
-    masks ragged edges).  Rows are bit-identical whatever M is.
+    """Quantized-weight matmul; shapes need not be tile-aligned (the FMA
+    kernel masks ragged edges).  Rows are bit-identical whatever M is.
 
-    bf16 activations go to the tensor-core kernel when K % 8 == 0 and
-    N % 16 == 0, else to the f32 FMA kernel, which f32 activations always
-    take; `tensor_cores=False` keeps bf16 on the FMA kernel as well."""
+    bf16 activations go to the tensor-core kernel when K and N are multiples
+    of 128, else to the f32 FMA kernel, which f32 activations always take;
+    `tensor_cores=False` keeps bf16 on the FMA kernel as well (`dispatch`)."""
     if x.ndim != 2 or w_q.ndim != 2 or x.shape[1] != w_q.shape[0]:
         raise ValueError(f"photonic_mac: bad shapes x{tuple(x.shape)} w_q{tuple(w_q.shape)}")
     m, k = x.shape
@@ -83,11 +163,18 @@ def photonic_mac(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
     if not (x.is_contiguous() and w_q.is_contiguous() and w_scale.is_contiguous()):
         raise ValueError("photonic_mac: x, w_q and w_scale must be contiguous")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    kernel, plan = dispatch(x, w_q, tensor_cores)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _entry()(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-                       m, k, n, int(x.dtype == torch.bfloat16), int(tensor_cores),
-                       torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, "photonic_mac")
+        if plan is not None:
+            err = _entry("photonic_mac_sm90_launch", 6)(
+                x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+                m, k, n, plan.bm, plan.splits, int(plan.m_fast), stream)
+        else:
+            err = _entry("photonic_mac_launch", 4)(
+                x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+                m, k, n, int(x.dtype == torch.bfloat16), stream)
+    _build.check_launch(err, f"photonic_mac ({kernel})")
     photonic_mac.launches += 1
     return out
 

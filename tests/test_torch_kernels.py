@@ -30,7 +30,7 @@ from repro.kernels.ssm_scan import ssm_scan as j_ssm_scan
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.photonic_mac import photonic_mac, quantize_weights
+from repro_torch.kernels.photonic_mac import dispatch, mac_plan, photonic_mac, quantize_weights
 from repro_torch.kernels.ssm_scan import ssm_scan
 
 
@@ -409,3 +409,137 @@ def test_ops_ssm_forward_and_gradients(l, use_kernel):
     np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), rtol=2e-4, atol=2e-4)
     for t, gj in zip(ts, grads_j):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj), rtol=5e-4, atol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# photonic MAC: the tensor-core kernel's plan, dispatch and int8 fragments
+# ---------------------------------------------------------------------------
+
+# (K, N) of every linear that reaches the kernel on the serving paths:
+# yi-6b (wq/wo, wk/wv, wg/wi, mlp wo, lm_head), zamba2 (out_proj, shared
+# attention, head), xlstm (wqkv, wo, sLSTM wx, tied head)
+MAIN_PATH_KN = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000),
+                (4096, 2048), (2048, 2048), (2048, 32000),
+                (1024, 3072), (1024, 1024), (1024, 4096), (1024, 50304)]
+
+
+@pytest.mark.parametrize("k,n", MAIN_PATH_KN)
+def test_mac_plan_k_ranges_do_not_depend_on_m(k, n):
+    """The split of K, and so every output's order of summation, is the same
+    at every M; the ranges are whole banks, in order, and cover K."""
+    plans = [mac_plan(m, k, n) for m in (1, 128, 512, 16384)]
+    ranges = plans[0].k_ranges(k)
+    for p in plans:
+        assert p.splits == plans[0].splits and p.k_ranges(k) == ranges
+        assert p.m_tiles * p.bm >= 1 and p.n_tiles == n // 128
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (lo, hi), (lo2, _) in zip(ranges, ranges[1:] + [(k, k)]):
+        assert lo % 128 == 0 and hi % 128 == 0 and lo < hi == lo2
+    assert 1 <= len(ranges) <= 16
+
+
+@pytest.mark.parametrize("k,n", MAIN_PATH_KN)
+def test_mac_plan_fills_the_card_at_128_rows(k, n):
+    """At 128 rows (a batch-128 decode step) every main-path product puts at
+    least one block on each of the H100's 132 SMs."""
+    p = mac_plan(128, k, n)
+    assert p.blocks >= 132
+    assert p.bm in (32, 64, 128) and p.m_tiles == -(-128 // p.bm)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 200, 256), (128, 256, 300), (0, 128, 128)])
+def test_mac_plan_rejects_what_the_kernel_cannot_take(m, k, n):
+    with pytest.raises(ValueError):
+        mac_plan(m, k, n)
+
+
+def test_dispatch_routes_only_bank_aligned_bf16_to_the_tensor_core_kernel():
+    bf, f32 = torch.bfloat16, torch.float32
+    wq = torch.zeros(256, 384, dtype=torch.int8)
+    assert dispatch(torch.zeros(5, 256, dtype=bf), wq)[0] == "mac_kernel_sm90"
+    assert dispatch(torch.zeros(5, 256, dtype=bf), wq)[1] == mac_plan(5, 256, 384)
+    assert dispatch(torch.zeros(5, 256, dtype=f32), wq) == ("mac_kernel", None)
+    assert dispatch(torch.zeros(5, 256, dtype=bf), wq, tensor_cores=False) == ("mac_kernel", None)
+    assert dispatch(torch.zeros(5, 136, dtype=bf), torch.zeros(136, 384, dtype=torch.int8)) == (
+        "mac_kernel", None)
+    assert dispatch(torch.zeros(5, 256, dtype=bf), torch.zeros(256, 144, dtype=torch.int8)) == (
+        "mac_kernel", None)
+    shifted = torch.zeros(5 * 256 + 8, dtype=bf)[8:].view(5, 256)    # 16 bytes in: aligned
+    assert dispatch(shifted, wq)[0] == "mac_kernel_sm90"
+    shifted = torch.zeros(5 * 256 + 1, dtype=bf)[1:].view(5, 256)    # 2 bytes in: not
+    assert dispatch(shifted, wq) == ("mac_kernel", None)
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm (selector nibbles 0-7 pick bytes of y:x)."""
+    src = (int(y) << 32) | int(x)
+    return sum(((src >> (8 * ((sel >> (4 * i)) & 7))) & 0xFF) << (8 * i) for i in range(4))
+
+
+def _i8x4_to_bf16x2(r):
+    """`i8x4_to_bf16x2` of csrc/mma.cuh, step by step in f32: returns the
+    (even, odd) bf16x2 bit patterns."""
+    u = r ^ 0x80808080
+    f = [np.array([_byte_perm(u, 0x4B000000, sel)], np.uint32).view(np.float32)[0]
+         - np.float32(8388736.0) for sel in (0x7650, 0x7651, 0x7652, 0x7653)]
+    bits = [int(np.array([v], np.float32).view(np.uint32)[0]) for v in f]   # e0, o0, e1, o1
+    return _byte_perm(bits[0], bits[2], 0x7632), _byte_perm(bits[1], bits[3], 0x7632)
+
+
+def _bf16_pair(reg):
+    """The two bf16 halves of a register as floats, low half first."""
+    return [float(np.array([((reg >> s) & 0xFFFF) << 16], np.uint32).view(np.float32)[0])
+            for s in (0, 16)]
+
+
+def test_int8_levels_widen_to_bf16_exactly():
+    """Every int8 level (and -128) comes out of the byte-permute and bias
+    conversion as itself, in the halves the kernel expects."""
+    levels = np.arange(-128, 128, dtype=np.int8)
+    for quad in levels.reshape(-1, 4):
+        r = int(quad.view(np.uint32)[0])
+        even, odd = _i8x4_to_bf16x2(r)
+        assert _bf16_pair(even) == [float(quad[0]), float(quad[2])]
+        assert _bf16_pair(odd) == [float(quad[1]), float(quad[3])]
+
+
+def test_int8_fragments_reassemble_the_product():
+    """The tensor-core kernel's path for one warp and one 16-deep step, in
+    numpy: `ldmatrix.trans` of the raw int8 [k][n] slice read as b16 pairs,
+    the widening, four m16n8k16 products (even and odd columns of each
+    16-column half), and the float4 store.  The columns the store writes
+    must be x @ w's."""
+    r = _rng(21)
+    x = r.standard_normal((16, 16)).astype(np.float32)
+    w = r.integers(-127, 128, size=(16, 32)).astype(np.int8)        # [k][n]
+    b16 = np.ascontiguousarray(w).view(np.uint16)                     # [16][16] column pairs
+    out = np.zeros((16, 32))
+    lanes = [(lane // 4, lane % 4) for lane in range(32)]
+    # ldmatrix.x4.trans: matrix j covers k 8*(j%2).., b16 columns 8*(j//2)..
+    regs = {(g, t): [int(b16[8 * (j % 2) + 2 * t, 8 * (j // 2) + g])
+                     | int(b16[8 * (j % 2) + 2 * t + 1, 8 * (j // 2) + g]) << 16
+                     for j in range(4)] for g, t in lanes}
+    frags = {}
+    for lt, rr in regs.items():
+        e0, o0 = _i8x4_to_bf16x2(rr[0])
+        e1, o1 = _i8x4_to_bf16x2(rr[1])
+        e2, o2 = _i8x4_to_bf16x2(rr[2])
+        e3, o3 = _i8x4_to_bf16x2(rr[3])
+        frags[lt] = [(e0, e1), (o0, o1), (e2, e3), (o2, o3)]        # products 0..3: (b0, b1)
+    c = {}
+    for ni in range(4):
+        bmat = np.zeros((16, 8))
+        for (g, t), fr in frags.items():
+            b0, b1 = fr[ni]
+            bmat[2 * t:2 * t + 2, g] = _bf16_pair(b0)
+            bmat[2 * t + 8:2 * t + 10, g] = _bf16_pair(b1)
+        prod = x.astype(np.float64) @ bmat
+        c[ni] = {(g, t): (prod[g, 2 * t], prod[g, 2 * t + 1], prod[g + 8, 2 * t], prod[g + 8, 2 * t + 1])
+                 for g, t in lanes}
+    for g, t in lanes:
+        for h in range(2):
+            for p in range(2):
+                ev, od = c[2 * p][(g, t)], c[2 * p + 1][(g, t)]
+                out[g + 8 * h, p * 16 + 4 * t:p * 16 + 4 * t + 4] = (
+                    ev[2 * h], od[2 * h], ev[2 * h + 1], od[2 * h + 1])
+    np.testing.assert_allclose(out, x.astype(np.float64) @ w.astype(np.float64), rtol=1e-12, atol=1e-9)
