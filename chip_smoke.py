@@ -168,11 +168,11 @@ def mac_bound_ms(m, k, n, dtype) -> dict:
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _same_rows(x, w_q, sc, rows: int, what: str) -> None:
+def _same_rows(x, w_q, sc, rows: int, what: str, tensor_cores: bool = True) -> None:
     """The first `rows` rows of x alone give bit for bit the rows they give
     among all of x's rows."""
-    full = photonic_mac(x, w_q, sc)
-    part = photonic_mac(x[:rows].contiguous(), w_q, sc)
+    full = photonic_mac(x, w_q, sc, tensor_cores=tensor_cores)
+    part = photonic_mac(x[:rows].contiguous(), w_q, sc, tensor_cores=tensor_cores)
     torch.cuda.synchronize()
     if not torch.equal(part, full[:rows]):
         raise AssertionError(f"photonic_mac: rows differ with and without rows below them ({what})")
@@ -210,12 +210,7 @@ def check_photonic_mac(gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         x, w_q, sc = _mac_inputs(gen, 128, 256, 256, dtype, 8)
         for tc in (True, False):
-            full = photonic_mac(x, w_q, sc, tensor_cores=tc)
-            part = photonic_mac(x[:100].contiguous(), w_q, sc, tensor_cores=tc)
-            torch.cuda.synchronize()
-            if not torch.equal(part, full[:100]):
-                raise AssertionError("photonic_mac: rows differ with and without padded rows "
-                                     f"({dtype}, tensor_cores={tc})")
+            _same_rows(x, w_q, sc, 100, f"{dtype}, tensor_cores={tc}", tensor_cores=tc)
         checks.append({"what": f"mac bit-identity 100 of 128 rows {dtype}", "max_abs_err": 0.0})
     for (k, n) in [(11008, 4096), (4096, 512)]:
         for m_full in (128, 512):

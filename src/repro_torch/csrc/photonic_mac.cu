@@ -11,25 +11,26 @@
 //    the bytes (int8 weights read once, 1 byte a product column), from
 //    M = 512 on the bf16 operations.  What the design does about each:
 //      - bytes: a ring of 3-4 shared-memory stages, each one weight bank deep
-//        (128 K rows: 16 KB of int8 weights and BM x 128 of x), filled with
-//        16-byte cp.async copies two or three banks ahead of the tensor
-//        cores, one barrier a stage.  The weights stay int8 in shared memory
-//        and are read raw by `ldmatrix.trans` (a b16 pair is two neighbouring
-//        columns of one K row), then widened in registers with a byte-permute
-//        and bias trick that is exact for every level; the permutation puts
-//        even columns in one m16n8k16 product and odd ones in another, which
-//        the store undoes (each thread then owns 4 neighbouring columns).
+//        (128 K rows: 16 KB of int8 weights and TM x 128 of x), filled with
+//        16-byte cp.async copies two or three banks ahead, one barrier a
+//        stage.  The weights stay int8 in shared memory and are read raw by
+//        `ldmatrix.trans` (a b16 pair is two neighbouring columns of one K
+//        row), then widened in registers with a byte-permute and bias trick
+//        that is exact for every level.
 //      - too few blocks at M = 128 (N/128 column tiles): K is split into S
 //        bank-aligned ranges, S a function of K and N only, run by the S
 //        blocks of one thread-block cluster; their f32 tiles meet in
 //        distributed shared memory and are summed in rank order, so the
 //        partials never reach device memory.
-//      - operations: a 128 x 128 block tile over 8 warps of 64 x 32 (B read
-//        at 1 byte a level), so each shared-memory byte feeds twice the
-//        products of the former 64 x 64 tile.  `mma.sync`, not `wgmma`.
+//      - operations: the warpgroup product, `wgmma`, run transposed
+//        (out^T = w_q^T x^T) so that the widened weights are its register
+//        operand A and x, in the 128-byte swizzle cp.async writes it in, is
+//        its shared-memory operand B; a block is 128 weight columns (two
+//        warpgroups of 64) by TM = 128, 64 or 32 rows of x.
 //    Inside each bank the exact products x*level are summed in f32 into a
-//    partial sum, folded in at the bank's end as acc = fma(scale, part, acc),
-//    in bank order; the scale never meets a bf16 operand.
+//    partial sum (`wgmma` with scale-d = 0 starts it), folded in at the
+//    bank's end as acc = fma(scale, part, acc), in bank order; the scale
+//    never meets a bf16 operand.
 //  * `mac_kernel` (f32 activations, bf16 activations of other shapes, and
 //    `tensor_cores=False`): every 32-deep step dequantises its int8 tile into
 //    shared memory, exactly `w_q.astype(f32) * scale` as the reference does,
@@ -201,12 +202,11 @@ mac_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
 
 // ---- bf16 activations, bank-aligned K and N: mac_kernel_sm90 ----------------
 
-constexpr int S_NT = 256;                 // 8 warps: 2 along M x 4 along N, each (TM/2) x 32
+constexpr int S_NT = 256;                 // two warpgroups, each 64 weight columns x TM rows
 constexpr int S_BN = BANK;                // one bank wide: one scale per block and bank
 constexpr int S_BK = BANK;                // one bank deep per ring stage
-constexpr int A_PITCH = S_BK * 2 + 16;    // bytes per x row of a stage (272: the 8 rows of an
+constexpr int B_PITCH = S_BN + 16;        // bytes per w_q row of a stage (144: the 8 rows of an
                                           // ldmatrix land on distinct banks)
-constexpr int B_PITCH = S_BN + 16;        // bytes per w_q row of a stage (144, likewise)
 constexpr int B_STAGE = S_BK * B_PITCH;
 constexpr int RED_PITCH = S_BN + 4;       // f32 per row of the tile a split block hands over
 constexpr int MAX_SPLITS = 16;            // non-portable cluster size limit of an H100
@@ -214,13 +214,21 @@ constexpr int MAX_SPLITS = 16;            // non-portable cluster size limit of 
 template <int TM>
 struct SmCfg {
     static constexpr int STAGES = TM == 32 ? 4 : 3;
-    static constexpr int A_STAGE = TM * A_PITCH;
-    static constexpr int STAGE = A_STAGE + B_STAGE;
-    static constexpr int SMEM = STAGES * STAGE;          // 159744 / 107520 / 108544 bytes
-    static constexpr int MIN_BLOCKS = TM == 128 ? 1 : 2; // blocks an SM must hold (registers)
-    static_assert(TM * RED_PITCH * 4 <= SMEM, "the hand-over tile reuses the ring");
+    static constexpr int X_STAGE = TM * 256;              // x: two 64-deep halves, 128B-swizzled
+    static constexpr int STAGE = X_STAGE + B_STAGE;       // 51200 / 34816 / 26624 bytes
+    static constexpr int SMEM = STAGES * STAGE + 1024;    // + room to align the ring to 1024
+    static constexpr int MIN_BLOCKS = TM == 128 ? 1 : 2;  // blocks an SM must hold (registers)
+    static_assert(STAGE % 1024 == 0, "the swizzle atoms of every stage stay 1024-aligned");
+    static_assert(TM * RED_PITCH * 4 <= STAGES * STAGE, "the hand-over tile reuses the ring");
 };
 
+// The product runs transposed, out^T = w_q^T x^T, as wgmma m64nTMk16: A is
+// 64 weight columns of the bank (from registers: int8 levels widened there),
+// B is TM rows of x (from shared memory, K-major, 128-byte swizzle), D is
+// (weight column, x row).  Warp w of warpgroup v owns weight columns
+// 64v + 16w .. +15 of the tile; its A rows g and g+8 are columns 2g and 2g+1
+// of that span (the transposed ldmatrix hands over column pairs).
+//
 // grid (splits, row tiles, column tiles) when m_fast, else (splits, column
 // tiles, row tiles); cluster (splits, 1, 1), so a block's cluster rank is
 // blockIdx.x and the K range it sums.  Needs K % 128 == N % 128 == 0 and x,
@@ -231,11 +239,13 @@ mac_kernel_sm90(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
                 const float* __restrict__ scale, float* __restrict__ out,
                 int M, int K, int N, int m_fast) {
     using C = SmCfg<TM>;
-    constexpr int MI = TM / 32;           // m16 tiles per warp
-    extern __shared__ __align__(128) unsigned char smem[];
+    constexpr int NR = TM / 2;            // f32 accumulators a thread holds, per set
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* smem =
+        smem_raw + ((1024 - ((uint32_t)__cvta_generic_to_shared(smem_raw) & 1023)) & 1023);
 
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-    const int wm = warp / 4, wn = warp % 4;
+    const int wg = warp / 4, wi = warp % 4;
     const int g = lane / 4, t = lane % 4;
     const int splits = gridDim.x, rank = blockIdx.x;
     const int ti = m_fast ? blockIdx.y : blockIdx.z, tj = m_fast ? blockIdx.z : blockIdx.y;
@@ -244,108 +254,119 @@ mac_kernel_sm90(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
     const int b_lo = rank * banks / splits;             // this block's banks: [b_lo, b_hi)
     const int nb = (rank + 1) * banks / splits - b_lo;
 
-    // copy bank b_lo + b into ring slot s: TM rows of x (rows past M read as
-    // zeros), 128 rows of w_q as they lie, int8
+    // copy bank b_lo + b into ring slot s: TM rows of x into two swizzled
+    // 64-deep halves (rows past M read as zeros), 128 rows of w_q as they
+    // lie, int8
     auto issue = [&](int b, int s) {
         const int k0 = (b_lo + b) * BANK;
-        unsigned char* as = smem + s * C::STAGE;
-        unsigned char* bs = as + C::A_STAGE;
+        unsigned char* xs = smem + s * C::STAGE;
+        unsigned char* ws = xs + C::X_STAGE;
 #pragma unroll
         for (int i = 0; i < TM * 16 / S_NT; ++i) {
             const int idx = tid + i * S_NT, r = idx / 16, c = idx % 16;
             const bool in = m0 + r < M;
-            cp_async_16(as + r * A_PITCH + c * 16, x + (size_t)(in ? m0 + r : 0) * K + k0 + c * 8,
-                        in ? 16 : 0);
+            cp_async_16(xs + (c / 8) * (TM * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4),
+                        x + (size_t)(in ? m0 + r : 0) * K + k0 + c * 8, in ? 16 : 0);
         }
 #pragma unroll
         for (int i = 0; i < S_BK * 8 / S_NT; ++i) {
             const int idx = tid + i * S_NT, r = idx / 8, c = idx % 8;
-            cp_async_16(bs + r * B_PITCH + c * 16, wq + (size_t)(k0 + r) * N + n0 + c * 16, 16);
+            cp_async_16(ws + r * B_PITCH + c * 16, wq + (size_t)(k0 + r) * N + n0 + c * 16, 16);
         }
     };
 
-    float acc[MI][4][4], part[MI][4][4];
+    float acc[NR], part[NR];
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    for (int i = 0; i < NR; ++i) { acc[i] = 0.f; part[i] = 0.f; }
 
 #pragma unroll
     for (int s = 0; s < C::STAGES - 1; ++s) {
         if (s < nb) issue(s, s);
         cp_async_commit();               // one group per bank, empty past the end
     }
+    cp_async_wait<C::STAGES - 2>();      // bank 0 has landed for this thread,
+    fence_proxy_async();                 // is visible to the tensor cores' reads,
+    __syncthreads();                     // and has landed for all
+
+    // Per 32 K rows of the bank in ring slot `slot`: the warp's 32 x 16 int8
+    // slice as four 8x8 b16 matrices (K rows 0-7, 8-15, 16-23, 24-31; a b16
+    // is two neighbouring columns).  Transposed, lane 4g+t holds levels
+    // (k 2t, 2t+1) x (columns 2g, 2g+1) of each: widened, the A fragments of
+    // two 16-deep products, A row g = column 2g and row g+8 = column 2g+1.
+    auto load_a = [&](int slot, int q, uint32_t (&lo)[4], uint32_t (&hi)[4]) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, smem + slot * C::STAGE + C::X_STAGE + (q * 32 + lane) * B_PITCH +
+                                 wg * 64 + wi * 16);
+        i8x4_to_bf16x2(r[0], lo[0], lo[1]);
+        i8x4_to_bf16x2(r[1], lo[2], lo[3]);
+        i8x4_to_bf16x2(r[2], hi[0], hi[1]);
+        i8x4_to_bf16x2(r[3], hi[2], hi[3]);
+    };
+    uint32_t next[2][4];                 // the next bank's first 32 rows
+    load_a(0, 0, next[0], next[1]);
 
     for (int b = 0; b < nb; ++b) {
-        cp_async_wait<C::STAGES - 2>();  // bank b has landed for this thread ...
-        __syncthreads();                 // ... and for all; slot (b-1) % STAGES is free
-        if (b + C::STAGES - 1 < nb) issue(b + C::STAGES - 1, (b + C::STAGES - 1) % C::STAGES);
-        cp_async_commit();
+        const int slot = b % C::STAGES;
         const float s = __ldg(scale + (size_t)(b_lo + b) * scale_cols + tj);
-        const unsigned char* as = smem + (b % C::STAGES) * C::STAGE;
-        const unsigned char* bs = as + C::A_STAGE;
+        const uint32_t xa = (uint32_t)__cvta_generic_to_shared(smem + slot * C::STAGE);
 
+        // the bank's eight 16-deep products into `part` (the first starts it
+        // from 0), two 32-row steps of A fragments in flight
+        uint32_t af[2][2][4];
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
+        for (int i = 0; i < 4; ++i) { af[0][0][i] = next[0][i]; af[0][1][i] = next[1][i]; }
 #pragma unroll
-            for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
-
-#pragma unroll
-        for (int kk = 0; kk < S_BK; kk += 16) {
-            // The warp's 16 x 32 int8 slice as four 8x8 b16 matrices (a b16
-            // is two neighbouring columns): 0 and 1 are K rows 0-7 and 8-15
-            // of columns 0-15, 2 and 3 the same of columns 16-31.  Transposed,
-            // lane 4g+t holds levels (k 2t, 2t+1) x (columns 2g, 2g+1) of each:
-            // the B fragments of the even columns (product 0, 2) and of the
-            // odd ones (product 1, 3).
-            uint32_t bf[4][2];
-            {
-                uint32_t r[4];
-                const int j = lane / 8;
-                ldmatrix_x4_trans(r, bs + (kk + (j % 2) * 8 + lane % 8) * B_PITCH + wn * 32 + (j / 2) * 16);
-                i8x4_to_bf16x2(r[0], bf[0][0], bf[1][0]);
-                i8x4_to_bf16x2(r[1], bf[0][1], bf[1][1]);
-                i8x4_to_bf16x2(r[2], bf[2][0], bf[3][0]);
-                i8x4_to_bf16x2(r[3], bf[2][1], bf[3][1]);
+        for (int q = 0; q < 4; ++q) {
+            if (q >= 2) {                // the products that read af[q % 2] are done
+                wgmma_wait<1>();
+                wgmma_keep(af[q % 2][0]);
+                wgmma_keep(af[q % 2][1]);
             }
+            if (q > 0) load_a(slot, q, af[q % 2][0], af[q % 2][1]);
+            wgmma_fence();
 #pragma unroll
-            for (int mi = 0; mi < MI; ++mi) {
-                uint32_t a[4];
-                ldmatrix_x4(a, as + (wm * (TM / 2) + mi * 16 + lane % 16) * A_PITCH +
-                                   (kk + (lane / 16) * 8) * 2);
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni) mma_bf16(part[mi][ni], a, bf[ni][0], bf[ni][1]);
+            for (int h = 0; h < 2; ++h) {
+                const int step = 2 * q + h;
+                wgmma_rs(part, af[q % 2][h],
+                         sw128_desc(xa + (step / 4) * (TM * 128) + (step % 4) * 32), step > 0);
             }
+            wgmma_commit();
         }
+
+        // while they run: wait for the next bank, refill the slot bank b-1
+        // held (its products finished before this barrier), and widen the
+        // next bank's first fragments
+        if (b + 1 < nb) {
+            cp_async_wait<C::STAGES - 3>();
+            fence_proxy_async();
+            __syncthreads();
+            if (b + C::STAGES - 1 < nb) issue(b + C::STAGES - 1, (b + C::STAGES - 1) % C::STAGES);
+            cp_async_commit();
+            load_a((b + 1) % C::STAGES, 0, next[0], next[1]);
+        }
+        wgmma_wait<0>();
+        wgmma_keep(part);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) { wgmma_keep(af[q][0]); wgmma_keep(af[q][1]); }
 
         // end of the bank: fold its exact partial sum in
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[mi][ni][e] = fmaf(s, part[mi][ni][e], acc[mi][ni][e]);
+        for (int i = 0; i < NR; ++i) acc[i] = fmaf(s, part[i], acc[i]);
     }
     cp_async_wait<0>();
 
-    // Thread (g, t) holds, for row g (+8) of each m16 tile, columns 4t..4t+3
-    // of each 16-column half p: (even c0, odd c0, even c1, odd c1).
+    // Thread (g, t) holds weight columns c0, c0 + 1 of x rows 8j + 2t + e:
+    // acc[4j + e] and acc[4j + 2 + e].
+    const int c0 = wg * 64 + wi * 16 + 2 * g;
     if (splits == 1) {
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
+        for (int j = 0; j < TM / 8; ++j)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int row = m0 + wm * (TM / 2) + mi * 16 + g + h * 8;
-                if (row >= M) continue;
-#pragma unroll
-                for (int p = 0; p < 2; ++p)
-                    *reinterpret_cast<float4*>(out + (size_t)row * N + n0 + wn * 32 + p * 16 + 4 * t) =
-                        make_float4(acc[mi][2 * p][2 * h], acc[mi][2 * p + 1][2 * h],
-                                    acc[mi][2 * p][2 * h + 1], acc[mi][2 * p + 1][2 * h + 1]);
+            for (int e = 0; e < 2; ++e) {
+                const int row = m0 + 8 * j + 2 * t + e;
+                if (row < M)
+                    *reinterpret_cast<float2*>(out + (size_t)row * N + n0 + c0) =
+                        make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
             }
         return;
     }
@@ -356,15 +377,11 @@ mac_kernel_sm90(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
     __syncthreads();                     // every warp is done with the ring
     float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+    for (int j = 0; j < TM / 8; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int p = 0; p < 2; ++p)
-                *reinterpret_cast<float4*>(red + (wm * (TM / 2) + mi * 16 + g + h * 8) * RED_PITCH +
-                                           wn * 32 + p * 16 + 4 * t) =
-                    make_float4(acc[mi][2 * p][2 * h], acc[mi][2 * p + 1][2 * h],
-                                acc[mi][2 * p][2 * h + 1], acc[mi][2 * p + 1][2 * h + 1]);
+        for (int e = 0; e < 2; ++e)
+            *reinterpret_cast<float2*>(red + (8 * j + 2 * t + e) * RED_PITCH + c0) =
+                make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();
     constexpr int VECS = TM * S_BN / 4;

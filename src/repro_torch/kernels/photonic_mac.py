@@ -92,12 +92,13 @@ def mac_splits(k: int, n: int) -> int:
     output's terms are summed never depends on M.
 
     The largest power of two that keeps the column tiles times the ranges
-    within 128 (a split costs its blocks a ring fill and a cluster reduction,
-    so it only pays while the column tiles alone leave SMs idle), at most one
-    range per bank and at most 16 (the cluster size limit)."""
+    within 64, at most one range per bank and at most 16 (the cluster size
+    limit).  Each range costs its blocks a ring fill and a cluster
+    reduction, so a split pays only where the column tiles alone leave most
+    SMs idle; at 64 or more column tiles none is made."""
     banks, n_tiles = k // BANK, n // BANK
     splits = 1
-    while splits * 2 * n_tiles <= 128 and splits * 2 <= min(banks, 16):
+    while splits * 2 * n_tiles <= 64 and splits * 2 <= min(banks, 16):
         splits *= 2
     return splits
 

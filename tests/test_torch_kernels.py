@@ -504,42 +504,37 @@ def test_int8_levels_widen_to_bf16_exactly():
 
 
 def test_int8_fragments_reassemble_the_product():
-    """The tensor-core kernel's path for one warp and one 16-deep step, in
+    """The tensor-core kernel's path for one warp and one 32-deep step, in
     numpy: `ldmatrix.trans` of the raw int8 [k][n] slice read as b16 pairs,
-    the widening, four m16n8k16 products (even and odd columns of each
-    16-column half), and the float4 store.  The columns the store writes
-    must be x @ w's."""
+    the widening into the A fragments of two 16-deep wgmma products (A row g
+    = weight column 2g, row g+8 = column 2g+1; B = x transposed), and the
+    store of the D fragment.  What the store writes must be x @ w."""
     r = _rng(21)
-    x = r.standard_normal((16, 16)).astype(np.float32)
-    w = r.integers(-127, 128, size=(16, 32)).astype(np.int8)        # [k][n]
-    b16 = np.ascontiguousarray(w).view(np.uint16)                     # [16][16] column pairs
-    out = np.zeros((16, 32))
+    x = r.standard_normal((8, 32)).astype(np.float32)                 # 8 rows of x, 32 deep
+    w = r.integers(-127, 128, size=(32, 16)).astype(np.int8)         # [k][n], one warp's columns
+    b16 = np.ascontiguousarray(w).view(np.uint16)                     # [32][8] column pairs
     lanes = [(lane // 4, lane % 4) for lane in range(32)]
-    # ldmatrix.x4.trans: matrix j covers k 8*(j%2).., b16 columns 8*(j//2)..
-    regs = {(g, t): [int(b16[8 * (j % 2) + 2 * t, 8 * (j // 2) + g])
-                     | int(b16[8 * (j % 2) + 2 * t + 1, 8 * (j // 2) + g]) << 16
-                     for j in range(4)] for g, t in lanes}
+    d = np.zeros((16, 8))                                             # D: (A row, x row)
     frags = {}
-    for lt, rr in regs.items():
-        e0, o0 = _i8x4_to_bf16x2(rr[0])
-        e1, o1 = _i8x4_to_bf16x2(rr[1])
-        e2, o2 = _i8x4_to_bf16x2(rr[2])
-        e3, o3 = _i8x4_to_bf16x2(rr[3])
-        frags[lt] = [(e0, e1), (o0, o1), (e2, e3), (o2, o3)]        # products 0..3: (b0, b1)
-    c = {}
-    for ni in range(4):
-        bmat = np.zeros((16, 8))
-        for (g, t), fr in frags.items():
-            b0, b1 = fr[ni]
-            bmat[2 * t:2 * t + 2, g] = _bf16_pair(b0)
-            bmat[2 * t + 8:2 * t + 10, g] = _bf16_pair(b1)
-        prod = x.astype(np.float64) @ bmat
-        c[ni] = {(g, t): (prod[g, 2 * t], prod[g, 2 * t + 1], prod[g + 8, 2 * t], prod[g + 8, 2 * t + 1])
-                 for g, t in lanes}
     for g, t in lanes:
-        for h in range(2):
-            for p in range(2):
-                ev, od = c[2 * p][(g, t)], c[2 * p + 1][(g, t)]
-                out[g + 8 * h, p * 16 + 4 * t:p * 16 + 4 * t + 4] = (
-                    ev[2 * h], od[2 * h], ev[2 * h + 1], od[2 * h + 1])
-    np.testing.assert_allclose(out, x.astype(np.float64) @ w.astype(np.float64), rtol=1e-12, atol=1e-9)
+        # ldmatrix.x4.trans: lane l addresses K row l, so matrix j is K rows 8j..8j+7
+        regs = [int(b16[8 * j + 2 * t, g]) | int(b16[8 * j + 2 * t + 1, g]) << 16 for j in range(4)]
+        pairs = [_i8x4_to_bf16x2(v) for v in regs]                    # (even, odd) of each
+        frags[g, t] = [[pairs[0][0], pairs[0][1], pairs[1][0], pairs[1][1]],
+                       [pairs[2][0], pairs[2][1], pairs[3][0], pairs[3][1]]]
+    for h in range(2):                                                # the two 16-deep products
+        a = np.zeros((16, 16))
+        for (g, t), fr in frags.items():
+            a0, a1, a2, a3 = fr[h]
+            a[g, 2 * t:2 * t + 2] = _bf16_pair(a0)
+            a[g + 8, 2 * t:2 * t + 2] = _bf16_pair(a1)
+            a[g, 2 * t + 8:2 * t + 10] = _bf16_pair(a2)
+            a[g + 8, 2 * t + 8:2 * t + 10] = _bf16_pair(a3)
+        d += a @ x[:, 16 * h:16 * h + 16].astype(np.float64).T
+    out = np.full((8, 16), np.nan)
+    for g, t in lanes:
+        acc = (d[g, 2 * t], d[g, 2 * t + 1], d[g + 8, 2 * t], d[g + 8, 2 * t + 1])
+        for e in range(2):                                            # x rows 2t, 2t+1
+            out[2 * t + e, 2 * g:2 * g + 2] = (acc[e], acc[2 + e])
+    np.testing.assert_allclose(out, x.astype(np.float64) @ w.astype(np.float64),
+                               rtol=1e-12, atol=1e-9)

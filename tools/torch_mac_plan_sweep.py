@@ -3,7 +3,7 @@
 other than the one `mac_plan` picks, at the serving shapes `chip_smoke.py`
 times, to choose the plan's rule on the card.
 
-    python3 tools/torch_mac_plan_sweep.py > chiprun_out/plan_sweep.log
+    python3 tools/torch_mac_plan_sweep.py > plan_sweep.log
 
 Needs one NVIDIA Hopper GPU.  For each shape: every row tile (128, 64, 32)
 with every split of K into 1, 2, 4, 8 or 16 bank-aligned ranges (as far as K
