@@ -7,8 +7,8 @@ times, to choose the plan's rule on the card.
 
 Needs one NVIDIA Hopper GPU.  For each shape: every row tile (128, 64, 32)
 with every split of K into 1, 2, 4, 8 or 16 bank-aligned ranges (as far as K
-has banks), with the row-tile-fastest grid order `mac_plan` picks and, at
-large M, the other one.  Each plan's output is held against the plain
+has banks), in both grid orders wherever there is more than one row tile
+(with one, the two orders launch the same blocks in the same order).  Each plan's output is held against the plain
 version at `chip_smoke.py`'s bf16 tolerance (rtol 2e-2, atol 2e-1) and
 timed; a launch the card refuses is recorded with its CUDA error.  One JSON
 line per shape, then the card's name and power limit.
@@ -47,7 +47,7 @@ def sweep_shape(gen, model: str, m: int, k: int, n: int) -> dict:
             if splits > k // pm.BANK:
                 continue
             m_tiles = -(-m // bm)
-            for m_fast in ({True, False} if m_tiles > 8 else {m_tiles <= 8}):
+            for m_fast in ((True, False) if m_tiles > 1 else (True,)):
                 out, err = launch(x, w_q, sc, bm, splits, m_fast)
                 row = {"bm": bm, "splits": splits, "m_fast": m_fast,
                        "blocks": splits * m_tiles * (n // pm.BANK),
