@@ -21,7 +21,11 @@
 //        bank-aligned ranges, S a function of K and N only, run by the S
 //        blocks of one thread-block cluster; their f32 tiles meet in
 //        distributed shared memory and are summed in rank order, so the
-//        partials never reach device memory.
+//        partials never reach device memory.  Where the row tiles alone
+//        give the card enough blocks (large M), one block walks the same S
+//        ranges in turn and adds their sums in the same order (a running
+//        total in shared memory), so large M pays no ring fills or cluster
+//        reduction for a split chosen for few rows.
 //      - operations: the warpgroup product, `wgmma`, run transposed
 //        (out^T = w_q^T x^T) so that the widened weights are its register
 //        operand A and x, in the 128-byte swizzle cp.async writes it in, is
@@ -209,6 +213,7 @@ constexpr int B_PITCH = S_BN + 16;        // bytes per w_q row of a stage (144: 
                                           // ldmatrix land on distinct banks)
 constexpr int B_STAGE = S_BK * B_PITCH;
 constexpr int RED_PITCH = S_BN + 4;       // f32 per row of the tile a split block hands over
+constexpr int SMEM_MAX = 227 * 1024;      // dynamic shared memory a block may have on an H100
 constexpr int MAX_SPLITS = 16;            // non-portable cluster size limit of an H100
 
 template <int TM>
@@ -217,9 +222,11 @@ struct SmCfg {
     static constexpr int X_STAGE = TM * 256;              // x: two 64-deep halves, 128B-swizzled
     static constexpr int STAGE = X_STAGE + B_STAGE;       // 51200 / 34816 / 26624 bytes
     static constexpr int SMEM = STAGES * STAGE + 1024;    // + room to align the ring to 1024
+    static constexpr int TOTAL = TM * S_BN * 4;           // a sequential split's running total
     static constexpr int MIN_BLOCKS = TM == 128 ? 1 : 2;  // blocks an SM must hold (registers)
     static_assert(STAGE % 1024 == 0, "the swizzle atoms of every stage stay 1024-aligned");
     static_assert(TM * RED_PITCH * 4 <= STAGES * STAGE, "the hand-over tile reuses the ring");
+    static_assert(SMEM + TOTAL <= SMEM_MAX, "ring and running total fit one block");
 };
 
 // The product runs transposed, out^T = w_q^T x^T, as wgmma m64nTMk16: A is
@@ -229,15 +236,19 @@ struct SmCfg {
 // 64v + 16w .. +15 of the tile; its A rows g and g+8 are columns 2g and 2g+1
 // of that span (the transposed ldmatrix hands over column pairs).
 //
-// grid (splits, row tiles, column tiles) when m_fast, else (splits, column
-// tiles, row tiles); cluster (splits, 1, 1), so a block's cluster rank is
-// blockIdx.x and the K range it sums.  Needs K % 128 == N % 128 == 0 and x,
-// w_q, out 16-byte aligned.
-template <int TM>
+// K is summed as `splits` ranges of whole banks, range q being banks
+// [q * banks / splits, (q + 1) * banks / splits), and the ranges' sums are
+// added in range order.  grid (cluster, row tiles, column tiles) when
+// m_fast, else (cluster, column tiles, row tiles); cluster (cluster, 1, 1):
+// without SEQ, cluster == splits (a block's cluster rank is blockIdx.x and
+// the range it sums; 1 for no split); with SEQ, cluster == 1 and each block
+// sums the ranges in turn.  Needs K % 128 == N % 128 == 0 and x, w_q, out
+// 16-byte aligned.
+template <int TM, bool SEQ>
 __global__ void __launch_bounds__(S_NT, SmCfg<TM>::MIN_BLOCKS)
 mac_kernel_sm90(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wq,
                 const float* __restrict__ scale, float* __restrict__ out,
-                int M, int K, int N, int m_fast) {
+                int M, int K, int N, int splits, int m_fast) {
     using C = SmCfg<TM>;
     constexpr int NR = TM / 2;            // f32 accumulators a thread holds, per set
     extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -247,12 +258,14 @@ mac_kernel_sm90(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
     const int wg = warp / 4, wi = warp % 4;
     const int g = lane / 4, t = lane % 4;
-    const int splits = gridDim.x, rank = blockIdx.x;
+    const int cluster = gridDim.x, rank = blockIdx.x;
     const int ti = m_fast ? blockIdx.y : blockIdx.z, tj = m_fast ? blockIdx.z : blockIdx.y;
     const int m0 = ti * TM, n0 = tj * S_BN;
     const int banks = K / BANK, scale_cols = N / BANK;
-    const int b_lo = rank * banks / splits;             // this block's banks: [b_lo, b_hi)
-    const int nb = (rank + 1) * banks / splits - b_lo;
+    const int b_lo = SEQ ? 0 : rank * banks / splits;   // this block's banks: [b_lo, b_lo + nb)
+    const int nb = SEQ ? banks : (rank + 1) * banks / splits - b_lo;
+    int q = 0, q_end = banks / splits;                  // SEQ: the range summed, its end
+    float4* total = reinterpret_cast<float4*>(smem + C::STAGES * C::STAGE);  // SEQ: ranges done
 
     // copy bank b_lo + b into ring slot s: TM rows of x into two swizzled
     // 64-deep halves (rows past M read as zeros), 128 rows of w_q as they
@@ -352,13 +365,40 @@ mac_kernel_sm90(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
         // end of the bank: fold its exact partial sum in
 #pragma unroll
         for (int i = 0; i < NR; ++i) acc[i] = fmaf(s, part[i], acc[i]);
+
+        // SEQ, end of a range but not the last: add its sum to the ranges'
+        // before it (each thread its own slots), start the next at 0
+        if (SEQ && b + 1 == q_end && b + 1 < nb) {
+#pragma unroll
+            for (int i = 0; i < NR / 4; ++i) {
+                float4 v = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+                if (q > 0) {
+                    const float4 o = total[i * S_NT + tid];
+                    v.x = o.x + v.x; v.y = o.y + v.y; v.z = o.z + v.z; v.w = o.w + v.w;
+                }
+                total[i * S_NT + tid] = v;
+                acc[4 * i] = acc[4 * i + 1] = acc[4 * i + 2] = acc[4 * i + 3] = 0.f;
+            }
+            ++q;
+            q_end = (q + 1) * banks / splits;
+        }
     }
     cp_async_wait<0>();
+    if (SEQ) {                           // the last range joins the total
+#pragma unroll
+        for (int i = 0; i < NR / 4; ++i) {
+            const float4 o = total[i * S_NT + tid];
+            acc[4 * i] = o.x + acc[4 * i];
+            acc[4 * i + 1] = o.y + acc[4 * i + 1];
+            acc[4 * i + 2] = o.z + acc[4 * i + 2];
+            acc[4 * i + 3] = o.w + acc[4 * i + 3];
+        }
+    }
 
     // Thread (g, t) holds weight columns c0, c0 + 1 of x rows 8j + 2t + e:
     // acc[4j + e] and acc[4j + 2 + e].
     const int c0 = wg * 64 + wi * 16 + 2 * g;
-    if (splits == 1) {
+    if (cluster == 1) {
 #pragma unroll
         for (int j = 0; j < TM / 8; ++j)
 #pragma unroll
@@ -371,9 +411,9 @@ mac_kernel_sm90(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
         return;
     }
 
-    // Split K: each block lays its tile in its own shared memory; block q
-    // then sums a 1/splits share of the tile over ranks 0, 1, ... in order
-    // and stores it.
+    // Split over a cluster: each block lays its tile in its own shared
+    // memory; block q then sums a 1/cluster share of the tile over ranks 0,
+    // 1, ... in order and stores it.
     __syncthreads();                     // every warp is done with the ring
     float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
@@ -382,23 +422,23 @@ mac_kernel_sm90(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
         for (int e = 0; e < 2; ++e)
             *reinterpret_cast<float2*>(red + (8 * j + 2 * t + e) * RED_PITCH + c0) =
                 make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
     constexpr int VECS = TM * S_BN / 4;
-    const int per = (VECS + splits - 1) / splits;
+    const int per = (VECS + cluster - 1) / cluster;
     const int e_hi = min(VECS, (rank + 1) * per);
     for (int e = rank * per + tid; e < e_hi; e += S_NT) {
         const int row = e / (S_BN / 4), col = (e % (S_BN / 4)) * 4;
         if (m0 + row >= M) continue;
         const int off = row * RED_PITCH + col;
-        float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, 0) + off);
-        for (int q = 1; q < splits; ++q) {
-            const float4 w = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, q) + off);
+        float4 v = *reinterpret_cast<const float4*>(cl.map_shared_rank(red, 0) + off);
+        for (int r = 1; r < cluster; ++r) {
+            const float4 w = *reinterpret_cast<const float4*>(cl.map_shared_rank(red, r) + off);
             v.x += w.x; v.y += w.y; v.z += w.z; v.w += w.w;
         }
         *reinterpret_cast<float4*>(out + (size_t)(m0 + row) * N + n0 + col) = v;
     }
-    cluster.sync();                      // no block leaves while another reads its tile
+    cl.sync();                           // no block leaves while another reads its tile
 }
 
 inline bool aligned(const void* p, uintptr_t a) { return (reinterpret_cast<uintptr_t>(p) % a) == 0; }
@@ -420,38 +460,39 @@ int launch_fma(const void* x, const void* wq, const void* scale, void* out,
     return (int)cudaGetLastError();
 }
 
-template <int TM>
+template <int TM, bool SEQ>
 int launch_sm90(const void* x, const void* wq, const void* scale, void* out,
-                int M, int K, int N, int splits, int m_fast, cudaStream_t stream) {
+                int M, int K, int N, int splits, int cluster, int m_fast, cudaStream_t stream) {
     using C = SmCfg<TM>;
+    constexpr int SMEM = C::SMEM + (SEQ ? C::TOTAL : 0);
     static bool configured = false;      // the attributes, once per process
     if (!configured) {
-        cudaError_t e = cudaFuncSetAttribute(mac_kernel_sm90<TM>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        cudaError_t e = cudaFuncSetAttribute(mac_kernel_sm90<TM, SEQ>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
         if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(mac_kernel_sm90<TM>,
+            e = cudaFuncSetAttribute(mac_kernel_sm90<TM, SEQ>,
                                      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         if (e != cudaSuccess) return (int)e;
         configured = true;
     }
     const int mt = (M + TM - 1) / TM, nt = N / S_BN;
-    if ((m_fast ? nt : mt) > 65535 || (m_fast ? mt : nt) > 65535)
-        return (int)cudaErrorInvalidConfiguration;
+    if (mt > 65535 || nt > 65535) return (int)cudaErrorInvalidConfiguration;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = m_fast ? dim3(splits, mt, nt) : dim3(splits, nt, mt);
+    cfg.gridDim = m_fast ? dim3(cluster, mt, nt) : dim3(cluster, nt, mt);
     cfg.blockDim = dim3(S_NT);
-    cfg.dynamicSmemBytes = C::SMEM;
+    cfg.dynamicSmemBytes = SMEM;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = splits;
+    attr[0].val.clusterDim.x = cluster;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    const cudaError_t e = cudaLaunchKernelEx(&cfg, mac_kernel_sm90<TM>,
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, mac_kernel_sm90<TM, SEQ>,
                                              (const __nv_bfloat16*)x, (const int8_t*)wq,
-                                             (const float*)scale, (float*)out, M, K, N, m_fast);
+                                             (const float*)scale, (float*)out, M, K, N, splits,
+                                             m_fast);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -470,20 +511,26 @@ extern "C" int photonic_mac_launch(const void* x, const void* wq, const void* sc
 
 // The bf16 tensor-core kernel, on the plan `mac_plan` of
 // kernels/photonic_mac.py gives: row tile bm (128, 64 or 32), `splits` K
-// ranges (1..16, at most K/128), row tiles fastest in the grid when m_fast.
-// Refuses what it cannot take with cudaErrorInvalidValue.
+// ranges (1..16, at most K/128) summed by a cluster of `cluster` blocks
+// (`splits`, or 1 to sum them in turn), row tiles fastest in the grid when
+// m_fast.  Refuses what it cannot take with cudaErrorInvalidValue.
 extern "C" int photonic_mac_sm90_launch(const void* x, const void* wq, const void* scale,
                                         void* out, int M, int K, int N, int bm, int splits,
-                                        int m_fast, void* stream) {
+                                        int cluster, int m_fast, void* stream) {
     if (M <= 0 || K <= 0 || N <= 0 || K % BANK || N % BANK || splits < 1 ||
-        splits > MAX_SPLITS || splits > K / BANK || !aligned(x, 16) || !aligned(wq, 16) ||
-        !aligned(out, 16))
+        splits > MAX_SPLITS || splits > K / BANK || (cluster != 1 && cluster != splits) ||
+        !aligned(x, 16) || !aligned(wq, 16) || !aligned(out, 16))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+    const bool seq = cluster == 1 && splits > 1;
+#define MAC_SM90(TM)                                                                   \
+    (seq ? launch_sm90<TM, true>(x, wq, scale, out, M, K, N, splits, cluster, m_fast, s) \
+         : launch_sm90<TM, false>(x, wq, scale, out, M, K, N, splits, cluster, m_fast, s))
     switch (bm) {
-        case 128: return launch_sm90<128>(x, wq, scale, out, M, K, N, splits, m_fast, s);
-        case 64: return launch_sm90<64>(x, wq, scale, out, M, K, N, splits, m_fast, s);
-        case 32: return launch_sm90<32>(x, wq, scale, out, M, K, N, splits, m_fast, s);
+        case 128: return MAC_SM90(128);
+        case 64: return MAC_SM90(64);
+        case 32: return MAC_SM90(32);
         default: return (int)cudaErrorInvalidValue;
     }
+#undef MAC_SM90
 }

@@ -30,6 +30,7 @@ from repro_torch.kernels import _build, ref
 
 BANK = 128   # weight-bank tile edge; the CUDA kernels are written for this value
 SMS = 132    # streaming multiprocessors of an H100 SXM
+SEQ_BLOCKS = 128   # unsplit 128-row blocks from which `mac_plan` sums K ranges in turn
 
 
 def quantize_weights(w: torch.Tensor, bits: int = 8, bk: int = BANK, bn: int = BANK):
@@ -56,34 +57,28 @@ def quantize_weights(w: torch.Tensor, bits: int = 8, bk: int = BANK, bn: int = B
 @dataclass(frozen=True)
 class MacPlan:
     """Launch plan of `mac_kernel_sm90` for one (M, K, N): a grid of
-    `splits` x `m_tiles` x `n_tiles` blocks of `bm` x 128 outputs; the
-    `splits` blocks of one output tile form a thread-block cluster and sum
-    the K ranges `k_ranges` in that order.  `m_fast` puts row tiles fastest
-    in the grid (so blocks that share a weight tile run together)."""
+    `cluster` x `n_tiles` x `m_tiles` blocks of `bm` x 128 outputs.  K is
+    summed as `splits` ranges of whole banks (the kernel derives them from
+    K and `splits`) whose sums are added in range order, either by the
+    `splits` blocks of one thread-block cluster (`cluster == splits`) or by
+    each block in turn (`cluster == 1`); the two give the same bits.
+    `m_fast` puts row tiles fastest in the grid, so that the blocks that
+    share a weight tile run together."""
     bm: int
     splits: int
+    cluster: int
     m_tiles: int
     n_tiles: int
     m_fast: bool
 
     @property
     def blocks(self) -> int:
-        return self.splits * self.m_tiles * self.n_tiles
-
-    @property
-    def stages(self) -> int:       # ring depth, as `SmCfg` in the source sets it
-        return 4 if self.bm == 32 else 3
-
-    def k_ranges(self, k: int) -> list:
-        """[(k_lo, k_hi)] of each split, bank-aligned, in summation order."""
-        banks = k // BANK
-        return [(q * banks // self.splits * BANK, (q + 1) * banks // self.splits * BANK)
-                for q in range(self.splits)]
+        return self.cluster * self.m_tiles * self.n_tiles
 
     def as_dict(self) -> dict:
-        return {"bm": self.bm, "bn": BANK, "bk": BANK, "stages": self.stages,
-                "splits": self.splits, "cluster": [self.splits, 1, 1], "m_tiles": self.m_tiles,
-                "n_tiles": self.n_tiles, "blocks": self.blocks, "m_fast": self.m_fast}
+        return {"bm": self.bm, "bn": BANK, "splits": self.splits, "cluster": self.cluster,
+                "m_tiles": self.m_tiles, "n_tiles": self.n_tiles, "blocks": self.blocks,
+                "m_fast": self.m_fast}
 
 
 def mac_splits(k: int, n: int) -> int:
@@ -105,15 +100,26 @@ def mac_splits(k: int, n: int) -> int:
 
 def mac_plan(m: int, k: int, n: int) -> MacPlan:
     """The plan for an (m,k) by (k,n) product with K, N multiples of 128:
-    the split from `mac_splits`, then the tallest row tile (128, 64, 32, no
-    taller than m needs) that still gives at least one block per SM."""
+    the split from `mac_splits`.  Where 128-row tiles alone make SEQ_BLOCKS
+    blocks or more, a split buys no parallelism, so each block sums the
+    ranges in turn on 128-row tiles.  Otherwise a cluster of `splits`
+    blocks sums them, on the tallest row tile (128, 64, 32, no taller than
+    m needs) that still gives at least one block per SM.  Row tiles run
+    fastest at up to 8 of them, so that the few blocks reading one weight
+    tile run together; beyond that column tiles do, so that the blocks
+    reading one tile of x do (`PERF.md` has the sweep's readings)."""
     if k % BANK or n % BANK or m <= 0:
         raise ValueError(f"mac_plan: ({m},{k},{n}) is not a bank-aligned product")
     splits, n_tiles = mac_splits(k, n), n // BANK
-    fits = [bm for bm in (128, 64, 32) if bm <= max(32, m)]
-    bm = next((b for b in fits if -(-m // b) * n_tiles * splits >= SMS), fits[-1])
+    if -(-m // BANK) * n_tiles >= SEQ_BLOCKS:
+        bm, cluster = BANK, 1
+    else:
+        fits = [bm for bm in (128, 64, 32) if bm <= max(32, m)]
+        bm = next((b for b in fits if -(-m // b) * n_tiles * splits >= SMS), fits[-1])
+        cluster = splits
     m_tiles = -(-m // bm)
-    return MacPlan(bm=bm, splits=splits, m_tiles=m_tiles, n_tiles=n_tiles, m_fast=m_tiles <= 8)
+    return MacPlan(bm=bm, splits=splits, cluster=cluster, m_tiles=m_tiles, n_tiles=n_tiles,
+                   m_fast=m_tiles <= 8)
 
 
 def dispatch(x: torch.Tensor, w_q: torch.Tensor, tensor_cores: bool = True):
@@ -134,6 +140,17 @@ def _entry(name: str, n_int: int):
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_sm90(x, w_q, w_scale, out, plan: MacPlan) -> int:
+    """Launch `mac_kernel_sm90` on `plan` into `out`; returns the CUDA error
+    code.  Checks nothing and counts nothing: `photonic_mac` does both."""
+    m, k = x.shape
+    with torch.cuda.device(x.device):
+        return _entry("photonic_mac_sm90_launch", 7)(
+            x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+            m, k, w_q.shape[1], plan.bm, plan.splits, plan.cluster, int(plan.m_fast),
+            torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def photonic_mac(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
@@ -165,16 +182,14 @@ def photonic_mac(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
         raise ValueError("photonic_mac: x, w_q and w_scale must be contiguous")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     kernel, plan = dispatch(x, w_q, tensor_cores)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        if plan is not None:
-            err = _entry("photonic_mac_sm90_launch", 6)(
-                x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-                m, k, n, plan.bm, plan.splits, int(plan.m_fast), stream)
-        else:
+    if plan is not None:
+        err = _launch_sm90(x, w_q, w_scale, out, plan)
+    else:
+        with torch.cuda.device(x.device):
             err = _entry("photonic_mac_launch", 4)(
                 x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-                m, k, n, int(x.dtype == torch.bfloat16), stream)
+                m, k, n, int(x.dtype == torch.bfloat16),
+                torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(err, f"photonic_mac ({kernel})")
     photonic_mac.launches += 1
     return out

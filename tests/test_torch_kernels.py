@@ -30,7 +30,8 @@ from repro.kernels.ssm_scan import ssm_scan as j_ssm_scan
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.photonic_mac import dispatch, mac_plan, photonic_mac, quantize_weights
+from repro_torch.kernels.photonic_mac import (
+    SEQ_BLOCKS, dispatch, mac_plan, mac_splits, photonic_mac, quantize_weights)
 from repro_torch.kernels.ssm_scan import ssm_scan
 
 
@@ -426,16 +427,14 @@ MAIN_PATH_KN = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 
 @pytest.mark.parametrize("k,n", MAIN_PATH_KN)
 def test_mac_plan_k_ranges_do_not_depend_on_m(k, n):
     """The split of K, and so every output's order of summation, is the same
-    at every M; the ranges are whole banks, in order, and cover K."""
-    plans = [mac_plan(m, k, n) for m in (1, 128, 512, 16384)]
-    ranges = plans[0].k_ranges(k)
+    at every M: the kernel cuts K into `splits` runs of whole banks from K
+    and `splits` alone, and sums them in range order whichever way the plan
+    spreads them over blocks."""
+    plans = [mac_plan(m, k, n) for m in (1, 100, 128, 512, 16384)]
     for p in plans:
-        assert p.splits == plans[0].splits and p.k_ranges(k) == ranges
-        assert p.m_tiles * p.bm >= 1 and p.n_tiles == n // 128
-    assert ranges[0][0] == 0 and ranges[-1][1] == k
-    for (lo, hi), (lo2, _) in zip(ranges, ranges[1:] + [(k, k)]):
-        assert lo % 128 == 0 and hi % 128 == 0 and lo < hi == lo2
-    assert 1 <= len(ranges) <= 16
+        assert p.splits == plans[0].splits == mac_splits(k, n)
+        assert p.cluster in (1, p.splits) and p.m_tiles * p.bm >= 1 and p.n_tiles == n // 128
+    assert 1 <= plans[0].splits <= min(16, k // 128)
 
 
 @pytest.mark.parametrize("k,n", MAIN_PATH_KN)
@@ -445,6 +444,37 @@ def test_mac_plan_fills_the_card_at_128_rows(k, n):
     p = mac_plan(128, k, n)
     assert p.blocks >= 132
     assert p.bm in (32, 64, 128) and p.m_tiles == -(-128 // p.bm)
+
+
+@pytest.mark.parametrize("k,n", MAIN_PATH_KN)
+def test_mac_plan_sums_ranges_in_turn_at_large_m(k, n):
+    """In the batch-128 prefill (16384 rows) 128-row tiles alone fill the
+    card, so a split's ranges are summed in turn by each block (cluster of
+    1) and the grid is no larger than the unsplit one; at 128 rows a split
+    is spread over a cluster of that many blocks."""
+    big, small = mac_plan(16384, k, n), mac_plan(128, k, n)
+    assert (big.bm, big.cluster, big.m_tiles) == (128, 1, 128)
+    assert big.blocks == 128 * (n // 128)
+    assert small.cluster == small.splits
+
+
+@pytest.mark.parametrize("m,k,n,m_fast", [
+    (128, 4096, 11008, True), (512, 4096, 64000, True), (1024, 4096, 4096, True),
+    (16384, 4096, 11008, False), (1100, 1024, 1024, False), (256, 4096, 512, True)])
+def test_mac_plan_grid_order(m, k, n, m_fast):
+    """Row tiles fastest in the grid up to 8 of them, column tiles beyond."""
+    p = mac_plan(m, k, n)
+    assert p.m_fast == m_fast and (p.m_tiles <= 8) == m_fast
+
+
+@pytest.mark.parametrize("m,k,n,cluster", [
+    (512, 4096, 512, 16), (512, 4096, 4096, 1), (256, 4096, 4096, 2), (1024, 1024, 1024, 8),
+    (2048, 1024, 1024, 1)])
+def test_mac_plan_clusters_only_where_row_tiles_leave_sms_idle(m, k, n, cluster):
+    """The cluster split is taken below SEQ_BLOCKS unsplit 128-row blocks."""
+    p = mac_plan(m, k, n)
+    assert p.cluster == cluster
+    assert (-(-m // 128) * (n // 128) >= SEQ_BLOCKS) == (cluster == 1)
 
 
 @pytest.mark.parametrize("m,k,n", [(128, 200, 256), (128, 256, 300), (0, 128, 128)])

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Times `mac_kernel_sm90` (src/repro_torch/csrc/photonic_mac.cu) on plans
 other than the one `mac_plan` picks, at the serving shapes `chip_smoke.py`
-times, to choose the plan's rule on the card.
+times (`MAC_TIMED`), to choose the plan's rule on the card.
 
     python3 tools/torch_mac_plan_sweep.py > plan_sweep.log
 
 Needs one NVIDIA Hopper GPU.  For each shape: every row tile (128, 64, 32)
 with every split of K into 1, 2, 4, 8 or 16 bank-aligned ranges (as far as K
-has banks), in both grid orders wherever there is more than one row tile
-(with one, the two orders launch the same blocks in the same order).  Each plan's output is held against the plain
-version at `chip_smoke.py`'s bf16 tolerance (rtol 2e-2, atol 2e-1) and
-timed; a launch the card refuses is recorded with its CUDA error.  One JSON
-line per shape, then the card's name and power limit.
+has banks), each split summed both by a cluster of that many blocks and by
+each block in turn, in both grid orders wherever there is more than one
+row tile (with one, the two orders launch the same blocks in the same
+order).  Each plan's output is held against the plain version
+at `chip_smoke.py`'s bf16 tolerance (rtol 2e-2, atol 2e-1) and timed; a
+launch the card refuses is recorded with its CUDA error.  One JSON line per
+shape, then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -27,31 +29,27 @@ from repro_torch.kernels import photonic_mac as pm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 
-def launch(x, w_q, sc, bm: int, splits: int, m_fast: bool):
-    m, k = x.shape
-    n = w_q.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = pm._entry("photonic_mac_sm90_launch", 6)(
-        x.data_ptr(), w_q.data_ptr(), sc.data_ptr(), out.data_ptr(), m, k, n, bm, splits,
-        int(m_fast), torch.cuda.current_stream().cuda_stream)
-    return out, err
+def launch(x, w_q, sc, plan: pm.MacPlan):
+    out = torch.empty((x.shape[0], w_q.shape[1]), dtype=torch.float32, device=x.device)
+    return out, pm._launch_sm90(x, w_q, sc, out, plan)
 
 
 def sweep_shape(gen, model: str, m: int, k: int, n: int) -> dict:
     x, w_q, sc = cs._mac_inputs(gen, m, k, n, torch.bfloat16, 8)
     want = ref.photonic_mac_ref(x, w_q, sc)
-    plan = pm.mac_plan(m, k, n)
+    chosen = pm.mac_plan(m, k, n)
     rows = []
     for bm in (128, 64, 32):
         for splits in (1, 2, 4, 8, 16):
             if splits > k // pm.BANK:
                 continue
             m_tiles = -(-m // bm)
-            for m_fast in ((True, False) if m_tiles > 1 else (True,)):
-                out, err = launch(x, w_q, sc, bm, splits, m_fast)
-                row = {"bm": bm, "splits": splits, "m_fast": m_fast,
-                       "blocks": splits * m_tiles * (n // pm.BANK),
-                       "chosen": (bm, splits, m_fast) == (plan.bm, plan.splits, plan.m_fast)}
+            for cluster, m_fast in [(c, f) for c in sorted({splits, 1}, reverse=True)
+                                    for f in ((True, False) if m_tiles > 1 else (True,))]:
+                plan = pm.MacPlan(bm=bm, splits=splits, cluster=cluster, m_tiles=m_tiles,
+                                  n_tiles=n // pm.BANK, m_fast=m_fast)
+                out, err = launch(x, w_q, sc, plan)
+                row = {**plan.as_dict(), "chosen": plan == chosen}
                 if err:
                     row["cuda_error"] = err
                     torch.cuda.synchronize()
@@ -59,13 +57,13 @@ def sweep_shape(gen, model: str, m: int, k: int, n: int) -> dict:
                     diff = (out - want).abs()
                     row["max_abs_err"] = float(diff.max())
                     row["within_tolerance"] = bool((diff <= 2e-1 + 2e-2 * want.abs()).all())
-                    row["ms"] = cs.time_ms(lambda: launch(x, w_q, sc, bm, splits, m_fast))
+                    row["ms"] = cs.time_ms(lambda: launch(x, w_q, sc, plan))
                 rows.append(row)
                 del out
     del want
     ok = [r for r in rows if r.get("within_tolerance")]
     best = min(ok, key=lambda r: r["ms"], default=None)
-    return {"model": model, "shape": [m, k, n], "plan": plan.as_dict(),
+    return {"model": model, "shape": [m, k, n], "plan": chosen.as_dict(),
             "plan_ms": next((r["ms"] for r in ok if r["chosen"]), None),
             "best": best, **cs.mac_bound_ms(m, k, n, torch.bfloat16), "rows": rows}
 
@@ -74,11 +72,7 @@ def main() -> None:
     info = cs.phase_device()
     gen = torch.Generator(device=cs.DEV)
     gen.manual_seed(cs.SEED)
-    shapes = [("yi-6b", m, k, n) for m in (128, 512) for (k, n) in cs.YI_KN]
-    shapes.append(("yi-6b", 128 * 128, 4096, 11008))
-    shapes += [("zamba2-1.2b", 128, k, n) for (k, n) in cs.ZAMBA2_KN]
-    shapes += [("xlstm-350m", 128, k, n) for (k, n) in cs.XLSTM_KN]
-    for (model, m, k, n) in shapes:
+    for (model, m, k, n) in cs.MAC_TIMED:
         cs.emit(sweep_shape(gen, model, m, k, n))
     print(info["nvidia_smi"], flush=True)
 
