@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # everything, as the acceptance check runs it
     python3 chip_smoke.py --only kernels   # stop after the kernel comparisons
     python3 chip_smoke.py --only photonic_mac   # stop after photonic_mac's comparisons
+    python3 chip_smoke.py --only flash_attention   # stop after flash_attention's
     python3 chip_smoke.py --profile        # also: device time by kernel per model
 
 Needs one NVIDIA Hopper GPU, `nvcc` and PyTorch built for CUDA; it raises
@@ -58,6 +59,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs as C  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.photonic_mac import (  # noqa: E402
     dispatch, mac_plan, mac_splits, photonic_mac, quantize_weights)
@@ -92,6 +94,14 @@ MAC_TIMED = ([("yi-6b", m, k, n) for m in (128, 512) for (k, n) in YI_KN]
                                    ("xlstm-350m", XLSTM_KN))
                 for (k, n) in kns if mac_splits(k, n) > 1])
 MAC_HEADLINE = (128, 4096, 11008)        # the shape reported in the summary line
+# the timed attention prefills (model, B, S, Hq, Hk, D, window): strided
+# (B,S,H,D) projections, bf16, causal; yi-6b (32/4 heads of 128) and
+# zamba2's shared attention (32/32 heads of 64, window 4096, which at
+# S <= 4096 masks nothing that causality keeps)
+ATTN_TIMED = [("yi-6b", 1, 128, 32, 4, 128, 0), ("yi-6b", 1, 256, 32, 4, 128, 0),
+              ("yi-6b", 1, 512, 32, 4, 128, 0), ("yi-6b", 128, 128, 32, 4, 128, 0),
+              ("zamba2-1.2b", 1, 4096, 32, 32, 64, 4096),
+              ("zamba2-1.2b", 128, 128, 32, 32, 64, 4096)]
 ATTN_HEADLINE = (1, 128)                 # (batch, prompt length) reported in the summary
 SSM_HEADLINE = "zamba2 B=128 L=128"      # the scan shape reported in the summary
 
@@ -147,6 +157,18 @@ def compare(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, wha
 # ---------------------------------------------------------------------------
 
 
+def _ptxas_lines() -> list:
+    """Registers, stack and spills of each kernel from the build's `ptxas -v`
+    output, each line led by the (mangled) name of its kernel."""
+    out, name = [], "?"
+    for ln in _build.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "registers" in ln or ("spill" in ln and "0 bytes spill" not in ln):
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -154,9 +176,7 @@ def phase_device() -> dict:
     _build.library()
     info = {"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "python": sys.version.split()[0],
-            "build_seconds": round(_build.build_seconds, 2),
-            "ptxas": [ln.strip() for ln in _build.build_log.splitlines()
-                      if "registers" in ln or ("spill" in ln and "0 bytes spill" not in ln)]}
+            "build_seconds": round(_build.build_seconds, 2), "ptxas": _ptxas_lines()}
     emit(info)
     return info
 
@@ -291,6 +311,21 @@ def attn_bound_ms(b, hq, hk, sq, sk, d, dtype, causal, window, q_offset) -> dict
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _attn_other_tile(q, k, v, want, plan, kw, what) -> dict:
+    """`attn_kernel_sm90` on the query tile its plan did not pick, held to
+    the same tolerance (so both tiles of both head sizes are checked)."""
+    b, hq, sq, d = q.shape
+    bq = 192 - plan.bq
+    q_tiles = -(-sq // bq)
+    other = dataclasses.replace(plan, bq=bq, q_tiles=q_tiles, blocks=b * hq * q_tiles,
+                                heavy_first=kw["causal"] and plan.skip and q_tiles > 1)
+    out = torch.empty((b, hq, sq, d), dtype=torch.float32, device=DEV)
+    _build.check_launch(FA._launch_sm90(q, k, v, out, d ** -0.5, kw["causal"], kw["window"],
+                                        kw["q_offset"], other), "flash_attention (other tile)")
+    return {**compare(out, want, 2e-2, 2e-2, what + f", query tile {bq}"),
+            "kernel": "attn_kernel_sm90", "plan": other.as_dict()}
+
+
 def check_flash_attention(gen) -> dict:
     checks, timed = [], []
     f32, bf16 = torch.float32, torch.bfloat16
@@ -312,25 +347,40 @@ def check_flash_attention(gen) -> dict:
         (1, 2, 2, 16, 16, 16, f32, True, 4, 32),            # fully masked rows: no tile skipping
         (1, 8, 2, 128, 384, 128, bf16, True, 64, 256),
     ]
+    # the tensor-core kernel's edges, at both of its head sizes: rows masked
+    # everywhere (all of them, and some beside rows that see keys, with Sk
+    # ragged), Sk below one KV tile, between tiles and past two, a query
+    # offset with a window and GQA group 8, and no mask at all
+    for d in (64, 128):
+        cases += [
+            (1, 2, 2, 64, 64, d, bf16, True, 16, 128),        # every row fully masked
+            (2, 4, 2, 128, 100, d, bf16, True, 32, 64),       # some rows fully masked
+            (2, 4, 2, 40, 40, d, bf16, True, 0, 0),           # ragged: Sk below one tile
+            (2, 4, 2, 100, 100, d, bf16, True, 24, 0),        # ragged: Sk between tiles
+            (1, 8, 4, 200, 200, d, bf16, True, 0, 0),         # ragged: past two tiles
+            (1, 16, 2, 128, 384, d, bf16, True, 64, 256),     # q_offset, window, GQA 8
+            (1, 4, 4, 200, 200, d, bf16, False, 0, 0),        # no mask, ragged
+        ]
     for (b, hq, hk, sq, sk, d, dtype, causal, window, off) in cases:
         q, k, v = _attn_inputs(gen, b, hq, hk, sq, sk, d, dtype)
         kw = dict(causal=causal, window=window, q_offset=off)
         what = (f"attn b{b} hq{hq} hk{hk} sq{sq} sk{sk} d{d} {dtype} causal{int(causal)} "
                 f"w{window} off{off}")
         want = ref.attention_ref(q, k, v, **kw)
+        kernel, plan = FA.dispatch(q, k, v, **kw)
+        if d in FA.SM90_HEAD_DIMS and dtype == bf16 and kernel != "attn_kernel_sm90":
+            raise AssertionError(f"{what} did not reach attn_kernel_sm90")
         if dtype == bf16:    # both kernels that take bf16, at bf16's tolerance
-            checks.append(compare(flash_attention(q, k, v, **kw), want, 2e-2, 2e-2, what))
+            checks.append({**compare(flash_attention(q, k, v, **kw), want, 2e-2, 2e-2, what),
+                           "kernel": kernel, "plan": plan.as_dict() if plan else None})
             checks.append(compare(flash_attention(q, k, v, tensor_cores=False, **kw), want,
                                   2e-2, 2e-2, what + ", f32 FMA kernel"))
+            if plan is not None:   # the other query tile too
+                checks.append(_attn_other_tile(q, k, v, want, plan, kw, what))
         else:
             checks.append(compare(flash_attention(q, k, v, **kw), want, 2e-5, 2e-5, what))
-    # the prefill shapes: strided (B,S,H,D) projections, bf16, causal; yi-6b
-    # (32/4 heads of 128) and zamba2's shared attention (32/32 heads of 64,
-    # window 4096, which at S <= 4096 masks nothing that causality keeps)
-    for (model, b, s, hq, hk, d, window) in [
-            ("yi-6b", 1, 128, 32, 4, 128, 0), ("yi-6b", 1, 256, 32, 4, 128, 0),
-            ("yi-6b", 1, 512, 32, 4, 128, 0), ("yi-6b", 128, 128, 32, 4, 128, 0),
-            ("zamba2-1.2b", 1, 4096, 32, 32, 64, 4096), ("zamba2-1.2b", 128, 128, 32, 32, 64, 4096)]:
+    # the prefill shapes, timed
+    for (model, b, s, hq, hk, d, window) in ATTN_TIMED:
         q, k, v = _attn_inputs(gen, b, hq, hk, s, s, d, bf16, model_layout=True)
         what = f"attn {model} b{b} s{s} bf16"
         if b == 1:
@@ -340,9 +390,16 @@ def check_flash_attention(gen) -> dict:
             out = flash_attention(q, k, v, window=window)
             checks.append(compare(out[:4], ref.attention_ref(q[:4], k[:4], v[:4], window=window),
                                   2e-2, 2e-2, what + " (first 4 of batch)"))
+        kernel, plan = FA.dispatch(q, k, v, window=window)
+        if kernel != "attn_kernel_sm90":
+            raise AssertionError(f"{what} did not reach attn_kernel_sm90")
+        if b == 1:
+            checks.append(_attn_other_tile(q, k, v, ref.attention_ref(q, k, v, window=window),
+                                           plan, dict(causal=True, window=window, q_offset=0),
+                                           what))
         kr, vr = k.repeat_interleave(hq // hk, dim=1), v.repeat_interleave(hq // hk, dim=1)
         row = {"model": model, "shape": {"b": b, "hq": hq, "hk": hk, "s": s, "d": d},
-               "window": window, "dtype": "bfloat16",
+               "window": window, "dtype": "bfloat16", "kernel": kernel, "plan": plan.as_dict(),
                "ms": time_ms(lambda: flash_attention(q, k, v, window=window)),
                "fma_kernel_ms": time_ms(lambda: flash_attention(q, k, v, window=window,
                                                                 tensor_cores=False)),
@@ -450,35 +507,41 @@ def quantize_cost_ms(gen) -> dict:
     return {"per_matrix_ms": per, "per_decode_step_ms": 32 * layer + per["4096x64000"]}
 
 
-def phase_kernels(only_mac: bool = False) -> dict:
+def phase_kernels(only: str | None = None) -> dict:
+    """Every kernel against its plain version; with `only` = "photonic_mac"
+    or "flash_attention", that kernel's comparisons alone."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
     before = counters()
-    mac = check_photonic_mac(gen)
-    mac_out = {"n_checks": len(mac["checks"]),
-               "max_abs_err": max(c["max_abs_err"] for c in mac["checks"]),
-               "max_rel_err": max(c.get("max_rel_err", 0.0) for c in mac["checks"]),
-               "tolerance": "f32 rtol 1e-4 atol 1e-3; bf16 rtol 2e-2 atol 2e-1, and at the "
-                            "serving shapes also within 1e-4 of the largest output; "
-                            "padded rows bit-identical",
-               "timed": mac["timed"]}
-    if only_mac:
-        if photonic_mac.launches == before["photonic_mac"]:
-            raise AssertionError("the photonic_mac comparisons launched no kernel")
-        emit({"phase": "kernels", "photonic_mac": mac_out})
-        return {"photonic_mac": mac_out, "checks": mac["checks"]}
-    attn = check_flash_attention(gen)
+    if only in (None, "photonic_mac"):
+        mac = check_photonic_mac(gen)
+        mac_out = {"n_checks": len(mac["checks"]),
+                   "max_abs_err": max(c["max_abs_err"] for c in mac["checks"]),
+                   "max_rel_err": max(c.get("max_rel_err", 0.0) for c in mac["checks"]),
+                   "tolerance": "f32 rtol 1e-4 atol 1e-3; bf16 rtol 2e-2 atol 2e-1, and at the "
+                                "serving shapes also within 1e-4 of the largest output; "
+                                "padded rows bit-identical",
+                   "timed": mac["timed"]}
+    if only in (None, "flash_attention"):
+        attn = check_flash_attention(gen)
+        attn_out = {"n_checks": len(attn["checks"]),
+                    "max_abs_err": max(c["max_abs_err"] for c in attn["checks"]),
+                    "max_rel_err": max(c["max_rel_err"] for c in attn["checks"]),
+                    "tolerance": "f32 rtol=atol 2e-5; bf16 rtol=atol 2e-2",
+                    "timed": attn["timed"]}
+    if only is not None:
+        if KERNELS[only].launches == before[only]:
+            raise AssertionError(f"the {only} comparisons launched no kernel")
+        part, res = (mac_out, mac) if only == "photonic_mac" else (attn_out, attn)
+        emit({"phase": "kernels", only: part})
+        return {only: part, "checks": res["checks"]}
     ssm = check_ssm_scan(gen)
     quant = quantize_cost_ms(gen)
     if any(n == before[name] for name, n in counters().items()):
         raise AssertionError(f"a kernel comparison launched no kernel: {before} -> {counters()}")
     out = {"phase": "kernels",
            "photonic_mac": mac_out,
-           "flash_attention": {"n_checks": len(attn["checks"]),
-                               "max_abs_err": max(c["max_abs_err"] for c in attn["checks"]),
-                               "max_rel_err": max(c["max_rel_err"] for c in attn["checks"]),
-                               "tolerance": "f32 rtol=atol 2e-5; bf16 rtol=atol 2e-2",
-                               "timed": attn["timed"]},
+           "flash_attention": attn_out,
            "ssm_scan": {"n_checks": len(ssm["checks"]),
                         "max_abs_err": max(c["max_abs_err"] for c in ssm["checks"]),
                         "max_rel_err": max(c["max_rel_err"] for c in ssm["checks"]),
@@ -848,14 +911,14 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "photonic_mac"], default=None,
+    ap.add_argument("--only", choices=["kernels", "photonic_mac", "flash_attention"], default=None,
                     help="stop after this phase (for work on a kernel); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for decode and prefill, per model")
     args = ap.parse_args()
     t_start = time.perf_counter()
     dev = phase_device()
-    kern = phase_kernels(only_mac=args.only == "photonic_mac")
+    kern = phase_kernels(only=None if args.only == "kernels" else args.only)
     if args.only is not None:
         for c in kern["checks"]:
             emit(c)

@@ -5,38 +5,57 @@
 // Replaces the TPU kernel `flash_attention` (body `_attn_kernel`) of
 // src/repro/kernels/flash_attention.py.  There the grid's third axis walks
 // the KV blocks in order with (m, l, acc) in VMEM scratch; here one thread
-// block owns 64 query rows of one (batch, q head) and loops over 64-row KV
-// tiles itself, with m and l in registers and the score tile in shared
-// memory, so neither the (Sq,Sk) scores nor the probabilities ever reach
-// device memory.  GQA is by index (kv head = q head / (Hq/Hk)): K and V are
-// never repeated in memory.  The inputs are addressed through their strides,
-// so the (B,S,H,D) layout the model produces is read without a copy.
+// block owns a tile of query rows of one (batch, q head) and loops over KV
+// tiles itself, with m and l in registers, so neither the (Sq,Sk) scores nor
+// the probabilities ever reach device memory.  GQA is by index (kv head = q
+// head / (Hq/Hk)): K and V are never repeated in memory.  The inputs are
+// addressed through their strides, so the (B,S,H,D) layout the model
+// produces is read without a copy.
 //
 // What bounds it on an H100: 4*Sq*Sk*D operations per head against
-// (Sq+2*Sk)*D inputs, so for any prompt longer than a few hundred tokens the
-// bound is operations.  Two kernels share the structure above:
+// (Sq+2*Sk)*D inputs and Sq*D f32 outputs, so a short prompt (or a batch of
+// them) is bound by bytes, and one longer than a few hundred tokens by
+// operations.  Two kernels:
 //
-//  * `attn_kernel` (f32 inputs, and bf16 inputs whose strides or alignment
-//    the other kernel does not take) does both products with f32 FMAs:
-//    exact enough for f32 inputs at 2e-5, which a TF32 or bf16 tensor-core
-//    product is not.  256 threads, each a 4x4 piece of the score tile.
-//  * `attn_kernel_tc` (bf16 inputs) runs both products on the tensor cores
-//    (`mma.sync` m16n8k16, f32 accumulation): four warps of 16 query rows;
-//    S = Q K^T straight from the bf16 tiles in shared memory, softmax in f32
-//    registers, and the probabilities, rounded to bf16, go from the score
-//    accumulators into the A operand of P V without touching memory.
+//  * `attn_kernel_sm90` (bf16 inputs, D = 64 or 128, 16-byte aligned storage
+//    and strides that are multiples of 8: every attention of the serving
+//    paths).  A block owns BQ = 128 query rows (8 warps) or 64 (4 warps; the
+//    plan's choice where 128-row tiles leave SMs idle).  What the design
+//    does about each bound:
+//      - bytes and latency: Q is copied once and K and V come through a ring
+//        of 2 shared-memory stages of BKV keys (64 at D = 128, 128 at
+//        D = 64) by 16-byte cp.async, the next tile's copies in flight while
+//        this tile is multiplied; a tile's K and V are separate commit
+//        groups, so S = Q K^T starts before V has landed.  Two 64-row
+//        blocks fit an SM, so one block's products overlap the other's
+//        waits; a 128-row block takes an SM's registers alone.
+//      - operations: both products on the tensor cores (`mma.sync`
+//        m16n8k16, f32 accumulation): S = Q K^T from the bf16 tiles in shared
+//        memory, softmax in f32 registers (exp2 with the scale and log2(e)
+//        folded into one factor), and the probabilities, rounded to bf16, go
+//        from the score accumulators into the A operand of P V without
+//        touching memory.  Tiles are stored in the 128-byte swizzle (rows of
+//        64 values, 16-byte chunk c of row r at c ^ (r % 8)).
+//      - causal work is uneven (a block visits 1 to Sq/BKV tiles): the plan
+//        can put the query tiles with the most KV tiles first in the grid.
+//  * `attn_kernel` (f32 inputs, bf16 inputs the other kernel does not take,
+//    and `tensor_cores=False`) does both products with f32 FMAs: exact
+//    enough for f32 inputs at 2e-5, which a TF32 or bf16 tensor-core
+//    product is not.  256 threads, each a 4x4 piece of a 64x64 score tile,
+//    synchronous loads.
 //
 // In both, KV tiles that lie wholly outside the causal / window band are
-// skipped, which halves the work of a causal prompt.  Not done yet: loads
-// are synchronous (no cp.async/TMA ring), and there is no wgmma.
+// skipped, which halves the work of a causal prompt.
 //
 // Skipping is only valid when no query row is masked everywhere: such a row
 // yields, in the reference kernel and in `attention_ref` alike, the plain
-// average of V over all keys (m stays -1e30 and p = exp(0)), which needs
-// every tile.  A fully masked row cannot arise when q_offset + Sq <= Sk; the
-// wrapper passes skip = 0 otherwise and the kernel then visits every tile and
-// reproduces that average.  Ragged edges are masked here: query rows past Sq
-// are not stored, keys past Sk get probability exactly 0.
+// average of V over all keys (masked scores are -1e30, not -inf: m stays
+// -1e30 and p = exp(0)), which needs every tile.  A fully masked row cannot
+// arise when q_offset + Sq <= Sk; the wrapper passes skip = 0 otherwise and
+// the kernel then visits every tile and reproduces that average.  Ragged
+// edges are masked here: query rows past Sq are not stored, keys past Sk
+// (zero-filled by the copies, so their score is 0, not -1e30) get
+// probability exactly 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,10 +83,12 @@ struct Args {
     Strides qs, ks, vs;
     float scale;
     int causal, window, q_offset;
-    int skip;    // 1: KV tiles outside the mask's band may be skipped
+    int skip;         // 1: KV tiles outside the mask's band may be skipped
+    int heavy_first;  // attn_kernel_sm90: query tiles in the grid by decreasing work
 };
 
-// KV range [begin, end) a block of query rows [q0, q0+BQ) has to visit
+// KV range [begin, end) a block of query rows [q0, q0+bq) has to visit
+// (`attn_plan` in kernels/flash_attention.py mirrors it)
 __device__ __forceinline__ void kv_range(const Args& a, int q0, int bq, int bkv,
                                          int& kv_begin, int& kv_end) {
     kv_begin = 0;
@@ -254,47 +275,83 @@ attn_kernel(const Args a) {
     }
 }
 
-// ---- bf16 inputs on the tensor cores ----------------------------------------
+// ---- bf16 inputs on the tensor cores: attn_kernel_sm90 ----------------------
 
-constexpr int TNT = 128;   // 4 warps, 16 query rows each
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
-constexpr size_t smem_bytes_tc() { return sizeof(__nv_bfloat16) * (size_t)(3 * BQ * (D + 8)); }
+template <int D, int BQ_>
+struct Sm90 {
+    static constexpr int BQ = BQ_;                  // query rows per block
+    static constexpr int BKV = D == 128 ? 64 : 128; // keys per tile
+    static constexpr int NT = BQ * 2;               // one warp per 16 query rows
+    static constexpr int STAGES = 2;                // K/V ring depth
+    static constexpr int Q_BYTES = BQ * D * 2;
+    static constexpr int KV_BYTES = BKV * D * 2;    // one of K, V
+    static constexpr int STAGE = 2 * KV_BYTES;
+    static constexpr int SMEM = Q_BYTES + STAGES * STAGE + 1024;   // + room to align to 1024
+    static constexpr int MIN_BLOCKS = BQ == 128 ? 1 : 2;  // blocks an SM must hold (registers)
+    static_assert(D == 64 || D == 128, "one or two 64-wide panels");
+    static_assert(BQ == 64 || BQ == 128, "one or two warpgroups of query rows");
+    static_assert(2 * SMEM <= 227 * 1024, "two blocks fit an SM's shared memory");
+};
 
-// One (rows x D) bf16 tile from global (row stride `rs` elements, 16-byte
-// aligned rows) into shared memory with row pitch D+8; rows past `n_valid` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               long long rs, int row0, int n_valid, int tid) {
-    constexpr int VPR = D / 8;   // 16-byte vectors per row
-    for (int idx = tid; idx < BQ * VPR; idx += TNT) {
-        const int r = idx / VPR, c = (idx % VPR) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row0 + r < n_valid)
-            val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * rs + c);
-        *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
+// Byte offset of 16-byte chunk c (of D/8) of row r in a tile of ROWS rows,
+// stored as D/64 panels of [ROWS][128 bytes] in the 128-byte swizzle.
+template <int ROWS>
+__device__ __forceinline__ int sw_off(int r, int c) {
+    return (c / 8) * (ROWS * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+// ROWS x D bf16 rows from global (row stride `rs` elements) into a swizzled
+// tile by cp.async; rows at or past `n_valid` are zero-filled.
+template <int D, int ROWS, int NTH>
+__device__ __forceinline__ void copy_tile(unsigned char* dst, const __nv_bfloat16* src,
+                                          long long rs, int row0, int n_valid, int tid) {
+    constexpr int CPR = D / 8;   // 16-byte chunks per row
+    static_assert((ROWS * CPR) % NTH == 0, "whole chunks per thread");
+#pragma unroll
+    for (int i = 0; i < ROWS * CPR / NTH; ++i) {
+        const int idx = tid + i * NTH, r = idx / CPR, c = idx % CPR;
+        const bool in = row0 + r < n_valid;
+        cp_async_16(dst + sw_off<ROWS>(r, c), src + (size_t)(in ? row0 + r : 0) * rs + c * 8,
+                    in ? 16 : 0);
     }
 }
 
-// Needs q, k, v 16-byte aligned and every stride a multiple of 8 elements.
-template <int D>
-__global__ void __launch_bounds__(TNT)
-attn_kernel_tc(const Args a) {
-    static_assert(BQ == 64 && BKV == 64, "tile loads and fragment loops assume 64 x 64");
-    constexpr int LD = D + 8;        // bf16 row pitch: ldmatrix rows hit distinct banks
-    constexpr int NKT = BKV / 8;     // score n-tiles (8 keys each) per warp row block
-    constexpr int NDT = D / 8;       // output n-tiles (8 columns each)
+// True when every (query, key) pair of rows [q0, q0+bq) and keys
+// [kv0, kv0+bkv) is visible and every key exists: the tile needs no mask.
+__device__ __forceinline__ bool tile_unmasked(const Args& a, int q0, int bq, int kv0, int bkv) {
+    if (kv0 + bkv > a.Sk) return false;
+    if (a.causal && kv0 + bkv - 1 > a.q_offset + q0) return false;
+    if (a.window > 0 && kv0 <= a.q_offset + q0 + bq - 1 - a.window) return false;
+    return true;
+}
 
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [BQ][LD]
-    __nv_bfloat16* Ks = Qs + BQ * LD;                                 // [BKV][LD]
-    __nv_bfloat16* Vs = Ks + BKV * LD;                                // [BKV][LD]
+// Needs q, k, v 16-byte aligned and every stride a multiple of 8 elements.
+// Warp w owns query rows 16w .. 16w+15 of the block's tile; its thread (g, t)
+// holds rows g and g+8 of them and, per 8 columns j, s[4j+e] / o[4j+e] =
+// (row g, column 8j+2t+e) and s[4j+2+e] / o[4j+2+e] = (row g+8, the same),
+// the C fragment of m16n8k16.
+template <int D, int BQ>
+__global__ void __launch_bounds__(Sm90<D, BQ>::NT, Sm90<D, BQ>::MIN_BLOCKS)
+attn_kernel_sm90(const Args a) {
+    using C = Sm90<D, BQ>;
+    constexpr int BKV = C::BKV, NT = C::NT, STAGES = C::STAGES;
+    constexpr int NS = BKV / 8;      // score column tiles
+    constexpr int NO = D / 8;        // output column tiles
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* smem =
+        smem_raw + ((1024 - ((uint32_t)__cvta_generic_to_shared(smem_raw) & 1023)) & 1023);
+    unsigned char* Qs = smem;
+    auto k_slot = [&](int s) { return smem + C::Q_BYTES + s * C::STAGE; };
+    auto v_slot = [&](int s) { return smem + C::Q_BYTES + s * C::STAGE + C::KV_BYTES; };
 
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
     const int g = lane / 4, t = lane % 4;
-    const int n_qt = (a.Sq + BQ - 1) / BQ;
-    const int bh = blockIdx.x / n_qt;
-    const int q0 = (blockIdx.x % n_qt) * BQ;
+    const int n_qt = (a.Sq + BQ - 1) / BQ, n_bh = a.B * a.Hq;
+    const int qt = a.heavy_first ? n_qt - 1 - (int)(blockIdx.x / n_bh) : (int)(blockIdx.x % n_qt);
+    const int bh = a.heavy_first ? (int)(blockIdx.x % n_bh) : (int)(blockIdx.x / n_qt);
+    const int q0 = qt * BQ;
     const int b = bh / a.Hq, h = bh % a.Hq;
     const int hk = h / (a.Hq / a.Hk);
     const int Sk = a.Sk;
@@ -303,101 +360,121 @@ attn_kernel_tc(const Args a) {
     const __nv_bfloat16* kp = (const __nv_bfloat16*)a.k + (size_t)b * a.ks.b + (size_t)hk * a.ks.h;
     const __nv_bfloat16* vp = (const __nv_bfloat16*)a.v + (size_t)b * a.vs.b + (size_t)hk * a.vs.h;
 
-    load_tile_bf16<D>(Qs, qp, a.qs.s, q0, a.Sq, tid);
-
-    // this thread's two rows: warp*16 + g and + 8
-    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // l: this thread's share of the row sum
-    float o[NDT][4];
-#pragma unroll
-    for (int n = 0; n < NDT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
     int kv_begin, kv_end;
     kv_range(a, q0, BQ, BKV, kv_begin, kv_end);
+    const int n_tiles = (kv_end - kv_begin + BKV - 1) / BKV;
 
-    for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BKV) {
-        __syncthreads();   // the previous tile's readers are done
-        load_tile_bf16<D>(Ks, kp, a.ks.s, kv0, Sk, tid);
-        load_tile_bf16<D>(Vs, vp, a.vs.s, kv0, Sk, tid);
-        __syncthreads();
+    // Copies, one commit group each: [Q, K_0], V_0, K_1, V_1, ...; tiles
+    // 0 .. STAGES-2 now, tile j + STAGES-1 once tile j-1's slot is free.
+    auto issue = [&](int j) {
+        const int s = j % STAGES, kv0 = kv_begin + j * BKV;
+        if (j < n_tiles) copy_tile<D, BKV, NT>(k_slot(s), kp, a.ks.s, kv0, Sk, tid);
+        cp_async_commit();
+        if (j < n_tiles) copy_tile<D, BKV, NT>(v_slot(s), vp, a.vs.s, kv0, Sk, tid);
+        cp_async_commit();
+    };
+    copy_tile<D, BQ, NT>(Qs, qp, a.qs.s, q0, a.Sq, tid);
+#pragma unroll
+    for (int j = 0; j < STAGES - 1; ++j) issue(j);
+
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // l: this thread's share of the row sum
+    float o[4 * NO];
+#pragma unroll
+    for (int i = 0; i < 4 * NO; ++i) o[i] = 0.f;
+    const float sl2 = a.scale * LOG2E;   // scores in log2 units: p = exp2(s * sl2 - m)
+    const int row_a = q0 + warp * 16 + g;   // this thread's rows row_a and row_a + 8
+
+    for (int j = 0; j < n_tiles; ++j) {
+        const int kv0 = kv_begin + j * BKV, slot = j % STAGES;
+        cp_async_wait<2 * STAGES - 3>();   // K_j (and Q) landed for this thread,
+        __syncthreads();                   // for all, and every warp is done with tile j-1
+        issue(j + STAGES - 1);             // into the slot tile j-1 held
+        const unsigned char* Ks = k_slot(slot);
 
         // S = Q K^T for this warp's 16 rows
-        float s[NKT][4];
+        float s[4 * NS];
 #pragma unroll
-        for (int n = 0; n < NKT; ++n)
+        for (int i = 0; i < 4 * NS; ++i) s[i] = 0.f;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-        for (int dk = 0; dk < D; dk += 16) {
+        for (int dk = 0; dk < D / 16; ++dk) {
             uint32_t qa[4];
-            ldmatrix_x4(qa, Qs + (warp * 16 + (lane % 16)) * LD + dk + (lane / 16) * 8);
+            ldmatrix_x4(qa, Qs + sw_off<BQ>(warp * 16 + lane % 16, 2 * dk + lane / 16));
 #pragma unroll
-            for (int np = 0; np < NKT / 2; ++np) {
+            for (int np = 0; np < NS / 2; ++np) {
                 uint32_t r[4];   // K is [key][d]: already the "col" operand, no transpose
-                ldmatrix_x4(r, Ks + (np * 16 + (lane % 8) + 8 * (lane / 16)) * LD
-                                   + dk + 8 * ((lane / 8) % 2));
-                mma_bf16(s[2 * np], qa, r[0], r[1]);
-                mma_bf16(s[2 * np + 1], qa, r[2], r[3]);
+                ldmatrix_x4(r, Ks + sw_off<BKV>(np * 16 + lane % 8 + 8 * (lane / 16),
+                                                2 * dk + (lane / 8) % 2));
+                mma_bf16(*reinterpret_cast<float(*)[4]>(&s[8 * np]), qa, r[0], r[1]);
+                mma_bf16(*reinterpret_cast<float(*)[4]>(&s[8 * np + 4]), qa, r[2], r[3]);
             }
         }
 
-        // scale, mask, online softmax (rows g and g+8 of this warp's block)
+        // scale, mask, online softmax (rows g and g+8 of this warp's block).
+        // Masked scores are -1e30; keys past Sk are -inf, so that exp2 gives
+        // them exactly 0 and the max never sees them.
+        const bool unmasked = tile_unmasked(a, q0, BQ, kv0, BKV);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-            const int q_pos = a.q_offset + q0 + warp * 16 + g + half * 8;
+            const int q_pos = a.q_offset + row_a + half * 8;
             float row_max = NEG_INF;
 #pragma unroll
-            for (int n = 0; n < NKT; ++n)
+            for (int n = 0; n < NS; ++n)
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
-                    const int k_pos = kv0 + n * 8 + 2 * t + e;
-                    float val = s[n][half * 2 + e] * a.scale;
-                    if (!visible(a, q_pos, k_pos)) val = NEG_INF;
-                    s[n][half * 2 + e] = val;
-                    if (k_pos < Sk) row_max = fmaxf(row_max, val);
+                    float val = s[4 * n + 2 * half + e] * sl2;
+                    if (!unmasked) {
+                        const int k_pos = kv0 + n * 8 + 2 * t + e;
+                        if (!visible(a, q_pos, k_pos)) val = NEG_INF;
+                        if (k_pos >= Sk) val = __uint_as_float(0xff800000u);   // -inf
+                    }
+                    s[4 * n + 2 * half + e] = val;
+                    row_max = fmaxf(row_max, val);
                 }
             row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
             row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
             const float m_new = fmaxf(m[half], row_max);
-            const float alpha = expf(m[half] - m_new);
+            const float alpha = exp2f(m[half] - m_new);
             float part = 0.f;
 #pragma unroll
-            for (int n = 0; n < NKT; ++n)
+            for (int n = 0; n < NS; ++n)
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
-                    const int k_pos = kv0 + n * 8 + 2 * t + e;
-                    const float p = (k_pos < Sk) ? expf(s[n][half * 2 + e] - m_new) : 0.f;
-                    s[n][half * 2 + e] = p;
+                    const float p = exp2f(s[4 * n + 2 * half + e] - m_new);
+                    s[4 * n + 2 * half + e] = p;
                     part += p;
                 }
             l[half] = l[half] * alpha + part;
             m[half] = m_new;
 #pragma unroll
-            for (int n = 0; n < NDT; ++n) {
-                o[n][half * 2] *= alpha;
-                o[n][half * 2 + 1] *= alpha;
+            for (int n = 0; n < NO; ++n) {
+                o[4 * n + 2 * half] *= alpha;
+                o[4 * n + 2 * half + 1] *= alpha;
             }
         }
+
+        cp_async_wait<2 * STAGES - 2>();   // V_j landed for this thread,
+        __syncthreads();                   // and for all
+        const unsigned char* Vs = v_slot(slot);
 
         // O += P V: the score accumulators, as bf16, are the A operand
 #pragma unroll
         for (int ks = 0; ks < BKV / 16; ++ks) {
             uint32_t pa[4];
-            pa[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-            pa[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-            pa[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-            pa[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+            pa[0] = pack_bf16(s[8 * ks], s[8 * ks + 1]);
+            pa[1] = pack_bf16(s[8 * ks + 2], s[8 * ks + 3]);
+            pa[2] = pack_bf16(s[8 * ks + 4], s[8 * ks + 5]);
+            pa[3] = pack_bf16(s[8 * ks + 6], s[8 * ks + 7]);
 #pragma unroll
-            for (int dp = 0; dp < NDT / 2; ++dp) {
+            for (int dp = 0; dp < NO / 2; ++dp) {
                 uint32_t r[4];   // V is [key][d] = [k][n]: transpose on load
-                ldmatrix_x4_trans(r, Vs + (ks * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * LD
-                                         + dp * 16 + 8 * (lane / 16));
-                mma_bf16(o[2 * dp], pa, r[0], r[1]);
-                mma_bf16(o[2 * dp + 1], pa, r[2], r[3]);
+                ldmatrix_x4_trans(r, Vs + sw_off<BKV>(ks * 16 + lane % 8 + 8 * ((lane / 8) % 2),
+                                                      2 * dp + lane / 16));
+                mma_bf16(*reinterpret_cast<float(*)[4]>(&o[8 * dp]), pa, r[0], r[1]);
+                mma_bf16(*reinterpret_cast<float(*)[4]>(&o[8 * dp + 4]), pa, r[2], r[3]);
             }
         }
     }
+    cp_async_wait<0>();
 
     float* op = a.out + ((size_t)bh * a.Sq) * D;
 #pragma unroll
@@ -405,13 +482,13 @@ attn_kernel_tc(const Args a) {
         float sum = l[half];
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        const int row = q0 + warp * 16 + g + half * 8;
+        const int row = row_a + half * 8;
         if (row >= a.Sq) continue;
         const float inv = 1.f / fmaxf(sum, 1e-30f);
 #pragma unroll
-        for (int n = 0; n < NDT; ++n)
+        for (int n = 0; n < NO; ++n)
             *reinterpret_cast<float2*>(op + (size_t)row * D + n * 8 + 2 * t) =
-                make_float2(o[n][half * 2] * inv, o[n][half * 2 + 1] * inv);
+                make_float2(o[4 * n + 2 * half] * inv, o[4 * n + 2 * half + 1] * inv);
     }
 }
 
@@ -420,51 +497,95 @@ attn_kernel_tc(const Args a) {
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) % 16) == 0; }
 inline bool mult8(const Strides& s) { return s.b % 8 == 0 && s.h % 8 == 0 && s.s % 8 == 0; }
 
+// One launch; the shared-memory attribute is set once per kernel instance
+// (above 48 KB of dynamic shared memory a kernel has to opt in).
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem, int threads, const Args& a, cudaStream_t stream) {
-    // above 48 KB of dynamic shared memory a kernel has to opt in
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    const long long blocks = (long long)a.B * a.Hq * ((a.Sq + BQ - 1) / BQ);
+int launch(Kernel kernel, bool& configured, size_t smem, int threads, long long blocks,
+           const Args& a, cudaStream_t stream) {
+    if (!configured) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        configured = true;
+    }
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
     kernel<<<(unsigned)blocks, threads, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
-template <int D>
-int dispatch(const Args& a, bool is_bf16, bool tensor_cores, cudaStream_t st) {
-    if (!is_bf16) return launch(attn_kernel<float, D>, smem_bytes<D>(), NT, a, st);
-    if (tensor_cores && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && mult8(a.qs) &&
-        mult8(a.ks) && mult8(a.vs))
-        return launch(attn_kernel_tc<D>, smem_bytes_tc<D>(), TNT, a, st);
-    return launch(attn_kernel<__nv_bfloat16, D>, smem_bytes<D>(), NT, a, st);
+template <typename T, int D>
+int launch_fma(const Args& a, cudaStream_t st) {
+    static bool configured = false;
+    return launch(attn_kernel<T, D>, configured, smem_bytes<D>(), NT,
+                  (long long)a.B * a.Hq * ((a.Sq + BQ - 1) / BQ), a, st);
+}
+
+template <int D, int BQ_>
+int launch_sm90(const Args& a, cudaStream_t st) {
+    using C = Sm90<D, BQ_>;
+    static bool configured = false;
+    return launch(attn_kernel_sm90<D, BQ_>, configured, C::SMEM, C::NT,
+                  (long long)a.B * a.Hq * ((a.Sq + BQ_ - 1) / BQ_), a, st);
+}
+
+Args make_args(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hk,
+               int Sq, int Sk, const long long* strides, float scale, int causal, int window,
+               int q_offset, int skip, int heavy_first) {
+    return Args{q, k, v, (float*)out, B, Hq, Hk, Sq, Sk,
+                Strides{strides[0], strides[1], strides[2]},
+                Strides{strides[3], strides[4], strides[5]},
+                Strides{strides[6], strides[7], strides[8]},
+                scale, causal, window, q_offset, skip, heavy_first};
+}
+
+bool bad_sizes(int B, int Hq, int Hk, int Sq, int Sk) {
+    return B <= 0 || Hq <= 0 || Hk <= 0 || Sq <= 0 || Sk <= 0 || Hq % Hk != 0;
 }
 
 }  // namespace
 
-// strides: nine element strides, (batch, head, seq) of q, then k, then v.
-// is_bf16: 1 when q, k, v hold bf16, 0 when f32.  tensor_cores: 0 keeps bf16 inputs on
-// the f32 FMA kernel too.  Returns cudaGetLastError().
+// The f32 FMA kernel.  strides: nine element strides, (batch, head, seq) of
+// q, then k, then v.  is_bf16: 1 when q, k, v hold bf16, 0 when f32.  skip:
+// 1 when no query row is masked everywhere (see the note above).  Returns
+// cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int Hq, int Hk, int Sq, int Sk, int D,
                                       const long long* strides, float scale, int causal,
                                       int window, int q_offset, int skip, int is_bf16,
-                                      int tensor_cores, void* stream) {
-    if (B <= 0 || Hq <= 0 || Hk <= 0 || Sq <= 0 || Sk <= 0 || Hq % Hk != 0)
-        return (int)cudaErrorInvalidValue;
-    const Args a{q, k, v, (float*)out, B, Hq, Hk, Sq, Sk,
-                 Strides{strides[0], strides[1], strides[2]},
-                 Strides{strides[3], strides[4], strides[5]},
-                 Strides{strides[6], strides[7], strides[8]},
-                 scale, causal, window, q_offset, skip};
+                                      void* stream) {
+    if (bad_sizes(B, Hq, Hk, Sq, Sk)) return (int)cudaErrorInvalidValue;
+    const Args a = make_args(q, k, v, out, B, Hq, Hk, Sq, Sk, strides, scale, causal, window,
+                             q_offset, skip, 0);
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-    const bool bf = is_bf16 != 0, tc = tensor_cores != 0;
     switch (D) {
-        case 16:  return dispatch<16>(a, bf, tc, st);
-        case 32:  return dispatch<32>(a, bf, tc, st);
-        case 64:  return dispatch<64>(a, bf, tc, st);
-        case 128: return dispatch<128>(a, bf, tc, st);
+        case 16:  return is_bf16 ? launch_fma<__nv_bfloat16, 16>(a, st) : launch_fma<float, 16>(a, st);
+        case 32:  return is_bf16 ? launch_fma<__nv_bfloat16, 32>(a, st) : launch_fma<float, 32>(a, st);
+        case 64:  return is_bf16 ? launch_fma<__nv_bfloat16, 64>(a, st) : launch_fma<float, 64>(a, st);
+        case 128: return is_bf16 ? launch_fma<__nv_bfloat16, 128>(a, st) : launch_fma<float, 128>(a, st);
         default:  return (int)cudaErrorInvalidValue;
     }
+}
+
+// The bf16 tensor-core kernel on the plan `attn_plan` of
+// kernels/flash_attention.py gives: query tile bq (64 or 128), query tiles
+// by decreasing work when heavy_first, tile skipping when skip.  Refuses
+// what it cannot take (D not 64 or 128, storage not 16-byte aligned, a
+// stride not a multiple of 8) with cudaErrorInvalidValue.
+extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
+                                           void* out, int B, int Hq, int Hk, int Sq, int Sk,
+                                           int D, const long long* strides, float scale,
+                                           int causal, int window, int q_offset, int skip,
+                                           int bq, int heavy_first, void* stream) {
+    if (bad_sizes(B, Hq, Hk, Sq, Sk)) return (int)cudaErrorInvalidValue;
+    const Args a = make_args(q, k, v, out, B, Hq, Hk, Sq, Sk, strides, scale, causal, window,
+                             q_offset, skip, heavy_first);
+    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out) || !mult8(a.qs) ||
+        !mult8(a.ks) || !mult8(a.vs))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    if (D == 64 && bq == 128) return launch_sm90<64, 128>(a, st);
+    if (D == 64 && bq == 64) return launch_sm90<64, 64>(a, st);
+    if (D == 128 && bq == 128) return launch_sm90<128, 128>(a, st);
+    if (D == 128 && bq == 64) return launch_sm90<128, 64>(a, st);
+    return (int)cudaErrorInvalidValue;
 }

@@ -3,32 +3,155 @@ sliding-window masks and a query offset.
 
   q (B, Hq, Sq, D) ; k, v (B, Hk, Sk, D), bf16/f32  ->  out (B, Hq, Sq, D) f32
 
-`flash_attention` launches the CUDA kernel of `csrc/flash_attention.cu` for
+`flash_attention` launches a CUDA kernel of `csrc/flash_attention.cu` for
 CUDA tensors and takes the plain version (`ref.attention_ref`) only for CPU
 tensors.  The inputs may be strided views (the model hands over transposed
 (B,S,H,D) projections); only the last dimension must be contiguous.
-`flash_attention.launches` counts kernel launches.
+`flash_attention.launches` counts kernel launches.  Which kernel, and on
+what plan, is `dispatch`'s answer: bf16 inputs with D = 64 or 128, 16-byte
+aligned storage and strides that are multiples of 8 go to the tensor-core
+kernel `attn_kernel_sm90` on the query tile and grid order `attn_plan`
+gives; everything else to the f32 FMA kernel `attn_kernel`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (16, 32, 64, 128)   # head sizes the CUDA kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128)   # head sizes the FMA kernel is instantiated for
+SM90_HEAD_DIMS = (64, 128)      # head sizes of the tensor-core kernel
+SMS = 132                       # streaming multiprocessors of an H100 SXM
 
 
-def _entry():
-    fn = _build.library().flash_attention_launch
+def attn_skip(sq: int, sk: int, causal: bool, window: int, q_offset: int) -> bool:
+    """True when there is a mask and KV tiles outside its band may be
+    skipped: only if no query row is masked everywhere (such a row averages
+    V over all keys; see the note in csrc/flash_attention.cu).  Row q_offset
+    + i sees keys from q_offset + i - window + 1 (with a window) up to
+    itself (causal) or Sk - 1, so the last row, and with it some row, sees
+    none exactly when a window ends before key 0 .. Sk - 1 do:
+    q_offset + Sq >= Sk + window."""
+    if not (causal or window > 0):
+        return False
+    return not (window > 0 and q_offset + sq >= sk + window)
+
+
+def kv_tile(d: int) -> int:
+    """Keys per KV tile of `attn_kernel_sm90` at head size d."""
+    return 64 if d == 128 else 128
+
+
+@dataclass(frozen=True)
+class AttnPlan:
+    """Launch plan of `attn_kernel_sm90`: a 1-D grid of `blocks` =
+    B * Hq * `q_tiles` blocks of `bq` query rows, each looping over KV tiles
+    of `bkv` keys.  With `heavy_first` the grid runs the query tiles in
+    decreasing order (the last query tile, which visits the most KV tiles
+    of a causal mask, first), each over all (batch, head) pairs; otherwise
+    the query tiles of one (batch, head) are neighbours.  With `skip`, a
+    block visits only the KV tiles that meet its rows' band."""
+    bq: int
+    bkv: int
+    q_tiles: int
+    blocks: int
+    heavy_first: bool
+    skip: bool
+
+    def as_dict(self) -> dict:
+        return {"bq": self.bq, "bkv": self.bkv, "q_tiles": self.q_tiles, "blocks": self.blocks,
+                "heavy_first": self.heavy_first, "skip": self.skip}
+
+    def block(self, index: int, bh_count: int) -> tuple:
+        """(batch * Hq + head, first query row) of grid block `index`, as the
+        kernel computes it."""
+        if self.heavy_first:
+            return index % bh_count, (self.q_tiles - 1 - index // bh_count) * self.bq
+        return index // self.q_tiles, (index % self.q_tiles) * self.bq
+
+
+def kv_range(q0: int, bq: int, bkv: int, sq: int, sk: int, causal: bool, window: int,
+             q_offset: int, skip: bool) -> tuple:
+    """[begin, end) of the keys the block of query rows [q0, q0 + bq)
+    visits, in whole tiles of `bkv` from `begin`: `kv_range` of
+    csrc/flash_attention.cu."""
+    if not skip:
+        return 0, sk
+    begin, end = 0, sk
+    q_lo = q_offset + q0
+    q_hi = q_offset + min(q0 + bq, sq) - 1
+    if causal:
+        end = min(sk, q_hi + 1)
+    if window > 0:
+        lo = q_lo - window + 1
+        if lo > 0:
+            begin = (lo // bkv) * bkv
+    return begin, end
+
+
+def attn_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int, causal: bool = True,
+              window: int = 0, q_offset: int = 0) -> AttnPlan:
+    """The plan of `attn_kernel_sm90` for these shapes and this mask.
+
+    128-row query tiles (two warpgroups) where they give at least one block
+    per SM; otherwise 64-row tiles, which double the blocks and halve the
+    longest block's work (yi-6b's B=1 prefills of 128 to 512 tokens: 32 to
+    128 blocks at 128 rows; `PERF.md` has the readings).  A causal mask
+    makes the last query tiles the longest, so with tile skipping and more
+    than one query tile they run first."""
+    if d not in SM90_HEAD_DIMS or min(b, hq, hk, sq, sk) <= 0 or hq % hk:
+        raise ValueError(f"attn_plan: no plan for b={b} hq={hq} hk={hk} sq={sq} sk={sk} d={d}")
+    skip = attn_skip(sq, sk, causal, window, q_offset)
+    bq = 128 if b * hq * -(-sq // 128) >= SMS else 64
+    q_tiles = -(-sq // bq)
+    return AttnPlan(bq=bq, bkv=kv_tile(d), q_tiles=q_tiles, blocks=b * hq * q_tiles,
+                    heavy_first=bool(causal and skip and q_tiles > 1), skip=skip)
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tensor_cores: bool = True, *,
+             causal: bool = True, window: int = 0, q_offset: int = 0):
+    """("attn_kernel_sm90", plan) when the tensor-core kernel takes these
+    inputs (bf16, D = 64 or 128, storage 16-byte aligned and the batch,
+    head and sequence strides multiples of 8, `tensor_cores`), else
+    ("attn_kernel", None), the f32 FMA kernel."""
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    if (tensor_cores and q.dtype == torch.bfloat16 and d in SM90_HEAD_DIMS
+            and _aligned(q) and _aligned(k) and _aligned(v)):
+        return "attn_kernel_sm90", attn_plan(b, hq, hk, sq, sk, d, causal, window, q_offset)
+    return "attn_kernel", None
+
+
+def _entry(name: str, n_int: int):
+    fn = getattr(_build.library(), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * n_int + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_sm90(q, k, v, out, scale: float, causal: bool, window: int, q_offset: int,
+                 plan: AttnPlan) -> int:
+    """Launch `attn_kernel_sm90` on `plan` into `out`; returns the CUDA error
+    code.  Checks nothing and counts nothing: `flash_attention` does both."""
+    b, hq, sq, d = q.shape
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    with torch.cuda.device(q.device):
+        return _entry("flash_attention_sm90_launch", 6)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, hq, k.shape[1], sq, k.shape[2], d, strides, scale, int(causal), int(window),
+            int(q_offset), int(plan.skip), plan.bq, int(plan.heavy_first),
+            torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -37,10 +160,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA when Hq > Hk.  `q_offset` is the absolute position of q[..., 0, :]
     (queries that sit at the end of a longer key sequence).
 
-    bf16 inputs go to the tensor-core kernel when their strides are multiples
-    of 8 elements and their storage is 16-byte aligned, else to the f32 FMA
-    kernel, which f32 inputs always take; `tensor_cores=False` keeps bf16 on
-    the FMA kernel as well."""
+    bf16 inputs with D = 64 or 128 go to the tensor-core kernel when their
+    strides are multiples of 8 elements and their storage is 16-byte
+    aligned, else to the f32 FMA kernel, which f32 inputs always take;
+    `tensor_cores=False` keeps bf16 on the FMA kernel as well (`dispatch`)."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
@@ -62,17 +185,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the last dimension of q, k, v must be contiguous")
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    # KV tiles outside the mask's band may be skipped only if no query row is
-    # masked everywhere (see the note in csrc/flash_attention.cu)
-    skip = int((causal or window > 0) and q_offset + sq <= sk)
     out = torch.empty((b, hq, sq, d), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                       b, hq, hk, sq, sk, d, strides, scale, int(causal), int(window),
-                       int(q_offset), skip, int(q.dtype == torch.bfloat16), int(tensor_cores),
-                       torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, "flash_attention")
+    kernel, plan = dispatch(q, k, v, tensor_cores, causal=causal, window=window,
+                            q_offset=q_offset)
+    if plan is not None:
+        err = _launch_sm90(q, k, v, out, scale, causal, window, q_offset, plan)
+    else:
+        strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+        with torch.cuda.device(q.device):
+            err = _entry("flash_attention_launch", 5)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, hq, hk, sq, sk, d, strides, scale, int(causal), int(window),
+                int(q_offset), int(attn_skip(sq, sk, causal, window, q_offset)),
+                int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_launch(err, f"flash_attention ({kernel})")
     flash_attention.launches += 1
     return out
 

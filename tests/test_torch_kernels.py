@@ -28,6 +28,7 @@ from repro.kernels.photonic_mac import photonic_mac as j_mac
 from repro.kernels.photonic_mac import quantize_weights as j_quantize
 from repro.kernels.ssm_scan import ssm_scan as j_ssm_scan
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.photonic_mac import (
@@ -568,3 +569,141 @@ def test_int8_fragments_reassemble_the_product():
             out[2 * t + e, 2 * g:2 * g + 2] = (acc[e], acc[2 + e])
     np.testing.assert_allclose(out, x.astype(np.float64) @ w.astype(np.float64),
                                rtol=1e-12, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the tensor-core kernel's plan and dispatch
+# ---------------------------------------------------------------------------
+
+# (b, hq, hk, sq, sk, d, causal, window, q_offset): the prefills of the
+# serving paths (yi-6b: 32/4 heads of 128; zamba2's shared attention: 32/32
+# heads of 64, window 4096), then ragged and offset shapes, rows masked
+# everywhere, and no mask
+ATTN_PLAN_SHAPES = [
+    (1, 32, 4, 128, 128, 128, True, 0, 0), (1, 32, 4, 256, 256, 128, True, 0, 0),
+    (1, 32, 4, 512, 512, 128, True, 0, 0), (128, 32, 4, 128, 128, 128, True, 0, 0),
+    (1, 32, 32, 4096, 4096, 64, True, 4096, 0), (128, 32, 32, 128, 128, 64, True, 4096, 0),
+    (1, 32, 32, 1024, 1024, 64, True, 4096, 0), (1, 32, 4, 97, 97, 128, True, 0, 0),
+    (2, 4, 2, 40, 40, 64, True, 0, 0), (2, 4, 2, 100, 100, 128, True, 24, 0),
+    (1, 8, 4, 200, 200, 64, True, 0, 0), (1, 16, 2, 128, 384, 128, True, 64, 256),
+    (1, 16, 2, 128, 384, 64, True, 100, 256), (2, 4, 2, 128, 100, 64, True, 0, 64),
+    (2, 4, 2, 128, 100, 128, True, 32, 64), (1, 2, 2, 64, 64, 64, True, 16, 128),
+    (1, 4, 4, 200, 200, 128, False, 0, 0), (1, 4, 4, 300, 300, 64, False, 50, 0),
+    (1, 4, 4, 300, 260, 64, False, 50, 10),
+]
+
+
+def _visible(sq, sk, causal, window, q_offset):
+    q_pos = q_offset + np.arange(sq)[:, None]
+    k_pos = np.arange(sk)[None, :]
+    vis = np.ones((sq, sk), dtype=bool)
+    if causal:
+        vis &= k_pos <= q_pos
+    if window > 0:
+        vis &= k_pos > q_pos - window
+    return vis
+
+
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,causal,window,off", ATTN_PLAN_SHAPES)
+def test_attn_plan_visits_every_visible_pair(b, hq, hk, sq, sk, d, causal, window, off):
+    """Every block visits whole KV tiles from its range's start; the tiles it
+    skips hold no visible (query, key) pair of its rows, so every visible
+    pair lies in a visited tile.  Without skipping every tile is visited."""
+    plan = FA.attn_plan(b, hq, hk, sq, sk, d, causal, window, off)
+    assert plan.bkv == FA.kv_tile(d) and plan.q_tiles == -(-sq // plan.bq)
+    vis = _visible(sq, sk, causal, window, off)
+    for q0 in range(0, sq, plan.bq):
+        begin, end = FA.kv_range(q0, plan.bq, plan.bkv, sq, sk, causal, window, off, plan.skip)
+        assert begin % plan.bkv == 0 and 0 <= begin < end <= sk
+        visited = np.zeros(sk, dtype=bool)
+        visited[begin:begin + -(-(end - begin) // plan.bkv) * plan.bkv] = True
+        assert not vis[q0:q0 + plan.bq][:, ~visited].any()
+        if not plan.skip:
+            assert visited.all()
+
+
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,causal,window,off", ATTN_PLAN_SHAPES)
+def test_attn_plan_skips_exactly_when_no_row_is_masked_everywhere(b, hq, hk, sq, sk, d, causal,
+                                                                  window, off):
+    """With a mask, `skip` is 0 exactly when some query row sees no key
+    (it must then average V over every key); without one nothing is
+    skipped."""
+    plan = FA.attn_plan(b, hq, hk, sq, sk, d, causal, window, off)
+    fully_masked = (~_visible(sq, sk, causal, window, off).any(axis=1)).any()
+    if causal or window > 0:
+        assert plan.skip == (not fully_masked)
+    else:
+        assert not plan.skip and not fully_masked
+
+
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,causal,window,off", ATTN_PLAN_SHAPES)
+def test_attn_plan_grid_covers_every_query_row_once(b, hq, hk, sq, sk, d, causal, window, off):
+    """The grid's blocks, mapped to (batch * head, query tile) as the kernel
+    maps them, cover every query row of every head once; with `heavy_first`
+    the blocks with the most KV tiles come first."""
+    plan = FA.attn_plan(b, hq, hk, sq, sk, d, causal, window, off)
+    assert plan.blocks == b * hq * plan.q_tiles
+    seen = np.zeros((b * hq, sq), dtype=np.int64)
+    work = []
+    for i in range(plan.blocks):
+        bh, q0 = plan.block(i, b * hq)
+        assert q0 % plan.bq == 0
+        seen[bh, q0:q0 + plan.bq] += 1
+        begin, end = FA.kv_range(q0, plan.bq, plan.bkv, sq, sk, causal, window, off, plan.skip)
+        work.append(-(-(end - begin) // plan.bkv))
+    assert (seen == 1).all()
+    if plan.heavy_first:
+        assert work == sorted(work, reverse=True)
+    assert plan.heavy_first == (causal and plan.skip and plan.q_tiles > 1)
+
+
+@pytest.mark.parametrize("b,hq,sq,bq", [
+    (1, 32, 128, 64), (1, 32, 256, 64), (1, 32, 512, 64), (1, 32, 640, 128),
+    (128, 32, 128, 128), (1, 32, 4096, 128), (2, 66, 128, 128), (2, 65, 128, 64)])
+def test_attn_plan_query_tile(b, hq, sq, bq):
+    """128-row query tiles where they give every SM a block, 64 below."""
+    plan = FA.attn_plan(b, hq, hq, sq, sq, 128)
+    assert plan.bq == bq
+    assert (b * hq * -(-sq // 128) >= FA.SMS) == (bq == 128)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 128, 96), (0, 4, 128, 128), (1, 3, 128, 128)])
+def test_attn_plan_rejects_what_the_kernel_cannot_take(shape):
+    b, hq, sq, d = shape
+    with pytest.raises(ValueError):
+        FA.attn_plan(b, hq, 2, sq, sq, d)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_dispatch_routes_bf16_at_64_and_128_to_the_tensor_core_kernel(d, dtype):
+    q = torch.zeros(2, 8, 128, d, dtype=dtype)
+    k = torch.zeros(2, 2, 128, d, dtype=dtype)
+    kernel, plan = FA.dispatch(q, k, k)
+    if dtype == torch.bfloat16 and d in (64, 128):
+        assert kernel == "attn_kernel_sm90"
+        assert plan == FA.attn_plan(2, 8, 2, 128, 128, d)
+    else:
+        assert (kernel, plan) == ("attn_kernel", None)
+    assert FA.dispatch(q, k, k, tensor_cores=False) == ("attn_kernel", None)
+
+
+def test_attention_dispatch_takes_the_models_strided_views_and_refuses_odd_strides():
+    bf = torch.bfloat16
+    # (B,S,H,D) projections viewed as (B,H,S,D): every stride a multiple of 8
+    q = torch.zeros(2, 128, 8, 128, dtype=bf).movedim(2, 1)
+    k = torch.zeros(2, 128, 2, 128, dtype=bf).movedim(2, 1)
+    kernel, plan = FA.dispatch(q, k, k, causal=True, window=0, q_offset=0)
+    assert kernel == "attn_kernel_sm90" and plan.skip
+    assert FA.dispatch(q, k, k, window=16, q_offset=200)[1] == FA.attn_plan(
+        2, 8, 2, 128, 128, 128, True, 16, 200)
+    # a head stride of 132 elements (rows padded by 4)
+    odd = torch.zeros(2, 8, 128, 132, dtype=bf)[..., :128]
+    assert odd.stride(3) == 1 and odd.stride(2) % 8 != 0
+    assert FA.dispatch(odd, k, k) == ("attn_kernel", None)
+    assert FA.dispatch(q, odd[:, :2], odd[:, :2]) == ("attn_kernel", None)
+    # storage 2 bytes past a 16-byte boundary
+    flat = torch.zeros(2 * 8 * 128 * 64 + 1, dtype=bf)[1:].view(2, 8, 128, 64)
+    assert FA.dispatch(flat, flat[:, :2], flat[:, :2]) == ("attn_kernel", None)
+    flat = torch.zeros(2 * 8 * 128 * 64 + 8, dtype=bf)[8:].view(2, 8, 128, 64)
+    assert FA.dispatch(flat, flat[:, :2], flat[:, :2])[0] == "attn_kernel_sm90"
