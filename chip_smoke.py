@@ -164,7 +164,8 @@ def _ptxas_lines() -> list:
     for ln in _build.build_log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1] if "'" in ln else ln.strip()
-        elif "registers" in ln or ("spill" in ln and "0 bytes spill" not in ln):
+        elif ("registers" in ln or "wgmma" in ln
+              or ("spill" in ln and "0 bytes spill" not in ln)):
             out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     return out
 
@@ -311,18 +312,17 @@ def attn_bound_ms(b, hq, hk, sq, sk, d, dtype, causal, window, q_offset) -> dict
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _attn_other_tile(q, k, v, want, plan, kw, what) -> dict:
-    """`attn_kernel_sm90` on the query tile its plan did not pick, held to
-    the same tolerance (so both tiles of both head sizes are checked)."""
+def _attn_other_order(q, k, v, want, plan, kw, what) -> dict:
+    """`attn_kernel_sm90` in the grid order its plan did not pick, held to
+    the same tolerance (so both of the kernel's maps from block to query
+    tile are checked)."""
     b, hq, sq, d = q.shape
-    bq = 192 - plan.bq
-    q_tiles = -(-sq // bq)
-    other = dataclasses.replace(plan, bq=bq, q_tiles=q_tiles, blocks=b * hq * q_tiles,
-                                heavy_first=kw["causal"] and plan.skip and q_tiles > 1)
+    other = dataclasses.replace(plan, heavy_first=not plan.heavy_first)
     out = torch.empty((b, hq, sq, d), dtype=torch.float32, device=DEV)
     _build.check_launch(FA._launch_sm90(q, k, v, out, d ** -0.5, kw["causal"], kw["window"],
-                                        kw["q_offset"], other), "flash_attention (other tile)")
-    return {**compare(out, want, 2e-2, 2e-2, what + f", query tile {bq}"),
+                                        kw["q_offset"], other), "flash_attention (other order)")
+    return {**compare(out, want, 2e-2, 2e-2,
+                      what + f", heavy_first={other.heavy_first}"),
             "kernel": "attn_kernel_sm90", "plan": other.as_dict()}
 
 
@@ -375,8 +375,8 @@ def check_flash_attention(gen) -> dict:
                            "kernel": kernel, "plan": plan.as_dict() if plan else None})
             checks.append(compare(flash_attention(q, k, v, tensor_cores=False, **kw), want,
                                   2e-2, 2e-2, what + ", f32 FMA kernel"))
-            if plan is not None:   # the other query tile too
-                checks.append(_attn_other_tile(q, k, v, want, plan, kw, what))
+            if plan is not None and plan.q_tiles > 1:   # the other grid order too
+                checks.append(_attn_other_order(q, k, v, want, plan, kw, what))
         else:
             checks.append(compare(flash_attention(q, k, v, **kw), want, 2e-5, 2e-5, what))
     # the prefill shapes, timed
@@ -394,9 +394,9 @@ def check_flash_attention(gen) -> dict:
         if kernel != "attn_kernel_sm90":
             raise AssertionError(f"{what} did not reach attn_kernel_sm90")
         if b == 1:
-            checks.append(_attn_other_tile(q, k, v, ref.attention_ref(q, k, v, window=window),
-                                           plan, dict(causal=True, window=window, q_offset=0),
-                                           what))
+            checks.append(_attn_other_order(q, k, v, ref.attention_ref(q, k, v, window=window),
+                                            plan, dict(causal=True, window=window, q_offset=0),
+                                            what))
         kr, vr = k.repeat_interleave(hq // hk, dim=1), v.repeat_interleave(hq // hk, dim=1)
         row = {"model": model, "shape": {"b": b, "hq": hq, "hk": hk, "s": s, "d": d},
                "window": window, "dtype": "bfloat16", "kernel": kernel, "plan": plan.as_dict(),

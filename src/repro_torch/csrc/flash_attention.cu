@@ -19,25 +19,24 @@
 //
 //  * `attn_kernel_sm90` (bf16 inputs, D = 64 or 128, 16-byte aligned storage
 //    and strides that are multiples of 8: every attention of the serving
-//    paths).  A block owns BQ = 128 query rows (8 warps) or 64 (4 warps; the
-//    plan's choice where 128-row tiles leave SMs idle).  What the design
-//    does about each bound:
-//      - bytes and latency: Q is copied once and K and V come through a ring
-//        of 2 shared-memory stages of BKV keys (64 at D = 128, 128 at
-//        D = 64) by 16-byte cp.async, the next tile's copies in flight while
-//        this tile is multiplied; a tile's K and V are separate commit
-//        groups, so S = Q K^T starts before V has landed.  Two 64-row
-//        blocks fit an SM, so one block's products overlap the other's
-//        waits; a 128-row block takes an SM's registers alone.
-//      - operations: both products on the tensor cores (`mma.sync`
-//        m16n8k16, f32 accumulation): S = Q K^T from the bf16 tiles in shared
-//        memory, softmax in f32 registers (exp2 with the scale and log2(e)
-//        folded into one factor), and the probabilities, rounded to bf16, go
-//        from the score accumulators into the A operand of P V without
-//        touching memory.  Tiles are stored in the 128-byte swizzle (rows of
-//        64 values, 16-byte chunk c of row r at c ^ (r % 8)).
-//      - causal work is uneven (a block visits 1 to Sq/BKV tiles): the plan
-//        can put the query tiles with the most KV tiles first in the grid.
+//    paths).  A block is one warpgroup and 64 query rows; two (D = 128) or
+//    three (D = 64) blocks share an SM, and one block's softmax overlaps
+//    another's products.  What the design does about each bound:
+//      - bytes and latency: Q is copied once, K and V through rings of 3
+//        (D = 128) or 2 slots of 64 keys each, by 16-byte cp.async in the
+//        128-byte swizzle; a tile's copies are issued two or one tiles ahead
+//        of its use, and every slot is filled at the start, so a prompt of
+//        up to 128 keys waits for one round of copies.
+//      - operations: both products run on `wgmma`.  S = Q K^T reads Q and
+//        K from shared memory (both K-major); the softmax works in f32
+//        registers on the product's fragment (exp2, with the scale and
+//        log2(e) folded into one factor, maxima and sums as four chains),
+//        and the probabilities, packed to bf16, are the register operand A
+//        of O += P V, whose V tile ([key][d]) is read MN-major.  The next
+//        tile's S = Q K^T is issued before this tile's softmax and runs
+//        under it.
+//      - causal work is uneven (a block visits 1 to Sq/64 tiles): the plan
+//        puts the query tiles with the most KV tiles first in the grid.
 //  * `attn_kernel` (f32 inputs, bf16 inputs the other kernel does not take,
 //    and `tensor_cores=False`) does both products with f32 FMAs: exact
 //    enough for f32 inputs at 2e-5, which a TF32 or bf16 tensor-core
@@ -50,12 +49,11 @@
 // Skipping is only valid when no query row is masked everywhere: such a row
 // yields, in the reference kernel and in `attention_ref` alike, the plain
 // average of V over all keys (masked scores are -1e30, not -inf: m stays
-// -1e30 and p = exp(0)), which needs every tile.  A fully masked row cannot
-// arise when q_offset + Sq <= Sk; the wrapper passes skip = 0 otherwise and
-// the kernel then visits every tile and reproduces that average.  Ragged
-// edges are masked here: query rows past Sq are not stored, keys past Sk
-// (zero-filled by the copies, so their score is 0, not -1e30) get
-// probability exactly 0.
+// -1e30 and p = exp(0)), which needs every tile.  The wrapper passes
+// skip = 0 exactly when such a row exists (`attn_skip`), and the kernel then
+// visits every tile and reproduces that average.  Ragged edges are masked
+// here: query rows past Sq are not stored, keys past Sk (zero-filled by the
+// copies, so their score is 0, not -1e30) get probability exactly 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -279,20 +277,25 @@ attn_kernel(const Args a) {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D, int BQ_>
+template <int D>
 struct Sm90 {
-    static constexpr int BQ = BQ_;                  // query rows per block
-    static constexpr int BKV = D == 128 ? 64 : 128; // keys per tile
-    static constexpr int NT = BQ * 2;               // one warp per 16 query rows
-    static constexpr int STAGES = 2;                // K/V ring depth
+    static constexpr int BQ = 64;                   // query rows per block: one warpgroup
+    static constexpr int BKV = 64;                  // keys per tile
+    static constexpr int NT = 128;
+    // slots of the K ring and of the V ring: a copy has R - 1 tiles' time to
+    // land (3 measured faster at D = 128, 2 at D = 64, where three blocks
+    // an SM hide the copies and each ring slot costs shared memory)
+    static constexpr int RING = D == 128 ? 3 : 2;
     static constexpr int Q_BYTES = BQ * D * 2;
-    static constexpr int KV_BYTES = BKV * D * 2;    // one of K, V
-    static constexpr int STAGE = 2 * KV_BYTES;
-    static constexpr int SMEM = Q_BYTES + STAGES * STAGE + 1024;   // + room to align to 1024
-    static constexpr int MIN_BLOCKS = BQ == 128 ? 1 : 2;  // blocks an SM must hold (registers)
+    static constexpr int KV_BYTES = BKV * D * 2;    // one tile of K or of V
+    // Q, then the K slots, then the V slots
+    static constexpr int SMEM = Q_BYTES + 2 * RING * KV_BYTES + 1024;   // + room to align to 1024
+    // blocks an SM must hold, which caps the registers a thread may use
+    // (168 at D = 64, 255 at D = 128)
+    static constexpr int MIN_BLOCKS = D == 64 ? 3 : 2;
     static_assert(D == 64 || D == 128, "one or two 64-wide panels");
-    static_assert(BQ == 64 || BQ == 128, "one or two warpgroups of query rows");
-    static_assert(2 * SMEM <= 227 * 1024, "two blocks fit an SM's shared memory");
+    // an SM has 228 KB of shared memory, and keeps 1 KB of it for each block
+    static_assert(MIN_BLOCKS * (SMEM + 1024) <= 228 * 1024, "the blocks fit an SM");
 };
 
 // Byte offset of 16-byte chunk c (of D/8) of row r in a tile of ROWS rows,
@@ -327,24 +330,98 @@ __device__ __forceinline__ bool tile_unmasked(const Args& a, int q0, int bq, int
     return true;
 }
 
+// 2^x on the SFU; results below 2^-126 flush to 0.
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// Scores of one tile in log2 units, w = s * scale * log2(e); with MASKED,
+// pairs outside the mask become -1e30 and keys past Sk -inf (so that exp2
+// gives them exactly 0 and the max never sees them).  Thread (g, t) holds
+// query rows q_pos and q_pos + 8 and keys kv0 + 8n + 2t + e.
+template <bool MASKED, int N>
+__device__ __forceinline__ void scale_scores(const float (&s)[N], float (&w)[N], const Args& a,
+                                             float sl2, int q_pos, int kv0, int t) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        float val = s[i] * sl2;
+        if (MASKED) {
+            const int k_pos = kv0 + (i / 4) * 8 + 2 * t + i % 2;
+            if (!visible(a, q_pos + ((i / 2) % 2) * 8, k_pos)) val = NEG_INF;
+            if (k_pos >= a.Sk) val = __uint_as_float(0xff800000u);   // -inf
+        }
+        w[i] = val;
+    }
+}
+
+// Online softmax of one tile of log2-unit scores (rows g and g+8 of the
+// thread's warp): the new row maxima, p = exp2(s - m) in place, the running
+// sums l (this thread's share) and the accumulators o rescaled.  Maxima and
+// sums run as four independent chains each, then a tree.
+template <int NSC, int NOC>
+__device__ __forceinline__ void online_softmax(float (&s)[NSC], float (&m)[2], float (&l)[2],
+                                               float (&o)[NOC]) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        float mx[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
+#pragma unroll
+        for (int n = 0; n < NSC / 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+                mx[(2 * n + e) % 4] = fmaxf(mx[(2 * n + e) % 4], s[4 * n + 2 * half + e]);
+        float row_max = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
+        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
+        const float m_new = fmaxf(m[half], row_max);
+        const float alpha = ex2(m[half] - m_new);
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NSC / 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const float p = ex2(s[4 * n + 2 * half + e] - m_new);
+                s[4 * n + 2 * half + e] = p;
+                sum[(2 * n + e) % 4] += p;
+            }
+        l[half] = l[half] * alpha + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+        m[half] = m_new;
+#pragma unroll
+        for (int n = 0; n < NOC / 4; ++n) {
+            o[4 * n + 2 * half] *= alpha;
+            o[4 * n + 2 * half + 1] *= alpha;
+        }
+    }
+}
+
 // Needs q, k, v 16-byte aligned and every stride a multiple of 8 elements.
-// Warp w owns query rows 16w .. 16w+15 of the block's tile; its thread (g, t)
-// holds rows g and g+8 of them and, per 8 columns j, s[4j+e] / o[4j+e] =
-// (row g, column 8j+2t+e) and s[4j+2+e] / o[4j+2+e] = (row g+8, the same),
-// the C fragment of m16n8k16.
-template <int D, int BQ>
-__global__ void __launch_bounds__(Sm90<D, BQ>::NT, Sm90<D, BQ>::MIN_BLOCKS)
+// A block is one warpgroup and 64 query rows; warp w owns rows 16w .. 16w+15
+// and its thread (g, t) rows g and g+8 of them and, per 8 columns j,
+// s[4j+e] / o[4j+e] = (row g, column 8j+2t+e) and s[4j+2+e] / o[4j+2+e] =
+// (row g+8, the same): the D fragment of wgmma.
+//
+// The KV loop, tile j (slots: K_j in K slot j % 2, V_j in V slot j % 2):
+//   wait for K_{j+1} and V_j (one commit group; V_1 comes with V_0), then a
+//   barrier, after which every warp is done with S_j's and P_{j-1} V_{j-1}'s
+//   reads;
+//   copy K_{j+2} and V_{j+1} into the slots K_j and V_{j-1} held;
+//   issue S_{j+1} = Q K_{j+1}^T, which runs while the softmax of S_j does;
+//   O += P_j V_j; wait for both products.
+template <int D>
+__global__ void __launch_bounds__(Sm90<D>::NT, Sm90<D>::MIN_BLOCKS)
 attn_kernel_sm90(const Args a) {
-    using C = Sm90<D, BQ>;
-    constexpr int BKV = C::BKV, NT = C::NT, STAGES = C::STAGES;
+    using C = Sm90<D>;
+    constexpr int BQ = C::BQ, BKV = C::BKV, NT = C::NT;
     constexpr int NS = BKV / 8;      // score column tiles
     constexpr int NO = D / 8;        // output column tiles
     extern __shared__ __align__(1024) unsigned char smem_raw[];
     unsigned char* smem =
         smem_raw + ((1024 - ((uint32_t)__cvta_generic_to_shared(smem_raw) & 1023)) & 1023);
     unsigned char* Qs = smem;
-    auto k_slot = [&](int s) { return smem + C::Q_BYTES + s * C::STAGE; };
-    auto v_slot = [&](int s) { return smem + C::Q_BYTES + s * C::STAGE + C::KV_BYTES; };
+    constexpr int R = C::RING;
+    auto k_slot = [&](int s) { return smem + C::Q_BYTES + s * C::KV_BYTES; };
+    auto v_slot = [&](int s) { return smem + C::Q_BYTES + (R + s) * C::KV_BYTES; };
 
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
     const int g = lane / 4, t = lane % 4;
@@ -363,19 +440,45 @@ attn_kernel_sm90(const Args a) {
     int kv_begin, kv_end;
     kv_range(a, q0, BQ, BKV, kv_begin, kv_end);
     const int n_tiles = (kv_end - kv_begin + BKV - 1) / BKV;
-
-    // Copies, one commit group each: [Q, K_0], V_0, K_1, V_1, ...; tiles
-    // 0 .. STAGES-2 now, tile j + STAGES-1 once tile j-1's slot is free.
-    auto issue = [&](int j) {
-        const int s = j % STAGES, kv0 = kv_begin + j * BKV;
-        if (j < n_tiles) copy_tile<D, BKV, NT>(k_slot(s), kp, a.ks.s, kv0, Sk, tid);
-        cp_async_commit();
-        if (j < n_tiles) copy_tile<D, BKV, NT>(v_slot(s), vp, a.vs.s, kv0, Sk, tid);
-        cp_async_commit();
+    auto copy_k = [&](int j) {
+        if (j < n_tiles) copy_tile<D, BKV, NT>(k_slot(j % R), kp, a.ks.s, kv_begin + j * BKV, Sk, tid);
     };
-    copy_tile<D, BQ, NT>(Qs, qp, a.qs.s, q0, a.Sq, tid);
+    auto copy_v = [&](int j) {
+        if (j < n_tiles) copy_tile<D, BKV, NT>(v_slot(j % R), vp, a.vs.s, kv_begin + j * BKV, Sk, tid);
+    };
+
+    // S = Q K_j^T: Q and K both K-major
+    const uint32_t q_addr = (uint32_t)__cvta_generic_to_shared(Qs);
+    auto issue_s = [&](float (&s)[4 * NS], int j) {
+        const uint32_t k_addr = (uint32_t)__cvta_generic_to_shared(k_slot(j % R));
+        wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < STAGES - 1; ++j) issue(j);
+        for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss(s, sw128_desc(q_addr + (kk / 4) * (BQ * 128) + (kk % 4) * 32),
+                     sw128_desc(k_addr + (kk / 4) * (BKV * 128) + (kk % 4) * 32), kk > 0);
+        wgmma_commit();
+        wgmma_keep(s);
+    };
+
+    // groups [Q, K_0], [K_1, V_0], ..., [K_{R-1}, V_{R-2}, V_{R-1}] (every
+    // slot is free yet); S_0
+    copy_tile<D, BQ, NT>(Qs, qp, a.qs.s, q0, a.Sq, tid);
+    copy_k(0);
+    cp_async_commit();
+#pragma unroll
+    for (int i = 1; i < R; ++i) {
+        copy_k(i);
+        copy_v(i - 1);
+        if (i == R - 1) copy_v(i);
+        cp_async_commit();
+    }
+    cp_async_wait<R - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    float s_even[4 * NS];
+    issue_s(s_even, 0);
+    wgmma_wait<0>();
+    wgmma_keep(s_even);
 
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // l: this thread's share of the row sum
     float o[4 * NO];
@@ -384,111 +487,81 @@ attn_kernel_sm90(const Args a) {
     const float sl2 = a.scale * LOG2E;   // scores in log2 units: p = exp2(s * sl2 - m)
     const int row_a = q0 + warp * 16 + g;   // this thread's rows row_a and row_a + 8
 
-    for (int j = 0; j < n_tiles; ++j) {
-        const int kv0 = kv_begin + j * BKV, slot = j % STAGES;
-        cp_async_wait<2 * STAGES - 3>();   // K_j (and Q) landed for this thread,
-        __syncthreads();                   // for all, and every warp is done with tile j-1
-        issue(j + STAGES - 1);             // into the slot tile j-1 held
-        const unsigned char* Ks = k_slot(slot);
-
-        // S = Q K^T for this warp's 16 rows
-        float s[4 * NS];
-#pragma unroll
-        for (int i = 0; i < 4 * NS; ++i) s[i] = 0.f;
-#pragma unroll
-        for (int dk = 0; dk < D / 16; ++dk) {
-            uint32_t qa[4];
-            ldmatrix_x4(qa, Qs + sw_off<BQ>(warp * 16 + lane % 16, 2 * dk + lane / 16));
-#pragma unroll
-            for (int np = 0; np < NS / 2; ++np) {
-                uint32_t r[4];   // K is [key][d]: already the "col" operand, no transpose
-                ldmatrix_x4(r, Ks + sw_off<BKV>(np * 16 + lane % 8 + 8 * (lane / 16),
-                                                2 * dk + (lane / 8) % 2));
-                mma_bf16(*reinterpret_cast<float(*)[4]>(&s[8 * np]), qa, r[0], r[1]);
-                mma_bf16(*reinterpret_cast<float(*)[4]>(&s[8 * np + 4]), qa, r[2], r[3]);
-            }
-        }
-
-        // scale, mask, online softmax (rows g and g+8 of this warp's block).
-        // Masked scores are -1e30; keys past Sk are -inf, so that exp2 gives
-        // them exactly 0 and the max never sees them.
-        const bool unmasked = tile_unmasked(a, q0, BQ, kv0, BKV);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int q_pos = a.q_offset + row_a + half * 8;
-            float row_max = NEG_INF;
-#pragma unroll
-            for (int n = 0; n < NS; ++n)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    float val = s[4 * n + 2 * half + e] * sl2;
-                    if (!unmasked) {
-                        const int k_pos = kv0 + n * 8 + 2 * t + e;
-                        if (!visible(a, q_pos, k_pos)) val = NEG_INF;
-                        if (k_pos >= Sk) val = __uint_as_float(0xff800000u);   // -inf
-                    }
-                    s[4 * n + 2 * half + e] = val;
-                    row_max = fmaxf(row_max, val);
-                }
-            row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
-            row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
-            const float m_new = fmaxf(m[half], row_max);
-            const float alpha = exp2f(m[half] - m_new);
-            float part = 0.f;
-#pragma unroll
-            for (int n = 0; n < NS; ++n)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const float p = exp2f(s[4 * n + 2 * half + e] - m_new);
-                    s[4 * n + 2 * half + e] = p;
-                    part += p;
-                }
-            l[half] = l[half] * alpha + part;
-            m[half] = m_new;
-#pragma unroll
-            for (int n = 0; n < NO; ++n) {
-                o[4 * n + 2 * half] *= alpha;
-                o[4 * n + 2 * half + 1] *= alpha;
-            }
-        }
-
-        cp_async_wait<2 * STAGES - 2>();   // V_j landed for this thread,
+    // Tile j with its scores in sc, tile j+1's into sn.  Only wgmma writes
+    // sc and sn (the softmax works on a copy, w): an accumulator that other
+    // instructions write makes ptxas serialize every wgmma of the kernel.
+    auto step = [&](int j, const float (&sc)[4 * NS], float (&sn)[4 * NS]) {
+        const int kv0 = kv_begin + j * BKV;
+        cp_async_wait<R - 2>();            // K_{j+1}, V_j landed for this thread,
+        fence_proxy_async();               // are visible to the tensor cores' reads,
         __syncthreads();                   // and for all
-        const unsigned char* Vs = v_slot(slot);
+        copy_k(j + R);
+        if (j > 0) copy_v(j + R - 1);      // (V_{R-1} came with V_{R-2})
+        cp_async_commit();
+        if (j + 1 < n_tiles) issue_s(sn, j + 1);
 
-        // O += P V: the score accumulators, as bf16, are the A operand
+        const int q_pos = a.q_offset + row_a;
+        float w[4 * NS];
+        if (tile_unmasked(a, q0, BQ, kv0, BKV))
+            scale_scores<false>(sc, w, a, sl2, q_pos, kv0, t);
+        else
+            scale_scores<true>(sc, w, a, sl2, q_pos, kv0, t);
+        online_softmax(w, m, l, o);
+
+        // O += P V: the probabilities, as bf16, are the register operand A;
+        // V ([key][d], d contiguous) is the MN-major operand B
+        uint32_t pa[BKV / 16][4];
 #pragma unroll
         for (int ks = 0; ks < BKV / 16; ++ks) {
-            uint32_t pa[4];
-            pa[0] = pack_bf16(s[8 * ks], s[8 * ks + 1]);
-            pa[1] = pack_bf16(s[8 * ks + 2], s[8 * ks + 3]);
-            pa[2] = pack_bf16(s[8 * ks + 4], s[8 * ks + 5]);
-            pa[3] = pack_bf16(s[8 * ks + 6], s[8 * ks + 7]);
-#pragma unroll
-            for (int dp = 0; dp < NO / 2; ++dp) {
-                uint32_t r[4];   // V is [key][d] = [k][n]: transpose on load
-                ldmatrix_x4_trans(r, Vs + sw_off<BKV>(ks * 16 + lane % 8 + 8 * ((lane / 8) % 2),
-                                                      2 * dp + lane / 16));
-                mma_bf16(*reinterpret_cast<float(*)[4]>(&o[8 * dp]), pa, r[0], r[1]);
-                mma_bf16(*reinterpret_cast<float(*)[4]>(&o[8 * dp + 4]), pa, r[2], r[3]);
-            }
+            pa[ks][0] = pack_bf16(w[8 * ks], w[8 * ks + 1]);
+            pa[ks][1] = pack_bf16(w[8 * ks + 2], w[8 * ks + 3]);
+            pa[ks][2] = pack_bf16(w[8 * ks + 4], w[8 * ks + 5]);
+            pa[ks][3] = pack_bf16(w[8 * ks + 6], w[8 * ks + 7]);
         }
+        const uint32_t v_addr = (uint32_t)__cvta_generic_to_shared(v_slot(j % R));
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BKV / 16; ++ks)
+            wgmma_rs<1>(o, pa[ks], sw128_mn_desc(v_addr + ks * 16 * 128, BKV * 128), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_keep(o);
+        wgmma_keep(sn);
+#pragma unroll
+        for (int ks = 0; ks < BKV / 16; ++ks) wgmma_keep(pa[ks]);
+    };
+    // Two steps a pass, so that the score buffers keep their places; each
+    // product's buffer is declared afresh, so no other instruction defines
+    // the accumulators it starts from (they are scaled by 0).
+    for (int j = 0;; j += 2) {
+        float s_odd[4 * NS];
+        step(j, s_even, s_odd);
+        if (j + 1 >= n_tiles) break;
+        float s_next[4 * NS];
+        step(j + 1, s_odd, s_next);
+        if (j + 2 >= n_tiles) break;
+#pragma unroll
+        for (int i = 0; i < 4 * NS; ++i) s_even[i] = s_next[i];
     }
     cp_async_wait<0>();
 
-    float* op = a.out + ((size_t)bh * a.Sq) * D;
+    float inv[2];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
         float sum = l[half];
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        inv[half] = 1.f / fmaxf(sum, 1e-30f);
+    }
+    float* op = a.out + ((size_t)bh * a.Sq) * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
         const int row = row_a + half * 8;
         if (row >= a.Sq) continue;
-        const float inv = 1.f / fmaxf(sum, 1e-30f);
 #pragma unroll
         for (int n = 0; n < NO; ++n)
             *reinterpret_cast<float2*>(op + (size_t)row * D + n * 8 + 2 * t) =
-                make_float2(o[4 * n + 2 * half] * inv, o[4 * n + 2 * half + 1] * inv);
+                make_float2(o[4 * n + 2 * half] * inv[half], o[4 * n + 2 * half + 1] * inv[half]);
     }
 }
 
@@ -503,8 +576,11 @@ template <typename Kernel>
 int launch(Kernel kernel, bool& configured, size_t smem, int threads, long long blocks,
            const Args& a, cudaStream_t stream) {
     if (!configured) {
-        const cudaError_t e = cudaFuncSetAttribute(
+        cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e == cudaSuccess)   // all of the SM's shared memory, so that blocks fit side by side
+            e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                     (int)cudaSharedmemCarveoutMaxShared);
         if (e != cudaSuccess) return (int)e;
         configured = true;
     }
@@ -520,12 +596,12 @@ int launch_fma(const Args& a, cudaStream_t st) {
                   (long long)a.B * a.Hq * ((a.Sq + BQ - 1) / BQ), a, st);
 }
 
-template <int D, int BQ_>
+template <int D>
 int launch_sm90(const Args& a, cudaStream_t st) {
-    using C = Sm90<D, BQ_>;
+    using C = Sm90<D>;
     static bool configured = false;
-    return launch(attn_kernel_sm90<D, BQ_>, configured, C::SMEM, C::NT,
-                  (long long)a.B * a.Hq * ((a.Sq + BQ_ - 1) / BQ_), a, st);
+    return launch(attn_kernel_sm90<D>, configured, C::SMEM, C::NT,
+                  (long long)a.B * a.Hq * ((a.Sq + C::BQ - 1) / C::BQ), a, st);
 }
 
 Args make_args(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hk,
@@ -567,15 +643,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 }
 
 // The bf16 tensor-core kernel on the plan `attn_plan` of
-// kernels/flash_attention.py gives: query tile bq (64 or 128), query tiles
-// by decreasing work when heavy_first, tile skipping when skip.  Refuses
-// what it cannot take (D not 64 or 128, storage not 16-byte aligned, a
-// stride not a multiple of 8) with cudaErrorInvalidValue.
+// kernels/flash_attention.py gives: query tiles by decreasing work when
+// heavy_first, tile skipping when skip.  Refuses what it cannot take (D not
+// 64 or 128, storage not 16-byte aligned, a stride not a multiple of 8)
+// with cudaErrorInvalidValue.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                            void* out, int B, int Hq, int Hk, int Sq, int Sk,
                                            int D, const long long* strides, float scale,
                                            int causal, int window, int q_offset, int skip,
-                                           int bq, int heavy_first, void* stream) {
+                                           int heavy_first, void* stream) {
     if (bad_sizes(B, Hq, Hk, Sq, Sk)) return (int)cudaErrorInvalidValue;
     const Args a = make_args(q, k, v, out, B, Hq, Hk, Sq, Sk, strides, scale, causal, window,
                              q_offset, skip, heavy_first);
@@ -583,9 +659,9 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const v
         !mult8(a.ks) || !mult8(a.vs))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-    if (D == 64 && bq == 128) return launch_sm90<64, 128>(a, st);
-    if (D == 64 && bq == 64) return launch_sm90<64, 64>(a, st);
-    if (D == 128 && bq == 128) return launch_sm90<128, 128>(a, st);
-    if (D == 128 && bq == 64) return launch_sm90<128, 64>(a, st);
-    return (int)cudaErrorInvalidValue;
+    switch (D) {
+        case 64:  return launch_sm90<64>(a, st);
+        case 128: return launch_sm90<128>(a, st);
+        default:  return (int)cudaErrorInvalidValue;
+    }
 }

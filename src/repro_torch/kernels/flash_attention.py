@@ -10,8 +10,7 @@ tensors.  The inputs may be strided views (the model hands over transposed
 `flash_attention.launches` counts kernel launches.  Which kernel, and on
 what plan, is `dispatch`'s answer: bf16 inputs with D = 64 or 128, 16-byte
 aligned storage and strides that are multiples of 8 go to the tensor-core
-kernel `attn_kernel_sm90` on the query tile and grid order `attn_plan`
-gives; everything else to the f32 FMA kernel `attn_kernel`.
+kernel `attn_kernel_sm90` in the grid order `attn_plan` gives; everything else to the f32 FMA kernel `attn_kernel`.
 """
 
 from __future__ import annotations
@@ -25,7 +24,6 @@ from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # head sizes the FMA kernel is instantiated for
 SM90_HEAD_DIMS = (64, 128)      # head sizes of the tensor-core kernel
-SMS = 132                       # streaming multiprocessors of an H100 SXM
 
 
 def attn_skip(sq: int, sk: int, causal: bool, window: int, q_offset: int) -> bool:
@@ -41,9 +39,8 @@ def attn_skip(sq: int, sk: int, causal: bool, window: int, q_offset: int) -> boo
     return not (window > 0 and q_offset + sq >= sk + window)
 
 
-def kv_tile(d: int) -> int:
-    """Keys per KV tile of `attn_kernel_sm90` at head size d."""
-    return 64 if d == 128 else 128
+BQ = 64    # query rows per block of `attn_kernel_sm90`: one warpgroup
+BKV = 64   # keys per KV tile (128 at D = 64 needs more than 255 registers a thread)
 
 
 @dataclass(frozen=True)
@@ -97,19 +94,21 @@ def attn_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int, causal: bool =
               window: int = 0, q_offset: int = 0) -> AttnPlan:
     """The plan of `attn_kernel_sm90` for these shapes and this mask.
 
-    128-row query tiles (two warpgroups) where they give at least one block
-    per SM; otherwise 64-row tiles, which double the blocks and halve the
-    longest block's work (yi-6b's B=1 prefills of 128 to 512 tokens: 32 to
-    128 blocks at 128 rows; `PERF.md` has the readings).  A causal mask
-    makes the last query tiles the longest, so with tile skipping and more
-    than one query tile they run first."""
+    Query tiles are 64 rows at every shape: two or three such blocks share
+    an SM and overlap one another's softmax and products, which two
+    warpgroups of one 128-row block, held together by its barriers, did not
+    (slower at all six timed prefills; `PERF.md` has the readings).  A
+    causal mask makes the last query tiles the longest, so with tile
+    skipping and more than two query tiles they run first.  With two (the
+    batch-128 prefills of 128 tokens) the imbalance is small, and keeping a
+    head's query tiles together lets its K and V be read from L2 the second
+    time."""
     if d not in SM90_HEAD_DIMS or min(b, hq, hk, sq, sk) <= 0 or hq % hk:
         raise ValueError(f"attn_plan: no plan for b={b} hq={hq} hk={hk} sq={sq} sk={sk} d={d}")
     skip = attn_skip(sq, sk, causal, window, q_offset)
-    bq = 128 if b * hq * -(-sq // 128) >= SMS else 64
-    q_tiles = -(-sq // bq)
-    return AttnPlan(bq=bq, bkv=kv_tile(d), q_tiles=q_tiles, blocks=b * hq * q_tiles,
-                    heavy_first=bool(causal and skip and q_tiles > 1), skip=skip)
+    q_tiles = -(-sq // BQ)
+    return AttnPlan(bq=BQ, bkv=BKV, q_tiles=q_tiles, blocks=b * hq * q_tiles,
+                    heavy_first=bool(causal and skip and q_tiles > 2), skip=skip)
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -147,10 +146,10 @@ def _launch_sm90(q, k, v, out, scale: float, causal: bool, window: int, q_offset
     b, hq, sq, d = q.shape
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     with torch.cuda.device(q.device):
-        return _entry("flash_attention_sm90_launch", 6)(
+        return _entry("flash_attention_sm90_launch", 5)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, hq, k.shape[1], sq, k.shape[2], d, strides, scale, int(causal), int(window),
-            int(q_offset), int(plan.skip), plan.bq, int(plan.heavy_first),
+            int(q_offset), int(plan.skip), int(plan.heavy_first),
             torch.cuda.current_stream(q.device).cuda_stream)
 
 

@@ -610,7 +610,7 @@ def test_attn_plan_visits_every_visible_pair(b, hq, hk, sq, sk, d, causal, windo
     skips hold no visible (query, key) pair of its rows, so every visible
     pair lies in a visited tile.  Without skipping every tile is visited."""
     plan = FA.attn_plan(b, hq, hk, sq, sk, d, causal, window, off)
-    assert plan.bkv == FA.kv_tile(d) and plan.q_tiles == -(-sq // plan.bq)
+    assert (plan.bq, plan.bkv) == (FA.BQ, FA.BKV) and plan.q_tiles == -(-sq // plan.bq)
     vis = _visible(sq, sk, causal, window, off)
     for q0 in range(0, sq, plan.bq):
         begin, end = FA.kv_range(q0, plan.bq, plan.bkv, sq, sk, causal, window, off, plan.skip)
@@ -654,17 +654,19 @@ def test_attn_plan_grid_covers_every_query_row_once(b, hq, hk, sq, sk, d, causal
     assert (seen == 1).all()
     if plan.heavy_first:
         assert work == sorted(work, reverse=True)
-    assert plan.heavy_first == (causal and plan.skip and plan.q_tiles > 1)
+    assert plan.heavy_first == (causal and plan.skip and plan.q_tiles > 2)
 
 
-@pytest.mark.parametrize("b,hq,sq,bq", [
-    (1, 32, 128, 64), (1, 32, 256, 64), (1, 32, 512, 64), (1, 32, 640, 128),
-    (128, 32, 128, 128), (1, 32, 4096, 128), (2, 66, 128, 128), (2, 65, 128, 64)])
-def test_attn_plan_query_tile(b, hq, sq, bq):
-    """128-row query tiles where they give every SM a block, 64 below."""
-    plan = FA.attn_plan(b, hq, hq, sq, sq, 128)
-    assert plan.bq == bq
-    assert (b * hq * -(-sq // 128) >= FA.SMS) == (bq == 128)
+@pytest.mark.parametrize("b,hq,sq,window,off,heavy_first", [
+    (1, 32, 128, 0, 0, False), (1, 32, 256, 0, 0, True), (1, 32, 512, 0, 0, True),
+    (128, 32, 128, 0, 0, False), (1, 32, 4096, 4096, 0, True), (128, 32, 128, 4096, 0, False),
+    (1, 4, 200, 0, 0, True), (1, 4, 192, 16, 500, False)])
+def test_attn_plan_grid_order(b, hq, sq, window, off, heavy_first):
+    """64-row query tiles everywhere; the longest query tiles first where a
+    causal mask gives more than two of them unequal work (not with rows
+    masked everywhere, where every block visits every tile)."""
+    plan = FA.attn_plan(b, hq, hq, sq, sq if off == 0 else 64, 128, True, window, off)
+    assert plan.bq == 64 and plan.heavy_first == heavy_first
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 128, 96), (0, 4, 128, 128), (1, 3, 128, 128)])
@@ -707,3 +709,136 @@ def test_attention_dispatch_takes_the_models_strided_views_and_refuses_odd_strid
     assert FA.dispatch(flat, flat[:, :2], flat[:, :2]) == ("attn_kernel", None)
     flat = torch.zeros(2 * 8 * 128 * 64 + 8, dtype=bf)[8:].view(2, 8, 128, 64)
     assert FA.dispatch(flat, flat[:, :2], flat[:, :2])[0] == "attn_kernel_sm90"
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the tensor-core kernel's shared-memory layouts and
+# fragments, emulated in numpy
+# ---------------------------------------------------------------------------
+
+def _sw_off(rows, r, c):
+    """`sw_off` of csrc/flash_attention.cu: byte offset of 16-byte chunk c of
+    row r in a tile of `rows` rows, stored as 64-wide panels of 128-byte
+    rows in the 128-byte swizzle."""
+    return (c // 8) * (rows * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4)
+
+
+def _swizzled_tile(x):
+    """The bytes `copy_tile` leaves in shared memory for a (rows, D) bf16
+    tile x (as uint16 bit patterns)."""
+    rows, d = x.shape
+    img = np.zeros(rows * d, np.uint16)
+    for r in range(rows):
+        for c in range(d // 8):
+            off = _sw_off(rows, r, c) // 2
+            img[off:off + 8] = x[r, 8 * c:8 * c + 8]
+    return img
+
+
+def _swz128(byte_addr):
+    """The 128-byte swizzle the tensor cores apply to a shared-memory address
+    (1024-byte aligned atoms): bits 4-6 ^= bits 7-9."""
+    return byte_addr ^ (((byte_addr >> 7) & 7) << 4)
+
+
+def _k_major(img, start, rows):
+    """A (rows x 16) operand read through `sw128_desc(start)`: 8-row atoms
+    1024 bytes apart, each row's 16 values at start + 128 * row + 2 * k."""
+    out = np.empty((rows, 16), np.uint16)
+    for r in range(rows):
+        for k in range(16):
+            b = start + (r // 8) * 1024 + (r % 8) * 128 + 16 * (k // 8) + 2 * (k % 8)
+            out[r, k] = img[_swz128(b) // 2]
+    return out
+
+
+def _mn_major(img, start, lbo, n):
+    """A (16 x n) operand read MN-major through `sw128_mn_desc(start, lbo)`:
+    canonical layout ((8, 8, n/64), (8, 2)) : ((1, 8, lbo), (64, sbo)) in
+    elements, stride byte offset 1024."""
+    out = np.empty((16, n), np.uint16)
+    for k in range(16):
+        for j in range(n):
+            b = (start + 2 * (j % 8) + 16 * ((j // 8) % 8) + lbo * (j // 64)
+                 + 128 * (k % 8) + 1024 * (k // 8))
+            out[k, j] = img[_swz128(b) // 2]
+    return out
+
+
+def _bf16_bits(x):
+    """float32 -> bf16 bit patterns, rounded to nearest even."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def _bits_f32(b):
+    return (b.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_attn_q_k_tiles_give_q_kt_through_their_descriptors(d):
+    """S = Q K^T as the kernel's wgmma sees it: Q (64 rows) and a K tile (64
+    keys) copied into the swizzled layout, each 16-deep step read through
+    `sw128_desc` at panel (step / 4), 32 * (step % 4) bytes along the row."""
+    r = _rng(31, d)
+    qb = _bf16_bits(r.standard_normal((64, d)))
+    kb = _bf16_bits(r.standard_normal((64, d)))
+    q_img, k_img = _swizzled_tile(qb), _swizzled_tile(kb)
+    s = np.zeros((64, 64))
+    for kk in range(d // 16):
+        a = _k_major(q_img, (kk // 4) * (64 * 128) + (kk % 4) * 32, 64)
+        b = _k_major(k_img, (kk // 4) * (64 * 128) + (kk % 4) * 32, 64)   # [key][k]
+        s += _bits_f32(a) @ _bits_f32(b).T
+    np.testing.assert_allclose(s, _bits_f32(qb) @ _bits_f32(kb).T, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_attn_p_fragments_and_mn_major_v_give_p_v(d):
+    """O = P V as the kernel computes it for one warpgroup: the S fragment
+    (thread (w, g, t): s[4j+e] = row 16w+g, key 8j+2t+e; s[4j+2+e] = row
+    16w+g+8) packed into the A fragments `pa` of four 16-key steps, V read
+    MN-major from the swizzled tile through `sw128_mn_desc` (16 keys = 2048
+    bytes a step, 64-wide panels 64 * 128 bytes apart), and the store of the
+    D fragment.  What the store writes must be P V."""
+    r = _rng(37, d)
+    p = r.random((64, 64))                                            # probabilities
+    vb = _bf16_bits(r.standard_normal((64, d)))
+    v_img = _swizzled_tile(vb)
+    pa = {}
+    for w in range(4):
+        for g in range(8):
+            for t in range(4):
+                s = np.empty(32)
+                for j in range(8):
+                    for e in range(2):
+                        s[4 * j + e] = p[16 * w + g, 8 * j + 2 * t + e]
+                        s[4 * j + 2 + e] = p[16 * w + g + 8, 8 * j + 2 * t + e]
+                pa[w, g, t] = [[_bf16_bits(s[8 * ks + 2 * i:8 * ks + 2 * i + 2]) for i in range(4)]
+                               for ks in range(4)]
+    o = np.zeros((64, d))
+    for ks in range(4):
+        a = np.empty((64, 16))                  # A of this step, from the lanes' registers
+        for (w, g, t), regs in pa.items():
+            a0, a1, a2, a3 = (_bits_f32(x) for x in regs[ks])
+            a[16 * w + g, 2 * t:2 * t + 2] = a0
+            a[16 * w + g + 8, 2 * t:2 * t + 2] = a1
+            a[16 * w + g, 2 * t + 8:2 * t + 10] = a2
+            a[16 * w + g + 8, 2 * t + 8:2 * t + 10] = a3
+        b = _mn_major(v_img, ks * 16 * 128, 64 * 128, d)
+        np.testing.assert_array_equal(b, vb[16 * ks:16 * ks + 16])
+        o += a @ _bits_f32(b)
+    out = np.full((64, d), np.nan)
+    for w in range(4):
+        for g in range(8):
+            for t in range(4):
+                frag = np.empty(d // 2)         # the D fragment wgmma leaves in the thread
+                for j in range(d // 8):
+                    for e in range(2):
+                        frag[4 * j + e] = o[16 * w + g, 8 * j + 2 * t + e]
+                        frag[4 * j + 2 + e] = o[16 * w + g + 8, 8 * j + 2 * t + e]
+                for h in range(2):              # the store: o[4n+2h+e] -> (16w+g+8h, 8n+2t+e)
+                    for n in range(d // 8):
+                        out[16 * w + g + 8 * h, 8 * n + 2 * t:8 * n + 2 * t + 2] = \
+                            frag[4 * n + 2 * h:4 * n + 2 * h + 2]
+    pb = _bits_f32(_bf16_bits(p))
+    np.testing.assert_allclose(out, pb @ _bits_f32(vb), rtol=1e-12, atol=1e-9)

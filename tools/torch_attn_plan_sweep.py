@@ -5,9 +5,9 @@ plans other than the one `attn_plan` picks, at the prefill shapes
 
     python3 tools/torch_attn_plan_sweep.py > attn_sweep.log
 
-Needs one NVIDIA Hopper GPU.  For each shape: both query tiles (64 and 128
-rows), each in both grid orders wherever the causal mask gives the query
-tiles unequal work (more than one query tile).  Each plan's output is held
+Needs one NVIDIA Hopper GPU.  For each shape: both grid orders wherever the
+causal mask gives the query tiles unequal work (more than one query tile).
+Each plan's output is held
 against the plain version at `chip_smoke.py`'s bf16 tolerance (rtol = atol
 2e-2; at batch 128 the first 4 batch rows, as there) and timed, beside
 `scaled_dot_product_attention` on the same inputs.  One JSON line per shape,
@@ -39,23 +39,20 @@ def sweep_shape(gen, model: str, b: int, s: int, hq: int, hk: int, d: int, windo
     want = ref.attention_ref(q[:rows_checked], k[:rows_checked], v[:rows_checked], window=window)
     chosen = fa.attn_plan(b, hq, hk, s, s, d, True, window, 0)
     rows = []
-    for bq in (128, 64):
-        q_tiles = -(-s // bq)
-        for heavy_first in ((True, False) if chosen.skip and q_tiles > 1 else (False,)):
-            plan = dataclasses.replace(chosen, bq=bq, q_tiles=q_tiles, blocks=b * hq * q_tiles,
-                                       heavy_first=heavy_first)
-            out, err = launch(q, k, v, window, plan)
-            row = {**plan.as_dict(), "chosen": plan == chosen}
-            if err:
-                row["cuda_error"] = err
-                torch.cuda.synchronize()
-            else:
-                diff = (out[:rows_checked] - want).abs()
-                row["max_abs_err"] = float(diff.max())
-                row["within_tolerance"] = bool((diff <= 2e-2 + 2e-2 * want.abs()).all())
-                row["ms"] = cs.time_ms(lambda: launch(q, k, v, window, plan))
-            rows.append(row)
-            del out
+    for heavy_first in ((True, False) if chosen.skip and chosen.q_tiles > 1 else (False,)):
+        plan = dataclasses.replace(chosen, heavy_first=heavy_first)
+        out, err = launch(q, k, v, window, plan)
+        row = {**plan.as_dict(), "chosen": plan == chosen}
+        if err:
+            row["cuda_error"] = err
+            torch.cuda.synchronize()
+        else:
+            diff = (out[:rows_checked] - want).abs()
+            row["max_abs_err"] = float(diff.max())
+            row["within_tolerance"] = bool((diff <= 2e-2 + 2e-2 * want.abs()).all())
+            row["ms"] = cs.time_ms(lambda: launch(q, k, v, window, plan))
+        rows.append(row)
+        del out
     kr, vr = k.repeat_interleave(hq // hk, dim=1), v.repeat_interleave(hq // hk, dim=1)
     library_ms = cs.time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, kr, vr, is_causal=True))
