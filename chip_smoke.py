@@ -107,6 +107,8 @@ SSM_HEADLINE = "zamba2 B=128 L=128"      # the scan shape reported in the summar
 
 KERNELS = {"photonic_mac": photonic_mac, "flash_attention": flash_attention,
            "ssm_scan": ssm_scan}
+# names of the port's CUDA kernels, as the profiler shows them
+PORT_KERNEL_NAMES = ("mac_kernel", "attn_kernel", "ssm_scan_kernel")
 ATTN_KINDS = ("attn", "local", "global", "shared_attn")
 
 
@@ -383,20 +385,19 @@ def check_flash_attention(gen) -> dict:
     for (model, b, s, hq, hk, d, window) in ATTN_TIMED:
         q, k, v = _attn_inputs(gen, b, hq, hk, s, s, d, bf16, model_layout=True)
         what = f"attn {model} b{b} s{s} bf16"
-        if b == 1:
-            checks.append(compare(flash_attention(q, k, v, window=window),
-                                  ref.attention_ref(q, k, v, window=window), 2e-2, 2e-2, what))
-        else:   # the plain version would hold (128,H,128,128) f32 scores twice: check 4 rows
-            out = flash_attention(q, k, v, window=window)
-            checks.append(compare(out[:4], ref.attention_ref(q[:4], k[:4], v[:4], window=window),
-                                  2e-2, 2e-2, what + " (first 4 of batch)"))
         kernel, plan = FA.dispatch(q, k, v, window=window)
         if kernel != "attn_kernel_sm90":
             raise AssertionError(f"{what} did not reach attn_kernel_sm90")
         if b == 1:
-            checks.append(_attn_other_order(q, k, v, ref.attention_ref(q, k, v, window=window),
-                                            plan, dict(causal=True, window=window, q_offset=0),
-                                            what))
+            want = ref.attention_ref(q, k, v, window=window)
+            checks.append(compare(flash_attention(q, k, v, window=window), want, 2e-2, 2e-2, what))
+            checks.append(_attn_other_order(q, k, v, want, plan,
+                                            dict(causal=True, window=window, q_offset=0), what))
+            del want
+        else:   # the plain version would hold (128,H,128,128) f32 scores twice: check 4 rows
+            out = flash_attention(q, k, v, window=window)
+            checks.append(compare(out[:4], ref.attention_ref(q[:4], k[:4], v[:4], window=window),
+                                  2e-2, 2e-2, what + " (first 4 of batch)"))
         kr, vr = k.repeat_interleave(hq // hk, dim=1), v.repeat_interleave(hq // hk, dim=1)
         row = {"model": model, "shape": {"b": b, "hq": hq, "hk": hk, "s": s, "d": d},
                "window": window, "dtype": "bfloat16", "kernel": kernel, "plan": plan.as_dict(),
@@ -785,7 +786,8 @@ def phase_end_to_end(cfg, params, seq: int = 128) -> dict:
 
 def phase_profile(cfg, params) -> dict:
     """Device time by kernel of one batch-128 decode step, one B=1, S=128
-    prefill and one batch-128 prefill, from `torch.profiler` (`--profile`)."""
+    prefill and one batch-128 prefill, from `torch.profiler` (`--profile`):
+    the ten longest kernels and every kernel of the port."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=DEV)
@@ -807,11 +809,14 @@ def phase_profile(cfg, params) -> dict:
             return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
         busy_ms = sum(dev_us(e) for e in kernels) / 1e3
         top = sorted(kernels, key=dev_us, reverse=True)[:10]
+        ours = [e for e in kernels if any(n in e.key for n in PORT_KERNEL_NAMES)]
         return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
                 "kernel_launches": sum(e.count for e in kernels),
                 "top_kernels": [{"name": e.key[:60], "calls": e.count, "ms": dev_us(e) / 1e3}
-                                for e in top]}
+                                for e in top],
+                "port_kernels": [{"name": e.key[:60], "calls": e.count, "ms": dev_us(e) / 1e3}
+                                 for e in sorted(ours, key=dev_us, reverse=True)]}
 
     out = {"phase": "profile", "model": cfg.name,
            "decode_step_b128": window(lambda: M.serve_step(cfg, params, cache, tok, 128, device=DEV)),
@@ -911,7 +916,8 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "photonic_mac", "flash_attention"], default=None,
+    ap.add_argument("--only", choices=["kernels", "photonic_mac", "flash_attention"],
+                    default=None,
                     help="stop after this phase (for work on a kernel); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for decode and prefill, per model")

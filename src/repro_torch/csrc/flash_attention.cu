@@ -401,11 +401,11 @@ __device__ __forceinline__ void online_softmax(float (&s)[NSC], float (&m)[2], f
 // s[4j+e] / o[4j+e] = (row g, column 8j+2t+e) and s[4j+2+e] / o[4j+2+e] =
 // (row g+8, the same): the D fragment of wgmma.
 //
-// The KV loop, tile j (slots: K_j in K slot j % 2, V_j in V slot j % 2):
-//   wait for K_{j+1} and V_j (one commit group; V_1 comes with V_0), then a
-//   barrier, after which every warp is done with S_j's and P_{j-1} V_{j-1}'s
-//   reads;
-//   copy K_{j+2} and V_{j+1} into the slots K_j and V_{j-1} held;
+// The KV loop, tile j (K_j in K slot j % R, V_j in V slot j % R, R = RING):
+//   wait for K_{j+1} and V_j (one commit group, issued R - 1 tiles earlier,
+//   or at the start), then a barrier, after which every warp is done with
+//   S_j's and P_{j-1} V_{j-1}'s reads;
+//   copy K_{j+R} and V_{j+R-1} into the slots K_j and V_{j-1} held;
 //   issue S_{j+1} = Q K_{j+1}^T, which runs while the softmax of S_j does;
 //   O += P_j V_j; wait for both products.
 template <int D>
@@ -441,10 +441,12 @@ attn_kernel_sm90(const Args a) {
     kv_range(a, q0, BQ, BKV, kv_begin, kv_end);
     const int n_tiles = (kv_end - kv_begin + BKV - 1) / BKV;
     auto copy_k = [&](int j) {
-        if (j < n_tiles) copy_tile<D, BKV, NT>(k_slot(j % R), kp, a.ks.s, kv_begin + j * BKV, Sk, tid);
+        if (j < n_tiles)
+            copy_tile<D, BKV, NT>(k_slot(j % R), kp, a.ks.s, kv_begin + j * BKV, Sk, tid);
     };
     auto copy_v = [&](int j) {
-        if (j < n_tiles) copy_tile<D, BKV, NT>(v_slot(j % R), vp, a.vs.s, kv_begin + j * BKV, Sk, tid);
+        if (j < n_tiles)
+            copy_tile<D, BKV, NT>(v_slot(j % R), vp, a.vs.s, kv_begin + j * BKV, Sk, tid);
     };
 
     // S = Q K_j^T: Q and K both K-major
@@ -633,13 +635,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     const Args a = make_args(q, k, v, out, B, Hq, Hk, Sq, Sk, strides, scale, causal, window,
                              q_offset, skip, 0);
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+#define FMA_D(D) (is_bf16 ? launch_fma<__nv_bfloat16, D>(a, st) : launch_fma<float, D>(a, st))
     switch (D) {
-        case 16:  return is_bf16 ? launch_fma<__nv_bfloat16, 16>(a, st) : launch_fma<float, 16>(a, st);
-        case 32:  return is_bf16 ? launch_fma<__nv_bfloat16, 32>(a, st) : launch_fma<float, 32>(a, st);
-        case 64:  return is_bf16 ? launch_fma<__nv_bfloat16, 64>(a, st) : launch_fma<float, 64>(a, st);
-        case 128: return is_bf16 ? launch_fma<__nv_bfloat16, 128>(a, st) : launch_fma<float, 128>(a, st);
+        case 16:  return FMA_D(16);
+        case 32:  return FMA_D(32);
+        case 64:  return FMA_D(64);
+        case 128: return FMA_D(128);
         default:  return (int)cudaErrorInvalidValue;
     }
+#undef FMA_D
 }
 
 // The bf16 tensor-core kernel on the plan `attn_plan` of

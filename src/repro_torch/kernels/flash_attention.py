@@ -10,7 +10,8 @@ tensors.  The inputs may be strided views (the model hands over transposed
 `flash_attention.launches` counts kernel launches.  Which kernel, and on
 what plan, is `dispatch`'s answer: bf16 inputs with D = 64 or 128, 16-byte
 aligned storage and strides that are multiples of 8 go to the tensor-core
-kernel `attn_kernel_sm90` in the grid order `attn_plan` gives; everything else to the f32 FMA kernel `attn_kernel`.
+kernel `attn_kernel_sm90` in the grid order `attn_plan` gives; everything
+else to the f32 FMA kernel `attn_kernel`.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # head sizes the FMA kernel is instantiated for
 SM90_HEAD_DIMS = (64, 128)      # head sizes of the tensor-core kernel
+BQ = 64    # query rows per block of `attn_kernel_sm90`: one warpgroup
+BKV = 64   # keys per KV tile (128 at D = 64 needs more than 255 registers a thread)
 
 
 def attn_skip(sq: int, sk: int, causal: bool, window: int, q_offset: int) -> bool:
@@ -39,55 +42,23 @@ def attn_skip(sq: int, sk: int, causal: bool, window: int, q_offset: int) -> boo
     return not (window > 0 and q_offset + sq >= sk + window)
 
 
-BQ = 64    # query rows per block of `attn_kernel_sm90`: one warpgroup
-BKV = 64   # keys per KV tile (128 at D = 64 needs more than 255 registers a thread)
-
-
 @dataclass(frozen=True)
 class AttnPlan:
     """Launch plan of `attn_kernel_sm90`: a 1-D grid of `blocks` =
-    B * Hq * `q_tiles` blocks of `bq` query rows, each looping over KV tiles
-    of `bkv` keys.  With `heavy_first` the grid runs the query tiles in
+    B * Hq * `q_tiles` blocks of BQ query rows, each looping over KV tiles
+    of BKV keys.  With `heavy_first` the grid runs the query tiles in
     decreasing order (the last query tile, which visits the most KV tiles
     of a causal mask, first), each over all (batch, head) pairs; otherwise
     the query tiles of one (batch, head) are neighbours.  With `skip`, a
     block visits only the KV tiles that meet its rows' band."""
-    bq: int
-    bkv: int
     q_tiles: int
     blocks: int
     heavy_first: bool
     skip: bool
 
     def as_dict(self) -> dict:
-        return {"bq": self.bq, "bkv": self.bkv, "q_tiles": self.q_tiles, "blocks": self.blocks,
+        return {"bq": BQ, "bkv": BKV, "q_tiles": self.q_tiles, "blocks": self.blocks,
                 "heavy_first": self.heavy_first, "skip": self.skip}
-
-    def block(self, index: int, bh_count: int) -> tuple:
-        """(batch * Hq + head, first query row) of grid block `index`, as the
-        kernel computes it."""
-        if self.heavy_first:
-            return index % bh_count, (self.q_tiles - 1 - index // bh_count) * self.bq
-        return index // self.q_tiles, (index % self.q_tiles) * self.bq
-
-
-def kv_range(q0: int, bq: int, bkv: int, sq: int, sk: int, causal: bool, window: int,
-             q_offset: int, skip: bool) -> tuple:
-    """[begin, end) of the keys the block of query rows [q0, q0 + bq)
-    visits, in whole tiles of `bkv` from `begin`: `kv_range` of
-    csrc/flash_attention.cu."""
-    if not skip:
-        return 0, sk
-    begin, end = 0, sk
-    q_lo = q_offset + q0
-    q_hi = q_offset + min(q0 + bq, sq) - 1
-    if causal:
-        end = min(sk, q_hi + 1)
-    if window > 0:
-        lo = q_lo - window + 1
-        if lo > 0:
-            begin = (lo // bkv) * bkv
-    return begin, end
 
 
 def attn_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int, causal: bool = True,
@@ -107,7 +78,7 @@ def attn_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int, causal: bool =
         raise ValueError(f"attn_plan: no plan for b={b} hq={hq} hk={hk} sq={sq} sk={sk} d={d}")
     skip = attn_skip(sq, sk, causal, window, q_offset)
     q_tiles = -(-sq // BQ)
-    return AttnPlan(bq=BQ, bkv=BKV, q_tiles=q_tiles, blocks=b * hq * q_tiles,
+    return AttnPlan(q_tiles=q_tiles, blocks=b * hq * q_tiles,
                     heavy_first=bool(causal and skip and q_tiles > 2), skip=skip)
 
 

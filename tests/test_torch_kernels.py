@@ -593,6 +593,30 @@ ATTN_PLAN_SHAPES = [
 ]
 
 
+def _kv_range(q0, sq, sk, causal, window, q_offset, skip):
+    """`kv_range` of csrc/flash_attention.cu: [begin, end) of the keys the
+    block of query rows [q0, q0 + BQ) visits, in whole tiles of BKV keys
+    from `begin`."""
+    if not skip:
+        return 0, sk
+    begin, end = 0, sk
+    if causal:
+        end = min(sk, q_offset + min(q0 + FA.BQ, sq))
+    if window > 0:
+        lo = q_offset + q0 - window + 1
+        if lo > 0:
+            begin = (lo // FA.BKV) * FA.BKV
+    return begin, end
+
+
+def _block(plan, index, bh_count):
+    """(batch * Hq + head, first query row) of grid block `index`, as
+    `attn_kernel_sm90` computes them."""
+    if plan.heavy_first:
+        return index % bh_count, (plan.q_tiles - 1 - index // bh_count) * FA.BQ
+    return index // plan.q_tiles, (index % plan.q_tiles) * FA.BQ
+
+
 def _visible(sq, sk, causal, window, q_offset):
     q_pos = q_offset + np.arange(sq)[:, None]
     k_pos = np.arange(sk)[None, :]
@@ -610,14 +634,14 @@ def test_attn_plan_visits_every_visible_pair(b, hq, hk, sq, sk, d, causal, windo
     skips hold no visible (query, key) pair of its rows, so every visible
     pair lies in a visited tile.  Without skipping every tile is visited."""
     plan = FA.attn_plan(b, hq, hk, sq, sk, d, causal, window, off)
-    assert (plan.bq, plan.bkv) == (FA.BQ, FA.BKV) and plan.q_tiles == -(-sq // plan.bq)
+    assert plan.q_tiles == -(-sq // FA.BQ)
     vis = _visible(sq, sk, causal, window, off)
-    for q0 in range(0, sq, plan.bq):
-        begin, end = FA.kv_range(q0, plan.bq, plan.bkv, sq, sk, causal, window, off, plan.skip)
-        assert begin % plan.bkv == 0 and 0 <= begin < end <= sk
+    for q0 in range(0, sq, FA.BQ):
+        begin, end = _kv_range(q0, sq, sk, causal, window, off, plan.skip)
+        assert begin % FA.BKV == 0 and 0 <= begin < end <= sk
         visited = np.zeros(sk, dtype=bool)
-        visited[begin:begin + -(-(end - begin) // plan.bkv) * plan.bkv] = True
-        assert not vis[q0:q0 + plan.bq][:, ~visited].any()
+        visited[begin:begin + -(-(end - begin) // FA.BKV) * FA.BKV] = True
+        assert not vis[q0:q0 + FA.BQ][:, ~visited].any()
         if not plan.skip:
             assert visited.all()
 
@@ -646,11 +670,11 @@ def test_attn_plan_grid_covers_every_query_row_once(b, hq, hk, sq, sk, d, causal
     seen = np.zeros((b * hq, sq), dtype=np.int64)
     work = []
     for i in range(plan.blocks):
-        bh, q0 = plan.block(i, b * hq)
-        assert q0 % plan.bq == 0
-        seen[bh, q0:q0 + plan.bq] += 1
-        begin, end = FA.kv_range(q0, plan.bq, plan.bkv, sq, sk, causal, window, off, plan.skip)
-        work.append(-(-(end - begin) // plan.bkv))
+        bh, q0 = _block(plan, i, b * hq)
+        assert q0 % FA.BQ == 0
+        seen[bh, q0:q0 + FA.BQ] += 1
+        begin, end = _kv_range(q0, sq, sk, causal, window, off, plan.skip)
+        work.append(-(-(end - begin) // FA.BKV))
     assert (seen == 1).all()
     if plan.heavy_first:
         assert work == sorted(work, reverse=True)
@@ -666,7 +690,7 @@ def test_attn_plan_grid_order(b, hq, sq, window, off, heavy_first):
     causal mask gives more than two of them unequal work (not with rows
     masked everywhere, where every block visits every tile)."""
     plan = FA.attn_plan(b, hq, hq, sq, sq if off == 0 else 64, 128, True, window, off)
-    assert plan.bq == 64 and plan.heavy_first == heavy_first
+    assert plan.heavy_first == heavy_first
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 128, 96), (0, 4, 128, 128), (1, 3, 128, 128)])
