@@ -348,15 +348,19 @@ def check_flash_attention(gen) -> dict:
         (2, 4, 2, 100, 100, 16, f32, True, 24, 0),          # ragged: S between tiles
         (1, 2, 2, 16, 16, 16, f32, True, 4, 32),            # fully masked rows: no tile skipping
         (1, 8, 2, 128, 384, 128, bf16, True, 64, 256),
+        (1, 4, 2, 200, 150, 64, f32, True, 0, 0),           # causal, Sq > Sk: still skips
     ]
     # the tensor-core kernel's edges, at both of its head sizes: rows masked
     # everywhere (all of them, and some beside rows that see keys, with Sk
-    # ragged), Sk below one KV tile, between tiles and past two, a query
-    # offset with a window and GQA group 8, and no mask at all
+    # ragged), queries past the last key under a causal mask alone (no row
+    # masked everywhere, so tiles are skipped), Sk below one KV tile, between
+    # tiles and past two, a query offset with a window and GQA group 8, and
+    # no mask at all
     for d in (64, 128):
         cases += [
             (1, 2, 2, 64, 64, d, bf16, True, 16, 128),        # every row fully masked
             (2, 4, 2, 128, 100, d, bf16, True, 32, 64),       # some rows fully masked
+            (1, 4, 2, 200, 150, d, bf16, True, 0, 0),         # none: causal alone skips tiles
             (2, 4, 2, 40, 40, d, bf16, True, 0, 0),           # ragged: Sk below one tile
             (2, 4, 2, 100, 100, d, bf16, True, 24, 0),        # ragged: Sk between tiles
             (1, 8, 4, 200, 200, d, bf16, True, 0, 0),         # ragged: past two tiles

@@ -589,7 +589,7 @@ ATTN_PLAN_SHAPES = [
     (1, 16, 2, 128, 384, 64, True, 100, 256), (2, 4, 2, 128, 100, 64, True, 0, 64),
     (2, 4, 2, 128, 100, 128, True, 32, 64), (1, 2, 2, 64, 64, 64, True, 16, 128),
     (1, 4, 4, 200, 200, 128, False, 0, 0), (1, 4, 4, 300, 300, 64, False, 50, 0),
-    (1, 4, 4, 300, 260, 64, False, 50, 10),
+    (1, 4, 4, 300, 260, 64, False, 50, 10), (1, 4, 2, 200, 150, 128, True, 0, 0),
 ]
 
 
