@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only kernels   # stop after the kernel comparisons
     python3 chip_smoke.py --only photonic_mac   # stop after photonic_mac's comparisons
     python3 chip_smoke.py --only flash_attention   # stop after flash_attention's
+    python3 chip_smoke.py --only ssm_scan  # stop after ssm_scan's
     python3 chip_smoke.py --profile        # also: device time by kernel per model
 
 Needs one NVIDIA Hopper GPU, `nvcc` and PyTorch built for CUDA; it raises
@@ -63,6 +64,7 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.photonic_mac import (  # noqa: E402
     dispatch, mac_plan, mac_splits, photonic_mac, quantize_weights)
+from repro_torch.kernels import ssm_scan as SS  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -417,20 +419,23 @@ def check_flash_attention(gen) -> dict:
     return {"checks": checks, "timed": timed}
 
 
-def _ssm_inputs(gen, bh, l, p, n, dtypes=("f32", "f32", "f32"), decay=(0.68, 0.98)):
+def _ssm_inputs(gen, bh, l, p, n, dtypes=("f32", "f32", "f32"), decay=(0.68, 0.98), groups=None):
     """The reference tests' distribution (x * 0.5, b and c * 0.3, a in
-    `decay`); x, b and c each cast to its own dtype, a f32."""
+    `decay`); x, b and c each cast to its own dtype, a f32.  b and c have
+    `groups` rows (default: one per head)."""
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = bh if groups is None else groups
     x = (torch.randn((bh, l, p), generator=gen, device=DEV) * 0.5).to(dt[dtypes[0]])
     a = decay[0] + (decay[1] - decay[0]) * torch.sigmoid(
         torch.randn((bh, l), generator=gen, device=DEV))
-    b = (torch.randn((bh, l, n), generator=gen, device=DEV) * 0.3).to(dt[dtypes[1]])
-    c = (torch.randn((bh, l, n), generator=gen, device=DEV) * 0.3).to(dt[dtypes[2]])
+    b = (torch.randn((g, l, n), generator=gen, device=DEV) * 0.3).to(dt[dtypes[1]])
+    c = (torch.randn((g, l, n), generator=gen, device=DEV) * 0.3).to(dt[dtypes[2]])
     return x, a, b, c
 
 
 def ssm_bound_ms(x, a, b, c) -> dict:
-    """Bytes: each input read once, y (BH,L,P) f32 written once.  Operations:
+    """Bytes: each input read once (b and c at the size the grouped form
+    reads, one row per group), y (BH,L,P) f32 written once.  Operations:
     the recurrence's 5 per state entry and step (a*S, x*b, their sum, and
     the multiply-add of S c), on the f32 pipe: the kernel must compute in f32
     from these values.  (The chunked closed form takes more: 2C(N+P) + 4PN
@@ -443,26 +448,36 @@ def ssm_bound_ms(x, a, b, c) -> dict:
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-# the scan's shapes on the serving paths: (name, BH, L, P, N, dtypes of x, b, c)
+# the scan's shapes on the serving paths: (name, BH, L, P, N, dtypes of x, b, c,
+# b/c groups); zamba2's 64 heads of a batch row share one b and c
 SSM_PATH = [
-    ("zamba2 B=128 L=128", 128 * 64, 128, 64, 64, ("bf16", "bf16", "bf16")),
-    ("zamba2 B=1 L=97", 64, 97, 64, 64, ("bf16", "bf16", "bf16")),
-    ("zamba2 B=1 L=4096", 64, 4096, 64, 64, ("bf16", "bf16", "bf16")),
-    ("xlstm B=128 L=128", 128 * 4, 128, 256, 256, ("bf16", "bf16", "bf16")),
-    ("xlstm normaliser B=128 L=128", 128 * 4, 128, 1, 256, ("f32", "bf16", "bf16")),
+    ("zamba2 B=128 L=128", 128 * 64, 128, 64, 64, ("bf16", "bf16", "bf16"), 128),
+    ("zamba2 B=1 L=97", 64, 97, 64, 64, ("bf16", "bf16", "bf16"), 1),
+    ("zamba2 B=1 L=4096", 64, 4096, 64, 64, ("bf16", "bf16", "bf16"), 1),
+    ("xlstm B=128 L=128", 128 * 4, 128, 256, 256, ("bf16", "bf16", "bf16"), 128 * 4),
+    ("xlstm normaliser B=128 L=128", 128 * 4, 128, 1, 256, ("f32", "bf16", "bf16"), 128 * 4),
 ]
+
+
+def _ssm_want(x, a, b, c):
+    bh = x.shape[0]
+    return ref.ssm_scan_ref(x, a, SS.expand_groups(b, bh), SS.expand_groups(c, bh))
 
 
 def check_ssm_scan(gen) -> dict:
     """The kernel against the sequential oracle `ref.ssm_scan_ref` fed the
-    same values upcast to f32, at rtol = atol = 2e-4 (the reference test's
-    bound): both scan in f32, and differ in the order of the sum over N and
-    in one fused multiply-add per update."""
+    same values upcast to f32 (b and c repeated per head for the grouped
+    form), at rtol = atol = 2e-4 (the reference test's bound): both scan in
+    f32, and differ in the order of the sum over N and in one fused
+    multiply-add per update."""
     checks, timed = [], []
     tol = 2e-4
 
     def check(x, a, b, c, what):
-        checks.append(compare(ssm_scan(x, a, b, c), ref.ssm_scan_ref(x, a, b, c), tol, tol, what))
+        plan = SS.ssm_plan(x.shape[0], b.shape[0], x.shape[1], x.shape[2], b.shape[2],
+                           tuple(SS._dtype_name(t) for t in (x, b, c)))
+        checks.append({**compare(ssm_scan(x, a, b, c), _ssm_want(x, a, b, c), tol, tol, what),
+                       "plan": plan.as_dict()})
 
     # the reference's kernel-test shapes, f32, and its bf16 case
     for (bh, l, p, n) in [(2, 128, 16, 8), (4, 256, 32, 16), (1, 512, 64, 64), (8, 128, 8, 4),
@@ -475,26 +490,37 @@ def check_ssm_scan(gen) -> dict:
         for (p, dts) in ((1, ("f32", "bf16", "bf16")), (16, ("bf16",) * 3), (64, ("f32",) * 3)):
             check(*_ssm_inputs(gen, 3, l, p, 64, dts), f"ssm 3x{l}x{p}x64 {'/'.join(dts)}")
     check(*_ssm_inputs(gen, 2, 100, 5, 100, ("bf16", "f32", "bf16")), "ssm 2x100x5x100 mixed")
-    # wide enough for four rows a thread: a ragged last time tile and a
-    # partial tile of rows (40 of 64), and two tiles of rows (100 of 128)
+    # L that does not tile into 128-step chunks (the model's 200-token prefill)
+    check(*_ssm_inputs(gen, 4, 200, 64, 64, ("bf16",) * 3, groups=1), "ssm 4x200x64x64 bf16 G=1")
+    # wide: a ragged last time tile and a partial tile of rows (40 of 64),
+    # and two tiles of rows (100 of 128)
     check(*_ssm_inputs(gen, 16384, 97, 40, 64, ("f32", "bf16", "bf16")), "ssm 16384x97x40x64 mixed")
     check(*_ssm_inputs(gen, 2048, 64, 100, 256, ("bf16",) * 3), "ssm 2048x64x100x256 bf16")
+    # the grouped b/c form: 64 heads a group (zamba2) and 4, bf16 and f32
+    for (bh, g, l, p, n, dts) in [(1024, 16, 128, 64, 64, ("bf16",) * 3),
+                                  (256, 64, 97, 64, 64, ("bf16",) * 3),
+                                  (64, 16, 130, 32, 48, ("f32",) * 3),
+                                  (128, 2, 256, 64, 64, ("f32", "bf16", "bf16"))]:
+        check(*_ssm_inputs(gen, bh, l, p, n, dts, groups=g),
+              f"ssm grouped {bh}x{l}x{p}x{n} G={g} (H={bh // g}) {'/'.join(dts)}")
     # strong decay, where a ratio of cumulative products would underflow
     for decay in ((0.3, 0.6), (0.05, 0.35)):
         check(*_ssm_inputs(gen, 2, 128, 8, 4, decay=decay), f"ssm 2x128x8x4 decay {decay}")
         check(*_ssm_inputs(gen, 64, 512, 64, 64, ("bf16",) * 3, decay=decay),
               f"ssm 64x512x64x64 bf16 decay {decay}")
     # the serving paths' shapes, timed
-    for (name, bh, l, p, n, dts) in SSM_PATH:
-        x, a, b, c = _ssm_inputs(gen, bh, l, p, n, dts)
+    for (name, bh, l, p, n, dts, g) in SSM_PATH:
+        x, a, b, c = _ssm_inputs(gen, bh, l, p, n, dts, groups=g)
         check(x, a, b, c, f"ssm {name}")
-        timed.append({"shape": {"name": name, "bh": bh, "l": l, "p": p, "n": n},
-                      "dtypes": {"x": dts[0], "b": dts[1], "c": dts[2]},
+        be, ce = SS.expand_groups(b, bh), SS.expand_groups(c, bh)
+        plan = SS.ssm_plan(bh, g, l, p, n, dts)
+        timed.append({"shape": {"name": name, "bh": bh, "l": l, "p": p, "n": n, "groups": g},
+                      "dtypes": {"x": dts[0], "b": dts[1], "c": dts[2]}, "plan": plan.as_dict(),
                       "ms": time_ms(lambda: ssm_scan(x, a, b, c)),
-                      "plain_ms": time_ms(lambda: ref.ssm_scan_ref(x, a, b, c)),
-                      "chunked_plain_ms": time_ms(lambda: ref.ssm_scan_chunked_ref(x, a, b, c)),
+                      "plain_ms": time_ms(lambda: ref.ssm_scan_ref(x, a, be, ce)),
+                      "chunked_plain_ms": time_ms(lambda: ref.ssm_scan_chunked_ref(x, a, be, ce)),
                       "library_ms": None, **ssm_bound_ms(x, a, b, c)})
-        del x, a, b, c
+        del x, a, b, c, be, ce
     return {"checks": checks, "timed": timed}
 
 
@@ -513,50 +539,50 @@ def quantize_cost_ms(gen) -> dict:
 
 
 def phase_kernels(only: str | None = None) -> dict:
-    """Every kernel against its plain version; with `only` = "photonic_mac"
-    or "flash_attention", that kernel's comparisons alone."""
+    """Every kernel against its plain version; with `only` = "photonic_mac",
+    "flash_attention" or "ssm_scan", that kernel's comparisons alone."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
     before = counters()
+    parts, checks = {}, []
     if only in (None, "photonic_mac"):
         mac = check_photonic_mac(gen)
-        mac_out = {"n_checks": len(mac["checks"]),
-                   "max_abs_err": max(c["max_abs_err"] for c in mac["checks"]),
-                   "max_rel_err": max(c.get("max_rel_err", 0.0) for c in mac["checks"]),
-                   "tolerance": "f32 rtol 1e-4 atol 1e-3; bf16 rtol 2e-2 atol 2e-1, and at the "
-                                "serving shapes also within 1e-4 of the largest output; "
-                                "padded rows bit-identical",
-                   "timed": mac["timed"]}
+        checks += mac["checks"]
+        parts["photonic_mac"] = {
+            "n_checks": len(mac["checks"]),
+            "max_abs_err": max(c["max_abs_err"] for c in mac["checks"]),
+            "max_rel_err": max(c.get("max_rel_err", 0.0) for c in mac["checks"]),
+            "tolerance": "f32 rtol 1e-4 atol 1e-3; bf16 rtol 2e-2 atol 2e-1, and at the "
+                         "serving shapes also within 1e-4 of the largest output; "
+                         "padded rows bit-identical",
+            "timed": mac["timed"]}
     if only in (None, "flash_attention"):
         attn = check_flash_attention(gen)
-        attn_out = {"n_checks": len(attn["checks"]),
-                    "max_abs_err": max(c["max_abs_err"] for c in attn["checks"]),
-                    "max_rel_err": max(c["max_rel_err"] for c in attn["checks"]),
-                    "tolerance": "f32 rtol=atol 2e-5; bf16 rtol=atol 2e-2",
-                    "timed": attn["timed"]}
-    if only is not None:
-        if KERNELS[only].launches == before[only]:
-            raise AssertionError(f"the {only} comparisons launched no kernel")
-        part, res = (mac_out, mac) if only == "photonic_mac" else (attn_out, attn)
-        emit({"phase": "kernels", only: part})
-        return {only: part, "checks": res["checks"]}
-    ssm = check_ssm_scan(gen)
-    quant = quantize_cost_ms(gen)
-    if any(n == before[name] for name, n in counters().items()):
-        raise AssertionError(f"a kernel comparison launched no kernel: {before} -> {counters()}")
-    out = {"phase": "kernels",
-           "photonic_mac": mac_out,
-           "flash_attention": attn_out,
-           "ssm_scan": {"n_checks": len(ssm["checks"]),
-                        "max_abs_err": max(c["max_abs_err"] for c in ssm["checks"]),
-                        "max_rel_err": max(c["max_rel_err"] for c in ssm["checks"]),
-                        "tolerance": "rtol=atol 2e-4 against the sequential oracle fed the "
-                                     "same values in f32",
-                        "timed": ssm["timed"]},
-           "quantize_weights": quant}
+        checks += attn["checks"]
+        parts["flash_attention"] = {
+            "n_checks": len(attn["checks"]),
+            "max_abs_err": max(c["max_abs_err"] for c in attn["checks"]),
+            "max_rel_err": max(c["max_rel_err"] for c in attn["checks"]),
+            "tolerance": "f32 rtol=atol 2e-5; bf16 rtol=atol 2e-2",
+            "timed": attn["timed"]}
+    if only in (None, "ssm_scan"):
+        ssm = check_ssm_scan(gen)
+        checks += ssm["checks"]
+        parts["ssm_scan"] = {
+            "n_checks": len(ssm["checks"]),
+            "max_abs_err": max(c["max_abs_err"] for c in ssm["checks"]),
+            "max_rel_err": max(c["max_rel_err"] for c in ssm["checks"]),
+            "tolerance": "rtol=atol 2e-4 against the sequential oracle fed the same values "
+                         "in f32",
+            "timed": ssm["timed"]}
+    if only is None:
+        parts["quantize_weights"] = quantize_cost_ms(gen)
+    launched = {name: n - before[name] for name, n in counters().items()}
+    if any(launched[name] == 0 for name in parts if name in KERNELS):
+        raise AssertionError(f"a kernel comparison launched no kernel: {launched}")
+    out = {"phase": "kernels", **parts}
     emit(out)
-    out["checks"] = mac["checks"] + attn["checks"] + ssm["checks"]
-    return out
+    return {**out, "checks": checks}
 
 
 # ---------------------------------------------------------------------------
@@ -899,8 +925,8 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
         phase_serve_batch128(cfg, params, arch)
     elif arch == "zamba2-1.2b":
         # exact-length prefills of 97 and 24 (<= 128, no power of two), 128,
-        # 256, 384, 512, 1024 (multiples of 128) and 200 (neither: the scan
-        # falls to the sequential plain version and launches no kernel)
+        # 256, 384, 512, 1024 (multiples of 128) and 200 (neither: the
+        # reference runs its sequential oracle there, the kernel's function)
         lengths = [n + 1 for n in (97, 128, 256, 200, 512, 24, 1024, 384)]
         phase_serve_continuous(cfg, params, lengths, [4, 8, 6, 5, 7, 4, 8, 6], max_len=1056)
         phase_serve_batch128(cfg, params, arch)
@@ -920,7 +946,7 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "photonic_mac", "flash_attention"],
+    ap.add_argument("--only", choices=["kernels", "photonic_mac", "flash_attention", "ssm_scan"],
                     default=None,
                     help="stop after this phase (for work on a kernel); prints no ok line")
     ap.add_argument("--profile", action="store_true",

@@ -1,66 +1,62 @@
 // ssm_scan: selective state-space scan per (batch * head), the Mamba2 / mLSTM
 // recurrence with a scalar decay per step and a (P x N) matrix state:
 //     S_t = a_t S_{t-1} + x_t (x) b_t          y_t = S_t c_t
-//   x (BH,L,P), b,c (BH,L,N), each bf16 or f32 on its own; a (BH,L) f32
-//   ->  y (BH,L,P) f32, everything computed in f32.
+//   x (BH,L,P), b,c (G,L,N) with BH = G*H, x and the pair b, c each bf16 or
+//   f32; a (BH,L) f32  ->  y (BH,L,P) f32, everything computed in f32.
+// Heads gH .. gH+H-1 share b and c of group g (zamba2's heads share one B and
+// C per batch row; G = BH is the plain per-head form).
 //
 // Replaces the TPU kernel `ssm_scan` (body `_ssm_kernel`) of
 // src/repro/kernels/ssm_scan.py.  There the grid's second axis walks the
-// chunks in order with S in VMEM, and each chunk is the SSD closed form: two
-// MXU products for the intra-chunk term and one for the state update, with
-// the decay between steps s <= t formed from cumulative products.  On this
-// card that closed form would run on the f32 FMA pipe, because the result
-// must be f32 from f32 operands, and it costs (2C(N+P) + 4PN) operations per
-// step for chunk C (about 50 GFLOP at zamba2's batch-128 prefill) against
-// 5PN for the recurrence itself.  So this kernel runs the recurrence step by
-// step, exactly as the sequential oracle `ssm_scan_ref` defines it:
-//
-//  * One block per (bh, tile of P rows).  Rows of S are independent given a,
-//    b and c, so a block owns whole rows and nothing crosses blocks.  The
-//    sequential chunk axis of the TPU grid becomes the time loop inside the
-//    block, and S never leaves registers: a thread holds 16 entries of each
-//    of RT consecutive rows (RT = 4 when P >= 16 and the scan is wide enough
-//    to fill the card four times over at one row a thread, else 1), and a row is
-//    split over R threads (R a power of two, R*16 >= N).  Each b and c value
-//    a thread reads from shared memory serves its RT rows, which keeps the
-//    loop on the f32 pipe rather than on shared-memory bandwidth.
-//  * Per step a thread does S = a*S + x*b on its entries and partial dots
-//    with c; the R partials of a row meet by warp shuffles.  The decay is
-//    applied one step at a time, so there is no ratio of cumulative products
-//    anywhere: the reference kernel's cum_t / cum_s underflows once a chunk's
-//    product of decays falls below about 1e-37, and this kernel has nothing
-//    that can.
-//  * Time is staged a tile of 8 to 32 steps at a time (as long as the block's
-//    share of shared memory, at the occupancy its registers allow, holds it:
-//    the four-row kernel takes 128 registers a thread): a, the block's x
-//    columns, b and c go to shared memory as f32 (bf16 inputs are widened
-//    there, 4 values a load, so mixed dtypes cost no extra pass), outputs
-//    collect in shared memory and leave as contiguous rows.  A ragged last
-//    tile (any L) is masked; N is zero-padded to R*16 and rows past P idle.
-//    P = 1 (mLSTM's normaliser) is a tile of one live row.
+// chunks in order with S in VMEM, and each chunk is the SSD closed form with
+// the decay between steps s <= t formed as a ratio of cumulative products.
+// On this card that closed form would run on the f32 FMA pipe (the result
+// must be f32 from f32 operands) at (2C(N+P) + 4PN) operations per step for
+// chunk C, against 5PN for the recurrence.  So this kernel runs the
+// recurrence step by step, exactly as the sequential oracle `ssm_scan_ref`
+// defines it, and has no ratio of cumulative products anywhere.
 //
 // What bounds it on an H100: 5*P*N f32 operations per (bh, step) against
-// (P + 2N) inputs and P outputs, so at P = N = 64 and above it is the f32
-// FMA pipe (67 TFLOP/s), not memory.  Known costs of this first version:
-// synchronous tile loads (no cp.async / TMA double buffering), one decay
-// multiply per state entry per step, and zamba2's b and c arrive
-// materialised 64-fold across heads (`repeat_interleave` in
-// `models/layers.apply_mamba`), so each block reads its own copy where a
-// head-group stride would read one.  Long sequences at batch 1 have only BH
-// blocks of parallel work (64 for zamba2), and the normaliser (P = 1) reads
-// 2N values a step for one row: it is bound by its loads.
+// (P + 2N/H) inputs and P outputs, so at P = N = 64 and above the bound is
+// the f32 pipe (67 TFLOP/s).  Each state entry costs three instructions a
+// step (a*S, + x*b, + S*c), so the issue rate caps the kernel at about 1.2x
+// that bound; measured, it runs at about 3x at batch 128 (PERF.md).  Scratch
+// builds with parts of the work taken out showed no single cause: the
+// staging and the step loop each take a share, and their times add.
+// `ssm_scan_kernel_ring`:
+//
+//  * One block per (head block, row tile): `hb` heads of one group and the
+//    same `rbh` rows of each.  A thread holds NS entries of each of RT
+//    consecutive rows; a row is split over R threads (R*NS >= N, N
+//    zero-padded).  One staged b/c tile serves every row of the block, so
+//    b and c are read once per head group, never repeated per head.
+//  * Four rows of 16 entries a thread where the grid is wide (each b and c
+//    value a thread loads serves four rows; 128 registers, 16 warps an SM:
+//    the 64-register variants with 32 warps were slower or spilled), one
+//    row of 8 where it is narrow (`ssm_plan`).
+//  * Time is staged T steps at a time through a ring of two slots filled by
+//    bulk copies (TMA, one thread, completing on an mbarrier per slot; spans
+//    that are not 16-byte aligned go by element copies): tile k+1 is in
+//    flight while tile k steps.  b, c and x stay in their own dtypes in
+//    shared memory and are widened to f32 as they are read.  The index
+//    math of the bulk staging is shifts and products: no runtime division.
+//  * Each thread stores its rows' partial dot products with c to shared
+//    memory, and the R partials of a row are summed once a tile as the
+//    outputs leave as contiguous rows.  (Summing them by warp shuffles at
+//    every step stalled each warp on every level in turn.)  One barrier a
+//    tile; the partials are double-buffered.  The decay is applied one step
+//    at a time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include "mma.cuh"
 
 namespace {
 
-constexpr int NS = 16;        // state entries per thread and row
 constexpr int NT = 256;       // most threads a block has
-constexpr int MAX_N = 32 * NS;
+constexpr int MAX_N = 512;    // 32 threads of 16 entries per row
 constexpr int SMEM_PER_SM = 232448;
 
 struct Args {
@@ -69,224 +65,406 @@ struct Args {
     const void* b;
     const void* c;
     float* y;
-    int BH, L, P, N;
-    int x_bf16, b_bf16, c_bf16;
-    int b_vec, c_vec;   // 1: N % 4 == 0 and aligned, so staging loads 4 values at once
-    int lg_r;           // log2 of R, threads per state row
-    int lg_tr;          // log2 of the block's thread rows (each holds RT state rows)
-    int t_tile;         // time steps staged at once
-    int p_tiles;        // ceil(P / rows per block)
+    int L, P, N, H;               // H: heads per b/c group
+    int x_bf16;                   // b and c share one dtype, the kernel's BC_BF16
+    int lg_r;                     // log2 R, threads per state row
+    int lg_trh;                   // log2 of a head tile's thread rows
+    int lg_hb;                    // log2 of heads per block
+    int T;                        // steps per staged tile
+    int bc_bulk, x_bulk, a_bulk;  // 1: staged by bulk copies (16-byte aligned spans)
 };
 
-__device__ __forceinline__ float load_f32(const void* p, long long i, int is_bf16) {
-    return is_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
-                   : reinterpret_cast<const float*>(p)[i];
+__host__ __device__ constexpr int lg2(int v) {
+    int l = 0;
+    while ((1 << l) < v) ++l;
+    return l;
 }
 
-__device__ __forceinline__ float4 load4_f32(const void* p, long long i, int is_bf16) {
-    if (is_bf16) {
-        const uint2 u = *reinterpret_cast<const uint2*>(
-            reinterpret_cast<const __nv_bfloat16*>(p) + i);
-        const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-        const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-        const float2 l = __bfloat1622float2(lo), h = __bfloat1622float2(hi);
-        return make_float4(l.x, l.y, h.x, h.y);
-    }
-    return *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(p) + i);
+__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
+
+// Shared-memory layout, the same on host and device: the row partials yp
+// [2][T][R][ypitch] f32 (double-buffered: one tile's leave while the next
+// tile's are written; ypitch pads the block's rows so that the R threads of
+// a row, storing at once, hit different banks), then two slots of raw
+// inputs in their own dtypes: b, c [T][npad] (zero past N), x per head
+// [T][xp], a per head [T] f32.
+struct Layout {
+    int npad, rbh, rblk, xp, row_tiles, ypitch;
+    size_t ybuf, raw, rc, rx, xslot, ra, slot, total;
+};
+
+__host__ __device__ inline Layout layout_of(const Args& A, int NS, int RT, int ebc) {
+    Layout ly{};
+    const int hb = 1 << A.lg_hb;
+    ly.npad = NS << A.lg_r;
+    ly.rbh = RT << A.lg_trh;
+    ly.rblk = ly.rbh << A.lg_hb;
+    ly.row_tiles = (A.P + ly.rbh - 1) / ly.rbh;
+    ly.xp = ly.row_tiles == 1 ? A.P : ly.rbh;
+    ly.ypitch = ly.rblk + ((32 >> A.lg_r) > 4 ? (32 >> A.lg_r) : 4);
+    const size_t T = A.T, f = sizeof(float), ex = A.x_bf16 ? 2 : 4;
+    ly.ybuf = (T << A.lg_r) * ly.ypitch * f;
+    ly.raw = 2 * ly.ybuf;
+    ly.rc = align16(T * ly.npad * ebc);
+    ly.rx = 2 * ly.rc;
+    ly.xslot = align16(T * ly.xp * ex);
+    ly.ra = ly.rx + hb * ly.xslot;
+    ly.slot = align16(ly.ra + hb * T * f);
+    ly.total = ly.raw + 2 * ly.slot;
+    return ly;
 }
 
-// rows [t0, t0 + tl) of a (L, N) slab starting at `base` into dst[T][npad] as
-// f32, zero beyond tl and N
-__device__ __forceinline__ void stage_bc(float* dst, const void* src, long long base, int is_bf16,
-                                         int vec, int t0, int tl, int T, int N, int npad,
-                                         int tid, int nt) {
-    if (vec) {
-        const int q_row = npad >> 2;
-        for (int i = tid; i < T * q_row; i += nt) {
-            const int tt = i / q_row, n = (i - tt * q_row) * 4;
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (tt < tl && n < N) v = load4_f32(src, base + (long long)(t0 + tt) * N + n, is_bf16);
-            *reinterpret_cast<float4*>(dst + tt * npad + n) = v;
-        }
+// ---- bulk copies (TMA, 1-D) completing on an mbarrier --------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "WAIT_%=:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        "@!p bra WAIT_%=;\n"
+        "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// 4 bytes from device to shared memory (cp.async, through L1)
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(smem_u32(smem)), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// GS consecutive values of b or c at element i of a raw row, as f32
+template <bool BF16, int GS>
+__device__ __forceinline__ void load_group(float (&v)[GS], const unsigned char* row, int i) {
+    if constexpr (BF16 && GS == 8) {
+        const uint4 u = *reinterpret_cast<const uint4*>(row + 2 * i);
+        v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x); v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
+        v[4] = bf16_lo(u.z); v[5] = bf16_hi(u.z); v[6] = bf16_lo(u.w); v[7] = bf16_hi(u.w);
+    } else if constexpr (BF16) {
+        const uint2 u = *reinterpret_cast<const uint2*>(row + 2 * i);
+        v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x); v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
     } else {
-        for (int i = tid; i < T * npad; i += nt) {
-            const int tt = i / npad, n = i - tt * npad;
-            dst[i] = (tt < tl && n < N) ? load_f32(src, base + (long long)(t0 + tt) * N + n, is_bf16)
-                                        : 0.f;
-        }
+        const float4 f = *reinterpret_cast<const float4*>(row + 4 * i);
+        v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
     }
 }
 
-template <int RT>
-__global__ void __launch_bounds__(NT)
-ssm_scan_kernel(const Args A) {
-    const int R = 1 << A.lg_r;
-    const int RB = RT << A.lg_tr;                // state rows per block
-    const int npad = R * NS;                     // padded state width
-    const int T = A.t_tile;
-    extern __shared__ __align__(16) float smem[];
-    float* b_s = smem;                  // [T][npad]
-    float* c_s = b_s + T * npad;        // [T][npad]
-    float* x_s = c_s + T * npad;        // [T][RB]
-    float* y_s = x_s + T * RB;          // [T][RB]
-    float* a_s = y_s + T * RB;          // [T]
+__device__ __forceinline__ float ld_elem(const unsigned char* p, int i, int bf16) {
+    return bf16 ? bf16_lo(reinterpret_cast<const uint16_t*>(p)[i])
+                : reinterpret_cast<const float*>(p)[i];
+}
 
-    const int tid = threadIdx.x, nt = blockDim.x;
-    const int row0 = (tid >> A.lg_r) * RT;   // this thread's first state row in the block
-    const int part = tid & (R - 1);          // its share of those rows
-    const int bh = blockIdx.x / A.p_tiles;
-    const int p0 = (blockIdx.x % A.p_tiles) * RB;
-    const int rows = min(RB, A.P - p0);
-    const int L = A.L, P = A.P, N = A.N;
+// `count` elements of `esize` bytes from `src` to `dst` by the block's
+// threads, plain loads and stores (for spans a bulk copy cannot take)
+__device__ __forceinline__ void copy_elems(unsigned char* dst, const unsigned char* src, int count,
+                                           int esize, int tid, int nt) {
+    if (esize == 2)
+        for (int i = tid; i < count; i += nt)
+            reinterpret_cast<uint16_t*>(dst)[i] = reinterpret_cast<const uint16_t*>(src)[i];
+    else
+        for (int i = tid; i < count; i += nt)
+            reinterpret_cast<uint32_t*>(dst)[i] = reinterpret_cast<const uint32_t*>(src)[i];
+}
 
-    const long long xo = (long long)bh * L * P;
-    const long long bo = (long long)bh * L * N;
-    const float* __restrict__ a = A.a + (long long)bh * L;
-    float* __restrict__ y = A.y + xo;
+template <int RT, int NS, bool BC_BF16>
+__global__ void __launch_bounds__(NT, (RT * NS >= 64 ? 2 : 4))
+ssm_scan_kernel_ring(const Args A) {
+    constexpr int EBC = BC_BF16 ? 2 : 4;
+    constexpr int GS = BC_BF16 && NS >= 8 ? 8 : 4;     // b or c values a load
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ __align__(8) uint64_t bars[2];
+    const Layout ly = layout_of(A, NS, RT, EBC);
 
-    // thread `part` owns float4 groups part, part + R, part + 2R, ... of each
-    // row, so at each step the R parts read neighbouring 16-byte words
+    const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+    const int R = 1 << A.lg_r, part = tid & (R - 1), tr = tid >> A.lg_r;
+    const int hb = 1 << A.lg_hb, lg_rbh = A.lg_trh + lg2(RT), lg_rblk = lg_rbh + A.lg_hb;
+    const int hi = tr >> A.lg_trh;                                   // this thread's head
+    const int rb0 = (tr & ((1 << A.lg_trh) - 1)) * RT;               // its first row there
+    const int rblk0 = (hi << lg_rbh) + rb0;                          // ... and in the block
+    const int L = A.L, P = A.P, N = A.N, T = A.T, npad = ly.npad, rbh = ly.rbh, xp = ly.xp;
+    const int bh0 = blockIdx.x << A.lg_hb;
+    const int g = bh0 / A.H;
+    const int p0 = blockIdx.y * rbh;
+    const int rows = min(rbh, P - p0);
+    const int ex = A.x_bf16 ? 2 : 4;
+    const unsigned char* bsrc = reinterpret_cast<const unsigned char*>(A.b) + (size_t)g * L * N * EBC;
+    const unsigned char* csrc = reinterpret_cast<const unsigned char*>(A.c) + (size_t)g * L * N * EBC;
+    const unsigned char* xsrc = reinterpret_cast<const unsigned char*>(A.x)
+                                + ((size_t)bh0 * L * P + p0) * ex;
+    const float* asrc = A.a + (size_t)bh0 * L;
+    const int ntiles = (L + T - 1) / T;
+    const int ypitch = ly.ypitch;
+    auto slot_of = [&](int k) { return smem + ly.raw + (size_t)(k & 1) * ly.slot; };
+    auto yp_of = [&](int k) { return reinterpret_cast<float*>(smem + (size_t)(k & 1) * ly.ybuf); };
+
+    // Stage tile k into its slot: spans a bulk copy takes from lanes of warp
+    // 0 (lane 0 first announces the slot's bytes), the rest by all threads.
+    auto issue = [&](int k) {
+        const int t0 = k * T, tl = min(T, L - t0);
+        unsigned char* s = slot_of(k);
+        uint64_t* bar = &bars[k & 1];
+        if (tid < 32) {
+            uint32_t bytes = 0;
+            if (A.bc_bulk) bytes += 2u * tl * N * EBC;
+            if (A.x_bulk) bytes += (uint32_t)hb * tl * rows * ex;
+            if (A.a_bulk) bytes += (uint32_t)hb * tl * 4;
+            if (lane == 0) mbar_expect_tx(bar, bytes);
+            __syncwarp();
+            if (A.bc_bulk) {
+                if (npad == N) {
+                    if (lane == 0) {
+                        bulk_copy(s, bsrc + (size_t)t0 * N * EBC, tl * N * EBC, bar);
+                        bulk_copy(s + ly.rc, csrc + (size_t)t0 * N * EBC, tl * N * EBC, bar);
+                    }
+                } else {
+                    for (int tt = lane; tt < tl; tt += 32) {
+                        bulk_copy(s + tt * npad * EBC, bsrc + (size_t)(t0 + tt) * N * EBC, N * EBC, bar);
+                        bulk_copy(s + ly.rc + tt * npad * EBC, csrc + (size_t)(t0 + tt) * N * EBC,
+                                  N * EBC, bar);
+                    }
+                }
+            }
+            for (int h = 0; h < hb; ++h) {
+                const unsigned char* src = xsrc + ((size_t)h * L + t0) * P * ex;
+                unsigned char* d = s + ly.rx + h * ly.xslot;
+                if (A.x_bulk) {
+                    if (ly.row_tiles == 1) {
+                        if (lane == 0) bulk_copy(d, src, tl * P * ex, bar);
+                    } else {
+                        for (int tt = lane; tt < tl; tt += 32)
+                            bulk_copy(d + tt * rbh * ex, src + (size_t)tt * P * ex, rows * ex, bar);
+                    }
+                }
+                if (A.a_bulk && lane == 0)
+                    bulk_copy(s + ly.ra + h * T * 4, asrc + (size_t)h * L + t0, tl * 4, bar);
+            }
+        }
+        if (!A.bc_bulk)        // into rows of npad, whose ends past N were zeroed up front
+            for (int tt = tid >> 5; tt < tl; tt += nt >> 5) {
+                const size_t o = (size_t)(t0 + tt) * N * EBC;
+                copy_elems(s + tt * npad * EBC, bsrc + o, N, EBC, lane, 32);
+                copy_elems(s + ly.rc + tt * npad * EBC, csrc + o, N, EBC, lane, 32);
+            }
+        for (int h = 0; h < hb; ++h) {
+            const unsigned char* src = xsrc + ((size_t)h * L + t0) * P * ex;
+            unsigned char* d = s + ly.rx + h * ly.xslot;
+            if (!A.x_bulk) {
+                if (ly.row_tiles == 1) {
+                    copy_elems(d, src, tl * P, ex, tid, nt);
+                } else {
+                    for (int tt = tid >> 5; tt < tl; tt += nt >> 5)
+                        copy_elems(d + tt * rbh * ex, src + (size_t)tt * P * ex, rows, ex, lane, 32);
+                }
+            }
+            if (!A.a_bulk)
+                for (int i = tid; i < tl; i += nt)
+                    cp_async_4(s + ly.ra + (h * T + i) * 4, asrc + (size_t)h * L + t0 + i);
+        }
+        cp_async_commit();
+    };
+
+    // tile k's outputs: the R partials of each row summed in order, then
+    // stored as contiguous rows
+    auto store_y = [&](int k) {
+        const int t0 = k * T, tl = min(T, L - t0);
+        const float* yp = yp_of(k);
+        float* y = A.y + ((size_t)bh0 * L + t0) * P + p0;
+        if ((P & 3) == 0 && (rbh & 3) == 0) {
+            for (int i = tid; i < (tl << (lg_rblk - 2)); i += nt) {
+                const int e = i << 2, tt = e >> lg_rblk, j = e & ((1 << lg_rblk) - 1);
+                const int h = j >> lg_rbh, r = j & (rbh - 1);
+                if (r >= rows) continue;
+                const float* src = yp + (size_t)(tt << A.lg_r) * ypitch + j;
+                float4 v = *reinterpret_cast<const float4*>(src);
+                for (int q = 1; q < R; ++q) {
+                    const float4 u = *reinterpret_cast<const float4*>(src + q * ypitch);
+                    v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+                }
+                *reinterpret_cast<float4*>(y + ((size_t)h * L + tt) * P + r) = v;
+            }
+        } else {
+            for (int i = tid; i < (tl << lg_rblk); i += nt) {
+                const int tt = i >> lg_rblk, j = i & ((1 << lg_rblk) - 1);
+                const int h = j >> lg_rbh, r = j & (rbh - 1);
+                if (r >= rows) continue;
+                const float* src = yp + (size_t)(tt << A.lg_r) * ypitch + j;
+                float v = src[0];
+                for (int q = 1; q < R; ++q) v += src[q * ypitch];
+                y[((size_t)h * L + tt) * P + r] = v;
+            }
+        }
+    };
+
+    if (tid == 0) {
+        mbar_init(&bars[0], 1);
+        mbar_init(&bars[1], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    if (npad != N)             // b and c past N stay zero in both slots
+        for (int row = tid >> 5; row < 4 * T; row += nt >> 5) {      // slot, b or c, step
+            unsigned char* d = slot_of(row / (2 * T)) + ((row / T) & 1) * ly.rc
+                               + (row % T) * npad * EBC;
+            for (int n = N + lane; n < npad; n += 32) {
+                if constexpr (BC_BF16) reinterpret_cast<uint16_t*>(d)[n] = 0;
+                else reinterpret_cast<float*>(d)[n] = 0.f;
+            }
+        }
+    __syncthreads();
+
+    // thread `part` owns groups part, part + R, ... of GS entries of each of
+    // its rows, so at each step a row's R threads read neighbouring words
     float S[RT][NS];
 #pragma unroll
     for (int r = 0; r < RT; ++r)
 #pragma unroll
         for (int j = 0; j < NS; ++j) S[r][j] = 0.f;
+    bool live[RT];             // rows past P hold x = 0
+#pragma unroll
+    for (int r = 0; r < RT; ++r) live[r] = rb0 + r < rows;
+    const bool x_vec = (xp % RT) == 0 && rows == rbh;   // no row past P to mask
 
-    for (int t0 = 0; t0 < L; t0 += T) {
-        const int tl = min(T, L - t0);
-        stage_bc(b_s, A.b, bo, A.b_bf16, A.b_vec, t0, tl, T, N, npad, tid, nt);
-        stage_bc(c_s, A.c, bo, A.c_bf16, A.c_vec, t0, tl, T, N, npad, tid, nt);
-        for (int i = tid; i < T * RB; i += nt) {
-            const int tt = i / RB, r = i - tt * RB;
-            x_s[i] = (tt < tl && r < rows)
-                         ? load_f32(A.x, xo + (long long)(t0 + tt) * P + p0 + r, A.x_bf16)
-                         : 0.f;
-        }
-        for (int i = tid; i < T; i += nt) a_s[i] = i < tl ? a[t0 + i] : 0.f;
-        __syncthreads();
+    issue(0);
+    for (int k = 0; k < ntiles; ++k) {
+        mbar_wait(&bars[k & 1], (k >> 1) & 1);   // tile k's bulk copies have landed
+        cp_async_wait<0>();                      // and its other copies, for this thread
+        __syncthreads();                         // for all; tile k-1's steps are done
+        if (k + 1 < ntiles) issue(k + 1);        // into the slot tile k-1 left
+        if (k > 0) store_y(k - 1);
 
+        const unsigned char* s = slot_of(k);
+        const unsigned char* xs = s + ly.rx + hi * ly.xslot;
+        const float* as = reinterpret_cast<const float*>(s + ly.ra) + hi * T;
+        float* yp = yp_of(k);
+        const int tl = min(T, L - k * T);
         for (int tt = 0; tt < tl; ++tt) {
-            const float at = a_s[tt];
+            const float at = as[tt];
             float xt[RT];
-            if constexpr (RT == 4) {
-                const float4 xv = *reinterpret_cast<const float4*>(x_s + tt * RB + row0);
-                xt[0] = xv.x; xt[1] = xv.y; xt[2] = xv.z; xt[3] = xv.w;
+            const int xi = tt * xp + rb0;
+            if (A.x_bf16 && x_vec && RT == 4) {
+                const uint2 u = *reinterpret_cast<const uint2*>(xs + 2 * xi);
+                xt[0] = bf16_lo(u.x); xt[1 % RT] = bf16_hi(u.x);
+                xt[2 % RT] = bf16_lo(u.y); xt[3 % RT] = bf16_hi(u.y);
+            } else if (A.x_bf16 && x_vec && RT == 2) {
+                const uint32_t u = *reinterpret_cast<const uint32_t*>(xs + 2 * xi);
+                xt[0] = bf16_lo(u); xt[1 % RT] = bf16_hi(u);
             } else {
 #pragma unroll
-                for (int r = 0; r < RT; ++r) xt[r] = x_s[tt * RB + row0 + r];
+                for (int r = 0; r < RT; ++r) xt[r] = live[r] ? ld_elem(xs, xi + r, A.x_bf16) : 0.f;
             }
-            const float4* b4 = reinterpret_cast<const float4*>(b_s + tt * npad);
-            const float4* c4 = reinterpret_cast<const float4*>(c_s + tt * npad);
+            const unsigned char* brow = s + tt * npad * EBC;
+            const unsigned char* crow = s + ly.rc + tt * npad * EBC;
             float acc[RT][2];
 #pragma unroll
             for (int r = 0; r < RT; ++r) acc[r][0] = acc[r][1] = 0.f;
 #pragma unroll
-            for (int q = 0; q < NS / 4; ++q) {
-                const float4 bv = b4[q * R + part];
-                const float4 cv = c4[q * R + part];
+            for (int q = 0; q < NS / GS; ++q) {
+                float bv[GS], cv[GS];
+                load_group<BC_BF16, GS>(bv, brow, (q * R + part) * GS);
+                load_group<BC_BF16, GS>(cv, crow, (q * R + part) * GS);
 #pragma unroll
-                for (int r = 0; r < RT; ++r) {
-                    S[r][4 * q + 0] = fmaf(xt[r], bv.x, at * S[r][4 * q + 0]);
-                    S[r][4 * q + 1] = fmaf(xt[r], bv.y, at * S[r][4 * q + 1]);
-                    S[r][4 * q + 2] = fmaf(xt[r], bv.z, at * S[r][4 * q + 2]);
-                    S[r][4 * q + 3] = fmaf(xt[r], bv.w, at * S[r][4 * q + 3]);
-                    acc[r][0] = fmaf(S[r][4 * q + 0], cv.x, acc[r][0]);
-                    acc[r][1] = fmaf(S[r][4 * q + 1], cv.y, acc[r][1]);
-                    acc[r][0] = fmaf(S[r][4 * q + 2], cv.z, acc[r][0]);
-                    acc[r][1] = fmaf(S[r][4 * q + 3], cv.w, acc[r][1]);
-                }
+                for (int r = 0; r < RT; ++r)
+#pragma unroll
+                    for (int e = 0; e < GS; ++e) {
+                        float& st = S[r][q * GS + e];
+                        st = fmaf(xt[r], bv[e], at * st);
+                        acc[r][e & 1] = fmaf(st, cv[e], acc[r][e & 1]);
+                    }
             }
-            float sum[RT];
-#pragma unroll
-            for (int r = 0; r < RT; ++r) sum[r] = acc[r][0] + acc[r][1];
-            // blocks are whole warps and a row's R lanes are aligned inside one
-            for (int off = R >> 1; off > 0; off >>= 1)
-#pragma unroll
-                for (int r = 0; r < RT; ++r) sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
-            if (part == 0) {
-                if constexpr (RT == 4)
-                    *reinterpret_cast<float4*>(y_s + tt * RB + row0) =
-                        make_float4(sum[0], sum[1], sum[2], sum[3]);
-                else
-#pragma unroll
-                    for (int r = 0; r < RT; ++r) y_s[tt * RB + row0 + r] = sum[r];
-            }
+            // this thread's partial dot products, summed over the row's R
+            // threads when the tile's outputs leave: no shuffle in the loop
+            float* yo = yp + (size_t)((tt << A.lg_r) + part) * ypitch + rblk0;
+            if constexpr (RT == 4)
+                *reinterpret_cast<float4*>(yo) =
+                    make_float4(acc[0][0] + acc[0][1], acc[1][0] + acc[1][1],
+                                acc[2][0] + acc[2][1], acc[3][0] + acc[3][1]);
+            else if constexpr (RT == 2)
+                *reinterpret_cast<float2*>(yo) =
+                    make_float2(acc[0][0] + acc[0][1], acc[1][0] + acc[1][1]);
+            else
+                yo[0] = acc[0][0] + acc[0][1];
         }
-        __syncthreads();
-
-        for (int i = tid; i < tl * RB; i += nt) {
-            const int tt = i / RB, r = i - tt * RB;
-            if (r < rows) y[(long long)(t0 + tt) * P + p0 + r] = y_s[i];
-        }
-        // the next tile's staging writes b_s, c_s, x_s and a_s only; y_s is
-        // written again after the barrier that follows it
     }
+    __syncthreads();
+    store_y(ntiles - 1);
 }
 
-int log2_ceil(int v) {
-    int lg = 0;
-    while ((1 << lg) < v) ++lg;
-    return lg;
-}
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-bool aligned(const void* p, uintptr_t a) { return (reinterpret_cast<uintptr_t>(p) % a) == 0; }
-
-template <int RT>
-int launch(Args args, cudaStream_t stream) {
-    const int R = 1 << args.lg_r;
-    int lg_tr = log2_ceil(NT / R);                        // 256 threads ...
-    const int need = (args.P + RT - 1) / RT;
-    if (need < (1 << lg_tr)) {                            // ... unless P is small:
-        lg_tr = log2_ceil(need);                          // whole warps still
-        while ((R << lg_tr) < 32) ++lg_tr;
-    }
-    const int threads = R << lg_tr, RB = RT << lg_tr, npad = R * NS;
-    args.lg_tr = lg_tr;
-    args.p_tiles = (args.P + RB - 1) / RB;
-    const long long blocks = (long long)args.BH * args.p_tiles;
-    if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-    // the longest time tile (at least 8 steps) whose shared memory still lets
-    // the SM hold as many blocks as the kernel's registers allow
-    static const int regs = [] {
-        cudaFuncAttributes fa{};
-        cudaFuncGetAttributes(&fa, ssm_scan_kernel<RT>);
-        return fa.numRegs > 0 ? fa.numRegs : 255;
-    }();
-    const int resident = std::min(2048, 65536 / (regs * threads) * threads);
-    const size_t share = (size_t)SMEM_PER_SM * threads / std::max(resident, threads);
-    int T = 32;
-    auto smem_of = [&](int t) { return sizeof(float) * (size_t)(2 * t * npad + 2 * t * RB + t); };
-    while (T > 8 && smem_of(T) > share) T >>= 1;
-    args.t_tile = T;
-    const size_t smem = smem_of(T);
+template <int RT, int NS, bool BC_BF16>
+int launch_ring(Args args, int BH, cudaStream_t stream) {
+    constexpr int EBC = BC_BF16 ? 2 : 4;
+    const Layout ly = layout_of(args, NS, RT, EBC);
+    if (ly.total > (size_t)SMEM_PER_SM) return (int)cudaErrorInvalidValue;
+    const int ex = args.x_bf16 ? 2 : 4;
+    // a bulk copy moves 16-byte aligned spans of a multiple of 16 bytes
+    args.bc_bulk = aligned16(args.b) && aligned16(args.c) && (args.N * EBC) % 16 == 0 &&
+                   (ly.npad == args.N || (ly.npad * EBC) % 16 == 0);
+    args.x_bulk = aligned16(args.x) && (args.P * ex) % 16 == 0 &&
+                  (ly.row_tiles == 1 || (args.P % ly.rbh == 0 && (ly.rbh * ex) % 16 == 0));
+    args.a_bulk = aligned16(args.a) && args.L % 4 == 0;
     // above 48 KB of dynamic shared memory a kernel has to opt in
-    cudaError_t e = cudaFuncSetAttribute(ssm_scan_kernel<RT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(ssm_scan_kernel_ring<RT, NS, BC_BF16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ly.total);
     if (e != cudaSuccess) return (int)e;
-    ssm_scan_kernel<RT><<<(unsigned)blocks, threads, smem, stream>>>(args);
+    const dim3 grid((unsigned)(BH >> args.lg_hb), (unsigned)ly.row_tiles, 1);
+    const int threads = 1 << (args.lg_r + args.lg_trh + args.lg_hb);
+    ssm_scan_kernel_ring<RT, NS, BC_BF16><<<grid, threads, ly.total, stream>>>(args);
     return (int)cudaGetLastError();
+}
+
+template <bool BC_BF16>
+int launch_variant(int rt, int ns, Args args, int BH, cudaStream_t st) {
+    if (rt == 1 && ns == 4) return launch_ring<1, 4, BC_BF16>(args, BH, st);
+    if (rt == 1 && ns == 8) return launch_ring<1, 8, BC_BF16>(args, BH, st);
+    if (rt == 1 && ns == 16) return launch_ring<1, 16, BC_BF16>(args, BH, st);
+    if (rt == 4 && ns == 16) return launch_ring<4, 16, BC_BF16>(args, BH, st);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x_bf16, b_bf16, c_bf16: 1 when that input holds bf16, 0 when f32; a is f32.
-// All inputs contiguous.  Returns cudaGetLastError() (or the error of a
-// refused configuration: N above 512, a grid above 2^31 - 1 blocks).
+// The plan (`kernels/ssm_scan.ssm_plan`) as it arrives: rt rows and ns
+// entries a thread (an instantiated pair), 2^lg_r threads a row, 2^lg_trh
+// thread rows a head tile, 2^lg_hb heads a block, t_tile steps a staged tile.
+// x_bf16, bc_bf16: 1 when x (b and c) hold bf16, 0 when f32; a is f32.  All
+// inputs contiguous; b and c (G,L,N) with BH % G == 0.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan the kernel does not
+// take.
 extern "C" int ssm_scan_launch(const void* x, const void* a, const void* b, const void* c,
-                               void* y, int BH, int L, int P, int N, int x_bf16, int b_bf16,
-                               int c_bf16, void* stream) {
-    if (BH <= 0 || L <= 0 || P <= 0 || N <= 0 || N > MAX_N) return (int)cudaErrorInvalidValue;
-    Args args{x, (const float*)a, b, c, (float*)y, BH, L, P, N, x_bf16, b_bf16, c_bf16,
-              /*b_vec=*/(N % 4 == 0) && aligned(b, b_bf16 ? 8 : 16),
-              /*c_vec=*/(N % 4 == 0) && aligned(c, c_bf16 ? 8 : 16),
-              /*lg_r=*/log2_ceil((N + NS - 1) / NS), /*lg_tr=*/0, /*t_tile=*/0, /*p_tiles=*/0};
+                               void* y, int BH, int G, int L, int P, int N, int x_bf16,
+                               int bc_bf16, int rt, int ns, int lg_r, int lg_trh, int lg_hb,
+                               int t_tile, void* stream) {
+    if (BH <= 0 || G <= 0 || BH % G || L <= 0 || P <= 0 || N <= 0 || N > MAX_N ||
+        t_tile <= 0 || t_tile % 4)
+        return (int)cudaErrorInvalidValue;
+    const int H = BH / G;
+    const int threads_lg = lg_r + lg_trh + lg_hb;
+    if (lg_r < 0 || lg_trh < 0 || lg_hb < 0 || threads_lg < 5 || threads_lg > 8 ||
+        H % (1 << lg_hb) || (ns << lg_r) < N)
+        return (int)cudaErrorInvalidValue;
+    Args args{x, (const float*)a, b, c, (float*)y, L, P, N, H, x_bf16, lg_r, lg_trh, lg_hb,
+              t_tile, 0, 0, 0};
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-    // four rows a thread only when that still leaves a full wave of threads
-    // on every SM; short, narrow scans (zamba2 at batch 1) need the threads
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const long long one_row_threads = (long long)BH * P * (1 << args.lg_r);
-    return (P >= 16 && one_row_threads >= 4LL * sms * 2048) ? launch<4>(args, st)
-                                                            : launch<1>(args, st);
+    return bc_bf16 ? launch_variant<true>(rt, ns, args, BH, st)
+                   : launch_variant<false>(rt, ns, args, BH, st);
 }

@@ -8,9 +8,11 @@ Dispatch, decided by shape alone as in the reference:
   * `attention` reaches the `flash_attention` kernel when both sequence
     lengths are >= 8 and each is <= 128 or a multiple of 128, and `q_offset`
     is a multiple of the query block; other shapes take `attention_ref`.
-  * `ssm` reaches the `ssm_scan` kernel when the length L is >= 8 and is
-    <= 128 or a multiple of 128; other lengths take `ssm_scan_chunked_ref`
-    (which itself falls to the sequential oracle when L does not tile).
+  * `ssm` reaches the `ssm_scan` kernel when the length L is >= 8.  The
+    reference takes its Pallas kernel for L <= 128 or a multiple of 128, and
+    the sequential oracle (the kernel's own function) for other L >= 8;
+    shorter lengths take `ssm_scan_chunked_ref`, which rounds to bf16 as the
+    reference's chunked form does.
 
 Training: kernel forward, plain backward.  The kernels are forward-only;
 `photonic_matmul` is straight-through (gradients as if w were unquantized,
@@ -26,6 +28,7 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_fwd
 from repro_torch.kernels.photonic_mac import BANK, photonic_mac as _mac_fwd, quantize_weights
+from repro_torch.kernels.ssm_scan import check_shapes, expand_groups
 from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_fwd
 
 
@@ -140,18 +143,20 @@ def attention(q, k, v, causal: bool = True, window: int = 0, scale=None,
 
 def uses_ssm_kernel(l: int, use_kernel: bool = True) -> bool:
     """True when `ssm` takes the `ssm_scan` kernel for length `l`."""
-    return bool(use_kernel and l % min(128, l) == 0 and l >= 8)
+    return bool(use_kernel and l >= 8)
 
 
 def _ssm_impl(x, a, b, c, use_kernel):
     if uses_ssm_kernel(x.shape[1], use_kernel):
         return _ssm_fwd(x.contiguous(), a.contiguous(), b.contiguous(), c.contiguous())
-    return _ref.ssm_scan_chunked_ref(x, a, b, c)
+    bh = x.shape[0]
+    return _ref.ssm_scan_chunked_ref(x, a, expand_groups(b, bh), expand_groups(c, bh))
 
 
 class _SSM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, a, b, c, use_kernel):
+        check_shapes(x, a, b, c)
         ctx.save_for_backward(x, a, b, c)
         return _ssm_impl(x, a, b, c, use_kernel)
 
@@ -159,12 +164,17 @@ class _SSM(torch.autograd.Function):
     def backward(ctx, g):
         with torch.enable_grad():
             xabc = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-            out = _ref.ssm_scan_chunked_ref(*xabc)
+            x, a, b, c = xabc
+            # grouped b and c are repeated under autograd, so their gradients
+            # sum over the heads of each group
+            out = _ref.ssm_scan_chunked_ref(x, a, expand_groups(b, x.shape[0]),
+                                            expand_groups(c, x.shape[0]))
             dx, da, db, dc = torch.autograd.grad(out, xabc, g)
         return dx, da, db, dc, None
 
 
 def ssm(x, a, b, c, use_kernel: bool = True) -> torch.Tensor:
     """Chunked selective scan (kernel forward, plain backward).
-    x (BH,L,P), a (BH,L), b/c (BH,L,N) -> y (BH,L,P) f32."""
+    x (BH,L,P), a (BH,L), b/c (G,L,N) with G dividing BH (G = BH: one b and
+    c per head; else heads g*BH/G .. share b[g] and c[g]) -> y (BH,L,P) f32."""
     return _SSM.apply(x, a, b, c, use_kernel)

@@ -7,46 +7,209 @@ Per batch*head, with a scalar decay per step and a (P x N) matrix state:
 
   x  (BH, L, P)   bf16/f32
   a  (BH, L)      f32
-  b  (BH, L, N)   bf16/f32
-  c  (BH, L, N)   bf16/f32      ->  y (BH, L, P) f32
+  b  (G, L, N)    bf16/f32      G divides BH: heads g*H .. g*H+H-1 (H = BH/G)
+  c  (G, L, N)    bf16/f32      share b[g] and c[g]   ->  y (BH, L, P) f32
 
-x, b and c may each be bf16 or f32 (mLSTM's normaliser has f32 x with bf16
-b and c); the scan is computed in f32 from their values.
+G = BH is the plain per-head form; zamba2's heads share one B and C per
+batch row (G = batch), which is the reference's `jnp.repeat(..., axis=0)`
+layout without the repeat.  x, b and c may each be bf16 or f32 (mLSTM's
+normaliser has f32 x with bf16 b and c); the scan is computed in f32 from
+their values.
 
-`ssm_scan` launches the CUDA kernel of `csrc/ssm_scan.cu` for CUDA tensors
-and takes the plain version (`ref.ssm_scan_ref`, the sequential oracle) only
-for CPU tensors.  `ssm_scan.launches` counts kernel launches.
+`ssm_scan` launches the CUDA kernel of `csrc/ssm_scan.cu` on the plan
+`ssm_plan` gives for CUDA tensors, and takes the plain version
+(`ref.ssm_scan_ref`, the sequential oracle, on b and c repeated per head)
+only for CPU tensors.  `ssm_scan.launches` counts wrapper calls that
+launched.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import asdict, dataclass
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-MAX_N = 512     # state width the CUDA kernel takes (32 threads of 16 entries per row)
+MAX_N = 512               # state width the CUDA kernel takes (32 threads of 16 entries per row)
+THREADS = 256             # threads a block of `ssm_scan_kernel_ring` has at most
+RING_VARIANTS = ((1, 4), (1, 8), (1, 16), (4, 16))   # (rt, ns) instantiated
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+SMEM_PER_SM = 233472      # shared memory of one SM; each block also reserves 1 KB
+SMEM_PER_BLOCK = 232448   # the most one block may take
+T_TILES = (32, 16, 8, 4)  # steps a staged tile, longest first
+
+
+def _esize(dtype: str) -> int:
+    return 2 if dtype == "bf16" else 4
+
+
+def _pow2(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def _align16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+@dataclass(frozen=True)
+class SSMPlan:
+    """Launch plan of `ssm_scan_kernel_ring`: a grid of (BH / `heads`) x
+    `row_tiles` blocks of `threads`.  A block owns `rows` rows of each of
+    `heads` heads of one b/c group; a thread holds `ns` entries of each of
+    `rt` rows, and `r` threads share a row (r * ns >= N).  Time is staged
+    `t_tile` steps at a time; `smem` is the block's shared memory in bytes."""
+    rt: int
+    ns: int
+    r: int
+    rows: int
+    heads: int
+    row_tiles: int
+    threads: int
+    t_tile: int
+    smem: int
+    blocks: int
+
+    def as_dict(self) -> dict:
+        return asdict(self)
+
+
+def ring_smem(rt: int, ns: int, r: int, rows: int, heads: int, row_tiles: int, p: int, n: int,
+              t: int, dtypes) -> int:
+    """Shared memory of one block, as `layout_of` in csrc/ssm_scan.cu lays it
+    out: the rows' partial dot products [2][t][r][heads*rows + pad] f32, then
+    two slots of b and c [t][r*ns] in their dtype, x per head [t][p or rows]
+    in its own, and a [heads][t] f32."""
+    ex = _esize(dtypes[0])
+    ebc = max(_esize(dtypes[1]), _esize(dtypes[2]))     # mixed b, c go as f32
+    npad, rblk = r * ns, rows * heads
+    xp = p if row_tiles == 1 else rows
+    ypitch = rblk + max(4, 32 // r)
+    slot = _align16(2 * _align16(t * npad * ebc) + heads * _align16(t * xp * ex) + 4 * heads * t)
+    return 2 * 4 * t * r * ypitch + 2 * slot
+
+
+def ssm_plan(bh: int, groups: int, l: int, p: int, n: int,
+             dtypes=("bf16", "bf16", "bf16"), *, rt: int | None = None,
+             ns: int | None = None, heads: int | None = None,
+             t_tile: int | None = None) -> SSMPlan:
+    """The plan for x (bh, l, p), b and c (groups, l, n); `dtypes` are those
+    of x, b and c ("bf16" or "f32").  `rt`, `ns`, `heads` (a most) and
+    `t_tile` override the rule (for the plan sweep).
+
+    Rule (from `tools/torch_ssm_plan_sweep.py` on the card): 16 entries of
+    each of 4 rows a thread (128 registers, 16 warps an SM) where the grid
+    is wide: each b and c value a thread reads serves four rows.  One row a
+    thread, 8 entries of it, where there are fewer blocks than SMs or P < 4.
+    A head with fewer rows than a block leaves room for more heads of its
+    group, which then share one staged b/c tile; fewer heads a block where
+    that would leave fewer than two blocks an SM.  The time tile: the
+    longest that still lets the whole grid run in one wave, else the longest
+    whose shared memory lets the registers' number of blocks share an SM."""
+    if min(bh, groups, l, p, n) < 1 or bh % groups or n > MAX_N:
+        raise ValueError(f"ssm_plan: no plan for bh={bh} groups={groups} l={l} p={p} n={n}")
+    h = bh // groups
+    rt_rule = rt is None
+    if ns is None:
+        ns = 4 if n <= 4 else 8 if rt == 1 or p < 4 else 16
+    if rt is None:
+        rt = 1 if p < 4 or ns < 16 else 4
+    if (rt, ns) not in RING_VARIANTS:
+        raise ValueError(f"ssm_plan: (rt, ns) = {(rt, ns)} is not instantiated")
+    r = _pow2(-(-n // ns))
+    if r > 32:
+        raise ValueError(f"ssm_plan: N={n} needs more than 32 threads a row at ns={ns}")
+    block_rows = rt * THREADS // r
+    if p >= block_rows:
+        rows = block_rows
+        heads = 1
+    else:
+        rows = max(rt, _pow2(p))
+        most, heads = heads, 1
+        while (heads * 2 * rows <= block_rows and h % (heads * 2) == 0
+               and (most is None or heads * 2 <= most)):
+            heads *= 2
+        while most is None and heads > 1 and (bh // heads) * -(-p // rows) < 2 * SMS:
+            heads //= 2
+    while r * (rows // rt) * heads < 32:       # whole warps: idle rows past P
+        rows *= 2
+    threads = r * (rows // rt) * heads
+    row_tiles = -(-p // rows)
+    blocks = bh // heads * row_tiles
+    regs = 64 if rt * ns <= 32 else 128
+    resident = max(1, min(65536 // (regs * threads), 32))     # blocks an SM, by registers
+
+    def fits(t: int, want: int) -> bool:
+        smem = ring_smem(rt, ns, r, rows, heads, row_tiles, p, n, t, dtypes)
+        return smem <= SMEM_PER_BLOCK and want * (smem + 1024) <= SMEM_PER_SM
+
+    if t_tile:
+        t = t_tile
+    else:
+        one_wave = [t for t in T_TILES
+                    if any(fits(t, k) and k * SMS >= blocks for k in range(1, resident + 1))]
+        t = one_wave[0] if one_wave else next(
+            (t for t in T_TILES if fits(t, resident)), T_TILES[-1])
+    smem = ring_smem(rt, ns, r, rows, heads, row_tiles, p, n, t, dtypes)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"ssm_plan: {smem} bytes of shared memory at bh={bh} p={p} n={n}")
+    if rt_rule and rt > 1 and blocks < SMS:      # too few blocks: one row a thread
+        return ssm_plan(bh, groups, l, p, n, dtypes, rt=1, heads=heads, t_tile=t_tile)
+    return SSMPlan(rt=rt, ns=ns, r=r, rows=rows, heads=heads, row_tiles=row_tiles,
+                   threads=threads, t_tile=t, smem=smem, blocks=blocks)
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return "bf16" if t.dtype == torch.bfloat16 else "f32"
 
 
 def _entry():
     fn = _build.library().ssm_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """The scan over any length L >= 1; see the module docstring for shapes."""
+def launch(x, a, b, c, y, plan: SSMPlan) -> int:
+    """Launch `ssm_scan_kernel_ring` on `plan` into `y`; returns the CUDA
+    error code.  b and c share one dtype.  Checks nothing and counts
+    nothing: `ssm_scan` does both."""
+    bh, l, p = x.shape
+    lg = lambda v: v.bit_length() - 1   # noqa: E731  (powers of two)
+    bf16 = torch.bfloat16
+    with torch.cuda.device(x.device):
+        return _entry()(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+                        bh, b.shape[0], l, p, b.shape[2], int(x.dtype == bf16),
+                        int(b.dtype == bf16), plan.rt, plan.ns,
+                        lg(plan.r), lg(plan.rows // plan.rt), lg(plan.heads), plan.t_tile,
+                        torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def expand_groups(t: torch.Tensor, bh: int) -> torch.Tensor:
+    """b or c (G, L, N) repeated per head to (BH, L, N), the reference's layout."""
+    return t if t.shape[0] == bh else t.repeat_interleave(bh // t.shape[0], dim=0)
+
+
+def check_shapes(x, a, b, c) -> None:
     if x.ndim != 3 or a.ndim != 2 or b.ndim != 3 or c.shape != b.shape:
         raise ValueError(f"ssm_scan: bad shapes x{tuple(x.shape)} a{tuple(a.shape)} "
                          f"b{tuple(b.shape)} c{tuple(c.shape)}")
-    bh, l, p = x.shape
-    n = b.shape[2]
-    if tuple(a.shape) != (bh, l) or tuple(b.shape[:2]) != (bh, l):
+    bh, l, _ = x.shape
+    g = b.shape[0]
+    if tuple(a.shape) != (bh, l) or b.shape[1] != l or g < 1 or bh % g:
         raise ValueError(f"ssm_scan: x{tuple(x.shape)}, a{tuple(a.shape)} and "
                          f"b{tuple(b.shape)} do not match")
+
+
+def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+             plan: SSMPlan | None = None) -> torch.Tensor:
+    """The scan over any length L >= 1; see the module docstring for shapes.
+    `plan` overrides `ssm_plan`'s (for the plan sweep)."""
+    check_shapes(x, a, b, c)
+    bh, l, p = x.shape
+    g, n = b.shape[0], b.shape[2]
     if a.dtype != torch.float32:
         raise TypeError(f"ssm_scan: a must be float32, got {a.dtype}")
     for name, t in (("x", x), ("b", b), ("c", c)):
@@ -55,7 +218,7 @@ def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor)
     if not (x.device == a.device == b.device == c.device):
         raise ValueError("ssm_scan: x, a, b and c lie on different devices")
     if x.device.type == "cpu":
-        return ref.ssm_scan_ref(x, a, b, c)
+        return ref.ssm_scan_ref(x, a, expand_groups(b, bh), expand_groups(c, bh))
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan: unsupported device {x.device}")
     if min(bh, l, p, n) < 1 or n > MAX_N:
@@ -63,13 +226,12 @@ def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor)
                          f"x, got x{tuple(x.shape)} N={n}")
     if not all(t.is_contiguous() for t in (x, a, b, c)):
         raise ValueError("ssm_scan: x, a, b and c must be contiguous")
+    if plan is None:
+        plan = ssm_plan(bh, g, l, p, n, tuple(_dtype_name(t) for t in (x, b, c)))
+    if b.dtype != c.dtype:      # the kernel reads b and c in one dtype
+        b, c = b.float(), c.float()
     y = torch.empty((bh, l, p), dtype=torch.float32, device=x.device)
-    bf16 = torch.bfloat16
-    with torch.cuda.device(x.device):
-        err = _entry()(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                       bh, l, p, n, int(x.dtype == bf16), int(b.dtype == bf16),
-                       int(c.dtype == bf16), torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, "ssm_scan")
+    _build.check_launch(launch(x, a, b, c, y, plan), "ssm_scan")
     ssm_scan.launches += 1
     return y
 

@@ -310,13 +310,14 @@ def apply_mamba(cfg: ModelConfig, p: Params, x: torch.Tensor,
     xh = xs.reshape(b, l, hm, pdim)
 
     if cache is None or l > 1:
-        # (B,L,Hm,P) -> (B*Hm, L, P); decay (B*Hm, L); b and c are shared
-        # across heads and repeated per head here, as the reference does
+        # (B,L,Hm,P) -> (B*Hm, L, P); decay (B*Hm, L); b and c (B,L,N) are
+        # shared by the Hm heads of each batch row, which the scan takes as
+        # they are (the reference repeats them per head)
         sdt = compute_dtype(cfg)
         xf = xh.movedim(2, 1).reshape(b * hm, l, pdim).to(sdt)
         af = a.movedim(2, 1).reshape(b * hm, l)
-        bf = bmat.to(sdt).repeat_interleave(hm, dim=0)
-        cf = cmat.to(sdt).repeat_interleave(hm, dim=0)
+        bf = bmat.to(sdt)
+        cf = cmat.to(sdt)
         y = ops.ssm(xf, af, bf, cf, cfg.use_kernels)
         y = y.reshape(b, hm, l, pdim).movedim(1, 2)                   # (B,L,Hm,P)
         if cache is not None:  # prefill: also the final state

@@ -387,8 +387,11 @@ def test_ssm_scan_wrapper_rejects_bad_inputs():
 
 @pytest.mark.parametrize("l,use_kernel,expect", [
     (128, True, True), (24, True, True), (97, True, True), (256, True, True),
-    (4, True, False), (200, True, False), (1, True, False), (128, False, False)])
+    (4, True, False), (200, True, True), (1, True, False), (128, False, False)])
 def test_ssm_dispatch_predicate(l, use_kernel, expect):
+    """Every L >= 8 takes the kernel: where L does not tile into 128-step
+    chunks (200) the reference runs its sequential oracle, the kernel's own
+    function; shorter lengths keep the chunked form's bf16 rounding."""
     assert ops.uses_ssm_kernel(l, use_kernel) == expect
 
 
@@ -411,6 +414,118 @@ def test_ops_ssm_forward_and_gradients(l, use_kernel):
     np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), rtol=2e-4, atol=2e-4)
     for t, gj in zip(ts, grads_j):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj), rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("l,use_kernel", [(128, True), (97, True), (4, True), (64, False)])
+@pytest.mark.parametrize("heads", [4, 1])
+def test_ops_ssm_grouped_form_equals_the_repeated_form(l, use_kernel, heads):
+    """b and c (G,L,N) shared by `heads` heads each give the output and all
+    four gradients of the same b and c repeated per head (the reference's
+    layout), on both sides of the predicate; the repeated form is held to
+    the reference's `ops.ssm` by test_ops_ssm_forward_and_gradients."""
+    groups, p, n = 2, 8, 4
+    bh = groups * heads
+    r = _rng(l, heads, 5)
+    x, a, _, _ = _ssm_inputs(r, bh, l, p, n)
+    b = (r.standard_normal((groups, l, n)) * 0.3).astype(np.float32)
+    c = (r.standard_normal((groups, l, n)) * 0.3).astype(np.float32)
+    g = r.standard_normal((bh, l, p)).astype(np.float32)
+    grouped = [_t(v).requires_grad_(True) for v in (x, a, b, c)]
+    repeated = [_t(v).requires_grad_(True) for v in
+                (x, a, np.repeat(b, heads, axis=0), np.repeat(c, heads, axis=0))]
+    outs = []
+    for ts in (grouped, repeated):
+        out = ops.ssm(*ts, use_kernel)
+        (out * _t(g)).sum().backward()
+        outs.append(out.detach().numpy())
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-6, atol=1e-6)
+    for tg, tr in zip(grouped[:2], repeated[:2]):
+        np.testing.assert_allclose(tg.grad.numpy(), tr.grad.numpy(), rtol=1e-5, atol=1e-6)
+    for tg, tr in zip(grouped[2:], repeated[2:]):     # a group's gradient sums its heads'
+        summed = tr.grad.numpy().reshape(groups, heads, l, n).sum(axis=1)
+        np.testing.assert_allclose(tg.grad.numpy(), summed, rtol=1e-5, atol=1e-5)
+
+
+def test_ssm_scan_wrapper_grouped_form_and_bad_groups():
+    """The wrapper's grouped form equals the per-head form on the CPU, and a
+    group count that does not divide BH is refused."""
+    r = _rng(7)
+    x, a, _, _ = _ssm_inputs(r, 6, 24, 4, 8)
+    b = (r.standard_normal((3, 24, 8)) * 0.3).astype(np.float32)
+    c = (r.standard_normal((3, 24, 8)) * 0.3).astype(np.float32)
+    out = ssm_scan(_t(x), _t(a), _t(b), _t(c))
+    want = ref.ssm_scan_ref(_t(x), _t(a), _t(np.repeat(b, 2, axis=0)),
+                            _t(np.repeat(c, 2, axis=0)))
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        ssm_scan(_t(x), _t(a), torch.zeros(4, 24, 8), torch.zeros(4, 24, 8))   # 4 for 6 heads
+
+
+# the scan shapes of the serving paths (chip_smoke.SSM_PATH: BH, L, P, N,
+# dtypes of x, b, c, groups) and ragged ones
+SSM_PLAN_SHAPES = [
+    (8192, 128, 64, 64, ("bf16",) * 3, 128), (64, 97, 64, 64, ("bf16",) * 3, 1),
+    (64, 4096, 64, 64, ("bf16",) * 3, 1), (512, 128, 256, 256, ("bf16",) * 3, 512),
+    (512, 128, 1, 256, ("f32", "bf16", "bf16"), 512),
+    (2, 128, 8, 4, ("f32",) * 3, 2), (2, 100, 5, 100, ("bf16", "f32", "bf16"), 2),
+    (16384, 97, 40, 64, ("f32", "bf16", "bf16"), 16384), (2048, 64, 100, 256, ("bf16",) * 3, 2048),
+    (64, 130, 32, 48, ("f32",) * 3, 16), (3, 24, 1, 64, ("f32", "bf16", "bf16"), 3),
+    (4, 200, 64, 64, ("bf16",) * 3, 1)]
+
+
+def _ring_rows_covered(plan, bh, p):
+    """How often `ssm_scan_kernel_ring` on `plan` writes each (bh, row), from
+    the kernel's own map: block (bx, by), thread t -> head bx*heads +
+    (t / r) / (rows / rt), rows p0 + ((t / r) % (rows / rt)) * rt .. + rt,
+    written where the row is below P."""
+    count = np.zeros((bh, p), np.int64)
+    trh = plan.rows // plan.rt
+    t = np.arange(plan.threads)
+    tr = t // plan.r
+    head, row0 = tr // trh, (tr % trh) * plan.rt
+    only_part0 = t % plan.r == 0           # the R threads of a row write it once
+    for bx in range(bh // plan.heads):
+        for by in range(plan.row_tiles):
+            for k in range(plan.rt):
+                rows = by * plan.rows + row0 + k
+                ok = only_part0 & (rows < p) & (row0 + k < min(plan.rows, p - by * plan.rows))
+                np.add.at(count, (bx * plan.heads + head[ok], rows[ok]), 1)
+    return count
+
+
+@pytest.mark.parametrize("bh,l,p,n,dts,groups", SSM_PLAN_SHAPES)
+def test_ssm_plan_covers_every_row_and_step_once(bh, l, p, n, dts, groups):
+    from repro_torch.kernels import ssm_scan as SS
+    plan = SS.ssm_plan(bh, groups, l, p, n, dts)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= SS.THREADS
+    assert (plan.rt, plan.ns) in SS.RING_VARIANTS and plan.r * plan.ns >= n
+    assert (bh // groups) % plan.heads == 0            # a block's heads share one group
+    assert plan.smem == SS.ring_smem(plan.rt, plan.ns, plan.r, plan.rows, plan.heads,
+                                     plan.row_tiles, p, n, plan.t_tile, dts)
+    assert plan.smem <= SS.SMEM_PER_BLOCK
+    np.testing.assert_array_equal(_ring_rows_covered(plan, min(bh, 4 * plan.heads), p), 1)
+    tiles = [(k * plan.t_tile, min(l, (k + 1) * plan.t_tile))
+             for k in range(-(-l // plan.t_tile))]
+    steps = np.zeros(l, np.int64)
+    for t0, t1 in tiles:
+        steps[t0:t1] += 1
+    np.testing.assert_array_equal(steps, 1)
+
+
+@pytest.mark.parametrize("bh,l,p,n,dts,groups,rt,ns,heads,t_tile", [
+    (8192, 128, 64, 64, ("bf16",) * 3, 128, 4, 16, 4, 8),        # zamba2 B=128
+    (512, 128, 256, 256, ("bf16",) * 3, 512, 4, 16, 1, 8),       # xlstm B=128
+    (64, 4096, 64, 64, ("bf16",) * 3, 1, 1, 8, 1, 32),           # zamba2 B=1: one wave
+    (512, 128, 1, 256, ("f32", "bf16", "bf16"), 512, 1, 8, 1, 16)])   # the normaliser
+def test_ssm_plan_rule_at_the_serving_shapes(bh, l, p, n, dts, groups, rt, ns, heads, t_tile):
+    """Wide grids: four rows of 16 entries a thread, a b/c tile shared by the
+    heads of a batch row, two blocks an SM.  Narrow ones: one row of 8
+    entries a thread, and the longest time tile that keeps one wave."""
+    from repro_torch.kernels import ssm_scan as SS
+    plan = SS.ssm_plan(bh, groups, l, p, n, dts)
+    assert (plan.rt, plan.ns, plan.heads, plan.t_tile) == (rt, ns, heads, t_tile)
+    if plan.blocks > SS.SMS:
+        assert 2 * (plan.smem + 1024) <= SS.SMEM_PER_SM
 
 
 # ---------------------------------------------------------------------------
