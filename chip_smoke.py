@@ -503,6 +503,29 @@ def check_ssm_scan(gen) -> dict:
                                   (128, 2, 256, 64, 64, ("f32", "bf16", "bf16"))]:
         check(*_ssm_inputs(gen, bh, l, p, n, dts, groups=g),
               f"ssm grouped {bh}x{l}x{p}x{n} G={g} (H={bh // g}) {'/'.join(dts)}")
+    # chunk-parallel (the rule's: 32 chunks of 128 at B=1 L=4096), at strong
+    # decay too, where products of decays across a chunk underflow; a ragged
+    # last chunk; the normaliser's P = 1 form over 8 chunks
+    for decay in ((0.68, 0.98), (0.05, 0.35)):
+        check(*_ssm_inputs(gen, 64, 4096, 64, 64, ("bf16",) * 3, decay=decay, groups=1),
+              f"ssm chunked 64x4096x64x64 G=1 bf16 decay {decay}")
+    check(*_ssm_inputs(gen, 64, 4000, 64, 64, ("bf16",) * 3, groups=1),
+          "ssm chunked 64x4000x64x64 G=1 bf16, ragged last chunk")
+    check(*_ssm_inputs(gen, 8, 1000, 1, 256, ("f32", "bf16", "bf16")),
+          "ssm chunked 8x1000x1x256 normaliser form")
+    # chunked plans the rule does not pick: one row a thread, chunks of 64,
+    # rows past P (40 of 64) and N below a thread row's width, f32
+    for (bh, g, l, p, n, dts, kw) in [
+            (16, 4, 1000, 40, 48, ("f32",) * 3, dict(rt=1, ns=8, chunk=64)),
+            (8, 8, 700, 64, 64, ("bf16",) * 3, dict(rt=4, ns=16, chunk=256, t_tile=16))]:
+        x, a, b, c = _ssm_inputs(gen, bh, l, p, n, dts, groups=g)
+        plan = SS.ssm_plan(bh, g, l, p, n, dts, **kw)
+        y = torch.empty((bh, l, p), dtype=torch.float32, device=DEV)
+        _build.check_launch(SS.launch(x, a, b, c, y, plan, SS.chunk_scratch(x, n, plan)),
+                            "ssm_scan (forced plan)")
+        checks.append({**compare(y, _ssm_want(x, a, b, c), tol, tol,
+                                 f"ssm chunked {bh}x{l}x{p}x{n} G={g} {'/'.join(dts)}, plan {kw}"),
+                       "plan": plan.as_dict()})
     # strong decay, where a ratio of cumulative products would underflow
     for decay in ((0.3, 0.6), (0.05, 0.35)):
         check(*_ssm_inputs(gen, 2, 128, 8, 4, decay=decay), f"ssm 2x128x8x4 decay {decay}")

@@ -72,6 +72,9 @@ struct Args {
     int lg_hb;                    // log2 of heads per block
     int T;                        // steps per staged tile
     int bc_bulk, x_bulk, a_bulk;  // 1: staged by bulk copies (16-byte aligned spans)
+    int chunk, nc;                // steps per chunk (blockIdx.z), chunks; nc = 1: no chunking
+    float* s_scr;                 // nc > 1: each chunk's final state (BH, nc, P, N)
+    float* w_scr;                 // nc > 1: decay products from each chunk's start (BH, L)
 };
 
 __host__ __device__ constexpr int lg2(int v) {
@@ -212,7 +215,8 @@ ssm_scan_kernel_ring(const Args A) {
     const unsigned char* xsrc = reinterpret_cast<const unsigned char*>(A.x)
                                 + ((size_t)bh0 * L * P + p0) * ex;
     const float* asrc = A.a + (size_t)bh0 * L;
-    const int ntiles = (L + T - 1) / T;
+    const int z = blockIdx.z, ts = z * A.chunk, te = min(L, ts + A.chunk);   // this chunk
+    const int ntiles = (te - ts + T - 1) / T;
     const int ypitch = ly.ypitch;
     auto slot_of = [&](int k) { return smem + ly.raw + (size_t)(k & 1) * ly.slot; };
     auto yp_of = [&](int k) { return reinterpret_cast<float*>(smem + (size_t)(k & 1) * ly.ybuf); };
@@ -220,7 +224,7 @@ ssm_scan_kernel_ring(const Args A) {
     // Stage tile k into its slot: spans a bulk copy takes from lanes of warp
     // 0 (lane 0 first announces the slot's bytes), the rest by all threads.
     auto issue = [&](int k) {
-        const int t0 = k * T, tl = min(T, L - t0);
+        const int t0 = ts + k * T, tl = min(T, te - t0);
         unsigned char* s = slot_of(k);
         uint64_t* bar = &bars[k & 1];
         if (tid < 32) {
@@ -286,7 +290,7 @@ ssm_scan_kernel_ring(const Args A) {
     // tile k's outputs: the R partials of each row summed in order, then
     // stored as contiguous rows
     auto store_y = [&](int k) {
-        const int t0 = k * T, tl = min(T, L - t0);
+        const int t0 = ts + k * T, tl = min(T, te - t0);
         const float* yp = yp_of(k);
         float* y = A.y + ((size_t)bh0 * L + t0) * P + p0;
         if ((P & 3) == 0 && (rbh & 3) == 0) {
@@ -342,6 +346,11 @@ ssm_scan_kernel_ring(const Args A) {
 #pragma unroll
     for (int r = 0; r < RT; ++r) live[r] = rb0 + r < rows;
     const bool x_vec = (xp % RT) == 0 && rows == rbh;   // no row past P to mask
+    // chunked: the decay products from the chunk's start, formed step by step
+    // forward, leave by one thread a head
+    float aprod = 1.f;
+    float* w_out = A.nc > 1 && blockIdx.y == 0 && part == 0 && rb0 == 0
+                       ? A.w_scr + (size_t)(bh0 + hi) * L + ts : nullptr;
 
     issue(0);
     for (int k = 0; k < ntiles; ++k) {
@@ -355,9 +364,11 @@ ssm_scan_kernel_ring(const Args A) {
         const unsigned char* xs = s + ly.rx + hi * ly.xslot;
         const float* as = reinterpret_cast<const float*>(s + ly.ra) + hi * T;
         float* yp = yp_of(k);
-        const int tl = min(T, L - k * T);
+        const int tl = min(T, te - ts - k * T);
         for (int tt = 0; tt < tl; ++tt) {
             const float at = as[tt];
+            aprod *= at;
+            if (w_out) w_out[k * T + tt] = aprod;
             float xt[RT];
             const int xi = tt * xp + rb0;
             if (A.x_bf16 && x_vec && RT == 4) {
@@ -406,6 +417,179 @@ ssm_scan_kernel_ring(const Args A) {
     }
     __syncthreads();
     store_y(ntiles - 1);
+    if (A.nc > 1) {            // the chunk's final state, from a zero start
+        float* sd = A.s_scr + ((size_t)(bh0 + hi) * A.nc + z) * P * N;
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+            if (!live[r]) continue;
+            float* row = sd + (size_t)(p0 + rb0 + r) * N;
+#pragma unroll
+            for (int q = 0; q < NS / GS; ++q)
+#pragma unroll
+                for (int e = 0; e < GS; ++e) {
+                    const int n = (q * R + part) * GS + e;
+                    if (n < N) row[n] = S[r][q * GS + e];
+                }
+        }
+    }
+}
+
+// Between chunks, in chunk order, for each (bh, state entry): the state a
+// chunk starts from, S_in(k+1) = A_k S_in(k) + S_k, with A_k the chunk's
+// product of decays (the last of its w).  In place: S_k becomes S_in(k).
+__global__ void __launch_bounds__(256)
+ssm_scan_kernel_carry(float* s_scr, const float* w, int L, int PN, int chunk, int nc) {
+    constexpr int B = 8;       // chunks whose states are loaded at once
+    const int e = blockIdx.x * blockDim.x + threadIdx.x, bh = blockIdx.y;
+    if (e >= PN) return;
+    float* sp = s_scr + (size_t)bh * nc * PN + e;
+    const float* wl = w + (size_t)bh * L;
+    float s = 0.f;
+    for (int k0 = 0; k0 < nc; k0 += B) {
+        float sk[B], ak[B];
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+            const int k = min(k0 + j, nc - 1);
+            sk[j] = sp[(size_t)k * PN];
+            ak[j] = wl[min(L, (k + 1) * chunk) - 1];
+        }
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+            if (k0 + j >= nc) break;
+            sp[(size_t)(k0 + j) * PN] = s;
+            s = fmaf(ak[j], s, sk[j]);
+        }
+    }
+}
+
+// Pass 2 of a chunked scan: for chunk k >= 1, y_t += w_t (S_in(k) c_t), w_t
+// the product of decays from the chunk's start to t.  One block per (bh,
+// chunk, 128 steps x 64 rows): an f32 product over N in tiles of 32, each
+// of 64 threads 16 steps x 8 rows.
+constexpr int CO_T = 128, CO_P = 64, CO_K = 32, CO_I = CO_T / 8;
+
+__global__ void __launch_bounds__(64)
+ssm_scan_kernel_carry_out(const void* c, int c_bf16, const float* s_scr, const float* w,
+                          float* y, int L, int P, int N, int H, int chunk, int nc, int p_tiles) {
+    __shared__ __align__(16) float Ct[CO_K][CO_T];     // [k][step]
+    __shared__ __align__(16) float St[CO_K][CO_P];     // [k][row]
+    const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+    const int bh = blockIdx.x, k = blockIdx.y + 1;
+    const int t_tile = blockIdx.z / p_tiles, pp0 = (blockIdx.z - t_tile * p_tiles) * CO_P;
+    const int ts = k * chunk + t_tile * CO_T, te = min(L, min((k + 1) * chunk, ts + CO_T));
+    if (ts >= te) return;
+    const int tl = te - ts, g = bh / H;
+    const float* sin = s_scr + ((size_t)bh * nc + k) * P * N;
+    const unsigned char* cb = reinterpret_cast<const unsigned char*>(c)
+                              + ((size_t)g * L + ts) * N * (c_bf16 ? 2 : 4);
+    float acc[CO_I][8];
+#pragma unroll
+    for (int i = 0; i < CO_I; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    // each thread loads two steps' and one row's CO_K values of the k tile
+    // at once (16-byte loads where the rows allow) and stores them transposed
+    const bool vec = (N % 8) == 0 && (reinterpret_cast<uintptr_t>(c) & 15) == 0;
+    for (int n0 = 0; n0 < N; n0 += CO_K) {
+        float cv[2][CO_K], sv[CO_K];
+        const int pr = pp0 + tid;
+        if (vec && n0 + CO_K <= N) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int t = tid + 64 * h;
+                if (t >= tl) continue;
+                if (c_bf16) {
+#pragma unroll
+                    for (int q = 0; q < CO_K / 8; ++q) {
+                        const uint4 u = *reinterpret_cast<const uint4*>(cb + 2 * ((size_t)t * N + n0 + 8 * q));
+                        cv[h][8 * q + 0] = bf16_lo(u.x); cv[h][8 * q + 1] = bf16_hi(u.x);
+                        cv[h][8 * q + 2] = bf16_lo(u.y); cv[h][8 * q + 3] = bf16_hi(u.y);
+                        cv[h][8 * q + 4] = bf16_lo(u.z); cv[h][8 * q + 5] = bf16_hi(u.z);
+                        cv[h][8 * q + 6] = bf16_lo(u.w); cv[h][8 * q + 7] = bf16_hi(u.w);
+                    }
+                } else {
+#pragma unroll
+                    for (int q = 0; q < CO_K / 4; ++q) {
+                        const float4 f = *reinterpret_cast<const float4*>(cb + 4 * ((size_t)t * N + n0 + 4 * q));
+                        cv[h][4 * q] = f.x; cv[h][4 * q + 1] = f.y;
+                        cv[h][4 * q + 2] = f.z; cv[h][4 * q + 3] = f.w;
+                    }
+                }
+            }
+            if (pr < P) {
+#pragma unroll
+                for (int q = 0; q < CO_K / 4; ++q) {
+                    const float4 f = *reinterpret_cast<const float4*>(sin + (size_t)pr * N + n0 + 4 * q);
+                    sv[4 * q] = f.x; sv[4 * q + 1] = f.y; sv[4 * q + 2] = f.z; sv[4 * q + 3] = f.w;
+                }
+            }
+        } else {
+#pragma unroll
+            for (int kk = 0; kk < CO_K; ++kk) {
+                const int n = n0 + kk;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int t = tid + 64 * h;
+                    cv[h][kk] = (t < tl && n < N) ? ld_elem(cb, t * N + n, c_bf16) : 0.f;
+                }
+                sv[kk] = (pr < P && n < N) ? sin[(size_t)pr * N + n] : 0.f;
+            }
+        }
+#pragma unroll
+        for (int kk = 0; kk < CO_K; ++kk) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) Ct[kk][tid + 64 * h] = tid + 64 * h < tl ? cv[h][kk] : 0.f;
+            St[kk][tid] = pr < P ? sv[kk] : 0.f;
+        }
+        __syncthreads();
+#pragma unroll 2
+        for (int kk = 0; kk < CO_K; ++kk) {
+            float av[CO_I], bv[8];
+#pragma unroll
+            for (int q = 0; q < CO_I / 4; ++q) {
+                const float4 a4 = *reinterpret_cast<const float4*>(&Ct[kk][ty * CO_I + 4 * q]);
+                av[4 * q] = a4.x; av[4 * q + 1] = a4.y; av[4 * q + 2] = a4.z; av[4 * q + 3] = a4.w;
+            }
+            const float4 b0 = *reinterpret_cast<const float4*>(&St[kk][tx * 8]);
+            const float4 b1 = *reinterpret_cast<const float4*>(&St[kk][tx * 8 + 4]);
+            bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+            bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+#pragma unroll
+            for (int i = 0; i < CO_I; ++i)
+#pragma unroll
+                for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+    // y += w_t acc: every y value of a step is loaded before it is stored,
+    // so that the loads are not held behind stores the compiler cannot tell
+    // apart
+    const int pc = pp0 + tx * 8;
+    const bool yvec = (P & 3) == 0 && pc + 8 <= P;       // rows of y 16-byte aligned
+#pragma unroll
+    for (int i = 0; i < CO_I; ++i) {
+        const int t = ty * CO_I + i;
+        if (t >= tl) break;
+        const float wt = w[(size_t)bh * L + ts + t];
+        float* yr = y + ((size_t)bh * L + ts + t) * P + pc;
+        if (yvec) {
+            const float4 v0 = *reinterpret_cast<const float4*>(yr);
+            const float4 v1 = *reinterpret_cast<const float4*>(yr + 4);
+            *reinterpret_cast<float4*>(yr) =
+                make_float4(fmaf(wt, acc[i][0], v0.x), fmaf(wt, acc[i][1], v0.y),
+                            fmaf(wt, acc[i][2], v0.z), fmaf(wt, acc[i][3], v0.w));
+            *reinterpret_cast<float4*>(yr + 4) =
+                make_float4(fmaf(wt, acc[i][4], v1.x), fmaf(wt, acc[i][5], v1.y),
+                            fmaf(wt, acc[i][6], v1.z), fmaf(wt, acc[i][7], v1.w));
+        } else {
+            float v[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) v[j] = pc + j < P ? yr[j] : 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                if (pc + j < P) yr[j] = fmaf(wt, acc[i][j], v[j]);
+        }
+    }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -426,9 +610,23 @@ int launch_ring(Args args, int BH, cudaStream_t stream) {
     cudaError_t e = cudaFuncSetAttribute(ssm_scan_kernel_ring<RT, NS, BC_BF16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ly.total);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((unsigned)(BH >> args.lg_hb), (unsigned)ly.row_tiles, 1);
+    const dim3 grid((unsigned)(BH >> args.lg_hb), (unsigned)ly.row_tiles, (unsigned)args.nc);
     const int threads = 1 << (args.lg_r + args.lg_trh + args.lg_hb);
     ssm_scan_kernel_ring<RT, NS, BC_BF16><<<grid, threads, ly.total, stream>>>(args);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || args.nc == 1) return (int)e;
+    // chunked: carry the states across chunks, then add what they give
+    const int PN = args.P * args.N;
+    ssm_scan_kernel_carry<<<dim3((unsigned)((PN + 255) / 256), (unsigned)BH), 256, 0, stream>>>(
+        args.s_scr, args.w_scr, args.L, PN, args.chunk, args.nc);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const int p_tiles = (args.P + CO_P - 1) / CO_P;
+    const dim3 g2((unsigned)BH, (unsigned)(args.nc - 1),
+                  (unsigned)(((args.chunk + CO_T - 1) / CO_T) * p_tiles));
+    ssm_scan_kernel_carry_out<<<g2, 64, 0, stream>>>(args.c, BC_BF16, args.s_scr, args.w_scr,
+                                                     args.y, args.L, args.P, args.N, args.H,
+                                                     args.chunk, args.nc, p_tiles);
     return (int)cudaGetLastError();
 }
 
@@ -445,7 +643,11 @@ int launch_variant(int rt, int ns, Args args, int BH, cudaStream_t st) {
 
 // The plan (`kernels/ssm_scan.ssm_plan`) as it arrives: rt rows and ns
 // entries a thread (an instantiated pair), 2^lg_r threads a row, 2^lg_trh
-// thread rows a head tile, 2^lg_hb heads a block, t_tile steps a staged tile.
+// thread rows a head tile, 2^lg_hb heads a block, t_tile steps a staged tile,
+// chunks of `chunk` steps (a multiple of t_tile; chunk >= L: one pass).  With
+// more than one chunk, s_scr (BH, chunks, P, N) and w_scr (BH, L) f32 are the
+// caller's scratch, and three kernels run: the chunks from a zero state, the
+// carry between chunks, and what the carried states add.
 // x_bf16, bc_bf16: 1 when x (b and c) hold bf16, 0 when f32; a is f32.  All
 // inputs contiguous; b and c (G,L,N) with BH % G == 0.  Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a plan the kernel does not
@@ -453,9 +655,12 @@ int launch_variant(int rt, int ns, Args args, int BH, cudaStream_t st) {
 extern "C" int ssm_scan_launch(const void* x, const void* a, const void* b, const void* c,
                                void* y, int BH, int G, int L, int P, int N, int x_bf16,
                                int bc_bf16, int rt, int ns, int lg_r, int lg_trh, int lg_hb,
-                               int t_tile, void* stream) {
+                               int t_tile, int chunk, void* s_scr, void* w_scr, void* stream) {
     if (BH <= 0 || G <= 0 || BH % G || L <= 0 || P <= 0 || N <= 0 || N > MAX_N ||
-        t_tile <= 0 || t_tile % 4)
+        t_tile <= 0 || t_tile % 4 || chunk <= 0 || chunk % t_tile)
+        return (int)cudaErrorInvalidValue;
+    const int nc = (L + chunk - 1) / chunk;
+    if (nc > 65535 || (nc > 1 && (s_scr == nullptr || w_scr == nullptr)))
         return (int)cudaErrorInvalidValue;
     const int H = BH / G;
     const int threads_lg = lg_r + lg_trh + lg_hb;
@@ -463,7 +668,7 @@ extern "C" int ssm_scan_launch(const void* x, const void* a, const void* b, cons
         H % (1 << lg_hb) || (ns << lg_r) < N)
         return (int)cudaErrorInvalidValue;
     Args args{x, (const float*)a, b, c, (float*)y, L, P, N, H, x_bf16, lg_r, lg_trh, lg_hb,
-              t_tile, 0, 0, 0};
+              t_tile, 0, 0, 0, chunk, nc, (float*)s_scr, (float*)w_scr};
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     return bc_bf16 ? launch_variant<true>(rt, ns, args, BH, st)
                    : launch_variant<false>(rt, ns, args, BH, st);

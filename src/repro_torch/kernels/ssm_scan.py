@@ -39,6 +39,8 @@ SMS = 132                 # streaming multiprocessors of an H100 SXM
 SMEM_PER_SM = 233472      # shared memory of one SM; each block also reserves 1 KB
 SMEM_PER_BLOCK = 232448   # the most one block may take
 T_TILES = (32, 16, 8, 4)  # steps a staged tile, longest first
+CHUNK = 512               # steps a chunk where the scan is chunk-parallel
+CHUNKED_STATE = 1 << 20   # chunk-parallel when BH * P * N is at most this (and L >= 4 chunks)
 
 
 def _esize(dtype: str) -> int:
@@ -59,7 +61,11 @@ class SSMPlan:
     `row_tiles` blocks of `threads`.  A block owns `rows` rows of each of
     `heads` heads of one b/c group; a thread holds `ns` entries of each of
     `rt` rows, and `r` threads share a row (r * ns >= N).  Time is staged
-    `t_tile` steps at a time; `smem` is the block's shared memory in bytes."""
+    `t_tile` steps at a time; `smem` is the block's shared memory in bytes.
+    With `chunks` > 1 the grid has a third axis of chunks of `chunk` steps
+    (chunk-parallel: each chunk from a zero state, then a carry between
+    chunks and a pass that adds what the carried states give); else
+    `chunk` covers L.  `blocks` counts the first pass's blocks."""
     rt: int
     ns: int
     r: int
@@ -70,6 +76,8 @@ class SSMPlan:
     t_tile: int
     smem: int
     blocks: int
+    chunk: int = 0
+    chunks: int = 1
 
     def as_dict(self) -> dict:
         return asdict(self)
@@ -93,23 +101,28 @@ def ring_smem(rt: int, ns: int, r: int, rows: int, heads: int, row_tiles: int, p
 def ssm_plan(bh: int, groups: int, l: int, p: int, n: int,
              dtypes=("bf16", "bf16", "bf16"), *, rt: int | None = None,
              ns: int | None = None, heads: int | None = None,
-             t_tile: int | None = None) -> SSMPlan:
+             t_tile: int | None = None, chunk: int | None = None) -> SSMPlan:
     """The plan for x (bh, l, p), b and c (groups, l, n); `dtypes` are those
-    of x, b and c ("bf16" or "f32").  `rt`, `ns`, `heads` (a most) and
-    `t_tile` override the rule (for the plan sweep).
+    of x, b and c ("bf16" or "f32").  `rt`, `ns`, `heads` (a most),
+    `t_tile` and `chunk` (0: none) override the rule (for the plan sweep).
 
-    Rule (from `tools/torch_ssm_plan_sweep.py` on the card): 16 entries of
-    each of 4 rows a thread (128 registers, 16 warps an SM) where the grid
-    is wide: each b and c value a thread reads serves four rows.  One row a
-    thread, 8 entries of it, where there are fewer blocks than SMs or P < 4.
-    A head with fewer rows than a block leaves room for more heads of its
-    group, which then share one staged b/c tile; fewer heads a block where
-    that would leave fewer than two blocks an SM.  The time tile: the
-    longest that still lets the whole grid run in one wave, else the longest
-    whose shared memory lets the registers' number of blocks share an SM."""
+    Rule (from `tools/torch_ssm_plan_sweep.py` on the card): chunks of 512
+    steps, run in parallel, where the state is small (B=1) and L at least
+    four chunks; the grid's size below counts the chunks.  16 entries of
+    each of 4 rows a thread (128 registers) where the grid is wide: each b
+    and c value a thread reads serves four rows.  One row a thread, 8
+    entries of it, where there are fewer blocks than SMs or P < 4.  One
+    head a block (more only to fill a warp): blocks of one head's 64 rows
+    ran faster than blocks of 2 or 4 heads sharing a b/c tile.  The time
+    tile: the longest that still lets the whole grid run in one wave, else
+    the longest whose shared memory lets the registers' number of blocks
+    share an SM."""
     if min(bh, groups, l, p, n) < 1 or bh % groups or n > MAX_N:
         raise ValueError(f"ssm_plan: no plan for bh={bh} groups={groups} l={l} p={p} n={n}")
     h = bh // groups
+    if chunk is None:
+        chunk = CHUNK if l >= 4 * CHUNK and bh * p * n <= CHUNKED_STATE else 0
+    nc = -(-l // chunk) if chunk else 1
     rt_rule = rt is None
     if ns is None:
         ns = 4 if n <= 4 else 8 if rt == 1 or p < 4 else 16
@@ -124,19 +137,17 @@ def ssm_plan(bh: int, groups: int, l: int, p: int, n: int,
     if p >= block_rows:
         rows = block_rows
         heads = 1
-    else:
+    else:                      # one head a block, more only to make up a warp
         rows = max(rt, _pow2(p))
         most, heads = heads, 1
         while (heads * 2 * rows <= block_rows and h % (heads * 2) == 0
-               and (most is None or heads * 2 <= most)):
+               and (r * (rows // rt) * heads < 32 if most is None else heads * 2 <= most)):
             heads *= 2
-        while most is None and heads > 1 and (bh // heads) * -(-p // rows) < 2 * SMS:
-            heads //= 2
     while r * (rows // rt) * heads < 32:       # whole warps: idle rows past P
         rows *= 2
     threads = r * (rows // rt) * heads
     row_tiles = -(-p // rows)
-    blocks = bh // heads * row_tiles
+    blocks = bh // heads * row_tiles * nc
     regs = 64 if rt * ns <= 32 else 128
     resident = max(1, min(65536 // (regs * threads), 32))     # blocks an SM, by registers
 
@@ -155,9 +166,11 @@ def ssm_plan(bh: int, groups: int, l: int, p: int, n: int,
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"ssm_plan: {smem} bytes of shared memory at bh={bh} p={p} n={n}")
     if rt_rule and rt > 1 and blocks < SMS:      # too few blocks: one row a thread
-        return ssm_plan(bh, groups, l, p, n, dtypes, rt=1, heads=heads, t_tile=t_tile)
+        return ssm_plan(bh, groups, l, p, n, dtypes, rt=1, heads=heads, t_tile=t_tile,
+                        chunk=chunk)
     return SSMPlan(rt=rt, ns=ns, r=r, rows=rows, heads=heads, row_tiles=row_tiles,
-                   threads=threads, t_tile=t, smem=smem, blocks=blocks)
+                   threads=threads, t_tile=t, smem=smem, blocks=blocks,
+                   chunk=chunk if chunk else -(-l // t) * t, chunks=nc)
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -167,15 +180,17 @@ def _dtype_name(t: torch.Tensor) -> str:
 def _entry():
     fn = _build.library().ssm_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
+                       + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
     return fn
 
 
-def launch(x, a, b, c, y, plan: SSMPlan) -> int:
+def launch(x, a, b, c, y, plan: SSMPlan, scratch=(None, None)) -> int:
     """Launch `ssm_scan_kernel_ring` on `plan` into `y`; returns the CUDA
-    error code.  b and c share one dtype.  Checks nothing and counts
-    nothing: `ssm_scan` does both."""
+    error code.  b and c share one dtype; `scratch` is `chunk_scratch`'s
+    pair for a chunked plan.  Checks nothing and counts nothing: `ssm_scan`
+    does both."""
     bh, l, p = x.shape
     lg = lambda v: v.bit_length() - 1   # noqa: E731  (powers of two)
     bf16 = torch.bfloat16
@@ -184,7 +199,18 @@ def launch(x, a, b, c, y, plan: SSMPlan) -> int:
                         bh, b.shape[0], l, p, b.shape[2], int(x.dtype == bf16),
                         int(b.dtype == bf16), plan.rt, plan.ns,
                         lg(plan.r), lg(plan.rows // plan.rt), lg(plan.heads), plan.t_tile,
+                        plan.chunk, *(t.data_ptr() if t is not None else None for t in scratch),
                         torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def chunk_scratch(x: torch.Tensor, n: int, plan: SSMPlan):
+    """(states (BH, chunks, P, N), decay products (BH, L)) f32 for a chunked
+    plan, (None, None) otherwise."""
+    if plan.chunks == 1:
+        return None, None
+    bh, l, p = x.shape
+    return (torch.empty((bh, plan.chunks, p, n), dtype=torch.float32, device=x.device),
+            torch.empty((bh, l), dtype=torch.float32, device=x.device))
 
 
 def expand_groups(t: torch.Tensor, bh: int) -> torch.Tensor:
@@ -231,7 +257,7 @@ def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     if b.dtype != c.dtype:      # the kernel reads b and c in one dtype
         b, c = b.float(), c.float()
     y = torch.empty((bh, l, p), dtype=torch.float32, device=x.device)
-    _build.check_launch(launch(x, a, b, c, y, plan), "ssm_scan")
+    _build.check_launch(launch(x, a, b, c, y, plan, chunk_scratch(x, n, plan)), "ssm_scan")
     ssm_scan.launches += 1
     return y
 

@@ -470,7 +470,8 @@ SSM_PLAN_SHAPES = [
     (2, 128, 8, 4, ("f32",) * 3, 2), (2, 100, 5, 100, ("bf16", "f32", "bf16"), 2),
     (16384, 97, 40, 64, ("f32", "bf16", "bf16"), 16384), (2048, 64, 100, 256, ("bf16",) * 3, 2048),
     (64, 130, 32, 48, ("f32",) * 3, 16), (3, 24, 1, 64, ("f32", "bf16", "bf16"), 3),
-    (4, 200, 64, 64, ("bf16",) * 3, 1)]
+    (4, 200, 64, 64, ("bf16",) * 3, 1), (64, 4000, 64, 64, ("bf16",) * 3, 1),
+    (8, 1000, 1, 256, ("f32", "bf16", "bf16"), 8)]
 
 
 def _ring_rows_covered(plan, bh, p):
@@ -504,23 +505,82 @@ def test_ssm_plan_covers_every_row_and_step_once(bh, l, p, n, dts, groups):
                                      plan.row_tiles, p, n, plan.t_tile, dts)
     assert plan.smem <= SS.SMEM_PER_BLOCK
     np.testing.assert_array_equal(_ring_rows_covered(plan, min(bh, 4 * plan.heads), p), 1)
-    tiles = [(k * plan.t_tile, min(l, (k + 1) * plan.t_tile))
-             for k in range(-(-l // plan.t_tile))]
+    # chunk z covers [z*chunk, min(L, (z+1)*chunk)) in tiles of t_tile steps
+    assert plan.chunk % plan.t_tile == 0 and plan.chunks == -(-l // plan.chunk)
     steps = np.zeros(l, np.int64)
-    for t0, t1 in tiles:
-        steps[t0:t1] += 1
+    for z in range(plan.chunks):
+        ts, te = z * plan.chunk, min(l, (z + 1) * plan.chunk)
+        for k in range(-(-(te - ts) // plan.t_tile)):
+            steps[ts + k * plan.t_tile:min(te, ts + (k + 1) * plan.t_tile)] += 1
     np.testing.assert_array_equal(steps, 1)
 
 
+def _two_pass_scan(x, a, b, c, chunk):
+    """The chunk-parallel scan as the kernels compute it, in torch: pass 1
+    scans each chunk from a zero state step by step (local y, the chunk's
+    final state S_k, and w_t, the product of decays from the chunk's start
+    formed step by step forward); the carry walks the chunks in order,
+    S_in(k+1) = A_k S_in(k) + S_k with A_k the chunk's last w; pass 2 adds
+    w_t (S_in(k) c_t).  No ratio of decays anywhere."""
+    bh, l, p = x.shape
+    y = torch.empty((bh, l, p))
+    w = torch.empty((bh, l))
+    finals = []
+    for ts in range(0, l, chunk):
+        te = min(l, ts + chunk)
+        s = torch.zeros((bh, p, b.shape[-1]))
+        prod = torch.ones(bh)
+        for t in range(ts, te):
+            s = a[:, t, None, None] * s + x[:, t, :, None] * b[:, t, None, :]
+            y[:, t] = torch.einsum("zpn,zn->zp", s, c[:, t])
+            prod = prod * a[:, t]
+            w[:, t] = prod
+        finals.append((s, w[:, te - 1]))
+    s_in = torch.zeros_like(finals[0][0])
+    for k, ts in enumerate(range(0, l, chunk)):
+        te = min(l, ts + chunk)
+        if k:
+            y[:, ts:te] += w[:, ts:te, None] * torch.einsum("zpn,ztn->ztp", s_in, c[:, ts:te])
+        s_in = finals[k][1][:, None, None] * s_in + finals[k][0]
+    return y
+
+
+@pytest.mark.parametrize("decay", [(0.68, 0.98), (0.3, 0.6), (0.05, 0.35)])
+@pytest.mark.parametrize("l,chunk", [(512, 128), (300, 64)])      # 300: a ragged last chunk
+def test_two_pass_carry_matches_the_sequential_oracle(decay, l, chunk):
+    """The chunk-parallel scheme of `ssm_scan_kernel_carry` and
+    `ssm_scan_kernel_carry_out` holds the sequential oracle at the kernel's
+    tolerance, at strong decay too, where the products of decays across a
+    chunk underflow to 0 (which is then the right answer)."""
+    bh, p, n = 3, 8, 16
+    x, a, b, c = (_t(v) for v in _ssm_inputs(_rng(l, int(decay[0] * 100)), bh, l, p, n, decay))
+    want = jref.ssm_scan_ref(*(_j(v.numpy()) for v in (x, a, b, c)))
+    np.testing.assert_allclose(_two_pass_scan(x, a, b, c, chunk).numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_ssm_plan_chunks_only_small_long_scans():
+    """Chunk-parallel at zamba2's B=1 4096-token prefill (8 chunks of 512);
+    not at batch 128, not at a short B=1 prefill; a ragged last chunk."""
+    from repro_torch.kernels import ssm_scan as SS
+    assert (SS.ssm_plan(64, 1, 4096, 64, 64).chunks, SS.ssm_plan(64, 1, 4096, 64, 64).chunk) == (8, 512)
+    assert SS.ssm_plan(64, 1, 4000, 64, 64).chunks == 8
+    assert SS.ssm_plan(64, 1, 1024, 64, 64).chunks == 1
+    assert SS.ssm_plan(8192, 128, 128, 64, 64).chunks == 1
+    assert SS.ssm_plan(64, 1, 97, 64, 64).chunks == 1
+    assert SS.ssm_plan(8192, 128, 4096, 64, 64).chunks == 1
+
+
 @pytest.mark.parametrize("bh,l,p,n,dts,groups,rt,ns,heads,t_tile", [
-    (8192, 128, 64, 64, ("bf16",) * 3, 128, 4, 16, 4, 8),        # zamba2 B=128
+    (8192, 128, 64, 64, ("bf16",) * 3, 128, 4, 16, 1, 8),        # zamba2 B=128
     (512, 128, 256, 256, ("bf16",) * 3, 512, 4, 16, 1, 8),       # xlstm B=128
-    (64, 4096, 64, 64, ("bf16",) * 3, 1, 1, 8, 1, 32),           # zamba2 B=1: one wave
+    (64, 97, 64, 64, ("bf16",) * 3, 1, 1, 8, 1, 32),             # zamba2 B=1: one wave
+    (64, 4096, 64, 64, ("bf16",) * 3, 1, 4, 16, 1, 16),          # ... chunk-parallel
     (512, 128, 1, 256, ("f32", "bf16", "bf16"), 512, 1, 8, 1, 16)])   # the normaliser
 def test_ssm_plan_rule_at_the_serving_shapes(bh, l, p, n, dts, groups, rt, ns, heads, t_tile):
-    """Wide grids: four rows of 16 entries a thread, a b/c tile shared by the
-    heads of a batch row, two blocks an SM.  Narrow ones: one row of 8
-    entries a thread, and the longest time tile that keeps one wave."""
+    """Wide grids (counting chunks): four rows of 16 entries a thread, one
+    head a block, at least two blocks an SM.  Narrow ones: one row of 8
+    entries a thread.  The longest time tile that keeps one wave."""
     from repro_torch.kernels import ssm_scan as SS
     plan = SS.ssm_plan(bh, groups, l, p, n, dts)
     assert (plan.rt, plan.ns, plan.heads, plan.t_tile) == (rt, ns, heads, t_tile)

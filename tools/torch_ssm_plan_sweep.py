@@ -7,7 +7,8 @@ times (`SSM_PATH`), to choose the plan's rule on the card.
 
 Needs one NVIDIA Hopper GPU.  For each shape: every instantiated (rows,
 entries) a thread pair that takes its N, each at the rule's heads and time
-tile, then the rule's pair at every time tile and at one head a block.
+tile, then the rule's pair at every time tile and at one head a block, and
+where L spans four chunks or more, other chunk lengths and none.
 Each plan's output is held against the sequential oracle at
 `chip_smoke.py`'s tolerance (rtol = atol 2e-4) and timed.  One JSON line per
 shape, then the card's name and power limit.
@@ -31,6 +32,13 @@ def candidates(bh, g, l, p, n, dts) -> list:
             for extra in (dict(heads=rule.heads, t_tile=rule.t_tile), {})]
     asks += [dict(rt=rule.rt, ns=rule.ns, heads=rule.heads, t_tile=t) for t in ss.T_TILES]
     asks.append(dict(rt=rule.rt, ns=rule.ns, heads=1))
+    if rule.heads > 1:
+        asks += [dict(rt=rule.rt, ns=rule.ns, heads=h, t_tile=rule.t_tile)
+                 for h in (1, 2) if h < rule.heads]
+    if l >= 4 * ss.CHUNK:      # chunk-parallel or not, and other chunk lengths
+        asks += [dict(chunk=0), dict(rt=1, ns=8, chunk=ss.CHUNK)]
+        asks += [dict(rt=rule.rt, ns=rule.ns, chunk=ch, heads=h, t_tile=t)
+                 for ch in (64, 128, 256, 512) for h in (1, 2, 4) for t in (8, 16)]
     out = [rule]
     for kw in asks:
         try:
@@ -42,6 +50,26 @@ def candidates(bh, g, l, p, n, dts) -> list:
     return out
 
 
+def kernel_split(x, a, b, c, plan, calls: int = 5) -> list:
+    """Device ms a call of each kernel a chunked plan launches (the passes
+    and the carry), from `torch.profiler` over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    y = torch.empty(x.shape, dtype=torch.float32, device=cs.DEV)
+    scratch = ss.chunk_scratch(x, b.shape[2], plan)
+    ss.launch(x, a, b, c, y, plan, scratch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ss.launch(x, a, b, c, y, plan, scratch)
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if "ssm_scan_kernel" in e.key:
+            out.append({"name": e.key[:80], "calls": e.count, "ms_a_call": us / 1e3 / calls})
+    return out
+
+
 def sweep_shape(gen, name, bh, l, p, n, dts, g) -> dict:
     x, a, b, c = cs._ssm_inputs(gen, bh, l, p, n, dts, groups=g)
     want = cs._ssm_want(x, a, b, c)
@@ -50,7 +78,8 @@ def sweep_shape(gen, name, bh, l, p, n, dts, g) -> dict:
     for plan in candidates(bh, g, l, p, n, dts):
         row = {**plan.as_dict(), "chosen": plan == rule}
         y = torch.empty((bh, l, p), dtype=torch.float32, device=cs.DEV)
-        err = ss.launch(x, a, b, c, y, plan)
+        scratch = ss.chunk_scratch(x, n, plan)
+        err = ss.launch(x, a, b, c, y, plan, scratch)
         torch.cuda.synchronize()
         if err:
             row["cuda_error"] = err
@@ -58,13 +87,15 @@ def sweep_shape(gen, name, bh, l, p, n, dts, g) -> dict:
             diff = (y - want).abs()
             row["max_abs_err"] = float(diff.max())
             row["within_tolerance"] = bool((diff <= 2e-4 + 2e-4 * want.abs()).all())
-            row["ms"] = cs.time_ms(lambda: ss.launch(x, a, b, c, y, plan))
+            row["ms"] = cs.time_ms(lambda: ss.launch(x, a, b, c, y, plan, scratch))
         rows.append(row)
     ok = [r for r in rows if r.get("within_tolerance")]
     best = min(ok, key=lambda r: r["ms"], default=None)
+    kernels = kernel_split(x, a, b, c, rule) if rule.chunks > 1 else None
     return {"shape": {"name": name, "bh": bh, "l": l, "p": p, "n": n, "groups": g},
             "plan": rule.as_dict(), "plan_ms": next((r["ms"] for r in ok if r["chosen"]), None),
-            "best": best, **cs.ssm_bound_ms(x, a, b, c), "rows": rows}
+            "best": best, "kernels_of_plan": kernels, **cs.ssm_bound_ms(x, a, b, c),
+            "rows": rows}
 
 
 def main() -> None:
