@@ -490,6 +490,7 @@ def check_ssm_scan(gen) -> dict:
         for (p, dts) in ((1, ("f32", "bf16", "bf16")), (16, ("bf16",) * 3), (64, ("f32",) * 3)):
             check(*_ssm_inputs(gen, 3, l, p, 64, dts), f"ssm 3x{l}x{p}x64 {'/'.join(dts)}")
     check(*_ssm_inputs(gen, 2, 100, 5, 100, ("bf16", "f32", "bf16")), "ssm 2x100x5x100 mixed")
+    check(*_ssm_inputs(gen, 2, 100, 5, 100, ("bf16",) * 3), "ssm 2x100x5x100 bf16")  # b, c rows not 16 B
     # L that does not tile into 128-step chunks (the model's 200-token prefill)
     check(*_ssm_inputs(gen, 4, 200, 64, 64, ("bf16",) * 3, groups=1), "ssm 4x200x64x64 bf16 G=1")
     # wide: a ragged last time tile and a partial tile of rows (40 of 64),
@@ -514,9 +515,9 @@ def check_ssm_scan(gen) -> dict:
     check(*_ssm_inputs(gen, 8, 1000, 1, 256, ("f32", "bf16", "bf16")),
           "ssm chunked 8x1000x1x256 normaliser form")
     # chunked plans the rule does not pick: one row a thread, chunks of 64,
-    # rows past P (40 of 64) and N below a thread row's width, f32
+    # rows past P (37 of 64) and N below a thread row's width, f32
     for (bh, g, l, p, n, dts, kw) in [
-            (16, 4, 1000, 40, 48, ("f32",) * 3, dict(rt=1, ns=8, chunk=64)),
+            (16, 4, 1000, 37, 20, ("f32",) * 3, dict(rt=1, ns=8, chunk=64)),
             (8, 8, 700, 64, 64, ("bf16",) * 3, dict(rt=4, ns=16, chunk=256, t_tile=16))]:
         x, a, b, c = _ssm_inputs(gen, bh, l, p, n, dts, groups=g)
         plan = SS.ssm_plan(bh, g, l, p, n, dts, **kw)

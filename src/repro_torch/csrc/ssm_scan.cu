@@ -20,16 +20,17 @@
 // (P + 2N/H) inputs and P outputs, so at P = N = 64 and above the bound is
 // the f32 pipe (67 TFLOP/s).  Each state entry costs three instructions a
 // step (a*S, + x*b, + S*c), so the issue rate caps the kernel at about 1.2x
-// that bound; measured, it runs at about 3x at batch 128 (PERF.md).  Scratch
-// builds with parts of the work taken out showed no single cause: the
-// staging and the step loop each take a share, and their times add.
+// that bound; measured, it runs at about 2.8x at batch 128 (PERF.md).
+// Scratch builds with parts of the work taken out showed no single cause:
+// the staging and the step loop each take a share, and their times add.
 // `ssm_scan_kernel_ring`:
 //
-//  * One block per (head block, row tile): `hb` heads of one group and the
-//    same `rbh` rows of each.  A thread holds NS entries of each of RT
-//    consecutive rows; a row is split over R threads (R*NS >= N, N
-//    zero-padded).  One staged b/c tile serves every row of the block, so
-//    b and c are read once per head group, never repeated per head.
+//  * One block per (head block, row tile, chunk): `hb` heads of one group
+//    and the same `rbh` rows of each.  A thread holds NS entries of each of
+//    RT consecutive rows; a row is split over R threads (R*NS >= N, N
+//    zero-padded).  b and c (G,L,N) are read per group, never repeated per
+//    head: a block's heads share its staged b/c tile, and blocks of one
+//    group find the rest in L2 (one head a block measured fastest).
 //  * Four rows of 16 entries a thread where the grid is wide (each b and c
 //    value a thread loads serves four rows; 128 registers, 16 warps an SM:
 //    the 64-register variants with 32 warps were slower or spilled), one
@@ -42,10 +43,21 @@
 //    math of the bulk staging is shifts and products: no runtime division.
 //  * Each thread stores its rows' partial dot products with c to shared
 //    memory, and the R partials of a row are summed once a tile as the
-//    outputs leave as contiguous rows.  (Summing them by warp shuffles at
-//    every step stalled each warp on every level in turn.)  One barrier a
-//    tile; the partials are double-buffered.  The decay is applied one step
-//    at a time.
+//    outputs leave as contiguous rows (summing them by warp shuffles at
+//    every step measured no faster).  One barrier a tile; the partials are
+//    double-buffered.  The decay is applied one step at a time.
+//
+// A long scan with a small state (zamba2 at batch 1: 64 heads, too few
+// blocks for the card) is chunk-parallel, three kernels from one call:
+// the ring kernel scans each chunk from a zero state, writing its local y,
+// its final state S_k and the products of decays from its start, w_t,
+// formed step by step forward; `ssm_scan_kernel_carry` walks the chunks of
+// each state entry in order, S_in(k+1) = A_k S_in(k) + S_k (A_k the
+// chunk's last w); `ssm_scan_kernel_carry_out` adds w_t (S_in(k) c_t), an
+// f32 product per chunk.  Products of decays may underflow to 0, which is
+// then the right answer; nothing divides by one.  Pass 2 costs 2/5 of the
+// recurrence's operations whatever the chunk length and runs at about a
+// quarter of the f32 peak: it is what keeps this form above 4x its bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -634,7 +646,6 @@ template <bool BC_BF16>
 int launch_variant(int rt, int ns, Args args, int BH, cudaStream_t st) {
     if (rt == 1 && ns == 4) return launch_ring<1, 4, BC_BF16>(args, BH, st);
     if (rt == 1 && ns == 8) return launch_ring<1, 8, BC_BF16>(args, BH, st);
-    if (rt == 1 && ns == 16) return launch_ring<1, 16, BC_BF16>(args, BH, st);
     if (rt == 4 && ns == 16) return launch_ring<4, 16, BC_BF16>(args, BH, st);
     return (int)cudaErrorInvalidValue;
 }

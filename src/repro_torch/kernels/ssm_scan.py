@@ -34,7 +34,7 @@ from repro_torch.kernels import _build, ref
 
 MAX_N = 512               # state width the CUDA kernel takes (32 threads of 16 entries per row)
 THREADS = 256             # threads a block of `ssm_scan_kernel_ring` has at most
-RING_VARIANTS = ((1, 4), (1, 8), (1, 16), (4, 16))   # (rt, ns) instantiated
+RING_VARIANTS = ((1, 4), (1, 8), (4, 16))   # (rt, ns) instantiated
 SMS = 132                 # streaming multiprocessors of an H100 SXM
 SMEM_PER_SM = 233472      # shared memory of one SM; each block also reserves 1 KB
 SMEM_PER_BLOCK = 232448   # the most one block may take
