@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma.cuh"
 
 namespace {
@@ -165,21 +167,28 @@ __device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(smem_u32(smem)), "l"(gmem) : "memory");
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+// the low and high bf16 of a pair as f32; the byte permute runs on the
+// integer pipe (a shift may compile to a multiply on the FMA pipe)
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(__byte_perm(w, 0, 0x1044)); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
-// GS consecutive values of b or c at element i of a raw row, as f32
+__device__ __forceinline__ void st_shared_v4(float* p, float a, float b, float c, float d) {
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(smem_u32(p)), "f"(a), "f"(b), "f"(c), "f"(d));
+}
+
+// GS consecutive values of b or c at `p` (16 or 8-byte aligned), as f32
 template <bool BF16, int GS>
-__device__ __forceinline__ void load_group(float (&v)[GS], const unsigned char* row, int i) {
+__device__ __forceinline__ void load_group(float (&v)[GS], const unsigned char* p) {
     if constexpr (BF16 && GS == 8) {
-        const uint4 u = *reinterpret_cast<const uint4*>(row + 2 * i);
+        const uint4 u = *reinterpret_cast<const uint4*>(p);
         v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x); v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
         v[4] = bf16_lo(u.z); v[5] = bf16_hi(u.z); v[6] = bf16_lo(u.w); v[7] = bf16_hi(u.w);
     } else if constexpr (BF16) {
-        const uint2 u = *reinterpret_cast<const uint2*>(row + 2 * i);
+        const uint2 u = *reinterpret_cast<const uint2*>(p);
         v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x); v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
     } else {
-        const float4 f = *reinterpret_cast<const float4*>(row + 4 * i);
+        const float4 f = *reinterpret_cast<const float4*>(p);
         v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
     }
 }
@@ -201,8 +210,10 @@ __device__ __forceinline__ void copy_elems(unsigned char* dst, const unsigned ch
             reinterpret_cast<uint32_t*>(dst)[i] = reinterpret_cast<const uint32_t*>(src)[i];
 }
 
+// 128 registers a thread at most: the narrow plans are held by their waves
+// or shared memory, not by registers, and spilled at 64
 template <int RT, int NS, bool BC_BF16>
-__global__ void __launch_bounds__(NT, (RT * NS >= 64 ? 2 : 4))
+__global__ void __launch_bounds__(NT, 2)
 ssm_scan_kernel_ring(const Args A) {
     constexpr int EBC = BC_BF16 ? 2 : 4;
     constexpr int GS = BC_BF16 && NS >= 8 ? 8 : 4;     // b or c values a load
@@ -359,7 +370,7 @@ ssm_scan_kernel_ring(const Args A) {
     for (int r = 0; r < RT; ++r) live[r] = rb0 + r < rows;
     const bool x_vec = (xp % RT) == 0 && rows == rbh;   // no row past P to mask
     // chunked: the decay products from the chunk's start, formed step by step
-    // forward, leave by one thread a head
+    // forward, leave by one thread a head, once a tile
     float aprod = 1.f;
     float* w_out = A.nc > 1 && blockIdx.y == 0 && part == 0 && rb0 == 0
                        ? A.w_scr + (size_t)(bh0 + hi) * L + ts : nullptr;
@@ -375,56 +386,67 @@ ssm_scan_kernel_ring(const Args A) {
         const unsigned char* s = slot_of(k);
         const unsigned char* xs = s + ly.rx + hi * ly.xslot;
         const float* as = reinterpret_cast<const float*>(s + ly.ra) + hi * T;
-        float* yp = yp_of(k);
         const int tl = min(T, te - ts - k * T);
-        for (int tt = 0; tt < tl; ++tt) {
-            const float at = as[tt];
-            aprod *= at;
-            if (w_out) w_out[k * T + tt] = aprod;
-            float xt[RT];
-            const int xi = tt * xp + rb0;
-            if (A.x_bf16 && x_vec && RT == 4) {
-                const uint2 u = *reinterpret_cast<const uint2*>(xs + 2 * xi);
-                xt[0] = bf16_lo(u.x); xt[1 % RT] = bf16_hi(u.x);
-                xt[2 % RT] = bf16_lo(u.y); xt[3 % RT] = bf16_hi(u.y);
-            } else if (A.x_bf16 && x_vec && RT == 2) {
-                const uint32_t u = *reinterpret_cast<const uint32_t*>(xs + 2 * xi);
-                xt[0] = bf16_lo(u); xt[1 % RT] = bf16_hi(u);
-            } else {
-#pragma unroll
-                for (int r = 0; r < RT; ++r) xt[r] = live[r] ? ld_elem(xs, xi + r, A.x_bf16) : 0.f;
+        if (w_out)             // the decay products from the chunk's start, step by step
+            for (int tt = 0; tt < tl; ++tt) {
+                aprod *= as[tt];
+                w_out[k * T + tt] = aprod;
             }
-            const unsigned char* brow = s + tt * npad * EBC;
-            const unsigned char* crow = s + ly.rc + tt * npad * EBC;
-            float acc[RT][2];
+        // the steps, with x read one way or the other for the whole tile
+        auto steps = [&](auto x_fast) {
+            constexpr bool XF = decltype(x_fast)::value;   // bf16 x, 4 live rows, 8-byte aligned
+            const unsigned char* bp = s + part * GS * EBC;           // this thread's groups
+            const unsigned char* cp = s + ly.rc + part * GS * EBC;
+            const unsigned char* xq = xs + 2 * rb0;
+            float* yo = yp_of(k) + (size_t)part * ypitch + rblk0;
+            for (int tt = 0; tt < tl; ++tt) {
+                const float at = as[tt];
+                float xt[RT];
+                if constexpr (XF) {
+                    const uint2 u = *reinterpret_cast<const uint2*>(xq);
+                    xt[0] = bf16_lo(u.x); xt[1 % RT] = bf16_hi(u.x);
+                    xt[2 % RT] = bf16_lo(u.y); xt[3 % RT] = bf16_hi(u.y);
+                } else {
 #pragma unroll
-            for (int r = 0; r < RT; ++r) acc[r][0] = acc[r][1] = 0.f;
+                    for (int r = 0; r < RT; ++r)
+                        xt[r] = live[r] ? ld_elem(xs, tt * xp + rb0 + r, A.x_bf16) : 0.f;
+                }
+                float acc[RT][2];
 #pragma unroll
-            for (int q = 0; q < NS / GS; ++q) {
-                float bv[GS], cv[GS];
-                load_group<BC_BF16, GS>(bv, brow, (q * R + part) * GS);
-                load_group<BC_BF16, GS>(cv, crow, (q * R + part) * GS);
+                for (int r = 0; r < RT; ++r) acc[r][0] = acc[r][1] = 0.f;
 #pragma unroll
-                for (int r = 0; r < RT; ++r)
+                for (int q = 0; q < NS / GS; ++q) {
+                    float bv[GS], cv[GS];
+                    load_group<BC_BF16, GS>(bv, bp + q * R * GS * EBC);
+                    load_group<BC_BF16, GS>(cv, cp + q * R * GS * EBC);
 #pragma unroll
-                    for (int e = 0; e < GS; ++e) {
-                        float& st = S[r][q * GS + e];
-                        st = fmaf(xt[r], bv[e], at * st);
-                        acc[r][e & 1] = fmaf(st, cv[e], acc[r][e & 1]);
-                    }
+                    for (int r = 0; r < RT; ++r)
+#pragma unroll
+                        for (int e = 0; e < GS; ++e) {
+                            float& st = S[r][q * GS + e];
+                            st = fmaf(xt[r], bv[e], at * st);
+                            acc[r][e & 1] = fmaf(st, cv[e], acc[r][e & 1]);
+                        }
+                }
+                // this thread's partial dot products, summed over the row's R
+                // threads when the tile's outputs leave: no shuffle in the loop
+                if constexpr (RT == 4)
+                    st_shared_v4(yo, acc[0][0] + acc[0][1], acc[1][0] + acc[1][1],
+                                 acc[2][0] + acc[2][1], acc[3][0] + acc[3][1]);
+                else
+#pragma unroll
+                    for (int r = 0; r < RT; ++r) yo[r] = acc[r][0] + acc[r][1];
+                bp += npad * EBC;
+                cp += npad * EBC;
+                xq += 2 * xp;
+                yo += (size_t)R * ypitch;
             }
-            // this thread's partial dot products, summed over the row's R
-            // threads when the tile's outputs leave: no shuffle in the loop
-            float* yo = yp + (size_t)((tt << A.lg_r) + part) * ypitch + rblk0;
-            if constexpr (RT == 4)
-                *reinterpret_cast<float4*>(yo) =
-                    make_float4(acc[0][0] + acc[0][1], acc[1][0] + acc[1][1],
-                                acc[2][0] + acc[2][1], acc[3][0] + acc[3][1]);
-            else if constexpr (RT == 2)
-                *reinterpret_cast<float2*>(yo) =
-                    make_float2(acc[0][0] + acc[0][1], acc[1][0] + acc[1][1]);
-            else
-                yo[0] = acc[0][0] + acc[0][1];
+        };
+        if constexpr (RT == 4) {
+            if (A.x_bf16 && x_vec) steps(std::true_type{});
+            else steps(std::false_type{});
+        } else {
+            steps(std::false_type{});
         }
     }
     __syncthreads();

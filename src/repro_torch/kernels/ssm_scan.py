@@ -26,6 +26,7 @@ launched.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import asdict, dataclass
 
 import torch
@@ -98,6 +99,7 @@ def ring_smem(rt: int, ns: int, r: int, rows: int, heads: int, row_tiles: int, p
     return 2 * 4 * t * r * ypitch + 2 * slot
 
 
+@functools.lru_cache(maxsize=None)     # a pure function of its arguments, asked every call
 def ssm_plan(bh: int, groups: int, l: int, p: int, n: int,
              dtypes=("bf16", "bf16", "bf16"), *, rt: int | None = None,
              ns: int | None = None, heads: int | None = None,
@@ -148,8 +150,7 @@ def ssm_plan(bh: int, groups: int, l: int, p: int, n: int,
     threads = r * (rows // rt) * heads
     row_tiles = -(-p // rows)
     blocks = bh // heads * row_tiles * nc
-    regs = 64 if rt * ns <= 32 else 128
-    resident = max(1, min(65536 // (regs * threads), 32))     # blocks an SM, by registers
+    resident = max(1, min(65536 // (128 * threads), 32))      # blocks an SM, by registers
 
     def fits(t: int, want: int) -> bool:
         smem = ring_smem(rt, ns, r, rows, heads, row_tiles, p, n, t, dtypes)
