@@ -476,6 +476,8 @@ def check_ssm_scan(gen) -> dict:
     def check(x, a, b, c, what):
         plan = SS.ssm_plan(x.shape[0], b.shape[0], x.shape[1], x.shape[2], b.shape[2],
                            tuple(SS._dtype_name(t) for t in (x, b, c)))
+        if what.startswith("ssm chunked") and plan.chunks == 1:
+            raise AssertionError(f"{what}: the rule's plan does not chunk: {plan}")
         checks.append({**compare(ssm_scan(x, a, b, c), _ssm_want(x, a, b, c), tol, tol, what),
                        "plan": plan.as_dict()})
 
@@ -504,21 +506,23 @@ def check_ssm_scan(gen) -> dict:
                                   (128, 2, 256, 64, 64, ("f32", "bf16", "bf16"))]:
         check(*_ssm_inputs(gen, bh, l, p, n, dts, groups=g),
               f"ssm grouped {bh}x{l}x{p}x{n} G={g} (H={bh // g}) {'/'.join(dts)}")
-    # chunk-parallel (the rule's: 32 chunks of 128 at B=1 L=4096), at strong
+    # chunk-parallel (the rule's: 8 chunks of 512 at B=1 L=4096), at strong
     # decay too, where products of decays across a chunk underflow; a ragged
-    # last chunk; the normaliser's P = 1 form over 8 chunks
+    # last chunk; the normaliser's P = 1 form over 4 chunks
     for decay in ((0.68, 0.98), (0.05, 0.35)):
         check(*_ssm_inputs(gen, 64, 4096, 64, 64, ("bf16",) * 3, decay=decay, groups=1),
               f"ssm chunked 64x4096x64x64 G=1 bf16 decay {decay}")
     check(*_ssm_inputs(gen, 64, 4000, 64, 64, ("bf16",) * 3, groups=1),
           "ssm chunked 64x4000x64x64 G=1 bf16, ragged last chunk")
-    check(*_ssm_inputs(gen, 8, 1000, 1, 256, ("f32", "bf16", "bf16")),
-          "ssm chunked 8x1000x1x256 normaliser form")
+    check(*_ssm_inputs(gen, 8, 2048, 1, 256, ("f32", "bf16", "bf16")),
+          "ssm chunked 8x2048x1x256 normaliser form")
     # chunked plans the rule does not pick: one row a thread, chunks of 64,
-    # rows past P (37 of 64) and N below a thread row's width, f32
+    # rows past P (37 of 64) and N below a thread row's width, f32; the
+    # normaliser's P = 1 form in 128-step chunks with a ragged last one
     for (bh, g, l, p, n, dts, kw) in [
             (16, 4, 1000, 37, 20, ("f32",) * 3, dict(rt=1, ns=8, chunk=64)),
-            (8, 8, 700, 64, 64, ("bf16",) * 3, dict(rt=4, ns=16, chunk=256, t_tile=16))]:
+            (8, 8, 700, 64, 64, ("bf16",) * 3, dict(rt=4, ns=16, chunk=256, t_tile=16)),
+            (8, 8, 1000, 1, 256, ("f32", "bf16", "bf16"), dict(chunk=128))]:
         x, a, b, c = _ssm_inputs(gen, bh, l, p, n, dts, groups=g)
         plan = SS.ssm_plan(bh, g, l, p, n, dts, **kw)
         y = torch.empty((bh, l, p), dtype=torch.float32, device=DEV)

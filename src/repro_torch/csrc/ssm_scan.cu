@@ -20,17 +20,20 @@
 // (P + 2N/H) inputs and P outputs, so at P = N = 64 and above the bound is
 // the f32 pipe (67 TFLOP/s).  Each state entry costs three instructions a
 // step (a*S, + x*b, + S*c), so the issue rate caps the kernel at about 1.2x
-// that bound; measured, it runs at about 2.8x at batch 128 (PERF.md).
-// Scratch builds with parts of the work taken out showed no single cause:
-// the staging and the step loop each take a share, and their times add.
+// that bound.  At batch 128 it runs at about 2.4x (PERF.md), and per-warp
+// cycle counters (tools/torch_ssm_breakdown.py) say why: the step loop is
+// 251 instructions a step for 196 f32 ones (bf16 widening, loads), which
+// alone needs 1.6x the bound at one issue a cycle; and each time tile's
+// bulk copies take about a quarter of a warp's cycles to issue, with the
+// outputs' stores another fifth, so the steps are under half of them.
 // `ssm_scan_kernel_ring`:
 //
-//  * One block per (head block, row tile, chunk): `hb` heads of one group
-//    and the same `rbh` rows of each.  A thread holds NS entries of each of
-//    RT consecutive rows; a row is split over R threads (R*NS >= N, N
-//    zero-padded).  b and c (G,L,N) are read per group, never repeated per
-//    head: a block's heads share its staged b/c tile, and blocks of one
-//    group find the rest in L2 (one head a block measured fastest).
+//  * One block per (head, row tile, chunk): `rbh` rows of one head.  A
+//    thread holds NS entries of each of RT consecutive rows; a row is split
+//    over R threads (R*NS >= N, N zero-padded).  b and c (G,L,N) are read
+//    per group, never repeated per head: the blocks of a group's heads find
+//    them in L2 (blocks of 2 or 4 heads sharing one staged b/c tile measured
+//    slower).  Rows past P fill a block up to whole warps.
 //  * Four rows of 16 entries a thread where the grid is wide (each b and c
 //    value a thread loads serves four rows; 128 registers, 16 warps an SM:
 //    the 64-register variants with 32 warps were slower or spilled), one
@@ -82,14 +85,16 @@ struct Args {
     int L, P, N, H;               // H: heads per b/c group
     int x_bf16;                   // b and c share one dtype, the kernel's BC_BF16
     int lg_r;                     // log2 R, threads per state row
-    int lg_trh;                   // log2 of a head tile's thread rows
-    int lg_hb;                    // log2 of heads per block
+    int lg_trh;                   // log2 of a block's thread rows
     int T;                        // steps per staged tile
     int bc_bulk, x_bulk, a_bulk;  // 1: staged by bulk copies (16-byte aligned spans)
     int chunk, nc;                // steps per chunk (blockIdx.z), chunks; nc = 1: no chunking
     float* s_scr;                 // nc > 1: each chunk's final state (BH, nc, P, N)
     float* w_scr;                 // nc > 1: decay products from each chunk's start (BH, L)
 };
+
+template <int V>
+using Int = std::integral_constant<int, V>;
 
 __host__ __device__ constexpr int lg2(int v) {
     int l = 0;
@@ -103,30 +108,27 @@ __host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(
 // [2][T][R][ypitch] f32 (double-buffered: one tile's leave while the next
 // tile's are written; ypitch pads the block's rows so that the R threads of
 // a row, storing at once, hit different banks), then two slots of raw
-// inputs in their own dtypes: b, c [T][npad] (zero past N), x per head
-// [T][xp], a per head [T] f32.
+// inputs in their own dtypes: b, c [T][npad] (zero past N), x [T][xp], a
+// [T] f32.
 struct Layout {
-    int npad, rbh, rblk, xp, row_tiles, ypitch;
-    size_t ybuf, raw, rc, rx, xslot, ra, slot, total;
+    int npad, rbh, xp, row_tiles, ypitch;
+    size_t ybuf, raw, rc, rx, ra, slot, total;
 };
 
 __host__ __device__ inline Layout layout_of(const Args& A, int NS, int RT, int ebc) {
     Layout ly{};
-    const int hb = 1 << A.lg_hb;
     ly.npad = NS << A.lg_r;
     ly.rbh = RT << A.lg_trh;
-    ly.rblk = ly.rbh << A.lg_hb;
     ly.row_tiles = (A.P + ly.rbh - 1) / ly.rbh;
     ly.xp = ly.row_tiles == 1 ? A.P : ly.rbh;
-    ly.ypitch = ly.rblk + ((32 >> A.lg_r) > 4 ? (32 >> A.lg_r) : 4);
+    ly.ypitch = ly.rbh + ((32 >> A.lg_r) > 4 ? (32 >> A.lg_r) : 4);
     const size_t T = A.T, f = sizeof(float), ex = A.x_bf16 ? 2 : 4;
     ly.ybuf = (T << A.lg_r) * ly.ypitch * f;
     ly.raw = 2 * ly.ybuf;
     ly.rc = align16(T * ly.npad * ebc);
     ly.rx = 2 * ly.rc;
-    ly.xslot = align16(T * ly.xp * ex);
-    ly.ra = ly.rx + hb * ly.xslot;
-    ly.slot = align16(ly.ra + hb * T * f);
+    ly.ra = ly.rx + align16(T * ly.xp * ex);
+    ly.slot = align16(ly.ra + T * f);
     ly.total = ly.raw + 2 * ly.slot;
     return ly;
 }
@@ -210,6 +212,55 @@ __device__ __forceinline__ void copy_elems(unsigned char* dst, const unsigned ch
             reinterpret_cast<uint32_t*>(dst)[i] = reinterpret_cast<const uint32_t*>(src)[i];
 }
 
+// Built with -DSSM_SCAN_CLOCKS (tools/torch_ssm_breakdown.py), the ring
+// kernel sums each warp's SM cycles (lane 0's clock) by part of its tile
+// loop into `ssm_clocks`, for warp 0 (which issues the bulk copies) and the
+// other warps apart: CLK_WAIT for a tile's copies, CLK_SYNC the block's
+// barrier, CLK_STAGE issuing the next tile, CLK_STORE the last tile's
+// outputs, CLK_STEPS the steps, CLK_REST the set-up and the end; then the
+// warps counted and the nanoseconds (`globaltimer`) they ran.  The clock
+// reads keep memory accesses on their side.  Without the macro every call
+// below is empty.
+enum { CLK_WAIT, CLK_SYNC, CLK_STAGE, CLK_STORE, CLK_STEPS, CLK_REST, CLK_WARPS, CLK_NS, CLK_N };
+#ifdef SSM_SCAN_CLOCKS
+__device__ unsigned long long ssm_clocks[2][CLK_N];
+
+__device__ __forceinline__ unsigned clock_now() {
+    unsigned t;
+    asm volatile("mov.u32 %0, %%clock;" : "=r"(t) :: "memory");
+    return t;
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+struct Clocks {
+    unsigned acc[CLK_REST + 1], t;
+    unsigned long long ns;
+    __device__ Clocks() : acc{}, t(clock_now()), ns(globaltimer()) {}
+    __device__ void lap(int part) {
+        const unsigned now = clock_now();
+        acc[part] += now - t;
+        t = now;
+    }
+    __device__ void flush() {
+        if ((threadIdx.x & 31) != 0) return;
+        unsigned long long* out = ssm_clocks[threadIdx.x >= 32];
+        for (int i = 0; i <= CLK_REST; ++i) atomicAdd(&out[i], (unsigned long long)acc[i]);
+        atomicAdd(&out[CLK_WARPS], 1ull);
+        atomicAdd(&out[CLK_NS], globaltimer() - ns);
+    }
+};
+#else
+struct Clocks {
+    __device__ void lap(int) {}
+    __device__ void flush() {}
+};
+#endif
+
 // 128 registers a thread at most: the narrow plans are held by their waves
 // or shared memory, not by registers, and spilled at 64
 template <int RT, int NS, bool BC_BF16>
@@ -219,16 +270,15 @@ ssm_scan_kernel_ring(const Args A) {
     constexpr int GS = BC_BF16 && NS >= 8 ? 8 : 4;     // b or c values a load
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ __align__(8) uint64_t bars[2];
+    Clocks clk;
     const Layout ly = layout_of(A, NS, RT, EBC);
 
     const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
-    const int R = 1 << A.lg_r, part = tid & (R - 1), tr = tid >> A.lg_r;
-    const int hb = 1 << A.lg_hb, lg_rbh = A.lg_trh + lg2(RT), lg_rblk = lg_rbh + A.lg_hb;
-    const int hi = tr >> A.lg_trh;                                   // this thread's head
-    const int rb0 = (tr & ((1 << A.lg_trh) - 1)) * RT;               // its first row there
-    const int rblk0 = (hi << lg_rbh) + rb0;                          // ... and in the block
+    const int R = 1 << A.lg_r, part = tid & (R - 1);
+    const int lg_rbh = A.lg_trh + lg2(RT);
+    const int rb0 = (tid >> A.lg_r) * RT;                            // this thread's first row
     const int L = A.L, P = A.P, N = A.N, T = A.T, npad = ly.npad, rbh = ly.rbh, xp = ly.xp;
-    const int bh0 = blockIdx.x << A.lg_hb;
+    const int bh0 = blockIdx.x;
     const int g = bh0 / A.H;
     const int p0 = blockIdx.y * rbh;
     const int rows = min(rbh, P - p0);
@@ -244,69 +294,62 @@ ssm_scan_kernel_ring(const Args A) {
     auto slot_of = [&](int k) { return smem + ly.raw + (size_t)(k & 1) * ly.slot; };
     auto yp_of = [&](int k) { return reinterpret_cast<float*>(smem + (size_t)(k & 1) * ly.ybuf); };
 
-    // Stage tile k into its slot: spans a bulk copy takes from lanes of warp
-    // 0 (lane 0 first announces the slot's bytes), the rest by all threads.
+    // Stage tile k into its slot: spans a bulk copy takes from lanes of
+    // warp j mod the block's warps (a power of two) for b, c, x, a (j = 0,
+    // 1, 2, 3), so that no one warp issues them all; thread 0 announces the
+    // slot's bytes (a copy may land first: the slot's phase still waits for
+    // that arrival).  The rest by all threads.
     auto issue = [&](int k) {
         const int t0 = ts + k * T, tl = min(T, te - t0);
         unsigned char* s = slot_of(k);
         uint64_t* bar = &bars[k & 1];
-        if (tid < 32) {
+        const int w = tid >> 5, nw = nt >> 5;
+        if (tid == 0) {
             uint32_t bytes = 0;
             if (A.bc_bulk) bytes += 2u * tl * N * EBC;
-            if (A.x_bulk) bytes += (uint32_t)hb * tl * rows * ex;
-            if (A.a_bulk) bytes += (uint32_t)hb * tl * 4;
-            if (lane == 0) mbar_expect_tx(bar, bytes);
-            __syncwarp();
-            if (A.bc_bulk) {
+            if (A.x_bulk) bytes += (uint32_t)tl * rows * ex;
+            if (A.a_bulk) bytes += (uint32_t)tl * 4;
+            mbar_expect_tx(bar, bytes);
+        }
+        if (A.bc_bulk)
+            for (int j = 0; j < 2; ++j) {
+                if (w != (j & (nw - 1))) continue;
+                const unsigned char* src = (j ? csrc : bsrc) + (size_t)t0 * N * EBC;
+                unsigned char* d = s + j * ly.rc;
                 if (npad == N) {
-                    if (lane == 0) {
-                        bulk_copy(s, bsrc + (size_t)t0 * N * EBC, tl * N * EBC, bar);
-                        bulk_copy(s + ly.rc, csrc + (size_t)t0 * N * EBC, tl * N * EBC, bar);
-                    }
+                    if (lane == 0) bulk_copy(d, src, tl * N * EBC, bar);
                 } else {
-                    for (int tt = lane; tt < tl; tt += 32) {
-                        bulk_copy(s + tt * npad * EBC, bsrc + (size_t)(t0 + tt) * N * EBC, N * EBC, bar);
-                        bulk_copy(s + ly.rc + tt * npad * EBC, csrc + (size_t)(t0 + tt) * N * EBC,
-                                  N * EBC, bar);
-                    }
+                    for (int tt = lane; tt < tl; tt += 32)
+                        bulk_copy(d + tt * npad * EBC, src + (size_t)tt * N * EBC, N * EBC, bar);
                 }
             }
-            for (int h = 0; h < hb; ++h) {
-                const unsigned char* src = xsrc + ((size_t)h * L + t0) * P * ex;
-                unsigned char* d = s + ly.rx + h * ly.xslot;
-                if (A.x_bulk) {
-                    if (ly.row_tiles == 1) {
-                        if (lane == 0) bulk_copy(d, src, tl * P * ex, bar);
-                    } else {
-                        for (int tt = lane; tt < tl; tt += 32)
-                            bulk_copy(d + tt * rbh * ex, src + (size_t)tt * P * ex, rows * ex, bar);
-                    }
-                }
-                if (A.a_bulk && lane == 0)
-                    bulk_copy(s + ly.ra + h * T * 4, asrc + (size_t)h * L + t0, tl * 4, bar);
+        if (A.x_bulk && w == (2 & (nw - 1))) {
+            if (ly.row_tiles == 1) {
+                if (lane == 0) bulk_copy(s + ly.rx, xsrc + (size_t)t0 * P * ex, tl * P * ex, bar);
+            } else {
+                for (int tt = lane; tt < tl; tt += 32)
+                    bulk_copy(s + ly.rx + tt * rbh * ex, xsrc + (size_t)(t0 + tt) * P * ex,
+                              rows * ex, bar);
             }
         }
+        if (A.a_bulk && w == (3 & (nw - 1)) && lane == 0) bulk_copy(s + ly.ra, asrc + t0, tl * 4, bar);
         if (!A.bc_bulk)        // into rows of npad, whose ends past N were zeroed up front
             for (int tt = tid >> 5; tt < tl; tt += nt >> 5) {
                 const size_t o = (size_t)(t0 + tt) * N * EBC;
                 copy_elems(s + tt * npad * EBC, bsrc + o, N, EBC, lane, 32);
                 copy_elems(s + ly.rc + tt * npad * EBC, csrc + o, N, EBC, lane, 32);
             }
-        for (int h = 0; h < hb; ++h) {
-            const unsigned char* src = xsrc + ((size_t)h * L + t0) * P * ex;
-            unsigned char* d = s + ly.rx + h * ly.xslot;
-            if (!A.x_bulk) {
-                if (ly.row_tiles == 1) {
-                    copy_elems(d, src, tl * P, ex, tid, nt);
-                } else {
-                    for (int tt = tid >> 5; tt < tl; tt += nt >> 5)
-                        copy_elems(d + tt * rbh * ex, src + (size_t)tt * P * ex, rows, ex, lane, 32);
-                }
+        if (!A.x_bulk) {
+            const unsigned char* src = xsrc + (size_t)t0 * P * ex;
+            if (ly.row_tiles == 1) {
+                copy_elems(s + ly.rx, src, tl * P, ex, tid, nt);
+            } else {
+                for (int tt = tid >> 5; tt < tl; tt += nt >> 5)
+                    copy_elems(s + ly.rx + tt * rbh * ex, src + (size_t)tt * P * ex, rows, ex, lane, 32);
             }
-            if (!A.a_bulk)
-                for (int i = tid; i < tl; i += nt)
-                    cp_async_4(s + ly.ra + (h * T + i) * 4, asrc + (size_t)h * L + t0 + i);
         }
+        if (!A.a_bulk)
+            for (int i = tid; i < tl; i += nt) cp_async_4(s + ly.ra + i * 4, asrc + t0 + i);
         cp_async_commit();
     };
 
@@ -317,27 +360,25 @@ ssm_scan_kernel_ring(const Args A) {
         const float* yp = yp_of(k);
         float* y = A.y + ((size_t)bh0 * L + t0) * P + p0;
         if ((P & 3) == 0 && (rbh & 3) == 0) {
-            for (int i = tid; i < (tl << (lg_rblk - 2)); i += nt) {
-                const int e = i << 2, tt = e >> lg_rblk, j = e & ((1 << lg_rblk) - 1);
-                const int h = j >> lg_rbh, r = j & (rbh - 1);
+            for (int i = tid; i < (tl << (lg_rbh - 2)); i += nt) {
+                const int e = i << 2, tt = e >> lg_rbh, r = e & (rbh - 1);
                 if (r >= rows) continue;
-                const float* src = yp + (size_t)(tt << A.lg_r) * ypitch + j;
+                const float* src = yp + (size_t)(tt << A.lg_r) * ypitch + r;
                 float4 v = *reinterpret_cast<const float4*>(src);
                 for (int q = 1; q < R; ++q) {
                     const float4 u = *reinterpret_cast<const float4*>(src + q * ypitch);
                     v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
                 }
-                *reinterpret_cast<float4*>(y + ((size_t)h * L + tt) * P + r) = v;
+                *reinterpret_cast<float4*>(y + (size_t)tt * P + r) = v;
             }
         } else {
-            for (int i = tid; i < (tl << lg_rblk); i += nt) {
-                const int tt = i >> lg_rblk, j = i & ((1 << lg_rblk) - 1);
-                const int h = j >> lg_rbh, r = j & (rbh - 1);
+            for (int i = tid; i < (tl << lg_rbh); i += nt) {
+                const int tt = i >> lg_rbh, r = i & (rbh - 1);
                 if (r >= rows) continue;
-                const float* src = yp + (size_t)(tt << A.lg_r) * ypitch + j;
+                const float* src = yp + (size_t)(tt << A.lg_r) * ypitch + r;
                 float v = src[0];
                 for (int q = 1; q < R; ++q) v += src[q * ypitch];
-                y[((size_t)h * L + tt) * P + r] = v;
+                y[(size_t)tt * P + r] = v;
             }
         }
     };
@@ -372,33 +413,42 @@ ssm_scan_kernel_ring(const Args A) {
     // chunked: the decay products from the chunk's start, formed step by step
     // forward, leave by one thread a head, once a tile
     float aprod = 1.f;
-    float* w_out = A.nc > 1 && blockIdx.y == 0 && part == 0 && rb0 == 0
-                       ? A.w_scr + (size_t)(bh0 + hi) * L + ts : nullptr;
+    float* w_out = A.nc > 1 && blockIdx.y == 0 && tid == 0 ? A.w_scr + (size_t)bh0 * L + ts : nullptr;
 
+    clk.lap(CLK_REST);
     issue(0);
+    clk.lap(CLK_STAGE);
     for (int k = 0; k < ntiles; ++k) {
         mbar_wait(&bars[k & 1], (k >> 1) & 1);   // tile k's bulk copies have landed
         cp_async_wait<0>();                      // and its other copies, for this thread
+        clk.lap(CLK_WAIT);
         __syncthreads();                         // for all; tile k-1's steps are done
+        clk.lap(CLK_SYNC);
         if (k + 1 < ntiles) issue(k + 1);        // into the slot tile k-1 left
+        clk.lap(CLK_STAGE);
         if (k > 0) store_y(k - 1);
+        clk.lap(CLK_STORE);
 
         const unsigned char* s = slot_of(k);
-        const unsigned char* xs = s + ly.rx + hi * ly.xslot;
-        const float* as = reinterpret_cast<const float*>(s + ly.ra) + hi * T;
+        const unsigned char* xs = s + ly.rx;
+        const float* as = reinterpret_cast<const float*>(s + ly.ra);
         const int tl = min(T, te - ts - k * T);
         if (w_out)             // the decay products from the chunk's start, step by step
             for (int tt = 0; tt < tl; ++tt) {
                 aprod *= as[tt];
                 w_out[k * T + tt] = aprod;
             }
-        // the steps, with x read one way or the other for the whole tile
-        auto steps = [&](auto x_fast) {
-            constexpr bool XF = decltype(x_fast)::value;   // bf16 x, 4 live rows, 8-byte aligned
+        // the steps, with x read one way for the whole tile: XF by bf16
+        // pairs (4 live rows, 8-byte aligned), else by element, in bf16 (XB
+        // 1), f32 (0) or the dtype A.x_bf16 names (2)
+        auto steps = [&](auto x_fast, auto x_kind) {
+            constexpr bool XF = decltype(x_fast)::value;
+            constexpr int XB = decltype(x_kind)::value;
+            const int xb = XB == 2 ? A.x_bf16 : XB;
             const unsigned char* bp = s + part * GS * EBC;           // this thread's groups
             const unsigned char* cp = s + ly.rc + part * GS * EBC;
             const unsigned char* xq = xs + 2 * rb0;
-            float* yo = yp_of(k) + (size_t)part * ypitch + rblk0;
+            float* yo = yp_of(k) + (size_t)part * ypitch + rb0;
             for (int tt = 0; tt < tl; ++tt) {
                 const float at = as[tt];
                 float xt[RT];
@@ -409,7 +459,7 @@ ssm_scan_kernel_ring(const Args A) {
                 } else {
 #pragma unroll
                     for (int r = 0; r < RT; ++r)
-                        xt[r] = live[r] ? ld_elem(xs, tt * xp + rb0 + r, A.x_bf16) : 0.f;
+                        xt[r] = live[r] ? ld_elem(xs, tt * xp + rb0 + r, xb) : 0.f;
                 }
                 float acc[RT][2];
 #pragma unroll
@@ -442,17 +492,21 @@ ssm_scan_kernel_ring(const Args A) {
                 yo += (size_t)R * ypitch;
             }
         };
-        if constexpr (RT == 4) {
-            if (A.x_bf16 && x_vec) steps(std::true_type{});
-            else steps(std::false_type{});
-        } else {
-            steps(std::false_type{});
+        using yes = std::true_type;
+        using no = std::false_type;
+        if constexpr (RT == 4) {     // a third loop here measured slower
+            if (A.x_bf16 && x_vec) steps(yes{}, Int<1>{});
+            else steps(no{}, Int<2>{});
+        } else {                     // latency-bound: no test of x's dtype in the loop
+            if (A.x_bf16) steps(no{}, Int<1>{});
+            else steps(no{}, Int<0>{});
         }
+        clk.lap(CLK_STEPS);
     }
     __syncthreads();
     store_y(ntiles - 1);
     if (A.nc > 1) {            // the chunk's final state, from a zero start
-        float* sd = A.s_scr + ((size_t)(bh0 + hi) * A.nc + z) * P * N;
+        float* sd = A.s_scr + ((size_t)bh0 * A.nc + z) * P * N;
 #pragma unroll
         for (int r = 0; r < RT; ++r) {
             if (!live[r]) continue;
@@ -466,6 +520,8 @@ ssm_scan_kernel_ring(const Args A) {
                 }
         }
     }
+    clk.lap(CLK_REST);
+    clk.flush();
 }
 
 // Between chunks, in chunk order, for each (bh, state entry): the state a
@@ -644,8 +700,8 @@ int launch_ring(Args args, int BH, cudaStream_t stream) {
     cudaError_t e = cudaFuncSetAttribute(ssm_scan_kernel_ring<RT, NS, BC_BF16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ly.total);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((unsigned)(BH >> args.lg_hb), (unsigned)ly.row_tiles, (unsigned)args.nc);
-    const int threads = 1 << (args.lg_r + args.lg_trh + args.lg_hb);
+    const dim3 grid((unsigned)BH, (unsigned)ly.row_tiles, (unsigned)args.nc);
+    const int threads = 1 << (args.lg_r + args.lg_trh);
     ssm_scan_kernel_ring<RT, NS, BC_BF16><<<grid, threads, ly.total, stream>>>(args);
     e = cudaGetLastError();
     if (e != cudaSuccess || args.nc == 1) return (int)e;
@@ -676,7 +732,7 @@ int launch_variant(int rt, int ns, Args args, int BH, cudaStream_t st) {
 
 // The plan (`kernels/ssm_scan.ssm_plan`) as it arrives: rt rows and ns
 // entries a thread (an instantiated pair), 2^lg_r threads a row, 2^lg_trh
-// thread rows a head tile, 2^lg_hb heads a block, t_tile steps a staged tile,
+// thread rows a block (one head's), t_tile steps a staged tile,
 // chunks of `chunk` steps (a multiple of t_tile; chunk >= L: one pass).  With
 // more than one chunk, s_scr (BH, chunks, P, N) and w_scr (BH, L) f32 are the
 // caller's scratch, and three kernels run: the chunks from a zero state, the
@@ -687,7 +743,7 @@ int launch_variant(int rt, int ns, Args args, int BH, cudaStream_t st) {
 // take.
 extern "C" int ssm_scan_launch(const void* x, const void* a, const void* b, const void* c,
                                void* y, int BH, int G, int L, int P, int N, int x_bf16,
-                               int bc_bf16, int rt, int ns, int lg_r, int lg_trh, int lg_hb,
+                               int bc_bf16, int rt, int ns, int lg_r, int lg_trh,
                                int t_tile, int chunk, void* s_scr, void* w_scr, void* stream) {
     if (BH <= 0 || G <= 0 || BH % G || L <= 0 || P <= 0 || N <= 0 || N > MAX_N ||
         t_tile <= 0 || t_tile % 4 || chunk <= 0 || chunk % t_tile)
@@ -696,13 +752,23 @@ extern "C" int ssm_scan_launch(const void* x, const void* a, const void* b, cons
     if (nc > 65535 || (nc > 1 && (s_scr == nullptr || w_scr == nullptr)))
         return (int)cudaErrorInvalidValue;
     const int H = BH / G;
-    const int threads_lg = lg_r + lg_trh + lg_hb;
-    if (lg_r < 0 || lg_trh < 0 || lg_hb < 0 || threads_lg < 5 || threads_lg > 8 ||
-        H % (1 << lg_hb) || (ns << lg_r) < N)
+    const int threads_lg = lg_r + lg_trh;
+    if (lg_r < 0 || lg_trh < 0 || threads_lg < 5 || threads_lg > 8 || (ns << lg_r) < N)
         return (int)cudaErrorInvalidValue;
-    Args args{x, (const float*)a, b, c, (float*)y, L, P, N, H, x_bf16, lg_r, lg_trh, lg_hb,
+    Args args{x, (const float*)a, b, c, (float*)y, L, P, N, H, x_bf16, lg_r, lg_trh,
               t_tile, 0, 0, 0, chunk, nc, (float*)s_scr, (float*)w_scr};
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     return bc_bf16 ? launch_variant<true>(rt, ns, args, BH, st)
                    : launch_variant<false>(rt, ns, args, BH, st);
 }
+
+#ifdef SSM_SCAN_CLOCKS
+// The ring kernel's cycle sums since the last call, into `out` (2 x CLK_N:
+// warp 0, then the others), and back to zero.
+extern "C" int ssm_scan_clocks(unsigned long long* out) {
+    static const unsigned long long zero[2][CLK_N] = {};
+    cudaError_t e = cudaMemcpyFromSymbol(out, ssm_clocks, sizeof zero);
+    if (e == cudaSuccess) e = cudaMemcpyToSymbol(ssm_clocks, zero, sizeof zero);
+    return (int)e;
+}
+#endif

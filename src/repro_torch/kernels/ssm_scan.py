@@ -41,7 +41,7 @@ SMEM_PER_SM = 233472      # shared memory of one SM; each block also reserves 1 
 SMEM_PER_BLOCK = 232448   # the most one block may take
 T_TILES = (32, 16, 8, 4)  # steps a staged tile, longest first
 CHUNK = 512               # steps a chunk where the scan is chunk-parallel
-CHUNKED_STATE = 1 << 20   # chunk-parallel when BH * P * N is at most this (and L >= 4 chunks)
+CHUNKED_STATE = 1 << 19   # chunk-parallel when BH * P * N is at most this (and L >= 4 chunks)
 
 
 def _esize(dtype: str) -> int:
@@ -58,10 +58,10 @@ def _align16(v: int) -> int:
 
 @dataclass(frozen=True)
 class SSMPlan:
-    """Launch plan of `ssm_scan_kernel_ring`: a grid of (BH / `heads`) x
-    `row_tiles` blocks of `threads`.  A block owns `rows` rows of each of
-    `heads` heads of one b/c group; a thread holds `ns` entries of each of
-    `rt` rows, and `r` threads share a row (r * ns >= N).  Time is staged
+    """Launch plan of `ssm_scan_kernel_ring`: a grid of BH x `row_tiles`
+    blocks of `threads`.  A block owns `rows` rows of one head (rows past P
+    fill it up to whole warps); a thread holds `ns` entries of each of `rt`
+    rows, and `r` threads share a row (r * ns >= N).  Time is staged
     `t_tile` steps at a time; `smem` is the block's shared memory in bytes.
     With `chunks` > 1 the grid has a third axis of chunks of `chunk` steps
     (chunk-parallel: each chunk from a zero state, then a carry between
@@ -71,7 +71,6 @@ class SSMPlan:
     ns: int
     r: int
     rows: int
-    heads: int
     row_tiles: int
     threads: int
     t_tile: int
@@ -84,44 +83,43 @@ class SSMPlan:
         return asdict(self)
 
 
-def ring_smem(rt: int, ns: int, r: int, rows: int, heads: int, row_tiles: int, p: int, n: int,
+def ring_smem(rt: int, ns: int, r: int, rows: int, row_tiles: int, p: int, n: int,
               t: int, dtypes) -> int:
     """Shared memory of one block, as `layout_of` in csrc/ssm_scan.cu lays it
-    out: the rows' partial dot products [2][t][r][heads*rows + pad] f32, then
-    two slots of b and c [t][r*ns] in their dtype, x per head [t][p or rows]
-    in its own, and a [heads][t] f32."""
+    out: the rows' partial dot products [2][t][r][rows + pad] f32, then two
+    slots of b and c [t][r*ns] in their dtype, x [t][p or rows] in its own,
+    and a [t] f32."""
     ex = _esize(dtypes[0])
     ebc = max(_esize(dtypes[1]), _esize(dtypes[2]))     # mixed b, c go as f32
-    npad, rblk = r * ns, rows * heads
+    npad = r * ns
     xp = p if row_tiles == 1 else rows
-    ypitch = rblk + max(4, 32 // r)
-    slot = _align16(2 * _align16(t * npad * ebc) + heads * _align16(t * xp * ex) + 4 * heads * t)
+    ypitch = rows + max(4, 32 // r)
+    slot = _align16(2 * _align16(t * npad * ebc) + _align16(t * xp * ex) + 4 * t)
     return 2 * 4 * t * r * ypitch + 2 * slot
 
 
 @functools.lru_cache(maxsize=None)     # a pure function of its arguments, asked every call
 def ssm_plan(bh: int, groups: int, l: int, p: int, n: int,
              dtypes=("bf16", "bf16", "bf16"), *, rt: int | None = None,
-             ns: int | None = None, heads: int | None = None,
-             t_tile: int | None = None, chunk: int | None = None) -> SSMPlan:
+             ns: int | None = None, t_tile: int | None = None,
+             chunk: int | None = None) -> SSMPlan:
     """The plan for x (bh, l, p), b and c (groups, l, n); `dtypes` are those
-    of x, b and c ("bf16" or "f32").  `rt`, `ns`, `heads` (a most),
-    `t_tile` and `chunk` (0: none) override the rule (for the plan sweep).
+    of x, b and c ("bf16" or "f32").  `rt`, `ns`, `t_tile` and `chunk` (0:
+    none) override the rule (for the plan sweep and forced-plan checks).
 
     Rule (from `tools/torch_ssm_plan_sweep.py` on the card): chunks of 512
-    steps, run in parallel, where the state is small (B=1) and L at least
-    four chunks; the grid's size below counts the chunks.  16 entries of
+    steps, run in parallel, where L is at least four chunks and the state
+    at most 2^19 entries (zamba2 at 4096 tokens: chunking won at batch 1
+    and 2, lost at 4, 8 and 16); the grid's size below counts the chunks.  16 entries of
     each of 4 rows a thread (128 registers) where the grid is wide: each b
     and c value a thread reads serves four rows.  One row a thread, 8
     entries of it, where there are fewer blocks than SMs or P < 4.  One
-    head a block (more only to fill a warp): blocks of one head's 64 rows
-    ran faster than blocks of 2 or 4 heads sharing a b/c tile.  The time
-    tile: the longest that still lets the whole grid run in one wave, else
-    the longest whose shared memory lets the registers' number of blocks
-    share an SM."""
+    head a block: blocks of 2 or 4 heads sharing a staged b/c tile ran
+    slower.  The time tile: the longest that still lets the whole grid run
+    in one wave, else the longest whose shared memory lets the registers'
+    number of blocks share an SM."""
     if min(bh, groups, l, p, n) < 1 or bh % groups or n > MAX_N:
         raise ValueError(f"ssm_plan: no plan for bh={bh} groups={groups} l={l} p={p} n={n}")
-    h = bh // groups
     if chunk is None:
         chunk = CHUNK if l >= 4 * CHUNK and bh * p * n <= CHUNKED_STATE else 0
     nc = -(-l // chunk) if chunk else 1
@@ -135,25 +133,16 @@ def ssm_plan(bh: int, groups: int, l: int, p: int, n: int,
     r = _pow2(-(-n // ns))
     if r > 32:
         raise ValueError(f"ssm_plan: N={n} needs more than 32 threads a row at ns={ns}")
-    block_rows = rt * THREADS // r
-    if p >= block_rows:
-        rows = block_rows
-        heads = 1
-    else:                      # one head a block, more only to make up a warp
-        rows = max(rt, _pow2(p))
-        most, heads = heads, 1
-        while (heads * 2 * rows <= block_rows and h % (heads * 2) == 0
-               and (r * (rows // rt) * heads < 32 if most is None else heads * 2 <= most)):
-            heads *= 2
-    while r * (rows // rt) * heads < 32:       # whole warps: idle rows past P
+    rows = min(rt * THREADS // r, max(rt, _pow2(p)))
+    while r * (rows // rt) < 32:       # whole warps: idle rows past P
         rows *= 2
-    threads = r * (rows // rt) * heads
+    threads = r * (rows // rt)
     row_tiles = -(-p // rows)
-    blocks = bh // heads * row_tiles * nc
+    blocks = bh * row_tiles * nc
     resident = max(1, min(65536 // (128 * threads), 32))      # blocks an SM, by registers
 
     def fits(t: int, want: int) -> bool:
-        smem = ring_smem(rt, ns, r, rows, heads, row_tiles, p, n, t, dtypes)
+        smem = ring_smem(rt, ns, r, rows, row_tiles, p, n, t, dtypes)
         return smem <= SMEM_PER_BLOCK and want * (smem + 1024) <= SMEM_PER_SM
 
     if t_tile:
@@ -163,13 +152,12 @@ def ssm_plan(bh: int, groups: int, l: int, p: int, n: int,
                     if any(fits(t, k) and k * SMS >= blocks for k in range(1, resident + 1))]
         t = one_wave[0] if one_wave else next(
             (t for t in T_TILES if fits(t, resident)), T_TILES[-1])
-    smem = ring_smem(rt, ns, r, rows, heads, row_tiles, p, n, t, dtypes)
+    smem = ring_smem(rt, ns, r, rows, row_tiles, p, n, t, dtypes)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"ssm_plan: {smem} bytes of shared memory at bh={bh} p={p} n={n}")
     if rt_rule and rt > 1 and blocks < SMS:      # too few blocks: one row a thread
-        return ssm_plan(bh, groups, l, p, n, dtypes, rt=1, heads=heads, t_tile=t_tile,
-                        chunk=chunk)
-    return SSMPlan(rt=rt, ns=ns, r=r, rows=rows, heads=heads, row_tiles=row_tiles,
+        return ssm_plan(bh, groups, l, p, n, dtypes, rt=1, t_tile=t_tile, chunk=chunk)
+    return SSMPlan(rt=rt, ns=ns, r=r, rows=rows, row_tiles=row_tiles,
                    threads=threads, t_tile=t, smem=smem, blocks=blocks,
                    chunk=chunk if chunk else -(-l // t) * t, chunks=nc)
 
@@ -181,7 +169,7 @@ def _dtype_name(t: torch.Tensor) -> str:
 def _entry():
     fn = _build.library().ssm_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
                        + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
     return fn
@@ -199,7 +187,7 @@ def launch(x, a, b, c, y, plan: SSMPlan, scratch=(None, None)) -> int:
         return _entry()(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
                         bh, b.shape[0], l, p, b.shape[2], int(x.dtype == bf16),
                         int(b.dtype == bf16), plan.rt, plan.ns,
-                        lg(plan.r), lg(plan.rows // plan.rt), lg(plan.heads), plan.t_tile,
+                        lg(plan.r), lg(plan.rows // plan.rt), plan.t_tile,
                         plan.chunk, *(t.data_ptr() if t is not None else None for t in scratch),
                         torch.cuda.current_stream(x.device).cuda_stream)
 
@@ -230,10 +218,8 @@ def check_shapes(x, a, b, c) -> None:
                          f"b{tuple(b.shape)} do not match")
 
 
-def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
-             plan: SSMPlan | None = None) -> torch.Tensor:
-    """The scan over any length L >= 1; see the module docstring for shapes.
-    `plan` overrides `ssm_plan`'s (for the plan sweep)."""
+def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The scan over any length L >= 1; see the module docstring for shapes."""
     check_shapes(x, a, b, c)
     bh, l, p = x.shape
     g, n = b.shape[0], b.shape[2]
@@ -253,8 +239,7 @@ def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                          f"x, got x{tuple(x.shape)} N={n}")
     if not all(t.is_contiguous() for t in (x, a, b, c)):
         raise ValueError("ssm_scan: x, a, b and c must be contiguous")
-    if plan is None:
-        plan = ssm_plan(bh, g, l, p, n, tuple(_dtype_name(t) for t in (x, b, c)))
+    plan = ssm_plan(bh, g, l, p, n, tuple(_dtype_name(t) for t in (x, b, c)))
     if b.dtype != c.dtype:      # the kernel reads b and c in one dtype
         b, c = b.float(), c.float()
     y = torch.empty((bh, l, p), dtype=torch.float32, device=x.device)

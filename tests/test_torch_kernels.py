@@ -471,26 +471,23 @@ SSM_PLAN_SHAPES = [
     (16384, 97, 40, 64, ("f32", "bf16", "bf16"), 16384), (2048, 64, 100, 256, ("bf16",) * 3, 2048),
     (64, 130, 32, 48, ("f32",) * 3, 16), (3, 24, 1, 64, ("f32", "bf16", "bf16"), 3),
     (4, 200, 64, 64, ("bf16",) * 3, 1), (64, 4000, 64, 64, ("bf16",) * 3, 1),
-    (8, 1000, 1, 256, ("f32", "bf16", "bf16"), 8)]
+    (8, 1000, 1, 256, ("f32", "bf16", "bf16"), 8), (8, 2048, 1, 256, ("f32", "bf16", "bf16"), 8)]
 
 
 def _ring_rows_covered(plan, bh, p):
     """How often `ssm_scan_kernel_ring` on `plan` writes each (bh, row), from
-    the kernel's own map: block (bx, by), thread t -> head bx*heads +
-    (t / r) / (rows / rt), rows p0 + ((t / r) % (rows / rt)) * rt .. + rt,
-    written where the row is below P."""
+    the kernel's own map: block (bx, by), thread t -> head bx, rows p0 +
+    (t / r) * rt .. + rt, written where the row is below P."""
     count = np.zeros((bh, p), np.int64)
-    trh = plan.rows // plan.rt
     t = np.arange(plan.threads)
-    tr = t // plan.r
-    head, row0 = tr // trh, (tr % trh) * plan.rt
+    row0 = (t // plan.r) * plan.rt
     only_part0 = t % plan.r == 0           # the R threads of a row write it once
-    for bx in range(bh // plan.heads):
+    for bx in range(bh):
         for by in range(plan.row_tiles):
             for k in range(plan.rt):
                 rows = by * plan.rows + row0 + k
                 ok = only_part0 & (rows < p) & (row0 + k < min(plan.rows, p - by * plan.rows))
-                np.add.at(count, (bx * plan.heads + head[ok], rows[ok]), 1)
+                np.add.at(count, (np.full(ok.sum(), bx), rows[ok]), 1)
     return count
 
 
@@ -500,11 +497,11 @@ def test_ssm_plan_covers_every_row_and_step_once(bh, l, p, n, dts, groups):
     plan = SS.ssm_plan(bh, groups, l, p, n, dts)
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= SS.THREADS
     assert (plan.rt, plan.ns) in SS.RING_VARIANTS and plan.r * plan.ns >= n
-    assert (bh // groups) % plan.heads == 0            # a block's heads share one group
-    assert plan.smem == SS.ring_smem(plan.rt, plan.ns, plan.r, plan.rows, plan.heads,
-                                     plan.row_tiles, p, n, plan.t_tile, dts)
+    assert plan.threads == plan.r * plan.rows // plan.rt       # one head a block
+    assert plan.smem == SS.ring_smem(plan.rt, plan.ns, plan.r, plan.rows, plan.row_tiles,
+                                     p, n, plan.t_tile, dts)
     assert plan.smem <= SS.SMEM_PER_BLOCK
-    np.testing.assert_array_equal(_ring_rows_covered(plan, min(bh, 4 * plan.heads), p), 1)
+    np.testing.assert_array_equal(_ring_rows_covered(plan, min(bh, 4), p), 1)
     # chunk z covers [z*chunk, min(L, (z+1)*chunk)) in tiles of t_tile steps
     assert plan.chunk % plan.t_tile == 0 and plan.chunks == -(-l // plan.chunk)
     steps = np.zeros(l, np.int64)
@@ -560,10 +557,13 @@ def test_two_pass_carry_matches_the_sequential_oracle(decay, l, chunk):
 
 
 def test_ssm_plan_chunks_only_small_long_scans():
-    """Chunk-parallel at zamba2's B=1 4096-token prefill (8 chunks of 512);
-    not at batch 128, not at a short B=1 prefill; a ragged last chunk."""
+    """Chunk-parallel at zamba2's 4096-token prefill at batch 1 and 2 (8
+    chunks of 512), not from batch 4 on (the state past 2^19 entries), not
+    at batch 128, not at a short B=1 prefill; a ragged last chunk."""
     from repro_torch.kernels import ssm_scan as SS
     assert (SS.ssm_plan(64, 1, 4096, 64, 64).chunks, SS.ssm_plan(64, 1, 4096, 64, 64).chunk) == (8, 512)
+    assert SS.ssm_plan(128, 2, 4096, 64, 64).chunks == 8
+    assert SS.ssm_plan(256, 4, 4096, 64, 64).chunks == 1
     assert SS.ssm_plan(64, 1, 4000, 64, 64).chunks == 8
     assert SS.ssm_plan(64, 1, 1024, 64, 64).chunks == 1
     assert SS.ssm_plan(8192, 128, 128, 64, 64).chunks == 1
@@ -571,19 +571,19 @@ def test_ssm_plan_chunks_only_small_long_scans():
     assert SS.ssm_plan(8192, 128, 4096, 64, 64).chunks == 1
 
 
-@pytest.mark.parametrize("bh,l,p,n,dts,groups,rt,ns,heads,t_tile", [
-    (8192, 128, 64, 64, ("bf16",) * 3, 128, 4, 16, 1, 8),        # zamba2 B=128
-    (512, 128, 256, 256, ("bf16",) * 3, 512, 4, 16, 1, 8),       # xlstm B=128
-    (64, 97, 64, 64, ("bf16",) * 3, 1, 1, 8, 1, 32),             # zamba2 B=1: one wave
-    (64, 4096, 64, 64, ("bf16",) * 3, 1, 4, 16, 1, 16),          # ... chunk-parallel
+@pytest.mark.parametrize("bh,l,p,n,dts,groups,rt,ns,rows,t_tile", [
+    (8192, 128, 64, 64, ("bf16",) * 3, 128, 4, 16, 64, 8),       # zamba2 B=128
+    (512, 128, 256, 256, ("bf16",) * 3, 512, 4, 16, 64, 8),      # xlstm B=128
+    (64, 97, 64, 64, ("bf16",) * 3, 1, 1, 8, 32, 32),            # zamba2 B=1: one wave
+    (64, 4096, 64, 64, ("bf16",) * 3, 1, 4, 16, 64, 16),         # ... chunk-parallel
     (512, 128, 1, 256, ("f32", "bf16", "bf16"), 512, 1, 8, 1, 16)])   # the normaliser
-def test_ssm_plan_rule_at_the_serving_shapes(bh, l, p, n, dts, groups, rt, ns, heads, t_tile):
-    """Wide grids (counting chunks): four rows of 16 entries a thread, one
-    head a block, at least two blocks an SM.  Narrow ones: one row of 8
-    entries a thread.  The longest time tile that keeps one wave."""
+def test_ssm_plan_rule_at_the_serving_shapes(bh, l, p, n, dts, groups, rt, ns, rows, t_tile):
+    """Wide grids (counting chunks): four rows of 16 entries a thread, at
+    least two blocks an SM.  Narrow ones: one row of 8 entries a thread.
+    The longest time tile that keeps one wave."""
     from repro_torch.kernels import ssm_scan as SS
     plan = SS.ssm_plan(bh, groups, l, p, n, dts)
-    assert (plan.rt, plan.ns, plan.heads, plan.t_tile) == (rt, ns, heads, t_tile)
+    assert (plan.rt, plan.ns, plan.rows, plan.t_tile) == (rt, ns, rows, t_tile)
     if plan.blocks > SS.SMS:
         assert 2 * (plan.smem + 1024) <= SS.SMEM_PER_SM
 

@@ -6,12 +6,14 @@ times (`SSM_PATH`), to choose the plan's rule on the card.
     python3 tools/torch_ssm_plan_sweep.py > ssm_sweep.log
 
 Needs one NVIDIA Hopper GPU.  For each shape: every instantiated (rows,
-entries) a thread pair that takes its N, each at the rule's heads and time
-tile, then the rule's pair at every time tile and at one head a block, and
-where L spans four chunks or more, other chunk lengths and none.
-Each plan's output is held against the sequential oracle at
-`chip_smoke.py`'s tolerance (rtol = atol 2e-4) and timed.  One JSON line per
-shape, then the card's name and power limit.
+entries) a thread pair that takes its N, each at the rule's time tile and
+its own, then the rule's pair at every time tile, and where L spans four
+chunks or more, other chunk lengths and none.  The shapes are
+`SSM_PATH`'s, then zamba2's 4096-token prefill at batch 2 to 16
+(`CHUNK_EDGE`), where the rule's bound on the state for chunking
+(`CHUNKED_STATE`) falls.  Each plan's output is held against the
+sequential oracle at `chip_smoke.py`'s tolerance (rtol = atol 2e-4) and
+timed.  One JSON line per shape, then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -26,19 +28,21 @@ import chip_smoke as cs  # noqa: E402  (raises without a card)
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 
 
+# zamba2's 4096-token prefill at batch 2, 4, 8 and 16: BH * P * N from
+# 2^19 to 2^22, around `ssm_scan.CHUNKED_STATE`
+CHUNK_EDGE = [(f"zamba2 B={b} L=4096", 64 * b, 4096, 64, 64, ("bf16",) * 3, b)
+              for b in (2, 4, 8, 16)]
+
+
 def candidates(bh, g, l, p, n, dts) -> list:
     rule = ss.ssm_plan(bh, g, l, p, n, dts)
     asks = [dict(rt=rt, ns=ns, **extra) for (rt, ns) in ss.RING_VARIANTS
-            for extra in (dict(heads=rule.heads, t_tile=rule.t_tile), {})]
-    asks += [dict(rt=rule.rt, ns=rule.ns, heads=rule.heads, t_tile=t) for t in ss.T_TILES]
-    asks.append(dict(rt=rule.rt, ns=rule.ns, heads=1))
-    if rule.heads > 1:
-        asks += [dict(rt=rule.rt, ns=rule.ns, heads=h, t_tile=rule.t_tile)
-                 for h in (1, 2) if h < rule.heads]
+            for extra in (dict(t_tile=rule.t_tile), {})]
+    asks += [dict(rt=rule.rt, ns=rule.ns, t_tile=t) for t in ss.T_TILES]
     if l >= 4 * ss.CHUNK:      # chunk-parallel or not, and other chunk lengths
-        asks += [dict(chunk=0), dict(rt=1, ns=8, chunk=ss.CHUNK)]
-        asks += [dict(rt=rule.rt, ns=rule.ns, chunk=ch, heads=h, t_tile=t)
-                 for ch in (64, 128, 256, 512) for h in (1, 2, 4) for t in (8, 16)]
+        asks += [dict(chunk=0), dict(chunk=ss.CHUNK), dict(rt=1, ns=8, chunk=ss.CHUNK)]
+        asks += [dict(rt=4, ns=16, chunk=ch, t_tile=t)
+                 for ch in (64, 128, 256, 512) for t in (8, 16)]
     out = [rule]
     for kw in asks:
         try:
@@ -102,7 +106,7 @@ def main() -> None:
     info = cs.phase_device()
     gen = torch.Generator(device=cs.DEV)
     gen.manual_seed(cs.SEED)
-    for shape in cs.SSM_PATH:
+    for shape in cs.SSM_PATH + CHUNK_EDGE:
         cs.emit(sweep_shape(gen, *shape))
     print(info["nvidia_smi"], flush=True)
 
