@@ -17,32 +17,42 @@ line, and fails if any phase fails:
   kernels           `photonic_mac`, `flash_attention` and `ssm_scan` against
                     their plain PyTorch versions on the card, at the shapes of
                     the reference's kernel tests, at ragged and edge shapes,
-                    and at the serving shapes of the three models below, with
+                    and at the serving shapes of the four models below, with
                     times, a library call's time as yardstick where one
                     PyTorch call computes the same function, and the card's
                     bound for the same work
 
-then three serving paths at full published width and depth (bf16, photonic
-numerics, kernels on, random weights from a seed), one model at a time:
+then four serving paths at full published width (bf16, photonic numerics,
+kernels on, random weights from a seed), one model at a time, at published
+depth except mixtral:
 
-  yi-6b       serve_continuous (ContinuousBatcher, bucketed prefill) and
-              serve_batch128 (`launch/serve.py`, batch 128 x prompt 128)
-  zamba2-1.2b serve_continuous (exact-length prefill of 24..1024 tokens),
-              serve_batch128, and long_prefill (B=1, 4096 tokens: the shared
-              attention's whole window, 32 scan chunks in sequence)
-  xlstm-350m  serve_batch128
+  yi-6b        serve_continuous (ContinuousBatcher, bucketed prefill) and
+               serve_batch128 (`launch/serve.py`, batch 128 x prompt 128)
+  zamba2-1.2b  serve_continuous (exact-length prefill of 24..1024 tokens),
+               serve_batch128, and long_prefill (B=1, 4096 tokens: the shared
+               attention's whole window, 32 scan chunks in sequence)
+  xlstm-350m   serve_batch128
+  mixtral-8x7b 24 of its 32 layers (the experts, stored in bf16, are 2.82 GB
+               a layer: 24 is the deepest the card holds with room for the
+               batch-128 transients); serve_continuous and serve_batch128 as
+               yi-6b, and long_prefill (B=1, 4224 tokens, past the 4096
+               window, so the attention kernel's window masks keys that
+               causality keeps, and the decode step after it rolls the
+               windowed cache)
 
 Before each path the launch counters are set to 0; just after it they are
 read and must equal the counts reckoned from the dispatch predicates in
 `kernels/ops.py`, and every kernel of that path must have launched.  After
 each path, `end_to_end` holds kernels-on against kernels-off logits of one
-prefill.  The last lines are the `{"kernels": [...]}` summary, the card's
+prefill (in f32 for zamba2, xlstm and mixtral, whose routing or recurrence
+amplifies bf16 rounding; `E2E_TOLERANCE`).  The last lines are the `{"kernels": [...]}` summary, the card's
 name and power limit, and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
 import gc
 import json
@@ -83,6 +93,9 @@ YI_KN = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)]
 # (wqkv, wo, sLSTM wx, tied head); in_proj (N = 8384) and wif (N = 8) never tile
 ZAMBA2_KN = [(4096, 2048), (2048, 2048), (2048, 32000)]
 XLSTM_KN = [(1024, 3072), (1024, 1024), (1024, 4096), (1024, 50304)]
+# mixtral's wk/wv and head (wq/wo are yi-6b's 4096 x 4096); its experts are
+# plain products and its router (N = 8) never tiles
+MIXTRAL_KN = [(4096, 1024), (4096, 32000)]
 # the timed products (model, M, K, N), bf16 activations as on the path: M = 128
 # is a batch-128 decode step, 512 a B=1 prefill of 512 tokens, 16384 the
 # batch-128 x 128 prefill (its widest linear, and every (K, N) whose K is
@@ -94,16 +107,20 @@ MAC_TIMED = ([("yi-6b", m, k, n) for m in (128, 512) for (k, n) in YI_KN]
              + [(model, 128 * 128, k, n)
                 for model, kns in (("yi-6b", YI_KN), ("zamba2-1.2b", ZAMBA2_KN),
                                    ("xlstm-350m", XLSTM_KN))
-                for (k, n) in kns if mac_splits(k, n) > 1])
+                for (k, n) in kns if mac_splits(k, n) > 1]
+             + [("mixtral-8x7b", m, k, n) for m in (128, 128 * 128) for (k, n) in MIXTRAL_KN])
 MAC_HEADLINE = (128, 4096, 11008)        # the shape reported in the summary line
 # the timed attention prefills (model, B, S, Hq, Hk, D, window): strided
 # (B,S,H,D) projections, bf16, causal; yi-6b (32/4 heads of 128) and
 # zamba2's shared attention (32/32 heads of 64, window 4096, which at
-# S <= 4096 masks nothing that causality keeps)
+# S <= 4096 masks nothing that causality keeps) and mixtral (32/8 heads of
+# 128, window 4096, which at S = 4224 does)
 ATTN_TIMED = [("yi-6b", 1, 128, 32, 4, 128, 0), ("yi-6b", 1, 256, 32, 4, 128, 0),
               ("yi-6b", 1, 512, 32, 4, 128, 0), ("yi-6b", 128, 128, 32, 4, 128, 0),
               ("zamba2-1.2b", 1, 4096, 32, 32, 64, 4096),
-              ("zamba2-1.2b", 128, 128, 32, 32, 64, 4096)]
+              ("zamba2-1.2b", 128, 128, 32, 32, 64, 4096),
+              ("mixtral-8x7b", 128, 128, 32, 8, 128, 4096),
+              ("mixtral-8x7b", 1, 4224, 32, 8, 128, 4096)]
 ATTN_HEADLINE = (1, 128)                 # (batch, prompt length) reported in the summary
 SSM_HEADLINE = "zamba2 B=128 L=128"      # the scan shape reported in the summary
 
@@ -111,7 +128,9 @@ KERNELS = {"photonic_mac": photonic_mac, "flash_attention": flash_attention,
            "ssm_scan": ssm_scan}
 # names of the port's CUDA kernels, as the profiler shows them
 PORT_KERNEL_NAMES = ("mac_kernel", "attn_kernel", "ssm_scan_kernel")
-ATTN_KINDS = ("attn", "local", "global", "shared_attn")
+ATTN_KINDS = ("attn", "local", "global", "shared_attn", "moe")
+# the profiler ranges of `models/layers.py` (`layers._span`)
+SPANS = ("attention", "moe.route", "moe.dispatch", "moe.experts", "moe.combine")
 
 
 def emit(obj) -> None:
@@ -330,6 +349,19 @@ def _attn_other_order(q, k, v, want, plan, kw, what) -> dict:
             "kernel": "attn_kernel_sm90", "plan": other.as_dict()}
 
 
+def _sdpa(q, kr, vr, window):
+    """One `scaled_dot_product_attention` call computing the kernel's causal,
+    windowed function: `is_causal` where the window masks nothing that
+    causality keeps, else an explicit mask."""
+    s = q.shape[2]
+    if window and s > window:
+        pos = torch.arange(s, device=DEV)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        return lambda: torch.nn.functional.scaled_dot_product_attention(q, kr, vr,
+                                                                        attn_mask=mask)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+
+
 def check_flash_attention(gen) -> dict:
     checks, timed = [], []
     f32, bf16 = torch.float32, torch.bfloat16
@@ -405,14 +437,14 @@ def check_flash_attention(gen) -> dict:
             checks.append(compare(out[:4], ref.attention_ref(q[:4], k[:4], v[:4], window=window),
                                   2e-2, 2e-2, what + " (first 4 of batch)"))
         kr, vr = k.repeat_interleave(hq // hk, dim=1), v.repeat_interleave(hq // hk, dim=1)
+        library = _sdpa(q, kr, vr, window)
         row = {"model": model, "shape": {"b": b, "hq": hq, "hk": hk, "s": s, "d": d},
                "window": window, "dtype": "bfloat16", "kernel": kernel, "plan": plan.as_dict(),
                "ms": time_ms(lambda: flash_attention(q, k, v, window=window)),
                "fma_kernel_ms": time_ms(lambda: flash_attention(q, k, v, window=window,
                                                                 tensor_cores=False)),
                "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, window=window)),
-               "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                   q, kr, vr, is_causal=True)),
+               "library_ms": time_ms(library),
                **attn_bound_ms(b, hq, hk, s, s, d, bf16, True, window, 0)}
         timed.append(row)
         del q, k, v, kr, vr
@@ -638,7 +670,9 @@ def block_linears(cfg, kind: str) -> list:
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     if kind in ATTN_KINDS:
         out = [(m, h * dh), (m, hk * dh), (m, hk * dh), (h * dh, m)]   # wq, wk, wv, wo
-        if kind != "shared_attn" and f:                                 # shared_attn: no MLP
+        if kind == "moe":       # the router; the experts are plain products
+            out.append((m, cfg.n_experts))
+        elif kind != "shared_attn" and f:                               # shared_attn: no MLP
             out += [(m, f), (m, f), (f, m)]                             # wg, wi, mlp wo
         return out
     if kind == "mamba":   # in_proj [z, x, B, C, dt], out_proj; no MLP
@@ -732,7 +766,7 @@ def phase_serve_batch128(cfg, params, arch: str) -> dict:
     before = counters()
     res = serve.main(["--arch", arch, "--batch", str(batch), "--prompt-len", str(plen),
                       "--max-new", str(max_new), "--seed", str(SEED), "--photonic", "--kernels"],
-                     params=params)
+                     params=params, cfg=cfg)
     got = _since(before)
     pf = expected_launches(cfg, batch, plen)
     per_step = expected_launches(cfg, batch, 1)
@@ -752,14 +786,17 @@ def phase_serve_batch128(cfg, params, arch: str) -> dict:
            "decode_s": res["decode_s"], "decode_steps": max_new - 1,
            "decode_tokens_per_s": res["decode_tokens"] / res["decode_s"],
            "launches": got, "launches_per_prefill": pf, "launches_per_decode_step": per_step,
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card_memory_gb": torch.cuda.get_device_properties(DEV).total_memory / 1e9}
     emit(out)
     return out
 
 
 def phase_long_prefill(cfg, params, seq: int = 4096) -> dict:
-    """One B=1 prefill of `seq` tokens (zamba2: its shared attention's whole
-    window; the scan carries its state through seq/128 chunks in sequence)."""
+    """One B=1 prefill of `seq` tokens, then one decode step (zamba2: its
+    shared attention's whole window, the scan carrying its state through
+    seq/128 chunks in sequence; mixtral: past its window, so the prefill
+    keeps the last `window` positions and the decode step rolls them)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 4)
     toks = torch.randint(2, cfg.vocab, (1, seq), generator=gen, device=DEV)
@@ -773,10 +810,14 @@ def phase_long_prefill(cfg, params, seq: int = 4096) -> dict:
     got, want = _since(before), expected_launches(cfg, 1, seq)
     assert got == want, f"launch counts {got} differ from {want}"
     assert tuple(logits.shape) == (1, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
+    kv_len = next(c["k"].shape[3] for st in cache for c in st.values() if "k" in c)
+    if cfg.window and seq > cfg.window:
+        assert kv_len == cfg.window, (kv_len, cfg.window)
     nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
     step, _ = M.serve_step(cfg, params, cache, nxt, seq, device=DEV)
     assert bool(torch.isfinite(step).all())
     out = {"phase": "long_prefill", "model": cfg.name, "batch": 1, "prompt_len": seq,
+           "kv_cache_positions": kv_len, "decode_step_rolls": seq >= kv_len,
            "prefill_s": dt, "prefill_tokens_per_s": seq / dt, "launches": got,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
@@ -795,8 +836,11 @@ E2E_TOLERANCE = {
     # the logits before the last layer.  In f32 the kernels and their plain
     # versions differ by about 1e-6 per operation, which the depth grows to
     # well under the tolerance.  The bf16 difference is measured and printed.
+    # mixtral: checked in f32.  Routing is a discontinuous function of the
+    # router logits, and bf16 logits tie often, so in bf16 one expert choice
+    # flipped by the order of a sum decorrelates the logits.
     "yi-6b": ("bfloat16", 3e-2), "zamba2-1.2b": ("float32", 2e-2),
-    "xlstm-350m": ("float32", 2e-2),
+    "xlstm-350m": ("float32", 2e-2), "mixtral-8x7b": ("float32", 2e-2),
 }
 
 
@@ -842,10 +886,29 @@ def phase_end_to_end(cfg, params, seq: int = 128) -> dict:
     return out
 
 
+def _ranges_on_device(prof) -> dict:
+    """Device ms of the kernels that start inside each profiler range's span
+    on the device timeline (the device side of `record_function`); the
+    ranges do not nest, so each kernel counts at most once."""
+    dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    kern = sorted((e for e in dev if e.name not in SPANS), key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in kern]
+    out = {}
+    for sp in (e for e in dev if e.name in SPANS):
+        lo = bisect.bisect_left(starts, sp.time_range.start)
+        hi = bisect.bisect_left(starts, sp.time_range.end)
+        out[sp.name] = out.get(sp.name, 0.0) + sum(
+            k.time_range.elapsed_us() for k in kern[lo:hi]) / 1e3
+    return out
+
+
 def phase_profile(cfg, params) -> dict:
     """Device time by kernel of one batch-128 decode step, one B=1, S=128
     prefill and one batch-128 prefill, from `torch.profiler` (`--profile`):
-    the ten longest kernels and every kernel of the port."""
+    the ten longest kernels, every kernel of the port, and the device time
+    of the kernels under each of the model's profiler ranges (`SPANS`:
+    attention's product and cache, and the MoE block's routing, dispatch,
+    experts and combine)."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=DEV)
@@ -862,7 +925,8 @@ def phase_profile(cfg, params) -> dict:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        kernels = [e for e in prof.key_averages()   # not the ranges' own device spans
+                   if str(e.device_type).endswith("CUDA") and e.key not in SPANS]
         def dev_us(e):
             return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
         busy_ms = sum(dev_us(e) for e in kernels) / 1e3
@@ -874,7 +938,8 @@ def phase_profile(cfg, params) -> dict:
                 "top_kernels": [{"name": e.key[:60], "calls": e.count, "ms": dev_us(e) / 1e3}
                                 for e in top],
                 "port_kernels": [{"name": e.key[:60], "calls": e.count, "ms": dev_us(e) / 1e3}
-                                 for e in sorted(ours, key=dev_us, reverse=True)]}
+                                 for e in sorted(ours, key=dev_us, reverse=True)],
+                "ranges_ms": _ranges_on_device(prof)}
 
     out = {"phase": "profile", "model": cfg.name,
            "decode_step_b128": window(lambda: M.serve_step(cfg, params, cache, tok, 128, device=DEV)),
@@ -931,26 +996,40 @@ PATHS = [
     ("yi_6b", "yi-6b", ("photonic_mac", "flash_attention")),
     ("zamba2_1p2b", "zamba2-1.2b", ("photonic_mac", "flash_attention", "ssm_scan")),
     ("xlstm_350m", "xlstm-350m", ("photonic_mac", "ssm_scan")),
+    ("mixtral_8x7b", "mixtral-8x7b", ("photonic_mac", "flash_attention")),
 ]
+# depth cuts (config id -> layers served): mixtral's bf16 experts are 2.82 GB
+# a layer, so 24 layers (72.7 GB of weights with the f32 attention, embedding
+# and head) leave room for batch-128 transients on an 80 GB card
+DEPTH = {"mixtral_8x7b": 24}
 
 
 def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
     """Initialise one model, drive its serving path with the counters at 0
     just before and read just after, then the end-to-end check.  Returns the
     path's launches; its weights are freed on return."""
-    cfg = dataclasses.replace(C.get(cfg_id), use_photonic_mac=True, use_kernels=True)
+    published = C.get(cfg_id)
+    cfg = dataclasses.replace(published, n_layers=DEPTH.get(cfg_id, published.n_layers),
+                              use_photonic_mac=True, use_kernels=True)
     t0 = time.perf_counter()
     params = M.init(cfg, seed=SEED, device=DEV)
     torch.cuda.synchronize()
     emit({"phase": "init", "model": cfg.name, "n_layers": cfg.n_layers,
-          "d_model": cfg.d_model, "parameters": sum(t.numel() for t in _leaves(params)),
-          "master_dtype": "float32", "seconds": time.perf_counter() - t0})
+          "published_n_layers": published.n_layers, "d_model": cfg.d_model,
+          "parameters": sum(t.numel() for t in _leaves(params)),
+          "master_dtype": "float32",
+          "expert_dtype": str(params["stages"][0]["moe_0"]["moe"]["wi"].dtype).removeprefix(
+              "torch.") if cfg.family == "moe" else None,
+          "weights_gb": sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9,
+          "seconds": time.perf_counter() - t0})
 
     zero_counters()
-    if arch == "yi-6b":
+    if arch in ("yi-6b", "mixtral-8x7b"):
         phase_serve_continuous(cfg, params, [60, 250, 131, 97, 200, 129, 77, 180],
                                [4, 8, 6, 5, 7, 4, 8, 6], max_len=512, bucket=128)
         phase_serve_batch128(cfg, params, arch)
+        if arch == "mixtral-8x7b":   # 33 x 128 tokens, past the 4096 window
+            phase_long_prefill(cfg, params, 4224)
     elif arch == "zamba2-1.2b":
         # exact-length prefills of 97 and 24 (<= 128, no power of two), 128,
         # 256, 384, 512, 1024 (multiples of 128) and 200 (neither: the

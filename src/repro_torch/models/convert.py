@@ -22,6 +22,7 @@ Params = Dict[str, Any]
 _BLOCK_LEAVES = {
     "attn": ("wq", "wk", "wv", "wo", "norm"),
     "mlp": ("wi", "wg", "wo", "norm"),
+    "moe": ("router", "wi", "wg", "wo", "norm"),
     "mamba": ("in_proj", "conv", "A_log", "D", "dt_bias", "out_proj", "norm", "gate_norm"),
     "mlstm": ("wqkv", "wif", "wo", "norm"),
     "slstm": ("wx", "wr", "bias", "wo", "norm"),
@@ -33,6 +34,8 @@ def _subs(cfg: ModelConfig, kind: str):
     its parameters live once, at the top of the tree)."""
     if kind in ("attn", "local", "global"):
         return ("attn", "mlp") if cfg.d_ff else ("attn",)
+    if kind == "moe":
+        return ("attn", "moe")
     if kind == "shared_attn":
         return ()
     return (kind,)

@@ -1,4 +1,4 @@
-"""Building blocks of the dense, local-global, hybrid (Mamba2 + shared
+"""Building blocks of the dense, local-global, MoE, hybrid (Mamba2 + shared
 attention) and xLSTM architecture families.
 
 Plain functions over explicit parameter dicts of tensors.  Each `init_*`
@@ -15,12 +15,13 @@ The recurrent blocks (`apply_mamba`, `apply_mlstm`, `apply_slstm`) take a
 cache of views into the model's layer-stacked buffers and write their new
 state into it in place (`copy_`), as `apply_attention` does with K/V.
 
-The MoE and cross-attention blocks and the M-RoPE position streams are not
-ported yet; see ROADMAP.md, Queue 1.
+The cross-attention block and the M-RoPE position streams are not ported
+yet; see ROADMAP.md, Queue 1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional
 
@@ -37,13 +38,21 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
-def _dense_init(gen: torch.Generator, shape, in_axes=(0,), *, device, layers: int = 0):
+def _dense_init(gen: torch.Generator, shape, in_axes=(0,), *, device, layers: int = 0,
+                dtype: torch.dtype = torch.float32):
     """N(0, 1/fan_in) weights; with `layers`, that many independent draws
-    stacked on a leading axis (drawn as one tensor, no per-layer copies)."""
+    stacked on a leading axis.  In f32 the stack is drawn as one tensor; in
+    another `dtype`, one layer at a time in f32 and cast into a preallocated
+    stack, so that no f32 copy of the whole stack ever exists."""
     fan_in = max(1, math.prod(shape[a] for a in in_axes))
-    full = ((layers,) if layers else ()) + tuple(shape)
-    w = torch.randn(full, generator=gen, device=device, dtype=torch.float32)
-    return w.div_(math.sqrt(fan_in))
+    if dtype == torch.float32 or not layers:
+        full = ((layers,) if layers else ()) + tuple(shape)
+        w = torch.randn(full, generator=gen, device=device, dtype=torch.float32)
+        return w.div_(math.sqrt(fan_in)).to(dtype)
+    out = torch.empty((layers,) + tuple(shape), device=device, dtype=dtype)
+    for i in range(layers):
+        out[i].copy_(_dense_init(gen, shape, in_axes, device=device))
+    return out
 
 
 def _zeros(shape, *, device, layers: int = 0):
@@ -68,6 +77,14 @@ def linear(cfg: ModelConfig, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         y = ops.photonic_matmul(x2, w2, cfg.photonic_bits, cfg.use_kernels)
         return y.reshape(*x.shape[:-1], *out_shape).to(x.dtype)
     return torch.matmul(x, w.reshape(k, -1).to(x.dtype)).reshape(*x.shape[:-1], *out_shape)
+
+
+def _span(name: str):
+    """A named range in a `torch.profiler` trace (`chip_smoke.py --profile`
+    reads the device time under each); nothing at all when no profiler runs."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -166,34 +183,35 @@ def apply_attention(
     k = k.movedim(2, 1)
     v = v.movedim(2, 1)
 
-    if cache is None:
-        out = ops.attention(q, k, v, causal, window, None, 0, cfg.use_kernels)
-    elif s > 1:
-        # prefill: full-sequence attention, then materialize the cache
-        out = ops.attention(q, k, v, causal, window, None, 0, cfg.use_kernels)
-        wlen = cache["k"].shape[2]
-        if s >= wlen:  # windowed (or exact-length) cache: keep the last wlen
-            cache["k"].copy_(k[:, :, s - wlen:])
-            cache["v"].copy_(v[:, :, s - wlen:])
+    with _span("attention"):   # the product and the cache, not the projections
+        if cache is None:
+            out = ops.attention(q, k, v, causal, window, None, 0, cfg.use_kernels)
+        elif s > 1:
+            # prefill: full-sequence attention, then materialize the cache
+            out = ops.attention(q, k, v, causal, window, None, 0, cfg.use_kernels)
+            wlen = cache["k"].shape[2]
+            if s >= wlen:  # windowed (or exact-length) cache: keep the last wlen
+                cache["k"].copy_(k[:, :, s - wlen:])
+                cache["v"].copy_(v[:, :, s - wlen:])
+            else:
+                start = int(cache_pos)
+                cache["k"][:, :, start:start + s].copy_(k)
+                cache["v"][:, :, start:start + s].copy_(v)
         else:
-            start = int(cache_pos)
-            cache["k"][:, :, start:start + s].copy_(k)
-            cache["v"][:, :, start:start + s].copy_(v)
-    else:
-        # single-step decode; windowed caches roll once full
-        wlen = cache["k"].shape[2]
-        pos_b = torch.broadcast_to(cache_pos, (b,))
-        if cache_pos_max >= wlen:
-            full = (pos_b >= wlen)[:, None, None, None]
-            for name in ("k", "v"):
-                c = cache[name]
-                c.copy_(torch.where(full, torch.roll(c, -1, dims=2), c))
-        slot = torch.clamp(pos_b, max=wlen - 1)
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, :, slot] = k[:, :, 0].to(cache["k"].dtype)
-        cache["v"][rows, :, slot] = v[:, :, 0].to(cache["v"].dtype)
-        pos_eff = torch.clamp(cache_pos, max=wlen - 1)      # scalar or (B,)
-        out = decode_attention(q, cache["k"], cache["v"], pos_eff, window=0)
+            # single-step decode; windowed caches roll once full
+            wlen = cache["k"].shape[2]
+            pos_b = torch.broadcast_to(cache_pos, (b,))
+            if cache_pos_max >= wlen:
+                full = (pos_b >= wlen)[:, None, None, None]
+                for name in ("k", "v"):
+                    c = cache[name]
+                    c.copy_(torch.where(full, torch.roll(c, -1, dims=2), c))
+            slot = torch.clamp(pos_b, max=wlen - 1)
+            rows = torch.arange(b, device=x.device)
+            cache["k"][rows, :, slot] = k[:, :, 0].to(cache["k"].dtype)
+            cache["v"][rows, :, slot] = v[:, :, 0].to(cache["v"].dtype)
+            pos_eff = torch.clamp(cache_pos, max=wlen - 1)      # scalar or (B,)
+            out = decode_attention(q, cache["k"], cache["v"], pos_eff, window=0)
 
     out = out.to(x.dtype).movedim(1, 2).reshape(b, s, h * dh)
     y = linear(cfg, p["wo"].reshape(h * dh, m), out)
@@ -245,6 +263,140 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     g = torch.nn.functional.silu(linear(cfg, p["wg"], xn).to(torch.float32)).to(x.dtype)
     h = linear(cfg, p["wi"], xn) * g
     return x + linear(cfg, p["wo"], h)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0) -> Params:
+    """Router (M,E) and the experts' SwiGLU stacks wi/wg (E,M,F), wo (E,F,M).
+
+    The expert stacks are stored in the compute dtype: both dispatches cast
+    them to it on every use, as the reference casts its f32 masters, so the
+    forward numbers are those of f32 masters (mixtral's experts are 90 GB
+    in bf16 and 180 GB in f32).  Training (ROADMAP.md, Queue 1) revisits
+    this, since an optimizer needs f32 masters."""
+    m, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    kw = {"device": device, "layers": layers}
+    dt = compute_dtype(cfg)
+    return {
+        "router": _dense_init(gen, (m, e), **kw),
+        "wi": _dense_init(gen, (e, m, f), in_axes=(1,), dtype=dt, **kw),
+        "wg": _dense_init(gen, (e, m, f), in_axes=(1,), dtype=dt, **kw),
+        "wo": _dense_init(gen, (e, f, m), in_axes=(1,), dtype=dt, **kw),
+        "norm": _zeros((m,), **kw),
+    }
+
+
+def _experts(p: Params, xe: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU on its capacity buffer xe (E,B,C,M), in xe's
+    dtype, with the stacks cast to it as the reference casts its masters.
+    Plain products: the reference runs them outside any Pallas kernel."""
+    dt = xe.dtype
+    with _span("moe.experts"):
+        g = torch.nn.functional.silu(
+            torch.einsum("ebcm,emf->ebcf", xe, p["wg"].to(dt)).to(torch.float32),
+            inplace=True).to(dt)
+        h = torch.einsum("ebcm,emf->ebcf", xe, p["wi"].to(dt)) * g
+        return torch.einsum("ebcf,efm->ebcm", h, p["wo"].to(dt))
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """The k largest entries of the last axis and their indices, largest
+    first, and among equal values the lower index first, as `jax.lax.top_k`
+    orders them (`torch.topk` promises no order among ties, and bf16 router
+    logits tie often).  A stable descending sort, cut to k."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_index_path(cfg: ModelConfig, p: Params, xn, idx, gate_vals, keep, pos_ce,
+                    cap: int) -> torch.Tensor:
+    """Gather/scatter dispatch with the einsum path's capacity rule: each
+    kept (token, choice) is copied into its expert's buffer slot, the
+    experts run, and each result is read back and weighted by its gate in
+    the compute dtype.  Dropped choices scatter into a dump slot per expert
+    (slot `cap`), which is then discarded."""
+    b, s, m = xn.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dt = xn.dtype
+    rows = torch.arange(b, device=xn.device)[:, None]
+    with _span("moe.dispatch"):
+        t_e = idx.transpose(1, 2).reshape(b, k * s)                  # expert per choice
+        keep_t = keep.sum(dim=-1) > 0                                 # (B,kS)
+        s_t = torch.arange(s, device=xn.device).repeat(k).expand(b, k * s)
+        flat_slot = t_e * (cap + 1) + torch.where(keep_t, pos_ce, cap)
+
+        def scat(vals):
+            out = torch.zeros((b, e * (cap + 1)), dtype=vals.dtype, device=xn.device)
+            return out.scatter_(1, flat_slot, vals).reshape(b, e, cap + 1)[..., :cap]
+
+        slot_token = scat(s_t).reshape(b, e * cap)
+        slot_valid = scat(keep_t).reshape(b, e * cap, 1)
+        xe = torch.where(slot_valid, xn[rows, slot_token], 0)
+        xe = xe.reshape(b, e, cap, m).to(dt).movedim(0, 1)           # (E,B,C,M)
+    ye = _experts(p, xe)
+    with _span("moe.combine"):
+        ye_b = ye.movedim(0, 1).reshape(b, e * cap, m)                # (B,E*C,M)
+        yt = ye_b[rows, t_e * cap + torch.clamp_max(pos_ce, cap - 1)]
+        yt = torch.where(keep_t[..., None], yt, 0)
+        gate_t = gate_vals.transpose(1, 2).reshape(b, k * s)         # choices-major
+        return (yt * gate_t[..., None].to(yt.dtype)).reshape(b, k, s, m).sum(dim=1)
+
+
+def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """Top-k routed MoE with capacity, pre-norm, with residual.  Returns
+    (x + y, aux): aux is the Switch load-balance loss plus 1e-3 of the
+    router z-loss.
+
+    Routing, as in the reference: the router through `linear`, an f32
+    softmax, the top k probabilities (`top_k`: among equal probabilities
+    the lower expert index first), normalised over the k.  A (token, choice)
+    takes the next slot of its expert's buffer of `cap` slots in
+    choices-major order: every token's first choice before any second
+    choice; past `cap` it is dropped.  `cfg.moe_dispatch` picks the one-hot
+    dispatch/combine einsums ("einsum", the default) or `_moe_index_path`;
+    each rounds as its reference function does (the einsum path sums the
+    gates over k in f32 and casts once, the index path weights and sums in
+    the compute dtype)."""
+    b, s, m = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    f32 = torch.float32
+    cap = max(1, int(cfg.capacity_factor * s * k / e))
+
+    xn = rms_norm(x, p["norm"])
+    with _span("moe.route"):
+        logits = linear(cfg, p["router"], xn).to(f32)                 # (B,S,E)
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, idx = top_k(probs, k)                              # (B,S,k)
+        gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+        # position of each (token, choice) within its expert's capacity buffer
+        onehot = torch.nn.functional.one_hot(idx, e).to(f32)         # (B,S,k,E)
+        flat = onehot.transpose(1, 2).reshape(b, k * s, e)            # choices-major
+        pos_in_expert = torch.cumsum(flat, dim=1) - flat              # (B,kS,E)
+        keep = (pos_in_expert < cap) * flat
+        pos_ce = torch.einsum("bte,bte->bt", pos_in_expert, keep)     # (B,kS)
+        # load-balance aux loss (Switch) + router z-loss
+        me = probs.mean(dim=(0, 1))                                   # (E,)
+        ce = onehot.sum(dim=2).mean(dim=(0, 1))                       # fraction routed
+        aux = e * torch.sum(me * ce) + 1e-3 * torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+
+    if cfg.moe_dispatch == "index":
+        y = _moe_index_path(cfg, p, xn, idx, gate_vals, keep, pos_ce.long(), cap)
+    else:
+        with _span("moe.dispatch"):
+            slot = (pos_ce[..., None] == torch.arange(cap, device=x.device)).to(f32)
+            disp_flat = keep[..., None] * slot[:, :, None, :]                      # (B,kS,E,C)
+            dispatch = disp_flat.reshape(b, k, s, e, cap).transpose(1, 2)         # (B,S,k,E,C)
+            combine = (dispatch * gate_vals[..., None, None]).sum(dim=2)         # (B,S,E,C)
+            dispatch = dispatch.sum(dim=2)
+            xe = torch.einsum("bsec,bsm->ebcm", dispatch.to(x.dtype), xn)
+        ye = _experts(p, xe)
+        with _span("moe.combine"):
+            y = torch.einsum("bsec,ebcm->bsm", combine.to(x.dtype), ye)
+    return x + y, aux
 
 
 # ---------------------------------------------------------------------------

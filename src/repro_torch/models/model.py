@@ -9,13 +9,15 @@ they are; the reference scans that axis, this port loops over it).
 Block kinds ported so far:
   attn         dense attention (+MLP); window per cfg.attn_pattern
   local/global gemma3 5:1 interleave (sliding window vs full)
+  moe          attention (window per cfg.attn_pattern) + routed experts,
+               no MLP; its auxiliary loss is summed over the layers
   mamba        Mamba2 selective-SSM block (zamba2)
   shared_attn  zamba2's weight-shared attention block (one parameter set at
                params["shared_attn"], used by every such block; window
                cfg.window)
   mlstm/slstm  xLSTM blocks
-The kinds moe, enc and dec raise `NotImplementedError` naming the
-ROADMAP.md queue item that brings them.
+The kinds enc and dec raise `NotImplementedError` naming the ROADMAP.md
+queue item that brings them.
 
 Entry points: `init`, `train_logits`, `prefill` + `serve_step` (inference).
 Each takes `device`, which defaults to "cuda" and raises without a card; the
@@ -76,11 +78,10 @@ def stages(cfg: ModelConfig) -> List[Tuple[int, Tuple[str, ...]]]:
     raise ValueError(f"cannot derive stages for {cfg.name}")
 
 
-_ATTN_KINDS = ("attn", "local", "global", "shared_attn")
+_ATTN_KINDS = ("attn", "local", "global", "shared_attn", "moe")
 PORTED_KINDS = _ATTN_KINDS + ("mamba", "mlstm", "slstm")
 
 _QUEUE_ITEM = {
-    "moe": "Queue 1, moe slice (apply_moe)",
     "enc": "Queue 1, enc/dec + M-RoPE slice (encode, apply_cross_attention)",
     "dec": "Queue 1, enc/dec + M-RoPE slice (encode, apply_cross_attention)",
 }
@@ -125,6 +126,8 @@ def _init_blocks(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
         if cfg.d_ff:
             p["mlp"] = L.init_mlp(cfg, gen, **kw)
         return p
+    if kind == "moe":
+        return {"attn": L.init_attention(cfg, gen, **kw), "moe": L.init_moe(cfg, gen, **kw)}
     if kind == "shared_attn":
         return {}  # the parameters live once, at params["shared_attn"]
     if kind == "mamba":
@@ -137,9 +140,11 @@ def _init_blocks(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
 
 
 def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Random f32 master weights in the reference's layout, drawn from a
-    seeded `torch.Generator` on `device` (not the reference's numbers: parity
-    tests carry the reference's weights over with `convert.params_from_reference`)."""
+    """Random weights in the reference's layout, drawn from a seeded
+    `torch.Generator` on `device` (not the reference's numbers: parity tests
+    carry the reference's weights over with `convert.params_from_reference`).
+    f32 masters, except the MoE expert stacks, which are stored in the
+    compute dtype (`layers.init_moe`)."""
     device = require_device(device)
     require_ported(cfg)
     gen = torch.Generator(device=device)
@@ -236,21 +241,25 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
 
 def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
                  shared: Optional[Params], cache, cache_pos, cache_pos_max):
-    """Returns (x, cache); the cache views are updated in place."""
+    """Returns (x, cache, aux); the cache views are updated in place, and
+    aux is None for the kinds that have no auxiliary loss."""
     if kind in _ATTN_KINDS:
         w = _kind_window(cfg, kind)
         x, nc = L.apply_attention(cfg, shared if kind == "shared_attn" else p["attn"], x,
                                   positions, window=w, cache=cache, cache_pos=cache_pos,
                                   cache_pos_max=cache_pos_max)
+        if kind == "moe":
+            x, aux = L.apply_moe(cfg, p["moe"], x)
+            return x, nc, aux
         if "mlp" in p:
             x = L.apply_mlp(cfg, p["mlp"], x)
-        return x, nc
+        return x, nc, None
     if kind == "mamba":
-        return L.apply_mamba(cfg, p["mamba"], x, cache=cache)
+        return (*L.apply_mamba(cfg, p["mamba"], x, cache=cache), None)
     if kind == "mlstm":
-        return L.apply_mlstm(cfg, p["mlstm"], x, cache=cache)
+        return (*L.apply_mlstm(cfg, p["mlstm"], x, cache=cache), None)
     if kind == "slstm":
-        return L.apply_slstm(cfg, p["slstm"], x, cache=cache)
+        return (*L.apply_slstm(cfg, p["slstm"], x, cache=cache), None)
     raise NotImplementedError(
         f"block kind {kind!r} is not ported yet (ROADMAP.md: {_QUEUE_ITEM.get(kind, 'Queue 1')})")
 
@@ -265,8 +274,11 @@ def _layer(tree: Params, i: int) -> Params:
 def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
                 cache=None, cache_pos=None, cache_pos_max: int = 0):
     """Run every stage, layer by layer.  `cache`, when given, is updated in
-    place (each block writes into its layer's view).  Returns (x, cache)."""
+    place (each block writes into its layer's view).  Returns (x, cache,
+    aux), aux the sum of the blocks' auxiliary losses (an f32 scalar, or
+    None when no block has one)."""
     shared = params.get("shared_attn")
+    aux_total = None
     for si, (repeat, kinds) in enumerate(stages(cfg)):
         sp = params["stages"][si]
         scache = cache[si] if cache is not None else None
@@ -274,10 +286,12 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
             for j, kind in enumerate(kinds):
                 name = f"{kind}_{j}"
                 c_j = _layer(scache[name], i) if scache is not None else None
-                x, _ = _apply_block(cfg, kind, _layer(sp.get(name, {}), i), x, positions,
-                                    shared=shared, cache=c_j, cache_pos=cache_pos,
-                                    cache_pos_max=cache_pos_max)
-    return x, cache
+                x, _, aux = _apply_block(cfg, kind, _layer(sp.get(name, {}), i), x, positions,
+                                         shared=shared, cache=c_j, cache_pos=cache_pos,
+                                         cache_pos_max=cache_pos_max)
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
+    return x, cache, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +332,8 @@ def _tokens(batch: Dict[str, Any], device) -> torch.Tensor:
 
 def forward_hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any], device="cuda"):
     """Full-sequence forward.  Returns (hidden (B,S,M), aux); `aux` is the
-    auxiliary loss of the blocks, zero for every kind ported so far."""
+    sum of the blocks' auxiliary losses (the MoE load-balance and router
+    z-losses; zero for the other kinds)."""
     device = check_params_device(params, device)
     require_ported(cfg)
     tokens = _tokens(batch, device)
@@ -329,8 +344,10 @@ def forward_hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any], devi
         positions = default_positions(cfg, b, s, device=device)
     else:
         positions = torch.as_tensor(positions).to(device)
-    x, _ = _run_stages(cfg, params, x, positions)
-    return L.rms_norm(x, params["final_norm"]), torch.zeros((), device=device)
+    x, _, aux = _run_stages(cfg, params, x, positions)
+    if aux is None:
+        aux = torch.zeros((), device=device)
+    return L.rms_norm(x, params["final_norm"]), aux
 
 
 def train_logits(cfg: ModelConfig, params: Params, batch, device="cuda"):
@@ -356,7 +373,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     else:
         positions = torch.as_tensor(positions).to(device)
     cache = init_cache(cfg, b, cache_len or (s + 1), device=device)
-    x, cache = _run_stages(cfg, params, x, positions, cache=cache, cache_pos=0)
+    x, cache, _ = _run_stages(cfg, params, x, positions, cache=cache, cache_pos=0)
     h = L.rms_norm(x[:, -1:], params["final_norm"])
     return logits_head(cfg, params, h), cache
 
@@ -375,7 +392,7 @@ def serve_step(cfg: ModelConfig, params: Params, cache, tokens, pos, device="cud
     pos_dev = torch.as_tensor(pos_host.astype(np.int64), device=device)
     x = embed_tokens(cfg, params, tokens)
     positions = default_positions(cfg, b, 1, offset=pos_dev, device=device)
-    x, cache = _run_stages(cfg, params, x, positions, cache=cache, cache_pos=pos_dev,
-                           cache_pos_max=int(pos_host.max()))
+    x, cache, _ = _run_stages(cfg, params, x, positions, cache=cache, cache_pos=pos_dev,
+                              cache_pos_max=int(pos_host.max()))
     h = L.rms_norm(x, params["final_norm"])
     return logits_head(cfg, params, h), cache

@@ -316,3 +316,111 @@ def test_recurrent_blocks_match_reference(kind, regime, photonic):
     assert set(ct) == set(new_j)
     for name in ct:
         np.testing.assert_allclose(ct[name].numpy(), np.asarray(new_j[name]), **TOL_BLOCK)
+
+
+# ---------------------------------------------------------------------------
+# MoE (mixtral, grok-1)
+# ---------------------------------------------------------------------------
+
+
+def _moe_params(cfg, r, router_scale=1.0):
+    m, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return _np_tree({
+        "router": router_scale * r.standard_normal((m, e)) / np.sqrt(m),
+        "wi": r.standard_normal((e, m, f)) / np.sqrt(m),
+        "wg": r.standard_normal((e, m, f)) / np.sqrt(m),
+        "wo": r.standard_normal((e, f, m)) / np.sqrt(f),
+        "norm": 0.1 * r.standard_normal((m,))})
+
+
+def _moe_pair(arch, r, x_shape, router_scale=1.0, **kw):
+    jcfg, cfg = _cfgs(arch, **kw)
+    pj, pt = _both(_moe_params(cfg, r, router_scale))
+    x = r.standard_normal(x_shape).astype(np.float32)
+    y_t, aux_t = L.apply_moe(cfg, pt, _t(x))
+    y_j, aux_j = JL.apply_moe(jcfg, pj, jnp.asarray(x))
+    return cfg, (y_t, aux_t), (y_j, aux_j)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "grok1_314b"])
+@pytest.mark.parametrize("dispatch", ["einsum", "index"])
+@pytest.mark.parametrize("photonic", [False, True])
+def test_apply_moe_matches_reference(arch, dispatch, photonic):
+    """Output (with residual) and the load-balance + z-loss aux, both
+    dispatches, at the default capacity factor 1.25 (cap 15 slots for an
+    expected load of 12)."""
+    r = _rng(30, len(arch), len(dispatch), int(photonic))
+    cfg, (y_t, aux_t), (y_j, aux_j) = _moe_pair(
+        arch, r, (2, 24, 64), moe_dispatch=dispatch, use_photonic_mac=photonic)
+    assert tuple(y_t.shape) == (2, 24, cfg.d_model) and y_t.dtype == torch.float32
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL_BLOCK)
+    np.testing.assert_allclose(float(aux_t), float(aux_j), **TOL_BLOCK)
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "index"])
+def test_apply_moe_forced_drops_match_reference(dispatch):
+    """capacity_factor 0.5: 6 slots an expert for 12 expected choices, so
+    many second (and some first) choices are dropped, in choices-major
+    order.  The output differs from the no-drop one, so drops happened."""
+    r = _rng(31, len(dispatch))
+    _, (y_t, aux_t), (y_j, aux_j) = _moe_pair(
+        "mixtral_8x7b", r, (2, 24, 64), moe_dispatch=dispatch, capacity_factor=0.5)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL_BLOCK)
+    np.testing.assert_allclose(float(aux_t), float(aux_j), **TOL_BLOCK)
+    _, (y_full, _), _ = _moe_pair("mixtral_8x7b", _rng(31, len(dispatch)), (2, 24, 64),
+                                  moe_dispatch=dispatch, capacity_factor=8.0)
+    assert not np.allclose(y_t.numpy(), y_full.numpy(), **TOL_BLOCK)
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "index"])
+def test_apply_moe_tied_router_picks_the_lowest_experts(dispatch):
+    """Zero router weights: every probability ties, so every token's choices
+    are experts 0 and 1 (as `jax.lax.top_k` orders ties), and expert 0's
+    first choices overflow its 15 slots."""
+    r = _rng(32, len(dispatch))
+    _, (y_t, aux_t), (y_j, aux_j) = _moe_pair(
+        "mixtral_8x7b", r, (2, 24, 64), router_scale=0.0, moe_dispatch=dispatch)
+    _, idx = jax.lax.top_k(jnp.full((4,), 0.25), 2)
+    assert np.asarray(idx).tolist() == [0, 1]
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL_BLOCK)
+    np.testing.assert_allclose(float(aux_t), float(aux_j), **TOL_BLOCK)
+
+
+@pytest.mark.parametrize("row", [[0.1, .3, .3, .3, 0.0, .3, .3, .3], [0.2] * 5 + [0.0] * 3,
+                                 [0.5, 0.1, 0.5, 0.1, 0.5, 0.1, 0.5, 0.1]])
+def test_top_k_orders_ties_as_jax(row):
+    probs = np.asarray([row, row[::-1]], np.float32)
+    v_t, i_t = L.top_k(_t(probs), 2)
+    v_j, i_j = jax.lax.top_k(jnp.asarray(probs), 2)
+    assert i_t.numpy().tolist() == np.asarray(i_j).tolist()
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "index"])
+def test_moe_bf16_expert_storage_is_bit_identical_to_f32(dispatch):
+    """The expert stacks stored in bf16 (as `init_moe` stores them for a
+    bf16 model) give bit for bit the output of f32 masters that the block
+    casts to bf16 on use."""
+    _, cfg = _cfgs("mixtral_8x7b", dtype="bfloat16", moe_dispatch=dispatch)
+    r = _rng(33, len(dispatch))
+    p32 = {k: _t(v) for k, v in _moe_params(cfg, r).items()}
+    p16 = {k: (v.to(torch.bfloat16) if k in ("wi", "wg", "wo") else v) for k, v in p32.items()}
+    x = _t(r.standard_normal((2, 24, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    y32, aux32 = L.apply_moe(cfg, p32, x)
+    y16, aux16 = L.apply_moe(cfg, p16, x)
+    assert y16.dtype == torch.bfloat16
+    assert torch.equal(y32, y16) and torch.equal(aux32, aux16)
+
+
+def test_init_moe_stores_the_experts_in_the_compute_dtype():
+    m, f = 64, 128
+    for dtype, want in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        _, cfg = _cfgs("mixtral_8x7b", dtype=dtype)
+        gen = torch.Generator().manual_seed(0)
+        p = L.init_moe(cfg, gen, device="cpu", layers=3)
+        assert tuple(p["wi"].shape) == (3, 4, m, f) and tuple(p["wo"].shape) == (3, 4, f, m)
+        assert p["wi"].dtype == p["wg"].dtype == p["wo"].dtype == want
+        assert p["router"].dtype == p["norm"].dtype == torch.float32
+        assert abs(float(p["wg"].float().std()) - m ** -0.5) < 0.01
+        assert abs(float(p["wo"].float().std()) - f ** -0.5) < 0.01
+        assert not torch.equal(p["wi"][0], p["wi"][1])   # layers drawn independently

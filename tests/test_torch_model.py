@@ -90,6 +90,18 @@ CASES = {
     "xlstm": ("xlstm_350m", {}, 2, 24),
     "xlstm_photonic": ("xlstm_350m", {"use_photonic_mac": True}, 2, 24),
     "xlstm_kernels": ("xlstm_350m", {"use_photonic_mac": True, "use_kernels": True}, 1, 24),
+    # MoE: mixtral's window 32 here, so S = 40 keeps the last 32 positions
+    # at prefill and rolls in decode; both dispatches; forced drops (cap 10
+    # slots for 20 expected choices)
+    "mixtral": ("mixtral_8x7b", {}, 2, 40),
+    "mixtral_photonic": ("mixtral_8x7b", {"use_photonic_mac": True}, 2, 40),
+    "mixtral_index": ("mixtral_8x7b", {"moe_dispatch": "index"}, 2, 40),
+    "mixtral_drops": ("mixtral_8x7b", {"capacity_factor": 0.5}, 2, 40),
+    # tiled attention linears and the windowed flash kernel at S = 128 > 32
+    "mixtral_aligned_kernels": ("mixtral_8x7b", {**ALIGNED, "use_kernels": True}, 1, 128),
+    "grok1": ("grok1_314b", {}, 2, 24),
+    "grok1_index_photonic": ("grok1_314b", {"moe_dispatch": "index", "use_photonic_mac": True},
+                             2, 24),
 }
 
 
@@ -125,6 +137,46 @@ def test_prefill_and_three_serve_steps_match_reference(case):
     _assert_cache_close(cache_t, cache_j)
 
 
+@pytest.mark.parametrize("arch,kw", [("mixtral_8x7b", {}), ("grok1_314b", {}),
+                                     ("mixtral_8x7b", {"moe_dispatch": "index",
+                                                       "use_photonic_mac": True}),
+                                     ("yi_6b", {})])
+def test_forward_hidden_aux_matches_reference(arch, kw):
+    """The auxiliary loss summed over the layers: each MoE block's
+    load-balance loss plus 1e-3 of its router z-loss; zero without MoE."""
+    jcfg, jparams, cfg, params = _pair(arch, seed=4, **kw)
+    toks = _tokens(cfg, 2, 24, seed=4)
+    h_t, aux_t = M.forward_hidden(cfg, params, {"tokens": toks}, device="cpu")
+    h_j, aux_j = JM.forward_hidden(jcfg, jparams, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), **TOL)
+    assert aux_t.shape == () and aux_t.dtype == torch.float32
+    np.testing.assert_allclose(float(aux_t), float(aux_j), **TOL)
+    assert (float(aux_t) > 0) == (cfg.family == "moe")
+
+
+def test_moe_rolling_window_decode_matches_reference():
+    """The reference's `test_sliding_window_cache_rolls` setting (mixtral,
+    window 32, capacity factor 8, a 40-token prompt, 8 decode steps), step
+    by step against the reference and against the port's full forward."""
+    jcfg, jparams, cfg, params = _pair("mixtral_8x7b", seed=5, capacity_factor=8.0)
+    s, extra = 40, 8
+    toks = _tokens(cfg, 1, s + extra, seed=5)
+    _, cache_t = M.prefill(cfg, params, {"tokens": toks[:, :s]}, cache_len=s + extra,
+                           device="cpu")
+    _, cache_j = JM.prefill(jcfg, jparams, {"tokens": jnp.asarray(toks[:, :s])},
+                            cache_len=s + extra)
+    assert cache_t[0]["moe_0"]["k"].shape[3] == 32
+    for i in range(extra):
+        tok = toks[:, s + i:s + i + 1]
+        lg_t, cache_t = M.serve_step(cfg, params, cache_t, tok, s + i, device="cpu")
+        lg_j, cache_j = JM.serve_step(jcfg, jparams, cache_j, jnp.asarray(tok),
+                                      jnp.int32(s + i))
+        np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg_j), **TOL)
+    _assert_cache_close(cache_t, cache_j)
+    full = M.train_logits(cfg, params, {"tokens": toks}, device="cpu")[:, -1]
+    np.testing.assert_allclose(lg_t[:, 0].numpy(), full.numpy(), **TOL)
+
+
 def test_rolling_window_decode_matches_reference():
     """Local blocks keep a 32-long cache: decode past it, so those caches roll."""
     jcfg, jparams, cfg, params = _pair("gemma3_27b", seed=2, **LOCAL_GLOBAL)
@@ -147,10 +199,13 @@ def test_rolling_window_decode_matches_reference():
 
 @pytest.mark.parametrize("arch,kw", [("yi_6b", {}), ("gemma3_27b", {}),
                                      ("gemma3_27b", LOCAL_GLOBAL), ("zamba2_1p2b", {}),
-                                     ("xlstm_350m", {})])
+                                     ("xlstm_350m", {}),
+                                     ("mixtral_8x7b", {"capacity_factor": 8.0})])
 def test_prefill_plus_decode_equals_full_forward(arch, kw):
     """Inside the port: the last position's logits from a full forward equal
-    those of prefill(s-1) + one decode step (f32, no photonic numerics)."""
+    those of prefill(s-1) + one decode step (f32, no photonic numerics; MoE
+    with a capacity that drops nothing, since drops legitimately depend on
+    how many tokens route together)."""
     cfg = dataclasses.replace(C.get_reduced(arch), **kw)
     params = M.init(cfg, seed=3, device="cpu")
     b, s = 2, 33
@@ -197,7 +252,26 @@ def test_recurrent_init_and_cache_trees_match_reference(arch):
     _assert_cache_close(cache, jcache)
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x7b", "grok1_314b", "seamless_m4t_medium"])
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "grok1_314b"])
+def test_moe_init_and_cache_trees_match_reference(arch):
+    """MoE blocks hold attention and experts and no MLP, with the
+    reference's leaves, shapes and dtypes (f32 at the reduced size), and
+    keep a K/V cache of at most the window (mixtral 32, grok-1 unwindowed)."""
+    cfg, jcfg = C.get_reduced(arch), JC.get_reduced(arch)
+    p = M.init(cfg, seed=0, device="cpu")
+    jp, _ = JM.init(jcfg, jax.random.PRNGKey(0))
+    dt = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    assert (jax.tree.map(lambda t: (tuple(t.shape), dt[t.dtype]), p)
+            == jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jp))
+    assert set(p["stages"][0]["moe_0"]) == {"attn", "moe"}
+    cache = M.init_cache(cfg, 3, 48, device="cpu")
+    jcache, _ = JM.init_cache(jcfg, 3, 48)
+    assert (jax.tree.map(lambda t: (tuple(t.shape), dt[t.dtype]), cache)
+            == jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jcache))
+    assert cache[0]["moe_0"]["k"].shape[3] == (cfg.window or 48)
+
+
+@pytest.mark.parametrize("arch", ["seamless_m4t_medium"])
 def test_unported_kinds_raise(arch):
     cfg = C.get_reduced(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -210,3 +210,61 @@ def test_launch_serve_main_serves_the_recurrent_families_on_the_cpu(capsys, arch
     assert int(res["tokens"].min()) >= 0 and int(res["tokens"].max()) < 512
     assert bool(torch.isfinite(res["logits"]).all())
     assert "decode :" in capsys.readouterr().out
+
+
+def test_moe_continuous_batching_matches_the_reference_engine():
+    """mixtral through 2 slots at bucket 16, against the JAX engine.  Right
+    padding takes expert capacity (pad positions' first choices come before
+    the real tokens' second choices), so a request's numbers depend on its
+    bucket; the port reproduces the reference's engine, padding included.
+    The padded prefill of the first prompt changes the K/V of its real
+    positions in the second layer against an exact-length prefill, so this
+    run does exercise that."""
+    jcfg, jparams, cfg, params, prompts = _setup(arch="mixtral_8x7b")
+    jeng = JContinuousBatcher(jcfg, jparams, n_slots=2, max_len=MAX_LEN, prompt_bucket=16)
+    jreqs = [jeng.submit(p, mn) for p, mn in zip(prompts, MAX_NEWS)]
+    jeng.run()
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=MAX_LEN, prompt_bucket=16,
+                            device="cpu")
+    reqs = [eng.submit(p, mn) for p, mn in zip(prompts, MAX_NEWS)]
+    eng.run()
+    assert eng.bucket == 16 and eng.stats["prefill_tokens"] == 16 * len(prompts)
+    for p, r, jr, mn in zip(prompts, reqs, jreqs, MAX_NEWS):
+        assert r.done and len(r.out) == mn
+        assert r.out == jr.out, (p, r.out, jr.out)
+
+    core = prompts[0][:-1]
+    padded = np.zeros((1, 16), np.int64)
+    padded[0, :len(core)] = core
+    _, c_pad = M.prefill(cfg, params, {"tokens": padded}, cache_len=MAX_LEN, device="cpu")
+    _, c_exact = M.prefill(cfg, params, {"tokens": np.asarray([core])}, cache_len=MAX_LEN,
+                           device="cpu")
+    k_pad, k_exact = c_pad[0]["moe_0"]["k"], c_exact[0]["moe_0"]["k"]
+    n = len(core)
+    assert torch.allclose(k_pad[0, :, :, :n], k_exact[0, :, :, :n], rtol=1e-5, atol=1e-5)
+    assert not torch.allclose(k_pad[1, :, :, :n], k_exact[1, :, :, :n], rtol=1e-3, atol=1e-3)
+
+
+def test_launch_serve_main_serves_mixtral_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    res = serve.main(["--arch", "mixtral-8x7b", "--reduced", "--batch", "2", "--prompt-len",
+                      "16", "--max-new", "4", "--device", "cpu", "--photonic", "--kernels"])
+    assert tuple(res["tokens"].shape) == (2, 4)
+    assert int(res["tokens"].min()) >= 0 and int(res["tokens"].max()) < 512
+    assert bool(torch.isfinite(res["logits"]).all())
+    assert "decode :" in capsys.readouterr().out
+
+
+def test_launch_serve_main_takes_params_with_their_config():
+    """Weights built for a depth-cut config serve with that config, and
+    raise `ValueError` naming both layer counts with the `--arch` config."""
+    import dataclasses
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(C.get_reduced("mixtral_8x7b"), n_layers=3)
+    params = M.init(cfg, seed=0, device="cpu")
+    argv = ["--arch", "mixtral-8x7b", "--reduced", "--batch", "2", "--prompt-len", "16",
+            "--max-new", "2", "--device", "cpu"]
+    res = serve.main(argv, params=params, cfg=cfg)
+    assert tuple(res["tokens"].shape) == (2, 2)
+    with pytest.raises(ValueError, match=r"\[2\] layers, the parameters \[3\]"):
+        serve.main(argv, params=params)
