@@ -45,8 +45,13 @@ read and must equal the counts reckoned from the dispatch predicates in
 `kernels/ops.py`, and every kernel of that path must have launched.  After
 each path, `end_to_end` holds kernels-on against kernels-off logits of one
 prefill (in f32 for zamba2, xlstm and mixtral, whose routing or recurrence
-amplifies bf16 rounding; `E2E_TOLERANCE`).  The last lines are the `{"kernels": [...]}` summary, the card's
-name and power limit, and `{"ok": true, "device": {...}}`.
+amplifies bf16 rounding; `E2E_TOLERANCE`).  For mixtral it also counts the
+expert choices that differ between the two bf16 runs and holds the bf16
+logits with the plain run's choices, and it runs once more in f32 at 4224
+tokens, past the window (16 layers: `E2E_LONG`), where the plain version
+with the window off must fail the tolerance.  The last lines are the
+`{"kernels": [...]}` summary, the card's name and power limit, and
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ from repro_torch.kernels.photonic_mac import (  # noqa: E402
 from repro_torch.kernels import ssm_scan as SS  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve.engine import ContinuousBatcher  # noqa: E402
 
@@ -159,6 +165,12 @@ def time_ms(fn) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def excess(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    """How far the worst element of `got` lies outside `want`'s tolerance
+    (> 0: `compare` fails)."""
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
 
 
 def compare(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: str) -> dict:
@@ -335,18 +347,76 @@ def attn_bound_ms(b, hq, hk, sq, sk, d, dtype, causal, window, q_offset) -> dict
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _attn_other_order(q, k, v, want, plan, kw, what) -> dict:
-    """`attn_kernel_sm90` in the grid order its plan did not pick, held to
-    the same tolerance (so both of the kernel's maps from block to query
-    tile are checked)."""
+def _other_order_out(q, k, v, plan, kw) -> tuple:
+    """`attn_kernel_sm90`'s output in the grid order its plan did not pick,
+    and that plan."""
     b, hq, sq, d = q.shape
     other = dataclasses.replace(plan, heavy_first=not plan.heavy_first)
     out = torch.empty((b, hq, sq, d), dtype=torch.float32, device=DEV)
     _build.check_launch(FA._launch_sm90(q, k, v, out, d ** -0.5, kw["causal"], kw["window"],
                                         kw["q_offset"], other), "flash_attention (other order)")
+    return out, other
+
+
+def _attn_other_order(q, k, v, want, plan, kw, what) -> dict:
+    """`attn_kernel_sm90` in the grid order its plan did not pick, held to
+    the same tolerance (so both of the kernel's maps from block to query
+    tile are checked)."""
+    out, other = _other_order_out(q, k, v, plan, kw)
     return {**compare(out, want, 2e-2, 2e-2,
                       what + f", heavy_first={other.heavy_first}"),
             "kernel": "attn_kernel_sm90", "plan": other.as_dict()}
+
+
+# The tolerance that holds `attn_kernel_sm90` in the rows where the window
+# masks keys that causality keeps (`_window_checks`): no rtol, and an atol
+# between the kernel's own error there and what a wrong window moves (both
+# printed)
+WINDOW_ATOL = 1e-3
+
+
+def _window_checks(q, k, v, want, plan, window, what) -> list:
+    """At S > window with N(0,1) inputs a row past the window averages about
+    `window` values, so its outputs are about window^-0.5 (0.016 at 4096)
+    and bf16's 2e-2 would pass a kernel that ignored the window or skipped
+    a key tile.  So the rows past the window (the only rows where it masks
+    anything, and where its tiles are skipped) are held again:
+    `attn_kernel_sm90`, in both grid orders, to `WINDOW_ATOL` alone; the
+    FMA kernel, on the bf16 inputs and on the same values in f32, to
+    rtol = atol = 2e-5 over every row.  The plain version with the window
+    off, one 64-key tile short, and one key short or long must fail each of
+    these compares."""
+    kw = dict(causal=True, window=window, q_offset=0)
+    past = slice(window, None)                  # query rows past the window
+
+    def rows(t, sel):
+        return t[:, :, sel] if sel else t
+
+    controls = {f"window {w}": ref.attention_ref(q, k, v, window=w)
+                for w in (0, window - 64, window - 1, window + 1)}
+    other, other_plan = _other_order_out(q, k, v, plan, kw)
+    runs = [("attn_kernel_sm90, rows past the window",
+             flash_attention(q, k, v, window=window), past, 0.0, WINDOW_ATOL),
+            (f"attn_kernel_sm90 heavy_first={other_plan.heavy_first}, rows past the window",
+             other, past, 0.0, WINDOW_ATOL),
+            ("attn_kernel (FMA), bf16 inputs",
+             flash_attention(q, k, v, window=window, tensor_cores=False), None, 2e-5, 2e-5),
+            ("attn_kernel (FMA), the same values in f32",
+             flash_attention(q.float(), k.float(), v.float(), window=window), None, 2e-5, 2e-5)]
+    checks = []
+    for name, got, sel, rtol, atol in runs:
+        w = rows(want, sel)
+        row = {**compare(rows(got, sel), w, rtol, atol, f"{what}, window held, {name}"),
+               "all_rows_max_abs_err": float((got - want).abs().max()),
+               "plain_version_error_with_window": {
+                   c: float((rows(t, sel) - w).abs().max()) for c, t in controls.items()},
+               "plain_version_fails_with_window": {
+                   c: excess(rows(t, sel), w, rtol, atol) > 0 for c, t in controls.items()}}
+        if not all(row["plain_version_fails_with_window"].values()):
+            raise AssertionError(f"the window check cannot see a wrong window: {row}")
+        checks.append(row)
+    del controls, other, runs
+    return checks
 
 
 def _sdpa(q, kr, vr, window):
@@ -431,6 +501,8 @@ def check_flash_attention(gen) -> dict:
             checks.append(compare(flash_attention(q, k, v, window=window), want, 2e-2, 2e-2, what))
             checks.append(_attn_other_order(q, k, v, want, plan,
                                             dict(causal=True, window=window, q_offset=0), what))
+            if window and s > window:
+                checks += _window_checks(q, k, v, want, plan, window, what)
             del want
         else:   # the plain version would hold (128,H,128,128) f32 scores twice: check 4 rows
             out = flash_attention(q, k, v, window=window)
@@ -623,7 +695,11 @@ def phase_kernels(only: str | None = None) -> dict:
             "n_checks": len(attn["checks"]),
             "max_abs_err": max(c["max_abs_err"] for c in attn["checks"]),
             "max_rel_err": max(c["max_rel_err"] for c in attn["checks"]),
-            "tolerance": "f32 rtol=atol 2e-5; bf16 rtol=atol 2e-2",
+            "window_checks": [c for c in attn["checks"] if "window held" in c["what"]],
+            "tolerance": "f32 rtol=atol 2e-5; bf16 rtol=atol 2e-2; where the window masks "
+                         f"keys that causality keeps, also atol {WINDOW_ATOL} alone "
+                         "(attn_kernel_sm90, rows past the window) and rtol=atol 2e-5 "
+                         "(FMA kernel), which the plain version with a wrong window fails",
             "timed": attn["timed"]}
     if only in (None, "ssm_scan"):
         ssm = check_ssm_scan(gen)
@@ -859,28 +935,88 @@ def _prefill_pair(cfg, params, toks) -> tuple:
     return lg_k, lg_p, used
 
 
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _routed_prefill(cfg, params, toks, replay=None) -> tuple:
+    """Last-token logits of one prefill and the experts each MoE layer chose
+    (`layers.top_k`'s indices, (B,S,k) a layer, in layer order); with
+    `replay`, every layer takes those choices in place of its own, gated by
+    its own probabilities of them."""
+    chosen, own = [], L.top_k
+
+    def top_k(probs, k):
+        vals, idx = own(probs, k)
+        if replay is not None:
+            idx = replay[len(chosen)]
+            vals = probs.gather(-1, idx)
+        chosen.append(idx)
+        return vals, idx
+
+    L.top_k = top_k
+    try:
+        logits, _ = M.prefill(cfg, params, {"tokens": toks}, device=DEV)
+    finally:
+        L.top_k = own
+    return logits, chosen
+
+
+def _routing_flips(cfg, params, toks) -> dict:
+    """In the serving dtype: how many (token, choice) pairs each MoE layer
+    routes differently with the kernels than with their plain versions, the
+    first layer that does, and the kernels' logits again with every layer's
+    choices taken from the plain run, which must then agree as yi-6b's do
+    in bf16 (`E2E_TOLERANCE`), with the same argmax."""
+    lg_p, idx_p = _routed_prefill(dataclasses.replace(cfg, use_kernels=False), params, toks)
+    lg_k, idx_k = _routed_prefill(cfg, params, toks)
+    flips = [int((a != b).sum()) for a, b in zip(idx_k, idx_p)]
+    lg_f, _ = _routed_prefill(cfg, params, toks, replay=idx_p)
+    torch.cuda.synchronize()
+    out = {"routing_pairs_per_layer": idx_p[0].numel(), "routing_flips_by_layer": flips,
+           "first_layer_with_a_flip": next((i for i, n in enumerate(flips) if n), None),
+           "own_routing_max_rel_to_largest_logit": _rel(lg_k, lg_p),
+           "plain_routing_max_rel_to_largest_logit": _rel(lg_f, lg_p),
+           "plain_routing_argmax_equal": bool(lg_f.argmax() == lg_p.argmax()),
+           "plain_routing_tolerance": E2E_TOLERANCE["yi-6b"][1]}
+    assert (out["plain_routing_max_rel_to_largest_logit"] < out["plain_routing_tolerance"]
+            and out["plain_routing_argmax_equal"]), out
+    return out
+
+
 def phase_end_to_end(cfg, params, seq: int = 128) -> dict:
     """The same prefill with the CUDA kernels (same tiled quantization, plain
     matmul, attention and chunked scan otherwise) and with their plain
     versions, held to `E2E_TOLERANCE` of the largest logit, with the same
-    argmax."""
+    argmax.  Past the window, the plain versions with the window off must
+    fail that tolerance (so the check can see the window).  For an MoE model in the serving dtype, the routing
+    choices of both runs (`_routing_flips`)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 2)
     toks = torch.randint(2, cfg.vocab, (1, seq), generator=gen, device=DEV)
     dtype, tol = E2E_TOLERANCE[cfg.name]
-    lg_k, lg_p, used = _prefill_pair(dataclasses.replace(cfg, dtype=dtype), params, toks)
-    rel = float((lg_k - lg_p).abs().max() / lg_p.abs().max())
+    cfg_c = dataclasses.replace(cfg, dtype=dtype)
+    lg_k, lg_p, used = _prefill_pair(cfg_c, params, toks)
+    rel = _rel(lg_k, lg_p)
     top2 = torch.topk(lg_p[0, -1], 2).values
-    out = {"phase": "end_to_end", "model": cfg.name,
+    out = {"phase": "end_to_end", "model": cfg.name, "n_layers": cfg.n_layers,
            "what": f"last-token logits, kernels vs plain versions, B=1 S={seq}, {dtype}",
            "kernel_launches": used, "max_rel_to_largest_logit": rel, "tolerance": tol,
            "argmax_equal": bool(lg_k.argmax() == lg_p.argmax()),
            "plain_top2_gap_rel": float((top2[0] - top2[1]) / lg_p.abs().max())}
+    if cfg.window and seq > cfg.window:    # the check must see a wrong window
+        lg_w, _ = M.prefill(dataclasses.replace(cfg_c, window=0, use_kernels=False), params,
+                            {"tokens": toks}, device=DEV)
+        out["plain_window_off_max_rel_to_largest_logit"] = _rel(lg_w, lg_p)
+        assert out["plain_window_off_max_rel_to_largest_logit"] > tol, out
+        del lg_w
+    del lg_k, lg_p
     if dtype != cfg.dtype:     # the serving dtype too, for the record
         lg_k, lg_p, _ = _prefill_pair(cfg, params, toks)
-        out[f"{cfg.dtype}_max_rel_to_largest_logit"] = float(
-            (lg_k - lg_p).abs().max() / lg_p.abs().max())
+        out[f"{cfg.dtype}_max_rel_to_largest_logit"] = _rel(lg_k, lg_p)
         out[f"{cfg.dtype}_argmax_equal"] = bool(lg_k.argmax() == lg_p.argmax())
+        if cfg.family == "moe":
+            out[f"{cfg.dtype}_routing"] = _routing_flips(cfg, params, toks)
     emit(out)
     assert rel < tol and out["argmax_equal"], out
     return out
@@ -1002,6 +1138,10 @@ PATHS = [
 # a layer, so 24 layers (72.7 GB of weights with the f32 attention, embedding
 # and head) leave room for batch-128 transients on an 80 GB card
 DEPTH = {"mixtral_8x7b": 24}
+# the f32 end-to-end check past the window (config id -> (tokens, layers)):
+# the plain attention's f32 scores at 4224 tokens take about 9 GB, which 24
+# layers of weights do not leave, so that model is built again at 16 layers
+E2E_LONG = {"mixtral_8x7b": (4224, 16)}
 
 
 def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
@@ -1048,6 +1188,14 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    if cfg_id in E2E_LONG:
+        seq, depth = E2E_LONG[cfg_id]
+        cut = dataclasses.replace(cfg, n_layers=depth)
+        params = M.init(cut, seed=SEED, device=DEV)
+        phase_end_to_end(cut, params, seq)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 

@@ -56,25 +56,13 @@ def serve_batch(cfg, params, prompts: torch.Tensor, max_new: int, device) -> dic
             "prefill_tokens": b * s, "decode_tokens": b * (max_new - 1)}
 
 
-def _stage_depths(params) -> list:
-    """The layer count of each stage of a parameter tree (the leading axis
-    of its stacked leaves)."""
-    def leaves(tree):
-        if isinstance(tree, dict):
-            for v in tree.values():
-                yield from leaves(v)
-        else:
-            yield tree
-    return [next(leaves(sp)).shape[0] for sp in params["stages"]]
-
-
 def main(argv: Optional[Sequence[str]] = None, params=None, cfg=None) -> dict:
     """Parse the flags, build the model, serve one batch and report.
 
     `params` may be weights already built on the device; `cfg` is then their
     config (default: the `--arch` config).  A config whose stage layout
     differs from the weights' (a depth-cut model handed over with the
-    published config) raises `ValueError`.  `--photonic` and `--kernels`
+    published config) raises `ValueError` (`model.check_params_layout`).  `--photonic` and `--kernels`
     set the numerics of either config."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -97,11 +85,7 @@ def main(argv: Optional[Sequence[str]] = None, params=None, cfg=None) -> dict:
     if params is None:
         params = M.init(cfg, seed=args.seed, device=device)
     else:
-        want = [repeat for repeat, _ in M.stages(cfg)]
-        have = _stage_depths(params)
-        if have != want:
-            raise ValueError(f"{cfg.name}: the config has stages of {want} layers, "
-                             f"the parameters {have}")
+        M.check_params_layout(cfg, params)
 
     b, s = args.batch, args.prompt_len
     gen = torch.Generator(device=device)

@@ -40,14 +40,13 @@ Params = Dict[str, Any]
 
 def _dense_init(gen: torch.Generator, shape, in_axes=(0,), *, device, layers: int = 0,
                 dtype: torch.dtype = torch.float32):
-    """N(0, 1/fan_in) weights; with `layers`, that many independent draws
-    stacked on a leading axis.  In f32 the stack is drawn as one tensor; in
-    another `dtype`, one layer at a time in f32 and cast into a preallocated
-    stack, so that no f32 copy of the whole stack ever exists."""
+    """N(0, 1/fan_in) weights in `dtype`; with `layers`, that many
+    independent draws stacked on a leading axis, each drawn in f32 and cast
+    into a preallocated stack, so that no f32 copy of a whole stack in
+    another dtype ever exists."""
     fan_in = max(1, math.prod(shape[a] for a in in_axes))
-    if dtype == torch.float32 or not layers:
-        full = ((layers,) if layers else ()) + tuple(shape)
-        w = torch.randn(full, generator=gen, device=device, dtype=torch.float32)
+    if not layers:
+        w = torch.randn(tuple(shape), generator=gen, device=device, dtype=torch.float32)
         return w.div_(math.sqrt(fan_in)).to(dtype)
     out = torch.empty((layers,) + tuple(shape), device=device, dtype=dtype)
     for i in range(layers):

@@ -187,6 +187,26 @@ def check_params_device(params: Params, device) -> torch.device:
     return have
 
 
+def _stack_depth(tree: Params) -> Optional[int]:
+    """The leading (layer) axis of the first leaf of a layer-stacked tree."""
+    for v in tree.values():
+        d = _stack_depth(v) if isinstance(v, dict) else v.shape[0]
+        if d is not None:
+            return d
+    return None
+
+
+def check_params_layout(cfg: ModelConfig, params: Params) -> None:
+    """Require that `params` hold, stage by stage, the layer counts of
+    `cfg`'s layout (`stages`), so that weights built for a depth-cut config
+    and run with another raise here, naming both, and not deep in `_layer`."""
+    want = [repeat for repeat, _ in stages(cfg)]
+    have = [_stack_depth(sp) for sp in params["stages"]]
+    if have != want:
+        raise ValueError(f"{cfg.name}: the config has stages of {want} layers, "
+                         f"the parameters {have}")
+
+
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
@@ -276,7 +296,9 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
     """Run every stage, layer by layer.  `cache`, when given, is updated in
     place (each block writes into its layer's view).  Returns (x, cache,
     aux), aux the sum of the blocks' auxiliary losses (an f32 scalar, or
-    None when no block has one)."""
+    None when no block has one).  Weights whose layout is not `cfg`'s raise
+    `ValueError` (`check_params_layout`)."""
+    check_params_layout(cfg, params)
     shared = params.get("shared_attn")
     aux_total = None
     for si, (repeat, kinds) in enumerate(stages(cfg)):

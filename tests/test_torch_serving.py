@@ -268,3 +268,25 @@ def test_launch_serve_main_takes_params_with_their_config():
     assert tuple(res["tokens"].shape) == (2, 2)
     with pytest.raises(ValueError, match=r"\[2\] layers, the parameters \[3\]"):
         serve.main(argv, params=params)
+
+
+@pytest.mark.parametrize("entry", ["prefill", "serve_step", "forward_hidden", "batcher"])
+def test_every_entry_point_refuses_params_of_another_layout(entry):
+    """Weights of a 3-layer mixtral run with the 2-layer config raise the same
+    `ValueError` from every entry point that runs the layers."""
+    import dataclasses
+    cfg = C.get_reduced("mixtral_8x7b")
+    params = M.init(dataclasses.replace(cfg, n_layers=3), seed=0, device="cpu")
+    toks = np.full((1, 8), 3, np.int64)
+    with pytest.raises(ValueError, match=r"\[2\] layers, the parameters \[3\]"):
+        if entry == "prefill":
+            M.prefill(cfg, params, {"tokens": toks}, device="cpu")
+        elif entry == "serve_step":
+            cache = M.init_cache(cfg, 1, 16, device="cpu")
+            M.serve_step(cfg, params, cache, toks[:, :1], 0, device="cpu")
+        elif entry == "forward_hidden":
+            M.forward_hidden(cfg, params, {"tokens": toks}, device="cpu")
+        else:
+            eng = ContinuousBatcher(cfg, params, n_slots=1, max_len=32, device="cpu")
+            eng.submit(toks[0].tolist(), 2)
+            eng.run()
