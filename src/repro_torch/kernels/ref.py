@@ -17,10 +17,17 @@ NEG_INF = -1e30
 
 def dequantize_ref(w_q: torch.Tensor, w_scale: torch.Tensor,
                    bk: int = 128, bn: int = 128) -> torch.Tensor:
-    """int levels (K,N) times the per-tile scale on the ceil grid -> f32."""
+    """int levels (K,N) times the per-tile scale on the ceil grid -> f32.
+    When K fills whole banks the product is taken in place, bank row by
+    bank row, so that the only (K,N) f32 tensor is the result (qwen2-vl's
+    head is 5 GB in f32)."""
     k, n = w_q.shape
-    scale_full = w_scale.repeat_interleave(bk, dim=0).repeat_interleave(bn, dim=1)
-    return w_q.to(torch.float32) * scale_full[:k, :n]
+    kt = w_scale.shape[0]
+    col_scale = w_scale.repeat_interleave(bn, dim=1)[:, :n]          # (K/bk, N)
+    w = w_q.to(torch.float32)
+    if k == kt * bk:
+        return w.view(kt, bk, n).mul_(col_scale[:, None, :]).view(k, n)
+    return w.mul_(col_scale.repeat_interleave(bk, dim=0)[:k])
 
 
 def photonic_mac_ref(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,

@@ -28,17 +28,30 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve_batch(cfg, params, prompts: torch.Tensor, max_new: int, device) -> dict:
+def serve_batch(cfg, params, prompts: torch.Tensor, max_new: int, device,
+                enc_embeds: Optional[torch.Tensor] = None) -> dict:
     """Prefill `prompts` (B,S) and decode `max_new` tokens greedily.  Returns
-    the generated ids (B,max_new), the last logits and the phase times."""
+    the generated ids (B,max_new), the last logits and the phase times.
+
+    An encoder-decoder config takes `enc_embeds` (B,Se,M): as in the
+    reference, the encoder runs once before the timed prefill for the
+    decode steps' `enc_out`, and once more inside the prefill.  An M-RoPE
+    config prefills with equal (3,B,S) position streams."""
     device = torch.device(device)
     b, s = prompts.shape
     cache_len = s + max_new
+    batch = {"tokens": prompts}
+    if cfg.mrope:
+        pos = torch.arange(s, dtype=torch.int32, device=device)
+        batch["positions"] = pos[None, None].expand(3, b, s)
+    enc_out = None
+    if enc_embeds is not None:
+        batch["enc_embeds"] = enc_embeds
+        enc_out = M.encode(cfg, params, enc_embeds, device=device)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = M.prefill(cfg, params, {"tokens": prompts}, cache_len=cache_len,
-                              device=device)
+    logits, cache = M.prefill(cfg, params, batch, cache_len=cache_len, device=device)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -46,7 +59,8 @@ def serve_batch(cfg, params, prompts: torch.Tensor, max_new: int, device) -> dic
     out_tokens = [tok]
     t0 = time.perf_counter()
     for i in range(max_new - 1):
-        logits, cache = M.serve_step(cfg, params, cache, tok, s + i, device=device)
+        logits, cache = M.serve_step(cfg, params, cache, tok, s + i, enc_out=enc_out,
+                                     device=device)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         out_tokens.append(tok)
     _sync(device)
@@ -91,8 +105,12 @@ def main(argv: Optional[Sequence[str]] = None, params=None, cfg=None) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed + 1)
     prompts = torch.randint(2, cfg.vocab, (b, s), generator=gen, device=device)
+    enc_embeds = None
+    if cfg.encoder_layers:   # the audio frontend's frames: S // 4 of them
+        enc_embeds = torch.randn((b, max(1, s // 4), cfg.d_model), generator=gen,
+                                 device=device)
 
-    res = serve_batch(cfg, params, prompts, args.max_new, device)
+    res = serve_batch(cfg, params, prompts, args.max_new, device, enc_embeds=enc_embeds)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"device : {where}")
     print(f"prefill: {res['prefill_s']*1e3:.1f} ms for {b}x{s} tokens "

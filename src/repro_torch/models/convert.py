@@ -21,6 +21,7 @@ Params = Dict[str, Any]
 
 _BLOCK_LEAVES = {
     "attn": ("wq", "wk", "wv", "wo", "norm"),
+    "cross": ("wq", "wk", "wv", "wo", "norm"),
     "mlp": ("wi", "wg", "wo", "norm"),
     "moe": ("router", "wi", "wg", "wo", "norm"),
     "mamba": ("in_proj", "conv", "A_log", "D", "dt_bias", "out_proj", "norm", "gate_norm"),
@@ -32,8 +33,10 @@ _BLOCK_LEAVES = {
 def _subs(cfg: ModelConfig, kind: str):
     """The parameter groups a block of `kind` holds (shared_attn holds none:
     its parameters live once, at the top of the tree)."""
-    if kind in ("attn", "local", "global"):
+    if kind in ("attn", "local", "global", "enc"):
         return ("attn", "mlp") if cfg.d_ff else ("attn",)
+    if kind == "dec":
+        return ("attn", "cross", "mlp")
     if kind == "moe":
         return ("attn", "moe")
     if kind == "shared_attn":
@@ -48,14 +51,27 @@ def _leaf(a, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
+def _blocks(cfg: ModelConfig, kind: str, src: Params, repeat: int, where: str,
+            device, dtype) -> Params:
+    """`repeat` blocks of `kind` from the reference's layer-stacked tree."""
+    block = {}
+    for sub in _subs(cfg, kind):
+        block[sub] = {}
+        for leaf in _BLOCK_LEAVES[sub]:
+            t = _leaf(src[sub][leaf], device, dtype)
+            if t.shape[0] != repeat:
+                raise ValueError(f"{cfg.name}: {where}.{sub}.{leaf} has "
+                                 f"{t.shape[0]} layers, expected {repeat}")
+            block[sub][leaf] = t
+    return block
+
+
 def params_from_reference(cfg: ModelConfig, np_params: Params, device="cuda",
                           dtype: Optional[torch.dtype] = None) -> Params:
     """The port's parameter tree from the reference's, given as numpy arrays.
 
-    Raises `NotImplementedError` for a config with block kinds that are not
-    ported, and `ValueError` when the tree does not match the config."""
+    Raises `ValueError` when the tree does not match the config."""
     device = require_device(device)
-    M.require_ported(cfg)
     layout = M.stages(cfg)
     if len(np_params["stages"]) != len(layout):
         raise ValueError(f"{cfg.name}: expected {len(layout)} stages, "
@@ -71,18 +87,14 @@ def params_from_reference(cfg: ModelConfig, np_params: Params, device="cuda",
                               for leaf in _BLOCK_LEAVES["attn"]}
     out["stages"] = []
     for (repeat, kinds), src in zip(layout, np_params["stages"]):
-        sp = {}
-        for j, kind in enumerate(kinds):
-            name = f"{kind}_{j}"
-            block = {}
-            for sub in _subs(cfg, kind):
-                block[sub] = {}
-                for leaf in _BLOCK_LEAVES[sub]:
-                    t = _leaf(src[name][sub][leaf], device, dtype)
-                    if t.shape[0] != repeat:
-                        raise ValueError(f"{cfg.name}: {name}.{sub}.{leaf} has "
-                                         f"{t.shape[0]} layers, expected {repeat}")
-                    block[sub][leaf] = t
-            sp[name] = block
-        out["stages"].append(sp)
+        out["stages"].append({f"{kind}_{j}": _blocks(cfg, kind, src[f"{kind}_{j}"], repeat,
+                                                     f"{kind}_{j}", device, dtype)
+                              for j, kind in enumerate(kinds)})
+    if cfg.encoder_layers:
+        # the reference stacks the encoder's blocks with no `enc_0` level
+        # (its `encode` wraps them in one)
+        enc = np_params["encoder"]
+        out["encoder"] = {"blocks": _blocks(cfg, "enc", enc["blocks"], cfg.encoder_layers,
+                                            "encoder.blocks", device, dtype),
+                          "norm": _leaf(enc["norm"], device, dtype)}
     return out

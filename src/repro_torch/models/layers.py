@@ -1,5 +1,6 @@
 """Building blocks of the dense, local-global, MoE, hybrid (Mamba2 + shared
-attention) and xLSTM architecture families.
+attention), xLSTM, vision-language (M-RoPE) and encoder-decoder
+architecture families.
 
 Plain functions over explicit parameter dicts of tensors.  Each `init_*`
 returns the parameters of one block; each `apply_*` takes `(cfg, params, x,
@@ -14,9 +15,6 @@ the paper's compute engine as a first-class model feature.
 The recurrent blocks (`apply_mamba`, `apply_mlstm`, `apply_slstm`) take a
 cache of views into the model's layer-stacked buffers and write their new
 state into it in place (`copy_`), as `apply_attention` does with K/V.
-
-The cross-attention block and the M-RoPE position streams are not ported
-yet; see ROADMAP.md, Queue 1.
 """
 
 from __future__ import annotations
@@ -94,7 +92,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE (+ M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -239,6 +237,32 @@ def decode_attention(q, k, v, pos, *, window: int = 0):
     pm = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", pm, v.to(torch.float32))
     return out.reshape(b, h, sq, dh)
+
+
+def init_cross_attention(cfg: ModelConfig, gen: torch.Generator, *, device,
+                         layers: int = 0) -> Params:
+    """The decoder's cross-attention: the leaves of an attention block."""
+    return init_attention(cfg, gen, device=device, layers=layers)
+
+
+def apply_cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                          enc_out: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention with residual: queries from rms_norm(x), keys
+    and values from `enc_out` (B, Se, M) with no norm and no RoPE, attention
+    with no mask.  K and V are projected from `enc_out` on every call,
+    decode steps included: the reference keeps no cross-attention cache."""
+    b, s, m = x.shape
+    se = enc_out.shape[1]
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    xn = rms_norm(x, p["norm"])
+    q = linear(cfg, p["wq"].reshape(m, h * dh), xn).reshape(b, s, h, dh)
+    k = linear(cfg, p["wk"].reshape(m, hk * dh), enc_out).reshape(b, se, hk, dh)
+    v = linear(cfg, p["wv"].reshape(m, hk * dh), enc_out).reshape(b, se, hk, dh)
+    with _span("cross_attention"):
+        out = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1),
+                            False, 0, None, 0, cfg.use_kernels)
+    out = out.to(x.dtype).movedim(1, 2).reshape(b, s, h * dh)
+    return x + linear(cfg, p["wo"].reshape(h * dh, m), out)
 
 
 # ---------------------------------------------------------------------------

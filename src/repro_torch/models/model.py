@@ -6,7 +6,7 @@ An architecture is a sequence of *stages*; each stage is `(repeat, kinds)`:
 (the reference's layout, kept so that weights cross between the packages as
 they are; the reference scans that axis, this port loops over it).
 
-Block kinds ported so far:
+Block kinds:
   attn         dense attention (+MLP); window per cfg.attn_pattern
   local/global gemma3 5:1 interleave (sliding window vs full)
   moe          attention (window per cfg.attn_pattern) + routed experts,
@@ -16,10 +16,12 @@ Block kinds ported so far:
                params["shared_attn"], used by every such block; window
                cfg.window)
   mlstm/slstm  xLSTM blocks
-The kinds enc and dec raise `NotImplementedError` naming the ROADMAP.md
-queue item that brings them.
+  enc / dec    encoder (bidirectional attention + MLP) / decoder (causal
+               self-attention with a cache, cross-attention to the
+               encoder's output, MLP); seamless
 
-Entry points: `init`, `train_logits`, `prefill` + `serve_step` (inference).
+Entry points: `init`, `train_logits`, `prefill` + `serve_step` (inference),
+`encode` (enc-dec).
 Each takes `device`, which defaults to "cuda" and raises without a card; the
 CPU is used only on request.  The serving cache is updated in place.
 """
@@ -78,26 +80,8 @@ def stages(cfg: ModelConfig) -> List[Tuple[int, Tuple[str, ...]]]:
     raise ValueError(f"cannot derive stages for {cfg.name}")
 
 
-_ATTN_KINDS = ("attn", "local", "global", "shared_attn", "moe")
-PORTED_KINDS = _ATTN_KINDS + ("mamba", "mlstm", "slstm")
-
-_QUEUE_ITEM = {
-    "enc": "Queue 1, enc/dec + M-RoPE slice (encode, apply_cross_attention)",
-    "dec": "Queue 1, enc/dec + M-RoPE slice (encode, apply_cross_attention)",
-}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` if `cfg` needs a block kind not ported yet."""
-    for _, kinds in stages(cfg):
-        for kind in kinds:
-            if kind not in PORTED_KINDS:
-                raise NotImplementedError(
-                    f"{cfg.name}: block kind {kind!r} is not ported to repro_torch yet "
-                    f"(ROADMAP.md: {_QUEUE_ITEM.get(kind, 'Queue 1')})")
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder is not ported yet (ROADMAP.md: {_QUEUE_ITEM['enc']})")
+# the kinds that hold an attention block and keep a K/V cache
+_ATTN_KINDS = ("attn", "local", "global", "shared_attn", "moe", "enc", "dec")
 
 
 def _kind_window(cfg: ModelConfig, kind: str) -> int:
@@ -121,7 +105,7 @@ def _init_blocks(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
                  repeat: int) -> Params:
     """`repeat` blocks of one kind, leaves stacked on a leading layer axis."""
     kw = {"device": device, "layers": repeat}
-    if kind in ("attn", "local", "global"):
+    if kind in ("attn", "local", "global", "enc"):
         p = {"attn": L.init_attention(cfg, gen, **kw)}
         if cfg.d_ff:
             p["mlp"] = L.init_mlp(cfg, gen, **kw)
@@ -136,7 +120,11 @@ def _init_blocks(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
         return {"mlstm": L.init_mlstm(cfg, gen, **kw)}
     if kind == "slstm":
         return {"slstm": L.init_slstm(cfg, gen, **kw)}
-    raise NotImplementedError(kind)
+    if kind == "dec":
+        return {"attn": L.init_attention(cfg, gen, **kw),
+                "cross": L.init_cross_attention(cfg, gen, **kw),
+                "mlp": L.init_mlp(cfg, gen, **kw)}
+    raise ValueError(kind)
 
 
 def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
@@ -146,7 +134,6 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     f32 masters, except the MoE expert stacks, which are stored in the
     compute dtype (`layers.init_moe`)."""
     device = require_device(device)
-    require_ported(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     emb_scale = cfg.d_model ** -0.5
@@ -165,6 +152,9 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         p["stages"].append(sp)
     if has_shared_attn(cfg):
         p["shared_attn"] = L.init_attention(cfg, gen, device=device)
+    if cfg.encoder_layers:
+        p["encoder"] = {"blocks": _init_blocks(cfg, "enc", gen, device, cfg.encoder_layers),
+                        "norm": torch.zeros((cfg.d_model,), device=device)}
     return p
 
 
@@ -198,13 +188,18 @@ def _stack_depth(tree: Params) -> Optional[int]:
 
 def check_params_layout(cfg: ModelConfig, params: Params) -> None:
     """Require that `params` hold, stage by stage, the layer counts of
-    `cfg`'s layout (`stages`), so that weights built for a depth-cut config
-    and run with another raise here, naming both, and not deep in `_layer`."""
+    `cfg`'s layout (`stages`) and its encoder's depth, so that weights built
+    for a depth-cut config and run with another raise here, naming both, and
+    not deep in `_layer`."""
     want = [repeat for repeat, _ in stages(cfg)]
     have = [_stack_depth(sp) for sp in params["stages"]]
     if have != want:
         raise ValueError(f"{cfg.name}: the config has stages of {want} layers, "
                          f"the parameters {have}")
+    enc = _stack_depth(params["encoder"]["blocks"]) if "encoder" in params else 0
+    if enc != cfg.encoder_layers:
+        raise ValueError(f"{cfg.name}: the config has {cfg.encoder_layers} encoder layers, "
+                         f"the parameters {enc}")
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +231,7 @@ def _kind_cache(cfg: ModelConfig, kind: str, repeat: int, batch: int, cache_len:
         m = cfg.d_model
         return {"h": zeros(batch, m), "c": zeros(batch, m), "n": zeros(batch, m),
                 "m": zeros(batch, m).fill_(-10.0)}
-    raise NotImplementedError(kind)
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
@@ -246,7 +241,6 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
     most `window` positions; mamba {'state' f32, 'conv'}; mlstm {'C','n'}
     f32 with batch*heads fused; slstm {'h','c','n','m'} f32, 'm' at -10."""
     device = require_device(device)
-    require_ported(cfg)
     cache = []
     for repeat, kinds in stages(cfg):
         cache.append({f"{kind}_{j}": _kind_cache(cfg, kind, repeat, batch, cache_len, device)
@@ -260,9 +254,19 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
 
 
 def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
-                 shared: Optional[Params], cache, cache_pos, cache_pos_max):
+                 shared: Optional[Params], cache, cache_pos, cache_pos_max, enc_out):
     """Returns (x, cache, aux); the cache views are updated in place, and
-    aux is None for the kinds that have no auxiliary loss."""
+    aux is None for the kinds that have no auxiliary loss.  `enc` and `dec`
+    come first: both are attention kinds, and the generic branch below
+    would drop the decoder's cross-attention."""
+    if kind == "enc":
+        x, _ = L.apply_attention(cfg, p["attn"], x, positions, causal=False)
+        return L.apply_mlp(cfg, p["mlp"], x), None, None
+    if kind == "dec":
+        x, nc = L.apply_attention(cfg, p["attn"], x, positions, cache=cache,
+                                  cache_pos=cache_pos, cache_pos_max=cache_pos_max)
+        x = L.apply_cross_attention(cfg, p["cross"], x, enc_out)
+        return L.apply_mlp(cfg, p["mlp"], x), nc, None
     if kind in _ATTN_KINDS:
         w = _kind_window(cfg, kind)
         x, nc = L.apply_attention(cfg, shared if kind == "shared_attn" else p["attn"], x,
@@ -280,8 +284,7 @@ def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
         return (*L.apply_mlstm(cfg, p["mlstm"], x, cache=cache), None)
     if kind == "slstm":
         return (*L.apply_slstm(cfg, p["slstm"], x, cache=cache), None)
-    raise NotImplementedError(
-        f"block kind {kind!r} is not ported yet (ROADMAP.md: {_QUEUE_ITEM.get(kind, 'Queue 1')})")
+    raise ValueError(kind)
 
 
 def _layer(tree: Params, i: int) -> Params:
@@ -292,8 +295,9 @@ def _layer(tree: Params, i: int) -> Params:
 
 
 def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
-                cache=None, cache_pos=None, cache_pos_max: int = 0):
-    """Run every stage, layer by layer.  `cache`, when given, is updated in
+                cache=None, cache_pos=None, cache_pos_max: int = 0, enc_out=None):
+    """Run every stage, layer by layer; `dec` blocks attend to `enc_out`.
+    `cache`, when given, is updated in
     place (each block writes into its layer's view).  Returns (x, cache,
     aux), aux the sum of the blocks' auxiliary losses (an f32 scalar, or
     None when no block has one).  Weights whose layout is not `cfg`'s raise
@@ -310,7 +314,7 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
                 c_j = _layer(scache[name], i) if scache is not None else None
                 x, _, aux = _apply_block(cfg, kind, _layer(sp.get(name, {}), i), x, positions,
                                          shared=shared, cache=c_j, cache_pos=cache_pos,
-                                         cache_pos_max=cache_pos_max)
+                                         cache_pos_max=cache_pos_max, enc_out=enc_out)
                 if aux is not None:
                     aux_total = aux if aux_total is None else aux_total + aux
     return x, cache, aux_total
@@ -335,12 +339,45 @@ def default_positions(cfg: ModelConfig, batch: int, seq: int, offset=0, device="
     """offset: scalar, or (B,) vector (continuous batching: per-slot positions)."""
     if cfg.mrope:
         raise NotImplementedError(
-            "M-RoPE positions are not ported yet (ROADMAP.md: " + _QUEUE_ITEM["enc"] + ")")
+            "M-RoPE positions are not ported yet (ROADMAP.md: Queue 1, enc/dec + M-RoPE slice)")
     off = torch.as_tensor(offset, dtype=torch.int32, device=device)
     if off.ndim == 1:
         off = off[:, None]
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + off
     return torch.broadcast_to(pos, (batch, seq))
+
+
+# ---------------------------------------------------------------------------
+# encoder (seamless)
+# ---------------------------------------------------------------------------
+
+
+def encode(cfg: ModelConfig, params: Params, enc_embeds, device="cuda") -> torch.Tensor:
+    """enc_embeds: precomputed audio-frontend frames (B, Se, M), a tensor or
+    numpy array (the modality frontend is a stub, as in the reference).
+    Positions 0 .. Se-1, the encoder blocks layer by layer, then the
+    encoder's norm.  Returns enc_out (B, Se, M) in the compute dtype."""
+    device = check_params_device(params, device)
+    check_params_layout(cfg, params)
+    x = torch.as_tensor(enc_embeds).to(device=device, dtype=L.compute_dtype(cfg))
+    b, se, _ = x.shape
+    positions = torch.arange(se, dtype=torch.int32, device=device)[None].expand(b, se)
+    blocks = params["encoder"]["blocks"]
+    with L._span("encode"):
+        for i in range(cfg.encoder_layers):
+            x, _, _ = _apply_block(cfg, "enc", _layer(blocks, i), x, positions, shared=None,
+                                   cache=None, cache_pos=None, cache_pos_max=0, enc_out=None)
+        return L.rms_norm(x, params["encoder"]["norm"])
+
+
+def _batch_enc_out(cfg: ModelConfig, params: Params, batch: Dict[str, Any], device):
+    """The encoder's output for `batch["enc_embeds"]`, or None without an
+    encoder."""
+    if not cfg.encoder_layers:
+        return None
+    if batch.get("enc_embeds") is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder config needs batch['enc_embeds']")
+    return encode(cfg, params, batch["enc_embeds"], device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -355,9 +392,9 @@ def _tokens(batch: Dict[str, Any], device) -> torch.Tensor:
 def forward_hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any], device="cuda"):
     """Full-sequence forward.  Returns (hidden (B,S,M), aux); `aux` is the
     sum of the blocks' auxiliary losses (the MoE load-balance and router
-    z-losses; zero for the other kinds)."""
+    z-losses; zero for the other kinds).  An encoder-decoder config encodes
+    `batch["enc_embeds"]` first."""
     device = check_params_device(params, device)
-    require_ported(cfg)
     tokens = _tokens(batch, device)
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
@@ -366,7 +403,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any], devi
         positions = default_positions(cfg, b, s, device=device)
     else:
         positions = torch.as_tensor(positions).to(device)
-    x, _, aux = _run_stages(cfg, params, x, positions)
+    enc_out = _batch_enc_out(cfg, params, batch, device)
+    x, _, aux = _run_stages(cfg, params, x, positions, enc_out=enc_out)
     if aux is None:
         aux = torch.zeros((), device=device)
     return L.rms_norm(x, params["final_norm"]), aux
@@ -383,9 +421,10 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
             cache_len: Optional[int] = None, device="cuda"):
     """Run the full prompt, return (last_logits (B,1,V), cache).  `cache_len`
     sizes the KV cache (>= prompt length; default prompt + 1 so at least one
-    decode step fits)."""
+    decode step fits).  An encoder-decoder config encodes
+    `batch["enc_embeds"]` here; the decode steps after it take the
+    encoder's output from the caller (`serve_step(enc_out=)`)."""
     device = check_params_device(params, device)
-    require_ported(cfg)
     tokens = _tokens(batch, device)
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
@@ -394,20 +433,26 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
         positions = default_positions(cfg, b, s, device=device)
     else:
         positions = torch.as_tensor(positions).to(device)
+    enc_out = _batch_enc_out(cfg, params, batch, device)
     cache = init_cache(cfg, b, cache_len or (s + 1), device=device)
-    x, cache, _ = _run_stages(cfg, params, x, positions, cache=cache, cache_pos=0)
+    x, cache, _ = _run_stages(cfg, params, x, positions, cache=cache, cache_pos=0,
+                              enc_out=enc_out)
     h = L.rms_norm(x[:, -1:], params["final_norm"])
     return logits_head(cfg, params, h), cache
 
 
 @torch.no_grad()
-def serve_step(cfg: ModelConfig, params: Params, cache, tokens, pos, device="cuda"):
+def serve_step(cfg: ModelConfig, params: Params, cache, tokens, pos, enc_out=None,
+               device="cuda"):
     """One decode step: tokens (B,1) at absolute position `pos`, a scalar or
     a (B,) vector (int, numpy array or tensor; a CUDA tensor costs one
     synchronisation, because the host must know whether a cache rolls).
-    Returns (logits (B,1,V), cache); the cache is updated in place."""
+    An encoder-decoder config needs `enc_out` (B, Se, M), the encoder's
+    output (`encode`).  Returns (logits (B,1,V), cache); the cache is
+    updated in place."""
     device = check_params_device(params, device)
-    require_ported(cfg)
+    if cfg.encoder_layers and enc_out is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder config decodes against enc_out")
     tokens = torch.as_tensor(tokens).to(device=device, dtype=torch.long)
     b = tokens.shape[0]
     pos_host = pos.detach().cpu().numpy() if isinstance(pos, torch.Tensor) else np.asarray(pos)
@@ -415,6 +460,6 @@ def serve_step(cfg: ModelConfig, params: Params, cache, tokens, pos, device="cud
     x = embed_tokens(cfg, params, tokens)
     positions = default_positions(cfg, b, 1, offset=pos_dev, device=device)
     x, cache, _ = _run_stages(cfg, params, x, positions, cache=cache, cache_pos=pos_dev,
-                              cache_pos_max=int(pos_host.max()))
+                              cache_pos_max=int(pos_host.max()), enc_out=enc_out)
     h = L.rms_norm(x, params["final_norm"])
     return logits_head(cfg, params, h), cache

@@ -18,6 +18,12 @@ Not ported yet: the modeled photonic fabric under the decode collectives
 (`fabric=`, `inject_fault`, `net_stats["modeled_net_s"]`), which needs the
 analytic engine (`core/fabric.py`, `core/faults.py`, `core/planner.py`); a
 non-None `fabric` raises `NotImplementedError` (ROADMAP.md, Queue 1).
+
+Encoder-decoder configs raise `ValueError` at construction: the reference's
+batcher prefills from tokens alone and decodes with no encoder output, so it
+cannot serve them (ROADMAP.md, Queue 3), and the port adds no encoder
+batching the reference lacks.  M-RoPE configs decode with per-slot (3, B, 1)
+positions, equal streams at each slot's index, as the reference's do.
 """
 
 from __future__ import annotations
@@ -67,6 +73,11 @@ class ContinuousBatcher:
             raise NotImplementedError(
                 "ContinuousBatcher(fabric=...) needs core/fabric.py, core/faults.py and "
                 "core/planner.py, which are not ported yet (ROADMAP.md, Queue 1)")
+        if cfg.encoder_layers:
+            raise ValueError(
+                f"{cfg.name}: ContinuousBatcher serves decoder-only configs; the reference's "
+                "batcher passes no enc_embeds to prefill and no enc_out to serve_step "
+                "(ROADMAP.md, Queue 3)")
         self.device = M.check_params_device(params, device)
         self.cfg, self.params = cfg, params
         self.n_slots, self.max_len = n_slots, max_len

@@ -96,6 +96,26 @@ def test_apply_rope_rejects_mrope_streams():
 
 
 @pytest.mark.parametrize("photonic", [False, True])
+@pytest.mark.parametrize("s,se", [(7, 5), (1, 9)])
+def test_apply_cross_attention(photonic, s, se):
+    """Queries from the normed decoder stream, keys and values from the
+    encoder's output with no norm and no RoPE, no mask; Se != S, and the
+    one-token decode step."""
+    jcfg, cfg = _cfgs("seamless_m4t_medium", use_photonic_mac=photonic)
+    r = _rng(11, s, se)
+    pj, pt = _both(_attn_params(cfg, r))
+    x = r.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+    enc = r.standard_normal((2, se, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (2, s))
+    out = L.apply_cross_attention(cfg, pt, _t(x), _t(enc))
+    assert tuple(out.shape) == (2, s, cfg.d_model)
+    np.testing.assert_allclose(
+        out.numpy(),
+        np.asarray(JL.apply_cross_attention(jcfg, pj, jnp.asarray(x), jnp.asarray(enc),
+                                            jnp.asarray(pos))), **TOL_BLOCK)
+
+
+@pytest.mark.parametrize("photonic", [False, True])
 def test_linear(photonic):
     jcfg, cfg = _cfgs(use_photonic_mac=photonic)
     r = _rng(2)

@@ -102,16 +102,41 @@ CASES = {
     "grok1": ("grok1_314b", {}, 2, 24),
     "grok1_index_photonic": ("grok1_314b", {"moe_dispatch": "index", "use_photonic_mac": True},
                              2, 24),
+    # encoder-decoder: 2 encoder + 2 decoder layers against 6 frames (the
+    # decoder's cross-attention at Sq != Sk)
+    "seamless": ("seamless_m4t_medium", {}, 2, 24),
+    "seamless_photonic": ("seamless_m4t_medium", {"use_photonic_mac": True}, 2, 24),
+    # 128 tokens against 128 frames: the encoder's and the cross-attention
+    # take the flash kernel (interpret mode in JAX), every linear tiles
+    "seamless_aligned_kernels": ("seamless_m4t_medium", {**ALIGNED, "use_kernels": True},
+                                 1, 128),
 }
+# encoder frames of the encoder-decoder cases
+FRAMES = {"seamless": 6, "seamless_photonic": 6, "seamless_aligned_kernels": 128}
+
+
+def _inputs(case, cfg, b, s, seed=0):
+    """The case's batch as numpy arrays: token ids, and for an
+    encoder-decoder config its frames (B, Se, M)."""
+    batch = {"tokens": _tokens(cfg, b, s, seed)}
+    if cfg.encoder_layers:
+        r = np.random.default_rng([seed, 7])
+        batch["enc_embeds"] = r.standard_normal(
+            (b, FRAMES.get(case, 6), cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_train_logits_match_reference(case):
     arch, kw, b, s = CASES[case]
     jcfg, jparams, cfg, params = _pair(arch, **kw)
-    toks = _tokens(cfg, b, s)
-    out_t = M.train_logits(cfg, params, {"tokens": toks}, device="cpu")
-    out_j = JM.train_logits(jcfg, jparams, {"tokens": jnp.asarray(toks)})
+    batch = _inputs(case, cfg, b, s)
+    out_t = M.train_logits(cfg, params, batch, device="cpu")
+    out_j = JM.train_logits(jcfg, jparams, _jax(batch))
     assert tuple(out_t.shape) == (b, s, cfg.vocab) and out_t.dtype == torch.float32
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
 
@@ -120,19 +145,24 @@ def test_train_logits_match_reference(case):
 def test_prefill_and_three_serve_steps_match_reference(case):
     arch, kw, b, s = CASES[case]
     jcfg, jparams, cfg, params = _pair(arch, seed=1, **kw)
-    toks = _tokens(cfg, b, s + 3, seed=1)
-    lg_t, cache_t = M.prefill(cfg, params, {"tokens": toks[:, :s]}, cache_len=s + 8,
-                              device="cpu")
-    lg_j, cache_j = JM.prefill(jcfg, jparams, {"tokens": jnp.asarray(toks[:, :s])},
-                               cache_len=s + 8)
+    batch = _inputs(case, cfg, b, s + 3, seed=1)
+    toks = batch["tokens"]
+    prompt = {**batch, "tokens": toks[:, :s]}
+    lg_t, cache_t = M.prefill(cfg, params, prompt, cache_len=s + 8, device="cpu")
+    lg_j, cache_j = JM.prefill(jcfg, jparams, _jax(prompt), cache_len=s + 8)
     assert tuple(lg_t.shape) == (b, 1, cfg.vocab)
     np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg_j), **TOL)
     _assert_cache_close(cache_t, cache_j)
+    enc_t = enc_j = None
+    if cfg.encoder_layers:      # the decode steps attend to the encoder's output
+        enc_t = M.encode(cfg, params, batch["enc_embeds"], device="cpu")
+        enc_j = JM.encode(jcfg, jparams, jnp.asarray(batch["enc_embeds"]))
     for i in range(3):
         tok = toks[:, s + i:s + i + 1]
-        lg_t, cache_t = M.serve_step(cfg, params, cache_t, tok, s + i, device="cpu")
+        lg_t, cache_t = M.serve_step(cfg, params, cache_t, tok, s + i, enc_out=enc_t,
+                                     device="cpu")
         lg_j, cache_j = JM.serve_step(jcfg, jparams, cache_j, jnp.asarray(tok),
-                                      jnp.int32(s + i))
+                                      jnp.int32(s + i), enc_out=enc_j)
         np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg_j), **TOL)
     _assert_cache_close(cache_t, cache_j)
 
@@ -200,19 +230,26 @@ def test_rolling_window_decode_matches_reference():
 @pytest.mark.parametrize("arch,kw", [("yi_6b", {}), ("gemma3_27b", {}),
                                      ("gemma3_27b", LOCAL_GLOBAL), ("zamba2_1p2b", {}),
                                      ("xlstm_350m", {}),
-                                     ("mixtral_8x7b", {"capacity_factor": 8.0})])
+                                     ("mixtral_8x7b", {"capacity_factor": 8.0}),
+                                     ("seamless_m4t_medium", {})])
 def test_prefill_plus_decode_equals_full_forward(arch, kw):
     """Inside the port: the last position's logits from a full forward equal
     those of prefill(s-1) + one decode step (f32, no photonic numerics; MoE
     with a capacity that drops nothing, since drops legitimately depend on
-    how many tokens route together)."""
+    how many tokens route together; enc-dec against the same 6 frames,
+    the decode step against their `encode`)."""
     cfg = dataclasses.replace(C.get_reduced(arch), **kw)
     params = M.init(cfg, seed=3, device="cpu")
     b, s = 2, 33
-    toks = _tokens(cfg, b, s, seed=3)
-    full = M.train_logits(cfg, params, {"tokens": toks}, device="cpu")[:, -1]
-    _, cache = M.prefill(cfg, params, {"tokens": toks[:, :s - 1]}, cache_len=s, device="cpu")
-    lg, _ = M.serve_step(cfg, params, cache, toks[:, s - 1:s], s - 1, device="cpu")
+    batch = _inputs(arch, cfg, b, s, seed=3)
+    toks = batch["tokens"]
+    full = M.train_logits(cfg, params, batch, device="cpu")[:, -1]
+    _, cache = M.prefill(cfg, params, {**batch, "tokens": toks[:, :s - 1]}, cache_len=s,
+                         device="cpu")
+    enc_out = (M.encode(cfg, params, batch["enc_embeds"], device="cpu")
+               if cfg.encoder_layers else None)
+    lg, _ = M.serve_step(cfg, params, cache, toks[:, s - 1:s], s - 1, enc_out=enc_out,
+                         device="cpu")
     np.testing.assert_allclose(lg[:, 0].numpy(), full.numpy(), rtol=1e-4, atol=1e-4)
 
 
@@ -271,13 +308,73 @@ def test_moe_init_and_cache_trees_match_reference(arch):
     assert cache[0]["moe_0"]["k"].shape[3] == (cfg.window or 48)
 
 
-@pytest.mark.parametrize("arch", ["seamless_m4t_medium"])
-def test_unported_kinds_raise(arch):
-    cfg = C.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        M.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        M.init_cache(cfg, 1, 8, device="cpu")
+@pytest.mark.parametrize("photonic", [False, True])
+def test_encode_matches_reference(photonic):
+    """The encoder alone: positions 0 .. Se-1, non-causal attention and the
+    MLP in each block, then the encoder's norm; enc_out in the compute
+    dtype."""
+    jcfg, jparams, cfg, params = _pair("seamless_m4t_medium", seed=6,
+                                       use_photonic_mac=photonic)
+    enc = np.random.default_rng(6).standard_normal((2, 9, cfg.d_model)).astype(np.float32)
+    out_t = M.encode(cfg, params, enc, device="cpu")
+    out_j = JM.encode(jcfg, jparams, jnp.asarray(enc))
+    assert tuple(out_t.shape) == (2, 9, cfg.d_model) and out_t.dtype == torch.float32
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+
+
+def test_encdec_init_and_cache_trees_match_reference():
+    """seamless holds decoder blocks (attention, cross-attention, MLP) and
+    an encoder tree {'blocks': {attn, mlp}, 'norm'} with no `enc_0` level,
+    with the reference's leaves, shapes and dtypes; its decoder keeps a
+    full-length K/V cache and the cross-attention none."""
+    cfg, jcfg = C.get_reduced("seamless_m4t_medium"), JC.get_reduced("seamless_m4t_medium")
+    p = M.init(cfg, seed=0, device="cpu")
+    jp, _ = JM.init(jcfg, jax.random.PRNGKey(0))
+    dt = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    assert (jax.tree.map(lambda t: (tuple(t.shape), dt[t.dtype]), p)
+            == jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jp))
+    assert set(p["stages"][0]["dec_0"]) == {"attn", "cross", "mlp"}
+    assert set(p["encoder"]["blocks"]) == {"attn", "mlp"}
+    assert p["encoder"]["blocks"]["attn"]["wq"].shape[0] == cfg.encoder_layers
+    cache = M.init_cache(cfg, 3, 40, device="cpu")
+    jcache, _ = JM.init_cache(jcfg, 3, 40)
+    assert (jax.tree.map(lambda t: (tuple(t.shape), dt[t.dtype]), cache)
+            == jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jcache))
+    assert set(cache[0]["dec_0"]) == {"k", "v"} and cache[0]["dec_0"]["k"].shape[3] == 40
+
+
+def test_encoder_decoder_entry_points_need_the_encoder_input():
+    """Without frames a prefill, and without `enc_out` a decode step, raise
+    `ValueError` naming what is missing (the reference fails with a
+    KeyError or a TypeError deep inside)."""
+    cfg = C.get_reduced("seamless_m4t_medium")
+    params = M.init(cfg, seed=0, device="cpu")
+    toks = _tokens(cfg, 1, 8)
+    with pytest.raises(ValueError, match="enc_embeds"):
+        M.prefill(cfg, params, {"tokens": toks}, device="cpu")
+    with pytest.raises(ValueError, match="enc_embeds"):
+        M.train_logits(cfg, params, {"tokens": toks}, device="cpu")
+    cache = M.init_cache(cfg, 1, 16, device="cpu")
+    with pytest.raises(ValueError, match="enc_out"):
+        M.serve_step(cfg, params, cache, toks[:, :1], 0, device="cpu")
+
+
+def test_encoder_depth_is_checked():
+    """Weights whose encoder is deeper than the config's raise `ValueError`,
+    in the conversion and at every entry point that runs the layers."""
+    cfg = C.get_reduced("seamless_m4t_medium")
+    deep = dataclasses.replace(cfg, encoder_layers=3)
+    jparams, _ = JM.init(dataclasses.replace(JC.get_reduced("seamless_m4t_medium"),
+                                             encoder_layers=3), jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="encoder.blocks.attn.wq has 3 layers, expected 2"):
+        params_from_reference(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    params = M.init(deep, seed=0, device="cpu")
+    enc = np.zeros((1, 4, cfg.d_model), np.float32)
+    with pytest.raises(ValueError, match="2 encoder layers, the parameters 3"):
+        M.encode(cfg, params, enc, device="cpu")
+    with pytest.raises(ValueError, match="2 encoder layers, the parameters 3"):
+        M.prefill(cfg, params, {"tokens": _tokens(cfg, 1, 4), "enc_embeds": enc},
+                  device="cpu")
 
 
 def test_mrope_raises():

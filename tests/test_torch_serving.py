@@ -191,6 +191,50 @@ def test_fabric_hook_is_not_ported():
         ContinuousBatcher(cfg, params, n_slots=1, max_len=8, fabric="trine", device="cpu")
 
 
+def test_encoder_decoder_config_is_refused_by_the_batcher():
+    """The reference's batcher prefills from tokens alone, so for seamless it
+    fails with KeyError('enc_embeds'); the port's refuses the config at
+    construction with `ValueError` and adds no encoder batching."""
+    jcfg, jparams, cfg, params, prompts = _setup(arch="seamless_m4t_medium")
+    jeng = JContinuousBatcher(jcfg, jparams, n_slots=2, max_len=MAX_LEN)
+    jeng.submit(prompts[0], 2)
+    with pytest.raises(KeyError, match="enc_embeds"):
+        jeng.run()
+    with pytest.raises(ValueError, match="enc_embeds"):
+        ContinuousBatcher(cfg, params, n_slots=2, max_len=MAX_LEN, device="cpu")
+
+
+def test_launch_serve_main_serves_seamless_on_the_cpu(capsys):
+    """The launcher draws S // 4 frames, encodes them once for the decode
+    steps, and the prefill encodes them again; the tokens match a prefill
+    and decode steps by hand against the same frames."""
+    from repro_torch.launch import serve
+    res = serve.main(["--arch", "seamless-m4t-medium", "--reduced", "--batch", "2",
+                      "--prompt-len", "16", "--max-new", "4", "--device", "cpu",
+                      "--photonic", "--kernels"])
+    assert tuple(res["tokens"].shape) == (2, 4)
+    assert int(res["tokens"].min()) >= 0 and int(res["tokens"].max()) < 512
+    assert bool(torch.isfinite(res["logits"]).all())
+    assert "decode :" in capsys.readouterr().out
+    import dataclasses
+    cfg = dataclasses.replace(C.get_reduced("seamless_m4t_medium"), use_photonic_mac=True,
+                              use_kernels=True)
+    params = M.init(cfg, seed=0, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    prompts = torch.randint(2, cfg.vocab, (2, 16), generator=gen)
+    enc = torch.randn((2, 4, cfg.d_model), generator=gen)
+    logits, cache = M.prefill(cfg, params, {"tokens": prompts, "enc_embeds": enc},
+                              cache_len=20, device="cpu")
+    enc_out = M.encode(cfg, params, enc, device="cpu")
+    toks = [torch.argmax(logits[:, -1], -1)[:, None]]
+    for i in range(3):
+        logits, cache = M.serve_step(cfg, params, cache, toks[-1], 16 + i, enc_out=enc_out,
+                                     device="cpu")
+        toks.append(torch.argmax(logits[:, -1], -1)[:, None])
+    assert torch.equal(torch.cat(toks, 1), res["tokens"])
+
+
 def test_launch_serve_main_runs_on_the_cpu_on_request(capsys):
     from repro_torch.launch import serve
     res = serve.main(["--arch", "yi-6b", "--reduced", "--batch", "2", "--prompt-len", "16",
