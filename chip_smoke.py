@@ -44,13 +44,18 @@ depth except mixtral:
                128-token prompt against 1024 frames, then one decode step);
                the batcher refuses encoder-decoder configs, as the
                reference's cannot serve them
+  qwen2-vl-72b 18 of its 80 layers (3.51 GB a layer in f32; 73.2 GB of
+               weights); serve_continuous and serve_batch128 as yi-6b, with
+               M-RoPE positions (per-slot (3, B, 1) in the batcher's decode)
 
 Before each path the launch counters are set to 0; just after it they are
 read and must equal the counts reckoned from the dispatch predicates in
 `kernels/ops.py`, and every kernel of that path must have launched.  After
 each path, `end_to_end` holds kernels-on against kernels-off logits of one
 prefill (in f32 for zamba2, xlstm and mixtral, whose routing or recurrence
-amplifies bf16 rounding; `E2E_TOLERANCE`; seamless against 32 frames).  For mixtral it also counts the
+amplifies bf16 rounding; `E2E_TOLERANCE`; seamless against 32 frames;
+qwen2-vl every position's logits through `train_logits`, with 64 pixel
+embeddings and distinct M-RoPE streams).  For mixtral it also counts the
 expert choices that differ between the two bf16 runs and holds the bf16
 logits with the plain run's choices, and it runs once more in f32 at 4224
 tokens, past the window (16 layers: `E2E_LONG`), where the plain version
@@ -110,6 +115,8 @@ MIXTRAL_KN = [(4096, 1024), (4096, 32000)]
 # seamless's mlp wo (its wq/wk/wv/wo (1024, 1024) and wg/wi (1024, 4096) are
 # xlstm's; its head, N = 256206, never tiles)
 SEAMLESS_KN = [(4096, 1024)]
+# qwen2-vl's wq/wo, wk/wv, wg/wi, mlp wo, lm_head
+QWEN_KN = [(8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192), (8192, 152064)]
 # the timed products (model, M, K, N), bf16 activations as on the path: M = 128
 # is a batch-128 decode step, 512 a B=1 prefill of 512 tokens, 16384 the
 # batch-128 x 128 prefill (its widest linear, and every (K, N) whose K is
@@ -124,7 +131,8 @@ MAC_TIMED = ([("yi-6b", m, k, n) for m in (128, 512) for (k, n) in YI_KN]
                 for (k, n) in kns if mac_splits(k, n) > 1]
              + [("mixtral-8x7b", m, k, n) for m in (128, 128 * 128) for (k, n) in MIXTRAL_KN]
              + [("seamless-m4t-medium", m, k, n) for m in (128, 128 * 128)
-                for (k, n) in SEAMLESS_KN])
+                for (k, n) in SEAMLESS_KN]
+             + [("qwen2-vl-72b", m, k, n) for m in (128, 128 * 128) for (k, n) in QWEN_KN])
 # the plain version of a timed product whose output holds more than this
 # many elements is compared on its first `MAC_PLAIN_ROWS` rows only
 MAC_PLAIN_ELEMS, MAC_PLAIN_ROWS = 16384 * 32000, 1024
@@ -133,10 +141,10 @@ MAC_HEADLINE = (128, 4096, 11008)        # the shape reported in the summary lin
 # window): strided (B,S,H,D) projections, bf16; yi-6b (32/4 heads of 128)
 # and zamba2's shared attention (32/32 heads of 64, window 4096, which at
 # S <= 4096 masks nothing that causality keeps) and mixtral (32/8 heads of
-# 128, window 4096, which at S = 4224 does), causal; seamless (16/16 heads
-# of 64) with no mask: its encoder over 1024 frames, and its decoder's
-# cross-attention, 128 queries against 32 frames (the batch-128 path) and
-# against 1024 (the long-encoder path)
+# 128, window 4096, which at S = 4224 does) and qwen2-vl (64/8 heads of
+# 128), causal; seamless (16/16 heads of 64) with no mask: its encoder over
+# 1024 frames, and its decoder's cross-attention, 128 queries against 32
+# frames (the batch-128 path) and against 1024 (the long-encoder path)
 ATTN_TIMED = [("yi-6b", 1, 128, 128, 32, 4, 128, True, 0),
               ("yi-6b", 1, 256, 256, 32, 4, 128, True, 0),
               ("yi-6b", 1, 512, 512, 32, 4, 128, True, 0),
@@ -147,7 +155,9 @@ ATTN_TIMED = [("yi-6b", 1, 128, 128, 32, 4, 128, True, 0),
               ("mixtral-8x7b", 1, 4224, 4224, 32, 8, 128, True, 4096),
               ("seamless-m4t-medium encoder", 1, 1024, 1024, 16, 16, 64, False, 0),
               ("seamless-m4t-medium cross", 128, 128, 32, 16, 16, 64, False, 0),
-              ("seamless-m4t-medium cross", 1, 128, 1024, 16, 16, 64, False, 0)]
+              ("seamless-m4t-medium cross", 1, 128, 1024, 16, 16, 64, False, 0),
+              ("qwen2-vl-72b", 1, 128, 128, 64, 8, 128, True, 0),
+              ("qwen2-vl-72b", 128, 128, 128, 64, 8, 128, True, 0)]
 ATTN_HEADLINE = (1, 128)                 # (batch, prompt length) reported in the summary
 SSM_HEADLINE = "zamba2 B=128 L=128"      # the scan shape reported in the summary
 
@@ -905,7 +915,7 @@ def phase_serve_batch128(cfg, params, arch: str) -> dict:
     got = _since(before)
     pf = expected_launches(cfg, batch, plen, frames)
     per_step = expected_launches(cfg, batch, 1, frames)
-    if cfg.family == "dense":    # every linear of yi-6b tiles at 128 rows
+    if cfg.family in ("dense", "vlm"):    # every linear of yi-6b and qwen2-vl tiles
         assert per_step["photonic_mac"] == cfg.n_layers * 7 + 1, per_step
     want = _add(pf, encode_launches(cfg, batch, frames)) if frames else pf
     for _ in range(max_new - 1):
@@ -1012,11 +1022,14 @@ E2E_TOLERANCE = {
     # mixtral: checked in f32.  Routing is a discontinuous function of the
     # router logits, and bf16 logits tie often, so in bf16 one expert choice
     # flipped by the order of a sum decorrelates the logits.
-    # seamless: dense, no routing or recurrence, so yi-6b's bf16 check.
+    # seamless, qwen2-vl: dense, no routing or recurrence, so yi-6b's bf16
+    # check.
     "yi-6b": ("bfloat16", 3e-2), "zamba2-1.2b": ("float32", 2e-2),
     "xlstm-350m": ("float32", 2e-2), "mixtral-8x7b": ("float32", 2e-2),
-    "seamless-m4t-medium": ("bfloat16", 3e-2),
+    "seamless-m4t-medium": ("bfloat16", 3e-2), "qwen2-vl-72b": ("bfloat16", 3e-2),
 }
+# the vision end-to-end check's image: an 8 x 8 grid of patch embeddings
+PATCH_GRID = 8
 
 
 def model_inputs(cfg, gen, b: int, s: int, frames: int = 0) -> dict:
@@ -1029,15 +1042,38 @@ def model_inputs(cfg, gen, b: int, s: int, frames: int = 0) -> dict:
     return batch
 
 
+def mrope_positions(s: int, grid: int) -> torch.Tensor:
+    """(3, 1, S) M-RoPE streams of a `grid` x `grid` patch image followed by
+    text: the patches at t = 0 and their row and column, then every stream
+    at grid, grid + 1, ... (distinct streams, which a wrong section split
+    would read wrongly)."""
+    npix = grid * grid
+    pos = torch.empty((3, s), dtype=torch.int32, device=DEV)
+    idx = torch.arange(npix, dtype=torch.int32, device=DEV)
+    pos[0, :npix], pos[1, :npix], pos[2, :npix] = 0, idx // grid, idx % grid
+    pos[:, npix:] = grid + torch.arange(s - npix, dtype=torch.int32, device=DEV)
+    return pos[:, None]
+
+
+@torch.no_grad()
+def _logits(cfg, params, batch):
+    """The last token's logits of one prefill; for a vision config every
+    position's, from `train_logits`, which alone splices `pixel_embeds`
+    in."""
+    if cfg.frontend == "vision":
+        return M.train_logits(cfg, params, batch, device=DEV)
+    return M.prefill(cfg, params, batch, device=DEV)[0]
+
+
 def _prefill_pair(cfg, params, batch) -> tuple:
-    """Last-token logits of one prefill with the kernels and with their plain
-    versions (the reference's own `use_kernels=False` configuration), and
-    the kernel launches of the first."""
+    """Logits (`_logits`) with the kernels and with their plain versions
+    (the reference's own `use_kernels=False` configuration), and the kernel
+    launches of the first."""
     plain_cfg = dataclasses.replace(cfg, use_kernels=False)
     before = counters()
-    lg_k, _ = M.prefill(cfg, params, batch, device=DEV)
+    lg_k = _logits(cfg, params, batch)
     used = _since(before)
-    lg_p, _ = M.prefill(plain_cfg, params, batch, device=DEV)
+    lg_p = _logits(plain_cfg, params, batch)
     torch.cuda.synchronize()
     assert _since(before) == used, "use_kernels=False launched a kernel"
     assert bool(torch.isfinite(lg_k).all()) and bool(torch.isfinite(lg_p).all())
@@ -1104,18 +1140,27 @@ def phase_end_to_end(cfg, params, seq: int = 128) -> dict:
     gen.manual_seed(SEED + 2)
     batch = model_inputs(cfg, gen, 1, seq)
     toks = batch["tokens"]
+    if cfg.frontend == "vision":
+        batch["positions"] = mrope_positions(seq, PATCH_GRID)
+        batch["pixel_embeds"] = torch.randn((1, PATCH_GRID ** 2, cfg.d_model), generator=gen,
+                                            device=DEV)
     dtype, tol = E2E_TOLERANCE[cfg.name]
     cfg_c = dataclasses.replace(cfg, dtype=dtype)
     lg_k, lg_p, used = _prefill_pair(cfg_c, params, batch)
     rel = _rel(lg_k, lg_p)
     top2 = torch.topk(lg_p[0, -1], 2).values
+    what = ("every position's logits (train_logits), "
+            f"{PATCH_GRID ** 2} pixel embeddings, distinct M-RoPE streams"
+            if cfg.frontend == "vision" else "last-token logits")
     out = {"phase": "end_to_end", "model": cfg.name, "n_layers": cfg.n_layers,
-           "what": f"last-token logits, kernels vs plain versions, B=1 S={seq}, {dtype}"
+           "what": f"{what}, kernels vs plain versions, B=1 S={seq}, {dtype}"
                    + (f", {batch['enc_embeds'].shape[1]} encoder frames"
                       if cfg.encoder_layers else ""),
            "kernel_launches": used, "max_rel_to_largest_logit": rel, "tolerance": tol,
-           "argmax_equal": bool(lg_k.argmax() == lg_p.argmax()),
+           "argmax_equal": bool(lg_k[0, -1].argmax() == lg_p[0, -1].argmax()),
            "plain_top2_gap_rel": float((top2[0] - top2[1]) / lg_p.abs().max())}
+    if cfg.frontend == "vision":   # the last position's argmax is held, as elsewhere
+        out["positions_with_equal_argmax"] = int((lg_k.argmax(-1) == lg_p.argmax(-1)).sum())
     if cfg.window and seq > cfg.window:    # the check must see a wrong window
         lg_w, _ = M.prefill(dataclasses.replace(cfg_c, window=0, use_kernels=False), params,
                             batch, device=DEV)
@@ -1126,7 +1171,7 @@ def phase_end_to_end(cfg, params, seq: int = 128) -> dict:
     if dtype != cfg.dtype:     # the serving dtype too, for the record
         lg_k, lg_p, _ = _prefill_pair(cfg, params, batch)
         out[f"{cfg.dtype}_max_rel_to_largest_logit"] = _rel(lg_k, lg_p)
-        out[f"{cfg.dtype}_argmax_equal"] = bool(lg_k.argmax() == lg_p.argmax())
+        out[f"{cfg.dtype}_argmax_equal"] = bool(lg_k[0, -1].argmax() == lg_p[0, -1].argmax())
         if cfg.family == "moe":
             out[f"{cfg.dtype}_routing"] = _routing_flips(cfg, params, toks)
     emit(out)
@@ -1250,11 +1295,15 @@ PATHS = [
     ("xlstm_350m", "xlstm-350m", ("photonic_mac", "ssm_scan")),
     ("mixtral_8x7b", "mixtral-8x7b", ("photonic_mac", "flash_attention")),
     ("seamless_m4t_medium", "seamless-m4t-medium", ("photonic_mac", "flash_attention")),
+    ("qwen2_vl_72b", "qwen2-vl-72b", ("photonic_mac", "flash_attention")),
 ]
 # depth cuts (config id -> layers served): mixtral's bf16 experts are 2.82 GB
 # a layer, so 24 layers (72.7 GB of weights with the f32 attention, embedding
-# and head) leave room for batch-128 transients on an 80 GB card
-DEPTH = {"mixtral_8x7b": 24}
+# and head) leave room for batch-128 transients on an 80 GB card; a
+# qwen2-vl layer is 3.51 GB in f32 and its embedding and head 9.97 GB, so
+# 18 layers (73.2 GB) are the deepest stack that leaves 4 GB free at the
+# batch-128 prefill's peak (PERF.md, section 4)
+DEPTH = {"mixtral_8x7b": 24, "qwen2_vl_72b": 18}
 # the f32 end-to-end check past the window (config id -> (tokens, layers)):
 # the plain attention's f32 scores at 4224 tokens take about 9 GB, which 24
 # layers of weights do not leave, so that model is built again at 16 layers
@@ -1282,7 +1331,7 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
           "seconds": time.perf_counter() - t0})
 
     zero_counters()
-    if arch in ("yi-6b", "mixtral-8x7b"):
+    if arch in ("yi-6b", "mixtral-8x7b", "qwen2-vl-72b"):
         phase_serve_continuous(cfg, params, [60, 250, 131, 97, 200, 129, 77, 180],
                                [4, 8, 6, 5, 7, 4, 8, 6], max_len=512, bucket=128)
         phase_serve_batch128(cfg, params, arch)

@@ -31,6 +31,7 @@ from repro_torch.kernels import _build, ref
 BANK = 128   # weight-bank tile edge; the CUDA kernels are written for this value
 SMS = 132    # streaming multiprocessors of an H100 SXM
 SEQ_BLOCKS = 128   # unsplit 128-row blocks from which `mac_plan` sums K ranges in turn
+QUANT_CHUNK = 1 << 26   # f32 elements of the quantized quotient held at once
 
 
 def quantize_weights(w: torch.Tensor, bits: int = 8, bk: int = BANK, bn: int = BANK):
@@ -40,7 +41,12 @@ def quantize_weights(w: torch.Tensor, bits: int = 8, bk: int = BANK, bn: int = B
     Non-aligned weights quantize on the zero-padded ceil grid (padding is
     exact zero, so it never widens a bank's range; an all-zero tile gets the
     epsilon scale) and `w_q` is sliced back to (K, N).  `w_scale` comes back
-    f32 (ceil(K/bk), ceil(N/bn)), what `photonic_mac` expects."""
+    f32 (ceil(K/bk), ceil(N/bn)), what `photonic_mac` expects.
+
+    The levels are computed a few bank rows at a time, so that the f32
+    quotient never exceeds `QUANT_CHUNK` elements (about 256 MB; qwen2-vl's
+    head would otherwise need a 5 GB one); each element's arithmetic is the
+    same."""
     k, n = w.shape
     kp, np_ = -(-k // bk) * bk, -(-n // bn) * bn
     if (kp, np_) != (k, n):
@@ -50,8 +56,13 @@ def quantize_weights(w: torch.Tensor, bits: int = 8, bk: int = BANK, bn: int = B
     # max |w| per tile in one pass (the inf-norm), (ceil(k/bk), ceil(n/bn))
     absmax = torch.linalg.vector_norm(tiles, ord=float("inf"), dim=(1, 3))
     scale = absmax.clamp_min(1e-8) / qmax
-    w_q = (tiles / scale[:, None, :, None]).round_().clamp_(-qmax, qmax).to(torch.int8)
-    return w_q.reshape(kp, np_)[:k, :n].contiguous(), scale.to(torch.float32)
+    w_q = torch.empty((kp, np_), dtype=torch.int8, device=w.device)
+    q_tiles = w_q.view(kp // bk, bk, np_ // bn, bn)
+    rows = max(1, QUANT_CHUNK // (bk * np_))           # bank rows a pass
+    for i in range(0, kp // bk, rows):
+        part = tiles[i:i + rows] / scale[i:i + rows, None, :, None]
+        q_tiles[i:i + rows] = part.round_().clamp_(-qmax, qmax)
+    return w_q[:k, :n].contiguous(), scale.to(torch.float32)
 
 
 @dataclass(frozen=True)

@@ -102,14 +102,31 @@ def rope_freqs(cfg: ModelConfig, device) -> torch.Tensor:
     return 1.0 / (cfg.rope_theta ** exponent)
 
 
+def mrope_sections(n: int) -> list:
+    """The stream (0 = t, 1 = h, 2 = w) of each of the `n` rotary pairs under
+    M-RoPE: three contiguous sections, h and w n // 3 pairs each and t the
+    rest (22/21/21 at Dh = 128), as the reference splits them."""
+    s0, s1 = n - 2 * (n // 3), n // 3
+    return [0] * s0 + [1] * s1 + [2] * (n - s0 - s1)
+
+
 def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """x (B, S, H, Dh); positions (B, S) integer."""
-    if positions.ndim != 2:
-        raise NotImplementedError(
-            "M-RoPE position streams (3, B, S) are not ported yet (ROADMAP.md, Queue 1: "
-            "enc/dec + M-RoPE slice)")
+    """x (B, S, H, Dh); positions (B, S) integer, or (3, B, S) for M-RoPE
+    (temporal/height/width streams, `cfg.mrope`; each rotary pair takes the
+    angle of its section's stream, so equal streams give the standard RoPE).
+    Three streams for a config without M-RoPE raise `ValueError`."""
     freqs = rope_freqs(cfg, x.device)  # (Dh/2,)
-    angle = positions.to(torch.float32)[..., None] * freqs[None, None, :]
+    if positions.ndim == 3:
+        if not cfg.mrope:
+            raise ValueError(f"{cfg.name}: (3, B, S) M-RoPE positions given to a config "
+                             "without mrope")
+        _, b, s = positions.shape
+        sect = torch.tensor(mrope_sections(freqs.shape[0]), device=x.device)
+        pos = torch.gather(positions.to(torch.float32).movedim(0, -1), -1,
+                           sect.expand(b, s, -1))                      # (B, S, n)
+        angle = pos * freqs[None, None, :]
+    else:
+        angle = positions.to(torch.float32)[..., None] * freqs[None, None, :]
     cos = torch.cos(angle)[:, :, None, :]  # (B, S, 1, n)
     sin = torch.sin(angle)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

@@ -336,15 +336,17 @@ def logits_head(cfg: ModelConfig, params: Params, h: torch.Tensor):
 
 
 def default_positions(cfg: ModelConfig, batch: int, seq: int, offset=0, device="cuda"):
-    """offset: scalar, or (B,) vector (continuous batching: per-slot positions)."""
-    if cfg.mrope:
-        raise NotImplementedError(
-            "M-RoPE positions are not ported yet (ROADMAP.md: Queue 1, enc/dec + M-RoPE slice)")
+    """offset: scalar, or (B,) vector (continuous batching: per-slot
+    positions).  (B, S), or for M-RoPE (3, B, S) with the token index on all
+    three streams, as the reference gives text and decode positions."""
     off = torch.as_tensor(offset, dtype=torch.int32, device=device)
     if off.ndim == 1:
         off = off[:, None]
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + off
-    return torch.broadcast_to(pos, (batch, seq))
+    pos = torch.broadcast_to(pos, (batch, seq))
+    if cfg.mrope:
+        return torch.broadcast_to(pos[None], (3, batch, seq))
+    return pos
 
 
 # ---------------------------------------------------------------------------
@@ -392,12 +394,16 @@ def _tokens(batch: Dict[str, Any], device) -> torch.Tensor:
 def forward_hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any], device="cuda"):
     """Full-sequence forward.  Returns (hidden (B,S,M), aux); `aux` is the
     sum of the blocks' auxiliary losses (the MoE load-balance and router
-    z-losses; zero for the other kinds).  An encoder-decoder config encodes
-    `batch["enc_embeds"]` first."""
+    z-losses; zero for the other kinds).  A vision config replaces the
+    first npix embeddings with `batch["pixel_embeds"]` (B, npix, M) when
+    given; an encoder-decoder config encodes `batch["enc_embeds"]` first."""
     device = check_params_device(params, device)
     tokens = _tokens(batch, device)
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
+    if cfg.frontend == "vision" and batch.get("pixel_embeds") is not None:
+        pix = torch.as_tensor(batch["pixel_embeds"]).to(device=device, dtype=x.dtype)
+        x = torch.cat([pix, x[:, pix.shape[1]:]], dim=1)
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(cfg, b, s, device=device)
@@ -423,7 +429,9 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     sizes the KV cache (>= prompt length; default prompt + 1 so at least one
     decode step fits).  An encoder-decoder config encodes
     `batch["enc_embeds"]` here; the decode steps after it take the
-    encoder's output from the caller (`serve_step(enc_out=)`)."""
+    encoder's output from the caller (`serve_step(enc_out=)`).  Like the
+    reference's, it ignores `batch["pixel_embeds"]`: only `forward_hidden`
+    splices them in (ROADMAP.md, Queue 3)."""
     device = check_params_device(params, device)
     tokens = _tokens(batch, device)
     b, s = tokens.shape

@@ -595,11 +595,13 @@ def test_ssm_plan_rule_at_the_serving_shapes(bh, l, p, n, dts, groups, rt, ns, r
 # (K, N) of every linear that reaches the kernel on the serving paths:
 # yi-6b (wq/wo, wk/wv, wg/wi, mlp wo, lm_head), zamba2 (out_proj, shared
 # attention, head), xlstm (wqkv, wo, sLSTM wx, tied head), mixtral and
-# seamless (wk/wv and mlp wo; seamless's others are xlstm's)
+# seamless (wk/wv and mlp wo; seamless's others are xlstm's), qwen2-vl
+# (wq/wo, wk/wv, wg/wi, mlp wo, lm_head)
 MAIN_PATH_KN = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000),
                 (4096, 2048), (2048, 2048), (2048, 32000),
                 (1024, 3072), (1024, 1024), (1024, 4096), (1024, 50304),
-                (4096, 1024)]
+                (4096, 1024),
+                (8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192), (8192, 152064)]
 
 
 @pytest.mark.parametrize("k,n", MAIN_PATH_KN)

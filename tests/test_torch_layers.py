@@ -90,9 +90,52 @@ def test_apply_rope(offset):
 
 
 def test_apply_rope_rejects_mrope_streams():
+    """Three position streams for a config without M-RoPE raise (the
+    reference would broadcast them into a wrong shape)."""
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="without mrope"):
         L.apply_rope(cfg, torch.zeros(1, 2, 4, 16), torch.zeros(3, 1, 2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("head_dim,sections", [(128, (22, 21, 21)), (16, (4, 2, 2)),
+                                               (64, (12, 10, 10))])
+def test_mrope_sections_split_as_the_reference(head_dim, sections):
+    """t takes the remainder, h and w n // 3 rotary pairs each."""
+    sect = L.mrope_sections(head_dim // 2)
+    assert tuple(sect.count(i) for i in range(3)) == sections
+    assert sect == sorted(sect)
+
+
+@pytest.mark.parametrize("offset", [0, 1000])
+def test_apply_rope_mrope_matches_reference(offset):
+    """Distinct t/h/w streams (a 3 x 3 patch grid, then text), so each
+    rotary section must read its own stream; rope_theta 100, so that at
+    Dh = 16 the h and w sections turn by more than rounding over a 3 x 3
+    grid."""
+    jcfg, cfg = _cfgs("qwen2_vl_72b", rope_theta=100.0)
+    r = _rng(12, offset)
+    x = r.standard_normal((2, 13, 4, 16)).astype(np.float32)
+    pos = np.empty((3, 2, 13), np.int32)
+    pos[0, :, :9], pos[1, :, :9], pos[2, :, :9] = 0, np.arange(9) // 3, np.arange(9) % 3
+    pos[:, :, 9:] = 3 + np.arange(4)
+    pos[:, 1] += offset
+    tol = TOL if offset == 0 else dict(rtol=2e-4, atol=2e-4)
+    out = L.apply_rope(cfg, _t(x), _t(pos))
+    np.testing.assert_allclose(
+        out.numpy(), np.asarray(JL.apply_rope(jcfg, jnp.asarray(x), jnp.asarray(pos))), **tol)
+    # a wrong split would read other streams for some pairs
+    same = L.apply_rope(cfg, _t(x), _t(np.ascontiguousarray(pos[[0, 0, 0]])))
+    assert float((out - same).abs().max()) > 1e-2
+
+
+def test_apply_rope_mrope_equal_streams_is_standard_rope():
+    """Equal streams give the standard RoPE, bit for bit."""
+    _, cfg = _cfgs("qwen2_vl_72b")
+    r = _rng(13)
+    x = _t(r.standard_normal((2, 7, 4, 16)).astype(np.float32))
+    pos = _t((np.arange(7)[None, :] + np.array([[0], [40]])).astype(np.int32))
+    three = pos[None].expand(3, 2, 7)
+    assert torch.equal(L.apply_rope(cfg, x, three), L.apply_rope(cfg, x, pos))
 
 
 @pytest.mark.parametrize("photonic", [False, True])

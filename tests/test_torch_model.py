@@ -110,19 +110,41 @@ CASES = {
     # take the flash kernel (interpret mode in JAX), every linear tiles
     "seamless_aligned_kernels": ("seamless_m4t_medium", {**ALIGNED, "use_kernels": True},
                                  1, 128),
+    # M-RoPE with distinct streams (a 4 x 4 patch grid, then text) and 16
+    # pixel embeddings, which train_logits splices in and prefill ignores
+    "qwen2_vl": ("qwen2_vl_72b", {}, 2, 24),
+    "qwen2_vl_photonic": ("qwen2_vl_72b", {"use_photonic_mac": True}, 2, 24),
 }
 # encoder frames of the encoder-decoder cases
 FRAMES = {"seamless": 6, "seamless_photonic": 6, "seamless_aligned_kernels": 128}
 
 
+def mrope_positions(b, s, grid):
+    """(3, B, S) M-RoPE streams of a `grid` x `grid` patch image followed by
+    text: the patches at t = 0 and their row and column, then every stream
+    at grid, grid + 1, ... (distinct streams, so a wrong section split
+    shows)."""
+    npix = grid * grid
+    pos = np.empty((3, s), np.int32)
+    pos[0, :npix] = 0
+    pos[1, :npix] = np.arange(npix) // grid
+    pos[2, :npix] = np.arange(npix) % grid
+    pos[:, npix:] = grid + np.arange(s - npix)
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, b, s)))
+
+
 def _inputs(case, cfg, b, s, seed=0):
-    """The case's batch as numpy arrays: token ids, and for an
-    encoder-decoder config its frames (B, Se, M)."""
+    """The case's batch as numpy arrays: token ids; for an encoder-decoder
+    config its frames (B, Se, M); for a vision config distinct M-RoPE
+    streams and 16 pixel embeddings."""
     batch = {"tokens": _tokens(cfg, b, s, seed)}
+    r = np.random.default_rng([seed, 7])
     if cfg.encoder_layers:
-        r = np.random.default_rng([seed, 7])
         batch["enc_embeds"] = r.standard_normal(
             (b, FRAMES.get(case, 6), cfg.d_model)).astype(np.float32)
+    if cfg.mrope:
+        batch["positions"] = mrope_positions(b, s, 4)
+        batch["pixel_embeds"] = r.standard_normal((b, 16, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -148,6 +170,8 @@ def test_prefill_and_three_serve_steps_match_reference(case):
     batch = _inputs(case, cfg, b, s + 3, seed=1)
     toks = batch["tokens"]
     prompt = {**batch, "tokens": toks[:, :s]}
+    if "positions" in batch:
+        prompt["positions"] = batch["positions"][:, :, :s]
     lg_t, cache_t = M.prefill(cfg, params, prompt, cache_len=s + 8, device="cpu")
     lg_j, cache_j = JM.prefill(jcfg, jparams, _jax(prompt), cache_len=s + 8)
     assert tuple(lg_t.shape) == (b, 1, cfg.vocab)
@@ -231,17 +255,19 @@ def test_rolling_window_decode_matches_reference():
                                      ("gemma3_27b", LOCAL_GLOBAL), ("zamba2_1p2b", {}),
                                      ("xlstm_350m", {}),
                                      ("mixtral_8x7b", {"capacity_factor": 8.0}),
-                                     ("seamless_m4t_medium", {})])
+                                     ("seamless_m4t_medium", {}), ("qwen2_vl_72b", {})])
 def test_prefill_plus_decode_equals_full_forward(arch, kw):
     """Inside the port: the last position's logits from a full forward equal
     those of prefill(s-1) + one decode step (f32, no photonic numerics; MoE
     with a capacity that drops nothing, since drops legitimately depend on
     how many tokens route together; enc-dec against the same 6 frames,
-    the decode step against their `encode`)."""
+    the decode step against their `encode`; M-RoPE with its default equal
+    streams, which is what a decode step takes)."""
     cfg = dataclasses.replace(C.get_reduced(arch), **kw)
     params = M.init(cfg, seed=3, device="cpu")
     b, s = 2, 33
-    batch = _inputs(arch, cfg, b, s, seed=3)
+    batch = {k: v for k, v in _inputs(arch, cfg, b, s, seed=3).items()
+             if k in ("tokens", "enc_embeds")}
     toks = batch["tokens"]
     full = M.train_logits(cfg, params, batch, device="cpu")[:, -1]
     _, cache = M.prefill(cfg, params, {**batch, "tokens": toks[:, :s - 1]}, cache_len=s,
@@ -377,10 +403,35 @@ def test_encoder_depth_is_checked():
                   device="cpu")
 
 
-def test_mrope_raises():
-    cfg = C.get_reduced("qwen2_vl_72b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        M.default_positions(cfg, 1, 4, device="cpu")
+def test_pixel_embeds_reach_forward_hidden_and_not_prefill():
+    """In both packages: `forward_hidden` splices the pixel embeddings over
+    the first npix positions (the hidden states move, and agree with the
+    reference's), and `prefill` ignores them (bit-identical logits with and
+    without)."""
+    jcfg, jparams, cfg, params = _pair("qwen2_vl_72b", seed=8)
+    batch = _inputs("qwen2_vl", cfg, 2, 24, seed=8)
+    text = {k: v for k, v in batch.items() if k != "pixel_embeds"}
+    h_t, _ = M.forward_hidden(cfg, params, batch, device="cpu")
+    h_j, _ = JM.forward_hidden(jcfg, jparams, _jax(batch))
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), **TOL)
+    h_text, _ = M.forward_hidden(cfg, params, text, device="cpu")
+    assert float((h_t - h_text).abs().max()) > 1e-2
+    lg_t, _ = M.prefill(cfg, params, batch, device="cpu")
+    assert torch.equal(lg_t, M.prefill(cfg, params, text, device="cpu")[0])
+    lg_j, _ = JM.prefill(jcfg, jparams, _jax(batch))
+    np.testing.assert_array_equal(np.asarray(lg_j), np.asarray(JM.prefill(jcfg, jparams,
+                                                                           _jax(text))[0]))
+
+
+@pytest.mark.parametrize("offset", [0, np.array([3, 9])])
+def test_mrope_default_positions_are_the_index_on_every_stream(offset):
+    """Text and decode positions: (3, B, S), the token index (plus a scalar
+    or per-slot offset) on all three streams, as the reference gives them."""
+    cfg, jcfg = C.get_reduced("qwen2_vl_72b"), JC.get_reduced("qwen2_vl_72b")
+    pos = M.default_positions(cfg, 2, 5, offset=torch.as_tensor(offset), device="cpu")
+    assert tuple(pos.shape) == (3, 2, 5)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(JM.default_positions(
+        jcfg, 2, 5, offset=jnp.asarray(offset))))
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():

@@ -235,6 +235,48 @@ def test_launch_serve_main_serves_seamless_on_the_cpu(capsys):
     assert torch.equal(torch.cat(toks, 1), res["tokens"])
 
 
+def test_mrope_continuous_batching_matches_the_reference_engine():
+    """qwen2-vl through 2 slots at bucket 16: each slot decodes with its own
+    (3, B, 1) M-RoPE positions, the index on every stream, as in the JAX
+    engine, and as an independent per-request decode does."""
+    jcfg, jparams, cfg, params, prompts = _setup(arch="qwen2_vl_72b")
+    jeng = JContinuousBatcher(jcfg, jparams, n_slots=2, max_len=MAX_LEN, prompt_bucket=16)
+    jreqs = [jeng.submit(p, mn) for p, mn in zip(prompts, MAX_NEWS)]
+    jeng.run()
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=MAX_LEN, prompt_bucket=16,
+                            device="cpu")
+    reqs = [eng.submit(p, mn) for p, mn in zip(prompts, MAX_NEWS)]
+    eng.run()
+    for p, r, jr, mn in zip(prompts, reqs, jreqs, MAX_NEWS):
+        assert r.done and len(r.out) == mn
+        assert r.out == jr.out, (p, r.out, jr.out)
+        assert r.out == _independent_decode(cfg, params, p, mn, MAX_LEN), p
+
+
+def test_launch_serve_main_serves_qwen2_vl_on_the_cpu(capsys):
+    """The launcher prefills with equal (3, B, S) streams; the tokens match
+    a prefill with the default positions and decode steps by hand."""
+    import dataclasses
+    from repro_torch.launch import serve
+    res = serve.main(["--arch", "qwen2-vl-72b", "--reduced", "--batch", "2", "--prompt-len",
+                      "16", "--max-new", "4", "--device", "cpu", "--photonic", "--kernels"])
+    assert tuple(res["tokens"].shape) == (2, 4)
+    assert bool(torch.isfinite(res["logits"]).all())
+    assert "decode :" in capsys.readouterr().out
+    cfg = dataclasses.replace(C.get_reduced("qwen2_vl_72b"), use_photonic_mac=True,
+                              use_kernels=True)
+    params = M.init(cfg, seed=0, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    prompts = torch.randint(2, cfg.vocab, (2, 16), generator=gen)
+    logits, cache = M.prefill(cfg, params, {"tokens": prompts}, cache_len=20, device="cpu")
+    toks = [torch.argmax(logits[:, -1], -1)[:, None]]
+    for i in range(3):
+        logits, cache = M.serve_step(cfg, params, cache, toks[-1], 16 + i, device="cpu")
+        toks.append(torch.argmax(logits[:, -1], -1)[:, None])
+    assert torch.equal(torch.cat(toks, 1), res["tokens"])
+
+
 def test_launch_serve_main_runs_on_the_cpu_on_request(capsys):
     from repro_torch.launch import serve
     res = serve.main(["--arch", "yi-6b", "--reduced", "--batch", "2", "--prompt-len", "16",
