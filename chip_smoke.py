@@ -17,14 +17,14 @@ line, and fails if any phase fails:
   kernels           `photonic_mac`, `flash_attention` and `ssm_scan` against
                     their plain PyTorch versions on the card, at the shapes of
                     the reference's kernel tests, at ragged and edge shapes,
-                    and at the serving shapes of the four models below, with
+                    and at the serving shapes of the six models below, with
                     times, a library call's time as yardstick where one
                     PyTorch call computes the same function, and the card's
                     bound for the same work
 
 then the serving paths at full published width (bf16, photonic numerics,
 kernels on, random weights from a seed), one model at a time, at published
-depth except mixtral:
+depth except mixtral and qwen2-vl:
 
   yi-6b        serve_continuous (ContinuousBatcher, bucketed prefill) and
                serve_batch128 (`launch/serve.py`, batch 128 x prompt 128)

@@ -297,8 +297,8 @@ def _layer(tree: Params, i: int) -> Params:
 def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
                 cache=None, cache_pos=None, cache_pos_max: int = 0, enc_out=None):
     """Run every stage, layer by layer; `dec` blocks attend to `enc_out`.
-    `cache`, when given, is updated in
-    place (each block writes into its layer's view).  Returns (x, cache,
+    `cache`, when given, is updated in place (each block writes into its
+    layer's view).  Returns (x, cache,
     aux), aux the sum of the blocks' auxiliary losses (an f32 scalar, or
     None when no block has one).  Weights whose layout is not `cfg`'s raise
     `ValueError` (`check_params_layout`)."""
