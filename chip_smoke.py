@@ -48,12 +48,23 @@ depth except mixtral and qwen2-vl:
                weights); serve_continuous and serve_batch128 as yi-6b, with
                M-RoPE positions (per-slot (3, B, 1) in the batcher's decode)
 
+and the training path (`train`): zamba2-1.2b at published width and depth
+(bf16 compute, f32 masters and AdamW moments, photonic numerics, kernels on,
+`remat="full"`) trained 8 steps through `launch/train.py` on `SyntheticLM`
+batches of 8 x 2048 tokens, checkpointing every 2 steps into a temporary
+directory; a fresh trainer resumed from a step-2 checkpoint must reach the
+straight run's step-4 state bit for bit, the loss must be finite and fall,
+and one f32 step at B=2 x 2048 with the kernels and with their plain
+versions must agree in loss and gradient norm (`TRAIN_TOLERANCE`).
+
 Before each path the launch counters are set to 0; just after it they are
 read and must equal the counts reckoned from the dispatch predicates in
-`kernels/ops.py`, and every kernel of that path must have launched.  After
-each path, `end_to_end` holds kernels-on against kernels-off logits of one
-prefill (in f32 for zamba2, xlstm and mixtral, whose routing or recurrence
-amplifies bf16 rounding; `E2E_TOLERANCE`; seamless against 32 frames;
+`kernels/ops.py` (for training: the forward, and its recomputation under
+remat in the backward, which is plain), and every kernel of that path must
+have launched.  After each serving path, `end_to_end` holds kernels-on
+against kernels-off logits of one prefill (in f32 for zamba2, xlstm and
+mixtral, whose routing or recurrence amplifies bf16 rounding;
+`E2E_TOLERANCE`; seamless against 32 frames;
 qwen2-vl every position's logits through `train_logits`, with 64 pixel
 embeddings and distinct M-RoPE streams).  For mixtral it also counts the
 expert choices that differ between the two bf16 runs and holds the bf16
@@ -71,8 +82,11 @@ import bisect
 import dataclasses
 import gc
 import json
+import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -91,9 +105,14 @@ from repro_torch.kernels.photonic_mac import (  # noqa: E402
     dispatch, mac_plan, mac_splits, photonic_mac, quantize_weights)
 from repro_torch.kernels import ssm_scan as SS  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch import tree as T  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import trainer as TR  # noqa: E402
 from repro_torch.serve.engine import ContinuousBatcher  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -132,7 +151,12 @@ MAC_TIMED = ([("yi-6b", m, k, n) for m in (128, 512) for (k, n) in YI_KN]
              + [("mixtral-8x7b", m, k, n) for m in (128, 128 * 128) for (k, n) in MIXTRAL_KN]
              + [("seamless-m4t-medium", m, k, n) for m in (128, 128 * 128)
                 for (k, n) in SEAMLESS_KN]
-             + [("qwen2-vl-72b", m, k, n) for m in (128, 128 * 128) for (k, n) in QWEN_KN])
+             + [("qwen2-vl-72b", m, k, n) for m in (128, 128 * 128) for (k, n) in QWEN_KN]
+             # the training path's tiled linears (zamba2 at B=8 x 2048: out_proj
+             # and the shared attention's projections at 16384 rows, the head
+             # once per 1024-token CE chunk, 8192 rows)
+             + [("zamba2-1.2b train", m, k, n)
+                for (m, k, n) in ((16384, 4096, 2048), (16384, 2048, 2048), (8192, 2048, 32000))])
 # the plain version of a timed product whose output holds more than this
 # many elements is compared on its first `MAC_PLAIN_ROWS` rows only
 MAC_PLAIN_ELEMS, MAC_PLAIN_ROWS = 16384 * 32000, 1024
@@ -157,7 +181,8 @@ ATTN_TIMED = [("yi-6b", 1, 128, 128, 32, 4, 128, True, 0),
               ("seamless-m4t-medium cross", 128, 128, 32, 16, 16, 64, False, 0),
               ("seamless-m4t-medium cross", 1, 128, 1024, 16, 16, 64, False, 0),
               ("qwen2-vl-72b", 1, 128, 128, 64, 8, 128, True, 0),
-              ("qwen2-vl-72b", 128, 128, 128, 64, 8, 128, True, 0)]
+              ("qwen2-vl-72b", 128, 128, 128, 64, 8, 128, True, 0),
+              ("zamba2-1.2b train", 8, 2048, 2048, 32, 32, 64, True, 4096)]
 ATTN_HEADLINE = (1, 128)                 # (batch, prompt length) reported in the summary
 SSM_HEADLINE = "zamba2 B=128 L=128"      # the scan shape reported in the summary
 
@@ -603,6 +628,7 @@ SSM_PATH = [
     ("zamba2 B=1 L=4096", 64, 4096, 64, 64, ("bf16", "bf16", "bf16"), 1),
     ("xlstm B=128 L=128", 128 * 4, 128, 256, 256, ("bf16", "bf16", "bf16"), 128 * 4),
     ("xlstm normaliser B=128 L=128", 128 * 4, 128, 1, 256, ("f32", "bf16", "bf16"), 128 * 4),
+    ("zamba2 train B=8 L=2048", 8 * 64, 2048, 64, 64, ("bf16", "bf16", "bf16"), 8),
 ]
 
 
@@ -1179,21 +1205,54 @@ def phase_end_to_end(cfg, params, seq: int = 128) -> dict:
     return out
 
 
-def _ranges_on_device(prof) -> dict:
+def _ranges_on_device(prof, spans=SPANS) -> dict:
     """Device ms of the kernels that start inside each profiler range's span
-    on the device timeline (the device side of `record_function`).  Only
-    `encode` holds other ranges (its blocks' `attention`), so a kernel
-    counts in at most one range besides `encode`."""
+    on the device timeline (the device side of `record_function`).  Of
+    `SPANS`, only `encode` holds other ranges (its blocks' `attention`), so a
+    kernel counts in at most one range besides `encode`; of `TRAIN_SPANS`,
+    `loss` holds the forward's `attention` ranges, and the backward's
+    kernels, launched from autograd's own thread, fall in no range."""
     dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-    kern = sorted((e for e in dev if e.name not in SPANS), key=lambda e: e.time_range.start)
+    kern = sorted((e for e in dev if e.name not in spans), key=lambda e: e.time_range.start)
     starts = [e.time_range.start for e in kern]
     out = {}
-    for sp in (e for e in dev if e.name in SPANS):
+    for sp in (e for e in dev if e.name in spans):
         lo = bisect.bisect_left(starts, sp.time_range.start)
         hi = bisect.bisect_left(starts, sp.time_range.end)
         out[sp.name] = out.get(sp.name, 0.0) + sum(
             k.time_range.elapsed_us() for k in kern[lo:hi]) / 1e3
     return out
+
+
+def profile_window(fn, spans=SPANS) -> dict:
+    """One warm call of `fn`, then one under `torch.profiler`: wall and
+    device-busy ms, the idle share, the ten longest kernels, every kernel of
+    the port, and the device ms under each of `spans` (`_ranges_on_device`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()                                           # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()   # not the ranges' own device spans
+               if str(e.device_type).endswith("CUDA") and e.key not in spans]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    ours = [e for e in kernels if any(n in e.key for n in PORT_KERNEL_NAMES)]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:60], "calls": e.count, "ms": dev_us(e) / 1e3}
+                            for e in top],
+            "port_kernels": [{"name": e.key[:60], "calls": e.count, "ms": dev_us(e) / 1e3}
+                             for e in sorted(ours, key=dev_us, reverse=True)],
+            "ranges_ms": _ranges_on_device(prof, spans)}
 
 
 def phase_profile(cfg, params) -> dict:
@@ -1204,8 +1263,6 @@ def phase_profile(cfg, params) -> dict:
     under each of the model's profiler ranges (`SPANS`: attention's product
     and cache, cross-attention's product, the whole encoder, and the MoE
     block's routing, dispatch, experts and combine)."""
-    from torch.profiler import ProfilerActivity, profile
-
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 3)
     batch = model_inputs(cfg, gen, 128, 128)
@@ -1215,37 +1272,231 @@ def phase_profile(cfg, params) -> dict:
                if cfg.encoder_layers else None)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
 
-    def window(fn) -> dict:
-        fn()                                           # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()   # not the ranges' own device spans
-                   if str(e.device_type).endswith("CUDA") and e.key not in SPANS]
-        def dev_us(e):
-            return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-        busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-        top = sorted(kernels, key=dev_us, reverse=True)[:10]
-        ours = [e for e in kernels if any(n in e.key for n in PORT_KERNEL_NAMES)]
-        return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
-                "kernel_launches": sum(e.count for e in kernels),
-                "top_kernels": [{"name": e.key[:60], "calls": e.count, "ms": dev_us(e) / 1e3}
-                                for e in top],
-                "port_kernels": [{"name": e.key[:60], "calls": e.count, "ms": dev_us(e) / 1e3}
-                                 for e in sorted(ours, key=dev_us, reverse=True)],
-                "ranges_ms": _ranges_on_device(prof)}
-
     out = {"phase": "profile", "model": cfg.name,
-           "decode_step_b128": window(lambda: M.serve_step(cfg, params, cache, tok, 128,
-                                                           enc_out=enc_out, device=DEV)),
-           "prefill_b1_s128": window(lambda: M.prefill(cfg, params, one, device=DEV)),
-           "prefill_b128_s128": window(lambda: M.prefill(cfg, params, batch, device=DEV))}
+           "decode_step_b128": profile_window(
+               lambda: M.serve_step(cfg, params, cache, tok, 128, enc_out=enc_out, device=DEV)),
+           "prefill_b1_s128": profile_window(lambda: M.prefill(cfg, params, one, device=DEV)),
+           "prefill_b128_s128": profile_window(lambda: M.prefill(cfg, params, batch,
+                                                                 device=DEV))}
     emit(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the training path: zamba2-1.2b at published width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_CFG_ID, TRAIN_ARCH = "zamba2_1p2b", "zamba2-1.2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 2048, 8, 2
+# one schedule for every run of the path (the launcher's default derives it
+# from --steps), so that a resumed run steps as the straight run did
+TRAIN_OPT = adamw.OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+# kernels on vs off: one f32 step at B=2 x 2048 from one state, the loss
+# and the gradient norm held relative to the plain run's.  Only the
+# forward's rounding differs (kernel and plain version sum in other
+# orders), but at initialisation zamba2 amplifies a change of its forward
+# layer by layer (`tools/torch_perturbation_growth.py`), and the backward
+# carries the amplified difference into every gradient; so the gradient
+# norm is held at 1e-2 and the loss at 1e-4.  `control` (printed) is the
+# plain step again with its embeddings scaled by 1 + 2^-22, about two f32
+# roundings: the size of change that amplification alone gives.
+TRAIN_TOLERANCE = {"batch": 2, "dtype": "float32", "loss": 1e-4, "grad_norm": 1e-2}
+TRAIN_CONTROL_EMBED_SCALE = 1 + 2 ** -22
+# the profiler ranges of `runtime/trainer.py`, and attention's, inside them
+TRAIN_SPANS = ("loss", "backward", "optimizer", "attention")
+# where the path's checkpoints go: a memory-backed temporary directory where
+# the host has one.  The path writes six checkpoints of 11.6 GB (the
+# straight run's four and the resume check's two, 70 GB), more than a disk
+# metered by the bytes written may take; the directory is removed when the
+# path ends.
+TRAIN_CKPT_ROOT = "/dev/shm" if Path("/dev/shm").is_dir() else None
+
+
+def train_step_launches(cfg, batch: int, seq: int) -> dict:
+    """Launches of one train step of a config without an encoder: the
+    forward (the stages on batch x seq rows; the head once per CE chunk of
+    batch x loss_chunk rows), twice under `cfg.remat`, whose checkpoints
+    recompute their forward in the backward; the backward itself is plain."""
+    chunk = min(cfg.loss_chunk, seq)
+    n = _stage_launches(cfg, M.stages(cfg), batch, seq, 0)
+    n["photonic_mac"] += (seq // chunk) * int(ops.uses_tiled_path(batch * chunk, cfg.d_model,
+                                                                 cfg.vocab))
+    return {k: v * (1 if cfg.remat == "none" else 2) for k, v in n.items()}
+
+
+def _train(ckpt: str, steps: int, fresh: bool):
+    """`launch/train.main` on the training path's flags."""
+    argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(steps), "--ckpt", ckpt, "--ckpt-every", str(TRAIN_CKPT_EVERY),
+            "--photonic-mac", "--kernels"] + (["--no-resume"] if fresh else [])
+    return train.main(argv, opt=TRAIN_OPT)
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _gb(tree) -> float:
+    return sum(t.numel() * t.element_size() for t in T.leaves(tree)) / 1e9
+
+
+def phase_train(ckpt: str) -> dict:
+    """The straight run: 8 steps from a fresh state, checkpoints every 2.
+    The launches must equal `train_step_launches` per step, the loss be
+    finite at every step and lower at step 8 than at step 1."""
+    torch.cuda.reset_peak_memory_stats()
+    before = counters()
+    trainer, res = _train(ckpt, TRAIN_STEPS, fresh=True)
+    torch.cuda.synchronize()
+    got = _since(before)
+    cfg, hist = trainer.cfg, trainer.history
+    published = C.get(TRAIN_CFG_ID)      # full width and depth, bf16, remat
+    assert (cfg.remat, cfg.n_layers, cfg.d_model, cfg.dtype) == (
+        "full", published.n_layers, published.d_model, "bfloat16"), cfg
+    per_step = train_step_launches(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    assert got == want, f"launch counts {got} differ from {want}"
+    losses = [h["loss"] for h in hist]
+    step_s = [h["step_s"] for h in hist]
+    med = sorted(step_s[1:])[(len(step_s) - 1) // 2]
+    out = {"phase": "train", "model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "opt": dataclasses.asdict(TRAIN_OPT),
+           "parameters": sum(t.numel() for t in T.leaves(trainer.state.params)),
+           "state_gb": _gb(trainer.state), "losses": losses,
+           "ce": [h["ce"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+           "step_s": step_s, "median_step_s_after_first": med,
+           "train_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+           "ckpt_root": TRAIN_CKPT_ROOT,
+           "ckpt_save_s": [h["ckpt_s"] for h in hist if "ckpt_s" in h],
+           "wall_s": res["wall_s"], "launches": got, "launches_per_step": per_step,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "card_memory_gb": torch.cuda.get_device_properties(DEV).total_memory / 1e9}
+    emit(out)
+    assert all(map(math.isfinite, losses)) and losses[-1] < losses[0], losses
+    del trainer
+    _free()
+    return out
+
+
+def phase_train_resume(straight: str, ckpt: str) -> dict:
+    """A fresh trainer trains 2 steps (checkpoint at step 2), then another
+    fresh trainer resumes from that checkpoint and trains to step 4: its
+    state (every leaf of params, m and v, and the step) must equal the
+    straight run's step-4 checkpoint bit for bit."""
+    for step in store.retained_steps(straight):        # only step 4 is read again
+        if step != 4:
+            shutil.rmtree(Path(straight) / f"step_{step:08d}")
+    first, _ = _train(ckpt, 2, fresh=True)
+    del first
+    _free()
+    resumed, _ = _train(ckpt, 4, fresh=False)
+    assert resumed.start_step == 2, resumed.start_step
+    t0 = time.perf_counter()
+    want = store.restore(straight, 4, resumed.state)
+    torch.cuda.synchronize()
+    restore_4_s = time.perf_counter() - t0
+    named = list(T.leaves_with_path(resumed.state))
+    differ = [n for (n, a), b in zip(named, T.leaves(want)) if not torch.equal(a, b)]
+    out = {"phase": "train_resume", "ckpt_root": TRAIN_CKPT_ROOT, "resumed_from": 2, "to": 4,
+           "leaves": len(named),
+           "leaves_differing": differ, "restore_s": resumed.restore_s,
+           "restore_straight_step4_s": restore_4_s,
+           "losses_steps_3_4": [h["loss"] for h in resumed.history]}
+    emit(out)
+    assert not differ, f"the resumed state differs from the straight run's in {differ}"
+    del resumed, want
+    _free()
+    return out
+
+
+def _step_metrics(cfg, state, batch) -> tuple:
+    before = counters()
+    _, m = TR.make_train_step(cfg, TRAIN_OPT, device=DEV)(state, batch)
+    m = {k: float(v) for k, v in m.items()}
+    return m, _since(before)
+
+
+def phase_train_kernels_vs_plain() -> dict:
+    """One step at B=2 x 2048 from one state, with the kernels and with
+    their plain versions: in f32 (held to `TRAIN_TOLERANCE`), and in bf16
+    for the record."""
+    b = TRAIN_TOLERANCE["batch"]
+    out = {"phase": "train_kernels_vs_plain", "batch": b, "seq": TRAIN_SEQ}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(C.get(TRAIN_CFG_ID), dtype=dtype, use_photonic_mac=True,
+                                  use_kernels=True)
+        state = adamw.init_state(TRAIN_OPT, M.init(cfg, seed=SEED, device=DEV,
+                                                   expert_dtype=torch.float32))
+        data = SyntheticLM(cfg, DataConfig(global_batch=b, seq_len=TRAIN_SEQ)).batch_at(0)
+        batch = {k: torch.as_tensor(v).to(DEV) for k, v in data.items()}
+        mk, used = _step_metrics(cfg, state, batch)
+        _free()
+        plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+        mp, plain = _step_metrics(plain_cfg, state, batch)
+        want = train_step_launches(cfg, b, TRAIN_SEQ)
+        assert used == want, f"{dtype}: launch counts {used} differ from {want}"
+        assert not any(plain.values()), f"use_kernels=False launched a kernel: {plain}"
+        out[dtype] = {"kernels": mk, "plain": mp, "launches": used,
+                      "loss_rel": abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]),
+                      "grad_norm_rel": abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]}
+        if dtype == "float32":   # the plain step again, its embeddings scaled
+            params = dict(state.params, embed=state.params["embed"] * TRAIN_CONTROL_EMBED_SCALE)
+            mc, _ = _step_metrics(plain_cfg, state._replace(params=params), batch)
+            del params
+            out[dtype]["control"] = {
+                "embed_scale": TRAIN_CONTROL_EMBED_SCALE, "plain": mc,
+                "loss_rel": abs(mc["loss"] - mp["loss"]) / abs(mp["loss"]),
+                "grad_norm_rel": abs(mc["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]}
+        del state, batch
+        _free()
+    f32 = out["float32"]
+    out["tolerance"] = TRAIN_TOLERANCE
+    emit(out)
+    assert (f32["loss_rel"] < TRAIN_TOLERANCE["loss"]
+            and f32["grad_norm_rel"] < TRAIN_TOLERANCE["grad_norm"]), f32
+    return out
+
+
+def phase_train_profile() -> dict:
+    """Device time of one train step at the path's size (a fresh state),
+    by kernel and by range: the trainer's `loss` and `optimizer`, the
+    backward (which holds the recomputed forward) as the rest of the step's
+    device time, and the forward's `attention`."""
+    cfg = dataclasses.replace(C.get(TRAIN_CFG_ID), use_photonic_mac=True, use_kernels=True)
+    state = adamw.init_state(TRAIN_OPT, M.init(cfg, seed=SEED, device=DEV,
+                                               expert_dtype=torch.float32))
+    data = SyntheticLM(cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)).batch_at(0)
+    batch = {k: torch.as_tensor(v).to(DEV) for k, v in data.items()}
+    step = TR.make_train_step(cfg, TRAIN_OPT, device=DEV)
+    win = profile_window(lambda: step(state, batch), TRAIN_SPANS)
+    # autograd runs the backward on its own thread, whose kernels the
+    # `backward` range (opened on this one) does not see: the backward's
+    # device time is what the step's leaves to the other two ranges
+    r = win["ranges_ms"]
+    r["backward_derived"] = win["device_busy_ms"] - r.get("loss", 0.0) - r.get("optimizer", 0.0)
+    out = {"phase": "train_profile", "model": cfg.name, "train_step_b8_s2048": win}
+    emit(out)
+    del state, batch
+    _free()
+    return out
+
+
+def run_train_path(profile: bool) -> dict:
+    """The training path: the straight run with the counters at 0 just
+    before it and read just after (the path's launches), then the resume,
+    kernels-on-vs-off and (with `profile`) profiler phases."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_", dir=TRAIN_CKPT_ROOT) as tmp:
+        zero_counters()
+        phase_train(f"{tmp}/straight")
+        launches = counters()
+        phase_train_resume(f"{tmp}/straight", f"{tmp}/resumed")
+    phase_train_kernels_vs_plain()
+    if profile:
+        phase_train_profile()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1391,6 +1642,9 @@ def main() -> None:
         by_path[arch] = run_path(cfg_id, arch, args.profile)
         for name in needs:
             assert by_path[arch][name] > 0, f"the {arch} path never launched {name}"
+    by_path["zamba2-1.2b train"] = run_train_path(args.profile)
+    for name in KERNELS:
+        assert by_path["zamba2-1.2b train"][name] > 0, f"the train path never launched {name}"
     launches = {name: sum(n[name] for n in by_path.values()) for name in KERNELS}
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

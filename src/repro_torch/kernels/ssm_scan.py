@@ -203,8 +203,14 @@ def chunk_scratch(x: torch.Tensor, n: int, plan: SSMPlan):
 
 
 def expand_groups(t: torch.Tensor, bh: int) -> torch.Tensor:
-    """b or c (G, L, N) repeated per head to (BH, L, N), the reference's layout."""
-    return t if t.shape[0] == bh else t.repeat_interleave(bh // t.shape[0], dim=0)
+    """b or c (G, L, N) repeated per head to (BH, L, N), the reference's layout.
+    An expand, not `repeat_interleave`: the same values, and its gradient is
+    a sum over each group's heads, where `repeat_interleave`'s adds them with
+    atomics on the card, in no fixed order."""
+    if t.shape[0] == bh:
+        return t
+    g = t.shape[0]
+    return t[:, None].expand(g, bh // g, *t.shape[1:]).reshape(bh, *t.shape[1:])
 
 
 def check_shapes(x, a, b, c) -> None:

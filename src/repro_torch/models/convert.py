@@ -1,9 +1,11 @@
-"""Carries the reference package's parameters over to this port.
+"""Carries the reference package's parameters and training state over to
+this port.
 
-The boundary is numpy: the caller turns the reference's `init` pytree into
-numpy arrays (`jax.tree.map(np.asarray, params)`) and this module never sees
-the other framework.  Layouts are the reference's and stay as they are
-(`wq (M,H,Dh)`, `wo (H,Dh,M)`, stage leaves stacked on a leading layer axis).
+The boundary is numpy: the caller turns the reference's `init` pytree (or
+its `TrainState`) into numpy arrays (`jax.tree.map(np.asarray, params)`)
+and this module never sees the other framework.  Layouts are the
+reference's and stay as they are (`wq (M,H,Dh)`, `wo (H,Dh,M)`, stage
+leaves stacked on a leading layer axis).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from repro_torch import require_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import TrainState
 
 Params = Dict[str, Any]
 
@@ -45,7 +48,11 @@ def _subs(cfg: ModelConfig, kind: str):
 
 
 def _leaf(a, device, dtype) -> torch.Tensor:
-    t = torch.from_numpy(np.array(a))       # a copy: the source may be read-only
+    a = np.array(a)                         # a copy: the source may be read-only
+    if a.dtype.name == "bfloat16":          # the reference's bf16, which numpy knows by name
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
@@ -98,3 +105,18 @@ def params_from_reference(cfg: ModelConfig, np_params: Params, device="cuda",
                                             "encoder.blocks", device, dtype),
                           "norm": _leaf(enc["norm"], device, dtype)}
     return out
+
+
+def state_from_reference(cfg: ModelConfig, np_state, device="cuda") -> TrainState:
+    """The port's `TrainState` from the reference's, given with numpy leaves
+    (`jax.tree.map(np.asarray, state)`): the int32 step, the masters, and
+    the moments m and v in their own dtype (f32, or bf16 under
+    `state_dtype="bfloat16"`), so that both packages train from one point.
+
+    Raises `ValueError` when a tree does not match the config."""
+    device = require_device(device)
+    step = torch.tensor(np.asarray(np_state.step), dtype=torch.int32, device=device)
+    return TrainState(step=step,
+                      params=params_from_reference(cfg, np_state.params, device),
+                      m=params_from_reference(cfg, np_state.m, device),
+                      v=params_from_reference(cfg, np_state.v, device))

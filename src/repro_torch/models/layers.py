@@ -310,17 +310,18 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_moe(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0) -> Params:
+def init_moe(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0,
+             expert_dtype: Optional[torch.dtype] = None) -> Params:
     """Router (M,E) and the experts' SwiGLU stacks wi/wg (E,M,F), wo (E,F,M).
 
-    The expert stacks are stored in the compute dtype: both dispatches cast
-    them to it on every use, as the reference casts its f32 masters, so the
-    forward numbers are those of f32 masters (mixtral's experts are 90 GB
-    in bf16 and 180 GB in f32).  Training (ROADMAP.md, Queue 1) revisits
-    this, since an optimizer needs f32 masters."""
+    By default the expert stacks are stored in the compute dtype: both
+    dispatches cast them to it on every use, as the reference casts its f32
+    masters, so the forward numbers are those of f32 masters (mixtral's
+    experts are 90 GB in bf16 and 180 GB in f32).  An optimizer needs f32
+    masters: the trainer passes `expert_dtype=torch.float32`."""
     m, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     kw = {"device": device, "layers": layers}
-    dt = compute_dtype(cfg)
+    dt = expert_dtype or compute_dtype(cfg)
     return {
         "router": _dense_init(gen, (m, e), **kw),
         "wi": _dense_init(gen, (e, m, f), in_axes=(1,), dtype=dt, **kw),
@@ -336,9 +337,10 @@ def _experts(p: Params, xe: torch.Tensor) -> torch.Tensor:
     Plain products: the reference runs them outside any Pallas kernel."""
     dt = xe.dtype
     with _span("moe.experts"):
+        # in place only when no backward needs the product's input
         g = torch.nn.functional.silu(
             torch.einsum("ebcm,emf->ebcf", xe, p["wg"].to(dt)).to(torch.float32),
-            inplace=True).to(dt)
+            inplace=not torch.is_grad_enabled()).to(dt)
         h = torch.einsum("ebcm,emf->ebcf", xe, p["wi"].to(dt)) * g
         return torch.einsum("ebcf,efm->ebcm", h, p["wo"].to(dt))
 

@@ -20,10 +20,18 @@ Block kinds:
                self-attention with a cache, cross-attention to the
                encoder's output, MLP); seamless
 
-Entry points: `init`, `train_logits`, `prefill` + `serve_step` (inference),
-`encode` (enc-dec).
+Entry points: `init`, `loss_fn` (training), `train_logits`, `prefill` +
+`serve_step` (inference), `encode` (enc-dec).
 Each takes `device`, which defaults to "cuda" and raises without a card; the
 CPU is used only on request.  The serving cache is updated in place.
+
+`cfg.remat` (recompute in the backward, `torch.utils.checkpoint`) applies
+only while a backward can follow: grad enabled and weights that require it.
+Then each repeat of a stage (the reference's scan body: the stage's group
+of kinds), each encoder layer and the head of each cross-entropy chunk runs
+under its own checkpoint.  "none" saves everything; "full", "dots" and
+"dots_all" all recompute in full (the reference's "dots" policies save the
+products' outputs; the numbers are the same either way).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import require_device
 from repro_torch.models import layers as L
@@ -102,7 +111,7 @@ def _kind_window(cfg: ModelConfig, kind: str) -> int:
 
 
 def _init_blocks(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
-                 repeat: int) -> Params:
+                 repeat: int, expert_dtype: Optional[torch.dtype] = None) -> Params:
     """`repeat` blocks of one kind, leaves stacked on a leading layer axis."""
     kw = {"device": device, "layers": repeat}
     if kind in ("attn", "local", "global", "enc"):
@@ -111,7 +120,8 @@ def _init_blocks(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
             p["mlp"] = L.init_mlp(cfg, gen, **kw)
         return p
     if kind == "moe":
-        return {"attn": L.init_attention(cfg, gen, **kw), "moe": L.init_moe(cfg, gen, **kw)}
+        return {"attn": L.init_attention(cfg, gen, **kw),
+                "moe": L.init_moe(cfg, gen, expert_dtype=expert_dtype, **kw)}
     if kind == "shared_attn":
         return {}  # the parameters live once, at params["shared_attn"]
     if kind == "mamba":
@@ -127,12 +137,14 @@ def _init_blocks(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
     raise ValueError(kind)
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+def init(cfg: ModelConfig, seed: int = 0, device="cuda",
+         expert_dtype: Optional[torch.dtype] = None) -> Params:
     """Random weights in the reference's layout, drawn from a seeded
     `torch.Generator` on `device` (not the reference's numbers: parity tests
     carry the reference's weights over with `convert.params_from_reference`).
-    f32 masters, except the MoE expert stacks, which are stored in the
-    compute dtype (`layers.init_moe`)."""
+    f32 masters, except the MoE expert stacks, which are stored in
+    `expert_dtype`, by default the compute dtype (`layers.init_moe`); the
+    trainer asks for f32."""
     device = require_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -148,7 +160,7 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     for repeat, kinds in stages(cfg):
         sp = {}
         for j, kind in enumerate(kinds):
-            sp[f"{kind}_{j}"] = _init_blocks(cfg, kind, gen, device, repeat)
+            sp[f"{kind}_{j}"] = _init_blocks(cfg, kind, gen, device, repeat, expert_dtype)
         p["stages"].append(sp)
     if has_shared_attn(cfg):
         p["shared_attn"] = L.init_attention(cfg, gen, device=device)
@@ -294,21 +306,37 @@ def _layer(tree: Params, i: int) -> Params:
     return tree[i]
 
 
+def _remat_on(cfg: ModelConfig, params: Params) -> bool:
+    """True when `cfg.remat` applies: a backward can follow this forward
+    (grad enabled, and the weights require it)."""
+    return cfg.remat != "none" and torch.is_grad_enabled() and params["embed"].requires_grad
+
+
+def _checkpoint(fn, *args):
+    """`fn(*args)` with its activations recomputed in the backward."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
 def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
                 cache=None, cache_pos=None, cache_pos_max: int = 0, enc_out=None):
     """Run every stage, layer by layer; `dec` blocks attend to `enc_out`.
     `cache`, when given, is updated in place (each block writes into its
-    layer's view).  Returns (x, cache,
+    layer's view).  Without a cache and under `cfg.remat`, each repeat of a
+    stage runs under one checkpoint.  Returns (x, cache,
     aux), aux the sum of the blocks' auxiliary losses (an f32 scalar, or
     None when no block has one).  Weights whose layout is not `cfg`'s raise
     `ValueError` (`check_params_layout`)."""
     check_params_layout(cfg, params)
     shared = params.get("shared_attn")
+    remat = cache is None and _remat_on(cfg, params)
     aux_total = None
     for si, (repeat, kinds) in enumerate(stages(cfg)):
         sp = params["stages"][si]
         scache = cache[si] if cache is not None else None
-        for i in range(repeat):
+
+        def body(x, i, sp=sp, scache=scache, kinds=kinds):
+            aux_sum = None
             for j, kind in enumerate(kinds):
                 name = f"{kind}_{j}"
                 c_j = _layer(scache[name], i) if scache is not None else None
@@ -316,7 +344,13 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
                                          shared=shared, cache=c_j, cache_pos=cache_pos,
                                          cache_pos_max=cache_pos_max, enc_out=enc_out)
                 if aux is not None:
-                    aux_total = aux if aux_total is None else aux_total + aux
+                    aux_sum = aux if aux_sum is None else aux_sum + aux
+            return x, aux_sum
+
+        for i in range(repeat):
+            x, aux = _checkpoint(body, x, i) if remat else body(x, i)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
     return x, cache, aux_total
 
 
@@ -365,10 +399,15 @@ def encode(cfg: ModelConfig, params: Params, enc_embeds, device="cuda") -> torch
     b, se, _ = x.shape
     positions = torch.arange(se, dtype=torch.int32, device=device)[None].expand(b, se)
     blocks = params["encoder"]["blocks"]
+    remat = _remat_on(cfg, params)
+
+    def layer(x, i):
+        return _apply_block(cfg, "enc", _layer(blocks, i), x, positions, shared=None,
+                            cache=None, cache_pos=None, cache_pos_max=0, enc_out=None)[0]
+
     with L._span("encode"):
         for i in range(cfg.encoder_layers):
-            x, _, _ = _apply_block(cfg, "enc", _layer(blocks, i), x, positions, shared=None,
-                                   cache=None, cache_pos=None, cache_pos_max=0, enc_out=None)
+            x = _checkpoint(layer, x, i) if remat else layer(x, i)
         return L.rms_norm(x, params["encoder"]["norm"])
 
 
@@ -414,6 +453,34 @@ def forward_hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any], devi
     if aux is None:
         aux = torch.zeros((), device=device)
     return L.rms_norm(x, params["final_norm"]), aux
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], device="cuda"):
+    """Chunked cross-entropy plus 1e-2 of the blocks' auxiliary loss.
+    Logits are made one `cfg.loss_chunk` slice of the sequence at a time
+    (under `cfg.remat`, each chunk's head is recomputed in the backward), so
+    the (B,S,V) tensor never exists.  `batch["labels"]` (B,S) holds the
+    next token of each position.  Returns (loss, {"ce", "aux"}), f32
+    scalars; ce is the summed `logsumexp - gold logit` over B*S."""
+    h, aux = forward_hidden(cfg, params, batch, device=device)
+    labels = torch.as_tensor(batch["labels"]).to(device=h.device, dtype=torch.long)
+    b, s, _ = h.shape
+    chunk = min(cfg.loss_chunk, s)
+    if s % chunk:
+        raise ValueError(f"{cfg.name}: sequence {s} is not a multiple of loss_chunk {chunk}")
+
+    def chunk_ce(hx, yx):
+        logits = logits_head(cfg, params, hx)                       # (B, chunk, V) f32
+        gold = torch.gather(logits, -1, yx[..., None])[..., 0]
+        return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+    remat = _remat_on(cfg, params)
+    sums = []
+    for c0 in range(0, s, chunk):
+        hx, yx = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        sums.append(_checkpoint(chunk_ce, hx, yx) if remat else chunk_ce(hx, yx))
+    ce = torch.stack(sums).sum() / (b * s)
+    return ce + 1e-2 * aux, {"ce": ce, "aux": aux}
 
 
 def train_logits(cfg: ModelConfig, params: Params, batch, device="cuda"):
