@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only photonic_mac   # stop after photonic_mac's comparisons
     python3 chip_smoke.py --only flash_attention   # stop after flash_attention's
     python3 chip_smoke.py --only ssm_scan  # stop after ssm_scan's
+    python3 chip_smoke.py --only engine    # the engine phases alone (no kernel build)
     python3 chip_smoke.py --profile        # also: device time by kernel per model
 
 Needs one NVIDIA Hopper GPU, `nvcc` and PyTorch built for CUDA; it raises
@@ -21,6 +22,17 @@ line, and fails if any phase fails:
                     times, a library call's time as yardstick where one
                     PyTorch call computes the same function, and the card's
                     bound for the same work
+
+then the analytic engine (`src/repro_torch/core/`) in float64 on the card,
+each phase held against the port's own CPU evaluation (continuous values at
+rtol 1e-12, discrete fields exactly):
+
+  engine_fig4  paper Fig. 4 (`benchmarks/torch_fig4_trine.py`): its five
+               checks True; every row, and the network columns of all five
+               topologies over a 180-row grid, equal to the CPU's
+  engine_fig6  paper Fig. 6 (`benchmarks/torch_fig6_crosslight.py`): the
+               three CrossLight variants x six CNNs, its checks True, equal
+               to the CPU's
 
 then the serving paths at full published width (bf16, photonic numerics,
 kernels on, random weights from a seed), one model at a time, at published
@@ -90,6 +102,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -98,6 +111,8 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs as C  # noqa: E402
+from repro_torch import core as EC  # noqa: E402
+from repro_torch.core import sweep as ES  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -263,14 +278,18 @@ def _ptxas_lines() -> list:
     return out
 
 
-def phase_device() -> dict:
+def phase_device(build: bool = True) -> dict:
+    """The card's name and power limit, versions, and (with `build`) the
+    kernels' build; the engine phases alone need no build."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    _build.library()
+    if build:
+        _build.library()
     info = {"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "python": sys.version.split()[0],
-            "build_seconds": round(_build.build_seconds, 2), "ptxas": _ptxas_lines()}
+            "build_seconds": round(_build.build_seconds, 2) if build else None,
+            "ptxas": _ptxas_lines()}
     emit(info)
     return info
 
@@ -788,6 +807,109 @@ def phase_kernels(only: str | None = None) -> dict:
     out = {"phase": "kernels", **parts}
     emit(out)
     return {**out, "checks": checks}
+
+
+# ---------------------------------------------------------------------------
+# the analytic engine (`repro_torch.core`) in float64 on the card
+# ---------------------------------------------------------------------------
+
+ENGINE_RTOL = 1e-12          # card against the port's CPU evaluation
+ENGINE_DISCRETE = ("n_wavelengths", "n_mr", "n_mzi", "n_stages", "n_laser_banks",
+                   "is_electrical", "n_routers")
+
+
+def _max_rel(got, want) -> float:
+    got, want = np.broadcast_arrays(np.asarray(got, np.float64), np.asarray(want, np.float64))
+    if got.size == 0:
+        return 0.0
+    same = got == want                                # equal infinities count as equal
+    with np.errstate(invalid="ignore"):
+        rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
+    return float(np.max(np.where(same, 0.0, rel)))
+
+
+def _hold(got, want, what: str, rtol: float = ENGINE_RTOL) -> float:
+    """Max relative error of `got` against `want`; raises past `rtol`, or on
+    any difference in a discrete field."""
+    err = _max_rel(got, want)
+    if what.split("/")[-1] in ENGINE_DISCRETE and err != 0.0:
+        bad = np.flatnonzero(np.asarray(got) != np.asarray(want))[:8]
+        raise AssertionError(f"{what}: discrete field differs between card and CPU at rows "
+                             f"{bad.tolist()}")
+    if not err <= rtol:
+        raise AssertionError(f"{what}: card vs CPU max rel err {err:.3e} > {rtol:g}")
+    return err
+
+
+def _require_checks(checks: dict, what: str) -> None:
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"{what}: checks failed: {failed}")
+
+
+def phase_engine_fig4() -> dict:
+    """Paper Fig. 4 (`benchmarks/torch_fig4_trine.py`) on the card: every
+    check True, every row and the network columns of all five topologies
+    equal to the CPU's (continuous at ENGINE_RTOL, discrete exactly)."""
+    from benchmarks import torch_fig4_trine as fig4
+    cpu = fig4.run(csv=False, device="cpu")
+    t0 = time.perf_counter()
+    card = fig4.run(csv=False, device="cuda")
+    seconds = time.perf_counter() - t0
+    _require_checks(card["checks"], "engine_fig4")
+    if card["params"] != cpu["params"]:
+        raise AssertionError(f"engine_fig4: params differ {card['params']} vs {cpu['params']}")
+    err = 0.0
+    for a, b in zip(card["rows"], cpu["rows"]):
+        assert (a["cnn"], a["network"]) == (b["cnn"], b["network"])
+        for k, v in a.items():
+            if not isinstance(v, str):
+                err = max(err, _hold(v, b[k], f"fig4/{a['cnn']}/{a['network']}/{k}"))
+    grid = EC.build_grid(ES.DEFAULT_TOPOLOGIES, n_gateways=(8, 16, 32, 64),
+                         n_lambda=(4, 8, 16), mem_bw_bytes_per_s=(50e9, 100e9, 200e9))
+    nets_card = EC.network_columns(grid, device="cuda")
+    nets_cpu = EC.network_columns(grid, device="cpu")
+    for f in nets_card:
+        err = max(err, _hold(nets_card[f], nets_cpu[f], f"fig4 nets/{f}"))
+    out = {"phase": "engine_fig4", "seconds": seconds, "checks": card["checks"],
+           "params": card["params"], "rows": len(card["rows"]),
+           "network_rows_checked": grid.n, "max_rel_err_vs_cpu": err,
+           "discrete_fields_equal": True, "rtol": ENGINE_RTOL}
+    emit(out)
+    return out
+
+
+def phase_engine_fig6() -> dict:
+    """Paper Fig. 6 (`benchmarks/torch_fig6_crosslight.py`): the three
+    CrossLight variants x six CNNs on the card, every check True, equal to
+    the CPU at ENGINE_RTOL (its layer and chiplet sums are reductions, so
+    held at a tolerance, not bitwise)."""
+    from benchmarks import torch_fig6_crosslight as fig6
+    cpu = fig6.run(csv=False, device="cpu")
+    t0 = time.perf_counter()
+    card = fig6.run(csv=False, device="cuda")
+    seconds = time.perf_counter() - t0
+    _require_checks(card["checks"], "engine_fig6")
+    err = 0.0
+    for a, b in zip(card["rows"], cpu["rows"]):
+        for k, v in a.items():
+            if isinstance(v, dict):
+                for kk in v:
+                    err = max(err, _hold(v[kk], b[k][kk], f"fig6/{a['cnn']}/{k}/{kk}"))
+            elif not isinstance(v, str):
+                err = max(err, _hold(v, b[k], f"fig6/{a['cnn']}/{k}"))
+    for k in card["avg"]:
+        err = max(err, _hold(card["avg"][k], cpu["avg"][k], f"fig6/avg/{k}"))
+    out = {"phase": "engine_fig6", "seconds": seconds, "checks": card["checks"],
+           "avg": card["avg"], "paper": card["paper"], "cells": 3 * len(card["rows"]),
+           "max_rel_err_vs_cpu": err, "rtol": ENGINE_RTOL}
+    emit(out)
+    return out
+
+
+def run_engine(seed: int) -> dict:
+    """The engine phases, in order; any failed check raises."""
+    return {"engine_fig4": phase_engine_fig4(), "engine_fig6": phase_engine_fig6()}
 
 
 # ---------------------------------------------------------------------------
@@ -1622,20 +1744,30 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "photonic_mac", "flash_attention", "ssm_scan"],
+    ap.add_argument("--only", choices=["kernels", "photonic_mac", "flash_attention", "ssm_scan",
+                                       "engine"],
                     default=None,
-                    help="stop after this phase (for work on a kernel); prints no ok line")
+                    help="stop after this phase: a kernel's comparisons (for work on that "
+                         "kernel), or 'engine' for the engine phases alone (no kernel "
+                         "build); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for decode and prefill, per model")
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="seed of the engine phases' sampled rows, window and fault scenarios")
     args = ap.parse_args()
     t_start = time.perf_counter()
-    dev = phase_device()
+    dev = phase_device(build=args.only != "engine")
+    if args.only == "engine":
+        run_engine(args.seed)
+        print(dev["nvidia_smi"], flush=True)
+        return
     kern = phase_kernels(only=None if args.only == "kernels" else args.only)
     if args.only is not None:
         for c in kern["checks"]:
             emit(c)
         print(dev["nvidia_smi"], flush=True)
         return
+    run_engine(args.seed)
 
     by_path = {}
     for cfg_id, arch, needs in PATHS:

@@ -1,0 +1,69 @@
+"""Layer A: analytical silicon-photonic 2.5D interposer + accelerator models
+(the paper's own evaluation methodology), the PyTorch port of the JAX
+package's `core`.  The scalar golden path is host numpy; the columnar,
+batched and streaming engines run in float64 on a device (``device=``,
+default "cuda").  The co-design search and the fabric layer are not ported
+yet, so their names are not exported here."""
+
+from repro_torch.core.devices import (
+    DeviceLibrary,
+    DEFAULT_DEVICES,
+    laser_electrical_power_w,
+    db_to_linear,
+    linear_to_db,
+)
+from repro_torch.core.topology import (
+    NetworkParams,
+    NetworkModel,
+    sprint_bus,
+    spacx_bus,
+    tree_network,
+    trine_network,
+    electrical_mesh,
+    TOPOLOGIES,
+)
+from repro_torch.core.power import Traffic, NetworkReport, evaluate_network
+from repro_torch.core.planner import (
+    choose_subnetworks,
+    plan_gateway_activation,
+    plan_collective_channels,
+)
+from repro_torch.core.workloads import Workload, Layer, CNN_WORKLOADS, gemm_workload
+from repro_torch.core.accelerator import (
+    AcceleratorConfig,
+    ChipletSpec,
+    AccelReport,
+    monolithic_crosslight,
+    crosslight_25d_siph,
+    crosslight_25d_elec,
+    evaluate_accelerator,
+    evaluate_accelerator_batch,
+    evaluate_accelerator_grid,
+)
+# NOTE: the `sweep` *function* is deliberately not re-exported here — it
+# would shadow the `repro_torch.core.sweep` submodule attribute on the
+# package.  Use `from repro_torch.core.sweep import sweep`.
+from repro_torch.core.sweep import (
+    GridSpec,
+    SweepGrid,
+    SweepResult,
+    build_grid,
+    grid_spec,
+    network_columns,
+    evaluate_columns,
+    sweep_chunked,
+    sweep_scalar_reference,
+)
+from repro_torch.core.faults import (
+    FaultModel,
+    FaultScenario,
+    FabricUnusableError,
+    HEALTHY,
+    AvailabilityReducer,
+    availability_search,
+    degraded_network_columns,
+    evaluate_degraded,
+    faulted_columns_fn,
+)
+
+__all__ = [n for n in dir() if not n.startswith("_")]
