@@ -6,7 +6,7 @@
     python3 chip_smoke.py --only photonic_mac   # stop after photonic_mac's comparisons
     python3 chip_smoke.py --only flash_attention   # stop after flash_attention's
     python3 chip_smoke.py --only ssm_scan  # stop after ssm_scan's
-    python3 chip_smoke.py --only engine    # the engine phases alone (no kernel build)
+    python3 chip_smoke.py --only engine    # the five engine phases alone (no kernel build)
     python3 chip_smoke.py --profile        # also: device time by kernel per model
 
 Needs one NVIDIA Hopper GPU, `nvcc` and PyTorch built for CUDA; it raises
@@ -23,16 +23,37 @@ line, and fails if any phase fails:
                     PyTorch call computes the same function, and the card's
                     bound for the same work
 
-then the analytic engine (`src/repro_torch/core/`) in float64 on the card,
-each phase held against the port's own CPU evaluation (continuous values at
-rtol 1e-12, discrete fields exactly):
+then the analytic engine (`src/repro_torch/core/`: topologies, laser and
+trimming, latency and energy, the CrossLight accelerator, the design-space
+sweep and the fault layer) in float64 on the card, each phase held against
+the port's own CPU evaluation (continuous values at rtol 1e-12, discrete
+fields such as stage, bank and router counts exactly):
 
   engine_fig4  paper Fig. 4 (`benchmarks/torch_fig4_trine.py`): its five
-               checks True; every row, and the network columns of all five
+               checks (TRINE's best latency and energy, its laser and
+               trimming power above SPACX's and Tree's, 2 and 5 stages and
+               K* = 8) True; every row, and the network columns of all five
                topologies over a 180-row grid, equal to the CPU's
   engine_fig6  paper Fig. 6 (`benchmarks/torch_fig6_crosslight.py`): the
-               three CrossLight variants x six CNNs, its checks True, equal
-               to the CPU's
+               three CrossLight variants x six CNNs, its checks True, the
+               four averages beside the paper's, equal to the CPU's
+  engine_sweep `benchmarks/torch_sweep_bench.py`'s 4096-config grid: its
+               checks (batched within 1e-4 of the scalar dataclass loop,
+               >= 20x its configs/s), the card equal to the CPU, and
+               `sweep_chunked(MinReducer)` bit-identical to the monolithic
+               argmin for materialize host/device x prefetch 0/1/2 x chunk
+               n/8 and 1000; configs/s of the three
+  engine_stream  9,830,400 configurations x six CNN traffics streamed in
+               chunks of 2^20 through `MinReducer("energy_j")`: device
+               materialization at prefetch 2 and 0 and host materialization
+               at prefetch 0 bit-identical (minima, indices and 4096 sampled
+               rows, drawn from `--seed`); those rows and the six winners
+               equal to the CPU's; seconds, configs/s, peak device memory
+  engine_availability  `availability_search` over 51,200 configurations
+               under 256 fault scenarios (`--seed`): bit-identical across
+               materialize and prefetch 0/2, a faulted run under HEALTHY
+               bitwise the plain sweep, the yields of a 2048-row window
+               equal to the CPU's
 
 then the serving paths at full published width (bf16, photonic numerics,
 kernels on, random weights from a seed), one model at a time, at published
@@ -95,6 +116,7 @@ import dataclasses
 import gc
 import json
 import math
+import resource
 import shutil
 import subprocess
 import sys
@@ -112,7 +134,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs as C  # noqa: E402
 from repro_torch import core as EC  # noqa: E402
+from repro_torch.core import faults as EF  # noqa: E402
 from repro_torch.core import sweep as ES  # noqa: E402
+from repro_torch.core.xp import TorchNS  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -816,6 +840,31 @@ def phase_kernels(only: str | None = None) -> dict:
 ENGINE_RTOL = 1e-12          # card against the port's CPU evaluation
 ENGINE_DISCRETE = ("n_wavelengths", "n_mr", "n_mzi", "n_stages", "n_laser_banks",
                    "is_electrical", "n_routers")
+STREAM_TOPOLOGIES = ("sprint", "spacx", "tree", "trine")
+# 4 x 8 x 5 x 5 x 4 x 4 x 4 x 4 x 4 x 4 x 3 = 9,830,400 configurations
+STREAM_AXES = {
+    "n_gateways": tuple(float(g) for g in range(8, 65, 8)),
+    "n_lambda": (2.0, 4.0, 8.0, 16.0, 32.0),
+    "mem_bw_bytes_per_s": (25e9, 50e9, 100e9, 200e9, 400e9),
+    "modulation_rate_bps": (8e9, 10e9, 12e9, 16e9),
+    "interposer_side_cm": (1.0, 2.0, 3.0, 4.0),
+    "mzi.insertion_loss_db": (0.25, 0.5, 0.75, 1.0),
+    "wg.propagation_loss_db_per_cm": (0.5, 1.0, 1.5, 2.0),
+    "pd.sensitivity_dbm": (-28.0, -26.0, -24.0, -22.0),
+    "laser.wall_plug_efficiency": (0.05, 0.1, 0.15, 0.2),
+    "mr.tuning_power_w": (1.5e-4, 2.75e-4, 5e-4),
+}
+STREAM_CHUNK = 1 << 20
+STREAM_SAMPLES = 4096
+# the availability grid: the first six axes of the stream's (4 topologies x
+# n_gateways x n_lambda x mem_bw x modulation x interposer x MZI loss) =
+# 51,200 configurations, under 256 scenarios drawn with the fault rates of
+# `benchmarks/resilience_bench.py`'s BASE_MODEL (FaultModel()'s zero rates
+# would draw 256 healthy scenarios)
+AVAIL_AXES = dict(list(STREAM_AXES.items())[:6])
+AVAIL_SCENARIOS = 256
+FAULT_RATES = dict(p_lambda=0.15, p_bank=0.12, p_gateway=0.05, wpe_loss=0.2,
+                   drift_sigma_db=0.5, tuning_sigma=0.3)
 
 
 def _max_rel(got, want) -> float:
@@ -907,9 +956,271 @@ def phase_engine_fig6() -> dict:
     return out
 
 
+class _Collect(ES.ChunkReducer):
+    """Every chunk's metrics, concatenated (for the bitwise comparisons)."""
+
+    def init(self, spec):
+        return []
+
+    def step(self, carry, chunk):
+        carry.append({k: np.array(v) for k, v in chunk.metrics.items()})
+        return carry
+
+    def finish(self, carry, spec):
+        return {k: np.concatenate([c[k] for c in carry], axis=-1) for k in carry[0]}
+
+
+class _MinAndSample(ES.MinReducer):
+    """The running argmin of `MinReducer`, plus every metric at the flat rows
+    `rows` as the stream saw them (for the comparison with the CPU)."""
+
+    def __init__(self, metric: str, rows):
+        super().__init__(metric)
+        self.rows = np.sort(np.asarray(rows, np.int64))
+
+    def init(self, spec):
+        return {"min": None, "sample": []}
+
+    def step(self, carry, chunk):
+        carry["min"] = super().step(carry["min"], chunk)
+        lo, hi = np.searchsorted(self.rows, [chunk.start, chunk.stop])
+        if hi > lo:
+            loc = self.rows[lo:hi] - chunk.start
+            carry["sample"].append({k: np.array(v[..., loc]) for k, v in chunk.metrics.items()})
+        return carry
+
+    def finish(self, carry, spec):
+        out = super().finish(carry["min"], spec)
+        out["sample"] = {k: np.concatenate([s[k] for s in carry["sample"]], axis=-1)
+                         for k in carry["sample"][0]}
+        return out
+
+
+def _rows_cols(spec, rows):
+    """Host columns and topology ids of arbitrary flat rows of `spec` (the
+    mixed-radix decode of `GridSpec.chunk_cols`, row by row)."""
+    rows = np.asarray(rows, np.int64)
+    digits = np.unravel_index(rows, spec.shape)
+    cols = {name: np.full(rows.size, v, np.float64) for name, v in spec.base.items()}
+    for ai, (name, vals) in enumerate(spec.axes.items()):
+        cols[name] = np.asarray(vals, np.float64)[digits[1 + ai]]
+    return cols, np.asarray(digits[0])
+
+
+def _cpu_metrics(spec, rows, traffics):
+    """The port's CPU evaluation of `rows`: network columns through the
+    device-path selection, metrics through `evaluate_columns`, on the CPU."""
+    cols, topo = _rows_cols(spec, rows)
+    nets = ES.network_columns_device(cols, topo, spec.topologies, device="cpu")
+    bits = np.asarray([[t.total_bits] for t in traffics])
+    xfers = np.asarray([[t.n_transfers] for t in traffics])
+    return EC.evaluate_columns(nets, cols, bits, xfers, device="cpu")
+
+
+def _same_arrays(a: dict, b: dict, what: str) -> None:
+    for k in a:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {k} differs bitwise")
+
+
+def phase_engine_sweep() -> dict:
+    """`benchmarks/torch_sweep_bench.py`'s FULL_AXES grid (4096 configs):
+    its checks (batched within RTOL 1e-4 of the scalar dataclass loop,
+    speedup >= 20x, streamed argmin bitwise), the card against the CPU, and
+    `sweep_chunked(MinReducer)` bit-identical to the monolithic sweep's
+    argmin for every materialize x prefetch x chunk size."""
+    from benchmarks import torch_sweep_bench as sb
+    bench = sb.run(csv=False, smoke=False, device="cuda")
+    _require_checks({k: bench["checks"][k] for k in bench["required_checks"]},
+                    "engine_sweep bench")
+    traffic = EC.CNN_WORKLOADS["ResNet18"]().traffic()
+    mono = ES.sweep(traffic, topologies=sb.TOPOLOGIES, device="cuda", **sb.FULL_AXES)
+    cpu = ES.sweep(traffic, topologies=sb.TOPOLOGIES, device="cpu", **sb.FULL_AXES)
+    err = max(_hold(mono.metrics[k], cpu.metrics[k], f"sweep/{k}") for k in mono.metrics)
+    energy = mono.metrics["energy_j"]
+    i = int(np.argmin(energy))
+    n = mono.grid.n
+    combos = []
+    for mat in ("host", "device"):
+        for depth in (0, 1, 2):
+            for chunk in (n // 8, 1000):
+                best = ES.sweep_chunked(traffic, ES.MinReducer("energy_j"),
+                                        topologies=sb.TOPOLOGIES, chunk_size=chunk,
+                                        materialize=mat, prefetch=depth, device="cuda",
+                                        **sb.FULL_AXES)
+                if best["index"] != i or best["value"] != energy[i]:
+                    raise AssertionError(f"engine_sweep: streamed argmin ({mat}, prefetch "
+                                         f"{depth}, chunk {chunk}) {best['index']} "
+                                         f"{best['value']!r} != monolithic {i} {energy[i]!r}")
+                combos.append(f"{mat}/{depth}/{chunk}")
+    out = {"phase": "engine_sweep", "n_configs": n,
+           "scalar_configs_per_s": bench["scalar_configs_per_s"],
+           "batched_configs_per_s": bench["batched_configs_per_s"],
+           "stream_configs_per_s": bench["pipelined_configs_per_s"],
+           "stream_chunk": bench["pipeline_chunk_size"], "speedup": bench["speedup"],
+           "batched_vs_scalar_max_rel_err": bench["max_rel_err"],
+           "checks": bench["checks"], "max_rel_err_vs_cpu": err,
+           "argmin_bitwise": combos, "argmin": {"index": i, "config": mono.config_at(i)}}
+    emit(out)
+    return out
+
+
+def _stream(traffics, rows, materialize: str, prefetch: int) -> tuple:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = ES.sweep_chunked(traffics, _MinAndSample("energy_j", rows),
+                           topologies=STREAM_TOPOLOGIES, chunk_size=STREAM_CHUNK,
+                           materialize=materialize, prefetch=prefetch, device="cuda",
+                           **STREAM_AXES)
+    seconds = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return res, seconds, peak
+
+
+def _stream_chunk_breakdown(spec, traffics) -> dict:
+    """One chunk of the stream taken apart, each part timed to its end on
+    the host clock: the device decode and evaluation (to a synchronize), the
+    copy of its results to the host, and the fold into `MinReducer`.  The
+    second of two passes (the first warms the allocator)."""
+    xp = TorchNS(DEV)
+    bits = xp.asarray(np.asarray([[t.total_bits] for t in traffics]))
+    xfers = xp.asarray(np.asarray([[t.n_transfers] for t in traffics]))
+    tables = {k: xp.asarray(np.asarray(v, np.float64)) for k, v in spec.axes.items()}
+    base = {k: xp.asarray(v) for k, v in spec.base.items()}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cols, topo = ES._decode(spec, STREAM_CHUNK, tables, base, 0, xp.device)
+        nets, mets = ES._engine(cols, topo, ES._scenario_inputs(xp), bits, xfers,
+                                xp.asarray(1.0), spec.topologies, xp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host_nets, host_mets = ES._to_host(nets), ES._to_host(mets)
+        t2 = time.perf_counter()
+        ES.MinReducer("energy_j").step(None, ES.SweepChunk(
+            spec=spec, start=0, stop=STREAM_CHUNK, topo_id=topo.cpu().numpy(),
+            nets=host_nets, metrics=ES.broadcast_metrics(host_mets, np)))
+        t3 = time.perf_counter()
+    return {"device_ms": (t1 - t0) * 1e3, "to_host_ms": (t2 - t1) * 1e3,
+            "fold_ms": (t3 - t2) * 1e3,
+            "to_host_mb": sum(v.nbytes for v in (*host_nets.values(), *host_mets.values())) / 1e6}
+
+
+def phase_engine_stream(seed: int) -> dict:
+    """The 9,830,400-configuration grid, six CNN traffics as metric rows,
+    streamed through `MinReducer("energy_j")` in chunks of 2^20: device
+    materialization at prefetch 2 and 0, host materialization at prefetch
+    0, all bit-identical; the winners and 4096 rows drawn from `seed` equal
+    the port's CPU evaluation at ENGINE_RTOL."""
+    spec = ES.grid_spec(STREAM_TOPOLOGIES, **STREAM_AXES)
+    n = spec.n
+    traffics = [f().traffic() for f in EC.CNN_WORKLOADS.values()]
+    rows = np.random.default_rng(seed).choice(n, STREAM_SAMPLES, replace=False)
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    runs = {}
+    for mat, depth in (("device", 2), ("device", 0), ("host", 0)):
+        res, seconds, peak = _stream(traffics, rows, mat, depth)
+        runs[f"{mat}/prefetch{depth}"] = {"seconds": seconds, "configs_per_s": n / seconds,
+                                          "device_peak_gb": peak, "res": res}
+    ref = runs["device/prefetch2"]["res"]
+    for key, r in runs.items():
+        res = r.pop("res")
+        if not (np.array_equal(res["index"], ref["index"])
+                and np.array_equal(res["value"], ref["value"])):
+            raise AssertionError(f"engine_stream: {key} minima differ from device/prefetch2")
+        _same_arrays(res["sample"], ref["sample"], f"engine_stream {key} samples")
+    breakdown = _stream_chunk_breakdown(spec, traffics)
+    cpu = _cpu_metrics(spec, np.sort(rows), traffics)
+    err = max(_hold(ref["sample"][k], cpu[k], f"stream/{k}") for k in cpu)
+    winners = np.asarray(ref["index"])
+    cpu_w = _cpu_metrics(spec, winners, traffics)["energy_j"]
+    err = max(err, _hold(ref["value"], np.diagonal(cpu_w), "stream/winners"))
+    out = {"phase": "engine_stream", "n_configs": n, "traffics": len(traffics),
+           "chunk": STREAM_CHUNK, "runs": runs, "one_chunk": breakdown,
+           "prefetch0_over_prefetch2": runs["device/prefetch0"]["seconds"]
+           / runs["device/prefetch2"]["seconds"],
+           "host_max_rss_gb": {"before": rss0,
+                               "after": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6},
+           "whole_grid_columns_gb": n * len(spec.base) * 8 / 1e9,
+           "winners": [{"cnn": name, "index": int(j), "energy_j": float(v),
+                        "config": spec.config_at(int(j))}
+                       for name, j, v in zip(EC.CNN_WORKLOADS, winners, ref["value"])],
+           "sampled_rows": STREAM_SAMPLES, "seed": seed,
+           "max_rel_err_vs_cpu": err, "rtol": ENGINE_RTOL}
+    emit(out)
+    return out
+
+
+def phase_engine_availability(seed: int) -> dict:
+    """`availability_search` over 51,200 configurations under 256 Monte-Carlo
+    fault scenarios (1.31e7 evaluations): bit-identical across materialize
+    modes and prefetch 0/2; a faulted run under HEALTHY bitwise the plain
+    sweep; per-point yields on a window drawn from `seed` equal to the
+    CPU's at ENGINE_RTOL."""
+    traffic = EC.CNN_WORKLOADS["ResNet18"]().traffic()
+    scen = EF.FaultModel(**FAULT_RATES).sample(AVAIL_SCENARIOS, rng=seed)
+    budget = 2.0 * float(EF.evaluate_degraded(traffic, EF.HEALTHY, "trine",
+                                              device="cuda")["energy_per_bit_j"][0])
+    spec = ES.grid_spec(STREAM_TOPOLOGIES, **AVAIL_AXES)
+    kw = dict(topologies=STREAM_TOPOLOGIES, epb_budget_j=budget, chunk_size=8192,
+              device="cuda", **AVAIL_AXES)
+    runs, results = {}, {}
+    for mat, depth in (("device", 2), ("device", 0), ("host", 0), ("host", 2)):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        results[(mat, depth)] = EF.availability_search(traffic, scen, materialize=mat,
+                                                       prefetch=depth, **kw)
+        seconds = time.perf_counter() - t0
+        runs[f"{mat}/prefetch{depth}"] = {
+            "seconds": seconds, "evaluations_per_s": spec.n * AVAIL_SCENARIOS / seconds,
+            "device_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    ref = results[("device", 2)]
+    fields = ("expected_edp", "expected_epb", "availability")
+    for key, r in results.items():
+        _same_arrays({k: r[k] for k in fields}, ref, f"engine_availability {key}")
+        if r["best_survivable"] != ref["best_survivable"]:
+            raise AssertionError(f"engine_availability {key}: best_survivable differs")
+    plain = ES.sweep(traffic, topologies=STREAM_TOPOLOGIES, device="cuda", **AVAIL_AXES)
+    healthy = ES.sweep_chunked(traffic, _Collect(), topologies=STREAM_TOPOLOGIES,
+                               chunk_size=8192, columns_fn=EF.faulted_columns_fn(EF.HEALTHY),
+                               device="cuda", **AVAIL_AXES)
+    _same_arrays(healthy, plain.metrics, "engine_availability faulted HEALTHY vs plain")
+    # the CPU's yields on a window of 2048 rows
+    w = min(2048, spec.n)
+    a = int(np.random.default_rng(seed).integers(0, spec.n - w + 1))
+    cols, topo = spec.chunk_cols(a, a + w)
+    nets, dcols = EF.degraded_network_columns(cols, topo, spec.topologies, scen)
+    mets = EC.evaluate_columns(nets, dcols, traffic.total_bits, traffic.n_transfers,
+                               device="cpu")
+    red = EF.AvailabilityReducer(budget)
+    carry = red.step(red.init(spec), ES.SweepChunk(spec=spec, start=a, stop=a + w,
+                                                   topo_id=topo, nets=nets, metrics=mets))
+    err = max(_hold(ref[k][a:a + w], carry[k][a:a + w], f"availability/{k}")
+              for k in fields)
+    avail = ref["availability"]
+    out = {"phase": "engine_availability", "n_configs": spec.n,
+           "scenarios": AVAIL_SCENARIOS, "evaluations": spec.n * AVAIL_SCENARIOS,
+           "fault_rates": FAULT_RATES, "epb_budget_j": budget, "runs": runs,
+           "availability": {"min": float(avail.min()), "mean": float(avail.mean()),
+                            "max": float(avail.max()),
+                            "share_at_least_0.9": float(np.mean(avail >= 0.9))},
+           "best_survivable": ref["best_survivable"], "cpu_window": [a, a + w],
+           "max_rel_err_vs_cpu": err, "healthy_bitwise_plain": True, "rtol": ENGINE_RTOL}
+    emit(out)
+    return out
+
+
 def run_engine(seed: int) -> dict:
-    """The engine phases, in order; any failed check raises."""
-    return {"engine_fig4": phase_engine_fig4(), "engine_fig6": phase_engine_fig6()}
+    """The five engine phases, in order; any failed check raises."""
+    return {"engine_fig4": phase_engine_fig4(), "engine_fig6": phase_engine_fig6(),
+            "engine_sweep": phase_engine_sweep(), "engine_stream": phase_engine_stream(seed),
+            "engine_availability": phase_engine_availability(seed)}
 
 
 # ---------------------------------------------------------------------------
@@ -1748,7 +2059,7 @@ def main() -> None:
                                        "engine"],
                     default=None,
                     help="stop after this phase: a kernel's comparisons (for work on that "
-                         "kernel), or 'engine' for the engine phases alone (no kernel "
+                         "kernel), or 'engine' for the five engine phases alone (no kernel "
                          "build); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for decode and prefill, per model")

@@ -50,7 +50,7 @@ from repro_torch.core.topology import (
 )
 from repro_torch.core.planner import plan_gateway_activation, plan_gateway_activation_arr
 from repro_torch.core.workloads import Workload
-from repro_torch.core.xp import torch_ns
+from repro_torch.core.xp import TorchNS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,7 +332,7 @@ def _accel_mix_math(cc, frac_ov, lc, nets, dev, mem_bw, mac_rate, slot_e,
     is differentiable (no host syncs, no in-place writes), and max/clip
     split the gradient at ties as the reference's do.
     """
-    xp = torch_ns(lc["dot_length"].device)
+    xp = TorchNS(lc["dot_length"].device)
     vec = cc["vector_size"][..., :, None]                       # (..., C, 1)
     units = cc["n_units"][..., :, None]
     raw_passes = lc["dot_length"] / vec                         # (..., C, L)

@@ -76,7 +76,6 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch import require_device
 from repro_torch.core.power import Traffic
 from repro_torch.core.topology import (
     MODEL_FIELDS,
@@ -349,7 +348,6 @@ def evaluate_degraded(
     evaluated on `device`.  Metric shapes are (1,) for a scalar scenario and
     (S, 1) for a batch — a zero-bandwidth scenario yields inf latency /
     energy (the design is dead, not mis-modeled)."""
-    require_device(device)
     cols = {k: np.atleast_1d(np.asarray(v, np.float64))
             for k, v in params_columns(params or NetworkParams(), devices,
                                        n_subnetworks).items()}

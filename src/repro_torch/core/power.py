@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.core.devices import DeviceLibrary, DEFAULT_DEVICES, laser_electrical_power_w
 from repro_torch.core.topology import NetworkModel
-from repro_torch.core.xp import torch_ns
+from repro_torch.core.xp import TorchNS
 
 # metric columns `eval_network_math` emits == NetworkReport fields — the
 # network-side metric vocabulary.  `core.sweep.METRIC_FIELDS` aliases this.
@@ -93,7 +93,7 @@ def eval_network_math(nets: Dict[str, torch.Tensor], dev: Dict[str, torch.Tensor
     and autograd differentiates through it (the round() wavelength/bank
     quantization is piecewise-constant — zero gradient).  `10**x` is
     `TorchNS.pow10`, which rounds the same on every element and device."""
-    xp = torch_ns(nets["worst_path_loss_db"].device)
+    xp = TorchNS(nets["worst_path_loss_db"].device)
     # ---- photonic ----
     frac = xp.clip(active_fraction, 1e-3, 1.0)
     n_lambda_active = xp.maximum(1.0, torch.round(nets["n_wavelengths"] * frac))

@@ -145,7 +145,7 @@ from repro_torch.core.accelerator import (  # noqa: F401  (re-exported; see belo
     evaluate_accelerator_batch,
     evaluate_accelerator_grid,
 )
-from repro_torch.core.xp import torch_ns
+from repro_torch.core.xp import TorchNS
 
 __all__ = [
     "SweepGrid", "SweepResult", "build_grid", "network_columns",
@@ -360,7 +360,7 @@ def network_columns(grid: SweepGrid, device="cuda") -> Dict[str, np.ndarray]:
     SPACX gateway check runs first, on the host, as the numpy kernel's
     would."""
     dev = require_device(device)
-    xp = torch_ns(dev)
+    xp = TorchNS(dev)
     for ti, name in enumerate(grid.topologies):
         if name == "spacx" and np.any(grid.cols["n_gateways"][grid.topo_masks[ti]] < 8):
             raise ValueError("SPACX requires n_gateways >= 8 (one full cluster); "
@@ -404,7 +404,7 @@ def evaluate_columns(
     NetworkModel fields.  `total_bits` / `n_transfers` / `active_fraction`
     broadcast against the config axis (e.g. shape (W, 1) traffic x (N,)
     configs -> (W, N) metrics).  Always evaluates in float64."""
-    xp = torch_ns(require_device(device))
+    xp = TorchNS(require_device(device))
     nets_t = {k: xp.asarray(nets[k]) for k in MODEL_FIELDS}
     dev_t = {k: xp.asarray(cols[k]) for k in _EVAL_DEVICE_FIELDS}
     out = eval_math(nets_t, dev_t, xp.asarray(total_bits),
@@ -481,7 +481,7 @@ def network_columns_device(cols: Mapping[str, np.ndarray],
     use (numpy's and torch's transcendentals may differ in the last ulp, so
     exact-front comparisons against the engine build their reference nets
     here, not on the numpy path)."""
-    xp = torch_ns(require_device(device))
+    xp = TorchNS(require_device(device))
     cols_t = {k: xp.asarray(v) for k, v in cols.items()}
     topo_t = torch.as_tensor(np.asarray(topo_id, np.int64), device=xp.device)
     nets, _ = _nets_program(cols_t, topo_t, tuple(topologies), xp)
@@ -570,7 +570,7 @@ def sweep(
     same universal evaluation the streaming paths use, at the full grid
     shape — which is what makes chunked results bit-identical to this
     monolithic call."""
-    xp = torch_ns(require_device(device))
+    xp = TorchNS(require_device(device))
     grid = build_grid(topologies, devices=devices, **axes)
     # host reference (also validates, eagerly)
     nets = _network_columns_arrays(grid.cols, grid.topo_id, grid.topologies,
@@ -739,7 +739,7 @@ def sweep_chunked(
     legacy-style on host-materialized columns, whose returned columns may
     carry a leading scenario axis ((S, chunk)).
     """
-    xp = torch_ns(require_device(device))
+    xp = TorchNS(require_device(device))
     spec = grid_spec(topologies, devices=devices, **axes)
     n = spec.n
     if n == 0:

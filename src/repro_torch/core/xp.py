@@ -52,8 +52,6 @@ _EXP_COEFFS = tuple(1.0 / math.factorial(k) for k in range(13, -1, -1))
 class TorchNS:
     """numpy-like namespace over float64 tensors on one device."""
 
-    inf = math.inf
-
     def __init__(self, device):
         self.device = torch.device(device)
 
@@ -112,9 +110,6 @@ class TorchNS:
     def ones_like(self, x):
         return torch.ones_like(x, dtype=F64)
 
-    def zeros_like(self, x):
-        return torch.zeros_like(x, dtype=F64)
-
     def broadcast_to(self, x, shape):
         return torch.broadcast_to(self.asarray(x), tuple(shape))
 
@@ -150,18 +145,6 @@ class TorchNS:
         out = p * self.pow2(torch.clamp(n, -1022.0, 1023.0))
         out = torch.where(n < -1022, torch.zeros_like(out), out)
         return torch.where(big, torch.full_like(out, math.inf), out)
-
-
-_NAMESPACES: dict = {}
-
-
-def torch_ns(device) -> TorchNS:
-    """The namespace for `device` (one object per device)."""
-    dev = torch.device(device)
-    ns = _NAMESPACES.get(dev)
-    if ns is None:
-        ns = _NAMESPACES[dev] = TorchNS(dev)
-    return ns
 
 
 def pow2(xp, e):

@@ -38,12 +38,12 @@ from repro_torch.core import power as PW  # noqa: E402
 from repro_torch.core import topology as T  # noqa: E402
 from repro_torch.core import workloads as W  # noqa: E402
 from repro_torch.core.faults import FabricUnusableError  # noqa: E402
-from repro_torch.core.xp import torch_ns  # noqa: E402
+from repro_torch.core.xp import TorchNS  # noqa: E402
 
 RTOL = 1e-12
 GRAD_RTOL = 1e-10
 CPU = "cpu"
-XT = torch_ns(CPU)
+XT = TorchNS(CPU)
 DISCRETE = ("n_wavelengths", "n_mr", "n_mzi", "n_stages", "n_laser_banks",
             "is_electrical", "n_routers")
 TOPOS = ("sprint", "spacx", "tree", "trine", "elec")
