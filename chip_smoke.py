@@ -6,7 +6,7 @@
     python3 chip_smoke.py --only photonic_mac   # stop after photonic_mac's comparisons
     python3 chip_smoke.py --only flash_attention   # stop after flash_attention's
     python3 chip_smoke.py --only ssm_scan  # stop after ssm_scan's
-    python3 chip_smoke.py --only engine    # the five engine phases alone (no kernel build)
+    python3 chip_smoke.py --only engine    # the engine phases alone (no kernel build)
     python3 chip_smoke.py --profile        # also: device time by kernel per model
 
 Needs one NVIDIA Hopper GPU, `nvcc` and PyTorch built for CUDA; it raises
@@ -54,13 +54,24 @@ fields such as stage, bank and router counts exactly):
                materialize and prefetch 0/2, a faulted run under HEALTHY
                bitwise the plain sweep, the yields of a 2048-row window
                equal to the CPU's
+  engine_fabric  the fabric layer: the six presets and `Fabric.from_config`
+               on three of the stream's rows (`--seed`) degraded under
+               `resilience_bench`'s expected scenarios at severities 0.25,
+               0.5, 1.0 on the card, equal to the CPU's; then
+               `benchmarks/torch_resilience_bench.py` in full mode (102,400
+               configurations x 16 scenarios in its yield grid), every check
+               True, its curves equal to the CPU's
 
 then the serving paths at full published width (bf16, photonic numerics,
 kernels on, random weights from a seed), one model at a time, at published
 depth except mixtral and qwen2-vl:
 
-  yi-6b        serve_continuous (ContinuousBatcher, bucketed prefill) and
-               serve_batch128 (`launch/serve.py`, batch 128 x prompt 128)
+  yi-6b        serve_continuous (ContinuousBatcher, bucketed prefill),
+               serve_fabric (the same requests through a batcher modelling
+               the trine_siph fabric, a fault injected at decode iteration
+               3: the same tokens, the CPU's channel plans and modelled
+               network seconds) and serve_batch128 (`launch/serve.py`,
+               batch 128 x prompt 128)
   zamba2-1.2b  serve_continuous (exact-length prefill of 24..1024 tokens),
                serve_batch128, and long_prefill (B=1, 4096 tokens: the shared
                attention's whole window, 32 scan chunks in sequence)
@@ -85,8 +96,10 @@ and the training path (`train`): zamba2-1.2b at published width and depth
 (bf16 compute, f32 masters and AdamW moments, photonic numerics, kernels on,
 `remat="full"`) trained 8 steps through `launch/train.py` on `SyntheticLM`
 batches of 8 x 2048 tokens, checkpointing every 2 steps into a temporary
-directory; a fresh trainer resumed from a step-2 checkpoint must reach the
-straight run's step-4 state bit for bit, the loss must be finite and fall,
+directory, modelling the trine_siph fabric with a fault injected before
+step 3 (the channel plan and exposed network seconds equal to the CPU's);
+a fresh trainer without a fabric resumed from a step-2 checkpoint must
+reach the straight run's step-4 state bit for bit, the loss must be finite and fall,
 and one f32 step at B=2 x 2048 with the kernels and with their plain
 versions must agree in loss and gradient norm (`TRAIN_TOLERANCE`).
 
@@ -1216,11 +1229,72 @@ def phase_engine_availability(seed: int) -> dict:
     return out
 
 
+FABRIC_SEVERITIES = (0.25, 0.5, 1.0)
+FABRIC_LINK_FIELDS = ("cross_pod_bw_bytes_per_s", "intra_pod_bw_bytes_per_s",
+                      "link_latency_s", "energy_per_bit_j")
+
+
+def phase_engine_fabric(seed: int) -> dict:
+    """The fabric layer: the six presets and `Fabric.from_config` on three
+    rows of the stream's grid drawn from `seed`, each degraded under
+    `resilience_bench`'s BASE_MODEL expected scenarios at severities 0.25,
+    0.5 and 1.0 (and HEALTHY) on the card, equal to the port's CPU at
+    ENGINE_RTOL; then `benchmarks/torch_resilience_bench.py` in full mode
+    on the card, every check True, its curves equal to the CPU's."""
+    from benchmarks import torch_resilience_bench as rb
+    spec = ES.grid_spec(STREAM_TOPOLOGIES, **STREAM_AXES)
+    rows = np.random.default_rng(seed).choice(spec.n, 3, replace=False)
+    fabrics = {name: EC.get_fabric(name) for name in EC.FABRIC_PRESETS}
+    for i in rows:
+        fabrics[f"row{int(i)}"] = EC.Fabric.from_config(spec.config_at(int(i)),
+                                                         name=f"row{int(i)}")
+    scenarios = [EF.HEALTHY] + [rb.BASE_MODEL.scale(s).expected(name=f"sev{s:g}")
+                                for s in FABRIC_SEVERITIES]
+    t0 = time.perf_counter()
+    card = {(n, sc.name): EC.degrade(fb, sc, device="cuda")
+            for n, fb in fabrics.items() for sc in scenarios}
+    degrade_s = time.perf_counter() - t0
+    err, table = 0.0, {}
+    for (n, sname), got in card.items():
+        want = EC.degrade(fabrics[n], next(sc for sc in scenarios if sc.name == sname),
+                          device="cpu")
+        assert got.name == want.name and got.source == want.source, (got, want)
+        for f in FABRIC_LINK_FIELDS:
+            err = max(err, _hold(getattr(got, f), getattr(want, f), f"fabric/{n}/{sname}/{f}"))
+        table.setdefault(n, {})[sname] = {"cross_pod_gbps": got.cross_pod_bw_bytes_per_s / 1e9,
+                                          "energy_per_bit_j": got.energy_per_bit_j}
+    # the bench in full mode on the card; its cheap views again on the CPU
+    bench = rb.run(csv=False, smoke=False, device="cuda")
+    _require_checks(bench["checks"], "engine_fabric resilience bench")
+    assert bench["yield_grid"]["n_points"] >= 100_000, bench["yield_grid"]
+    traffic = EC.CNN_WORKLOADS["ResNet18"]().traffic()
+    cpu_curves = rb.degradation_curves(traffic, rb.SEVERITIES_FULL, "cpu")
+    cpu_recovery = rb.recovery_rows(rb.SEVERITIES_FULL, "cpu")
+    cpu_avail = rb.redundancy_availability(traffic, 256, "cpu")
+    for part, cpu_rows in (("degradation", cpu_curves), ("recovery", cpu_recovery)):
+        for a, b in zip(bench[part], cpu_rows):
+            for k, v in a.items():
+                if isinstance(v, float):
+                    err = max(err, _hold(v, b[k], f"fabric/bench/{part}/{k}"))
+                else:
+                    assert v == b[k], (part, k, v, b[k])
+    assert bench["availability"] == cpu_avail, (bench["availability"], cpu_avail)
+    out = {"phase": "engine_fabric", "fabrics": len(fabrics), "scenarios": len(scenarios),
+           "config_rows": [int(i) for i in rows], "degrade_s": degrade_s,
+           "degraded": table, "bench_wall_s": bench["wall_s"], "bench_checks": bench["checks"],
+           "recovery": bench["recovery"], "availability": bench["availability"],
+           "yield_grid": bench["yield_grid"], "max_rel_err_vs_cpu": err, "rtol": ENGINE_RTOL,
+           "seed": seed}
+    emit(out)
+    return out
+
+
 def run_engine(seed: int) -> dict:
-    """The five engine phases, in order; any failed check raises."""
+    """The engine phases, in order; any failed check raises."""
     return {"engine_fig4": phase_engine_fig4(), "engine_fig6": phase_engine_fig6(),
             "engine_sweep": phase_engine_sweep(), "engine_stream": phase_engine_stream(seed),
-            "engine_availability": phase_engine_availability(seed)}
+            "engine_availability": phase_engine_availability(seed),
+            "engine_fabric": phase_engine_fabric(seed)}
 
 
 # ---------------------------------------------------------------------------
@@ -1310,10 +1384,12 @@ def _add(total: dict, part: dict) -> dict:
     return {k: total[k] + part[k] for k in total}
 
 
-def phase_serve_continuous(cfg, params, lengths, max_news, max_len, bucket=128) -> dict:
-    """Ragged requests churn through 4 slots of the `ContinuousBatcher`;
-    prompts are padded to `bucket`, or prefilled at exact length for the
-    recurrent families (the engine's own rule)."""
+def _drive_batcher(cfg, params, lengths, max_news, max_len, bucket, fabric=None,
+                   **run_kw) -> tuple:
+    """Ragged requests churn through 4 slots of the `ContinuousBatcher`
+    (with `fabric`, its modelled fabric; `run_kw` go to `run`); the launch
+    counts must equal `expected_launches` for its prefills and decode steps.
+    Returns (batcher, requests, wall seconds, launches, prefill lengths)."""
     n_slots = 4
     rng = torch.Generator()
     rng.manual_seed(SEED + 1)
@@ -1321,10 +1397,10 @@ def phase_serve_continuous(cfg, params, lengths, max_news, max_len, bucket=128) 
 
     before = counters()
     eng = ContinuousBatcher(cfg, params, n_slots=n_slots, max_len=max_len,
-                            prompt_bucket=bucket, device=DEV)
+                            prompt_bucket=bucket, fabric=fabric, device=DEV)
     reqs = [eng.submit(p, mn) for p, mn in zip(prompts, max_news)]
     t0 = time.perf_counter()
-    finished = eng.run()
+    finished = eng.run(**run_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
@@ -1342,20 +1418,94 @@ def phase_serve_continuous(cfg, params, lengths, max_news, max_len, bucket=128) 
         want = _add(want, expected_launches(cfg, n_slots, 1))
     got = _since(before)
     assert got == want, f"launch counts {got} differ from the code's {want}"
+    return eng, reqs, wall, got, plens
+
+
+def phase_serve_continuous(cfg, params, lengths, max_news, max_len, bucket=128) -> dict:
+    """Ragged requests churn through 4 slots of the `ContinuousBatcher`;
+    prompts are padded to `bucket`, or prefilled at exact length for the
+    recurrent families (the engine's own rule)."""
+    eng, reqs, wall, got, plens = _drive_batcher(cfg, params, lengths, max_news, max_len,
+                                                 bucket)
     # one more decode step by hand to look at the logits themselves
     logits, _ = M.serve_step(cfg, params, eng.cache, eng.last_tok[:, None], eng.pos, device=DEV)
-    assert tuple(logits.shape) == (n_slots, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
+    assert tuple(logits.shape) == (eng.n_slots, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
     st = eng.stats
     out = {"phase": "serve_continuous", "model": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype,
-           "n_slots": n_slots, "max_len": max_len, "prompt_bucket": eng.bucket,
+           "n_slots": eng.n_slots, "max_len": max_len, "prompt_bucket": eng.bucket,
            "requests": len(reqs), "prompt_lengths": lengths, "prefill_lengths": plens,
            "max_new": max_news,
            "prefill_calls": st["prefill_calls"], "prefill_tokens": st["prefill_tokens"],
            "prefill_s": st["prefill_s"], "prefill_tokens_per_s": st["prefill_tokens"] / st["prefill_s"],
            "decode_iters": st["decode_iters"], "decode_tokens": st["decode_tokens"],
            "decode_s": st["decode_s"], "decode_tokens_per_s": st["decode_tokens"] / st["decode_s"],
-           "wall_s": wall, "launches": got, "sample": reqs[0].out}
+           "wall_s": wall, "launches": got, "sample": reqs[0].out,
+           "tokens": [r.out for r in reqs]}
+    emit(out)
+    return out
+
+
+# the fault the serving and training fabric phases inject: the expected
+# scenario of `benchmarks/torch_resilience_bench.py`'s BASE_MODEL at severity 1
+FABRIC_PRESET = "trine_siph"
+FAULT_ITER, FAULT_STEP = 3, 3
+
+
+def _fault_scenario():
+    from benchmarks.torch_resilience_bench import BASE_MODEL
+    return BASE_MODEL.scale(1.0).expected(name="sev1")
+
+
+def phase_serve_fabric(cfg, params, lengths, max_news, max_len, continuous: dict,
+                       bucket=128) -> dict:
+    """`serve_continuous`'s requests again through a batcher that models the
+    `FABRIC_PRESET` fabric, the BASE_MODEL severity-1 fault injected before
+    decode iteration `FAULT_ITER`: the tokens must equal
+    `serve_continuous`'s request for request (the model changes no
+    numerics), the replans, fault iteration and channel plans the CPU's,
+    and the modelled network seconds the CPU's at ENGINE_RTOL."""
+    scen = _fault_scenario()
+    eng, reqs, wall, got, _ = _drive_batcher(cfg, params, lengths, max_news, max_len, bucket,
+                                             fabric=FABRIC_PRESET, fault_at_iter=FAULT_ITER,
+                                             fault_scenario=scen)
+    tokens = [r.out for r in reqs]
+    differ = [i for i, (a, b) in enumerate(zip(tokens, continuous["tokens"])) if a != b]
+    assert not differ, f"serve_fabric: requests {differ} differ from serve_continuous's tokens"
+    # the CPU's plan: the same fabric degraded on the host, the same sums
+    healthy = EC.get_fabric(FABRIC_PRESET)
+    degraded = EC.degrade(healthy, scen, device="cpu")
+    # two all-reduces of the bf16 activations of every slot per layer
+    wire = float(cfg.n_layers * 2 * eng.n_slots * cfg.d_model * 2)
+    plans = [EC.plan_collective_channels(wire, eng.decode_window_s, fabric=fb,
+                                         min_chunk_bytes=1 << 10) for fb in (healthy, degraded)]
+    per_iter = [fb.collective_s(wire, n_collectives=cfg.n_layers * 2) for fb in (healthy, degraded)]
+    net_cpu = 0.0
+    for i in range(eng.net_stats["decode_iters"]):
+        net_cpu += per_iter[int(i >= FAULT_ITER)]
+    ns = eng.net_stats
+    assert (ns["replans"], ns["fault_iter"]) == (2, FAULT_ITER), ns
+    assert eng.collective_channels == plans[1], (eng.collective_channels, plans)
+    assert ns["decode_iters"] == eng.stats["decode_iters"]
+    err = _hold(ns["modeled_net_s"], net_cpu, "serve_fabric/modeled_net_s")
+    card_fb = EC.degrade(healthy, scen, device="cuda")
+    for f in ("cross_pod_bw_bytes_per_s", "intra_pod_bw_bytes_per_s", "link_latency_s",
+              "energy_per_bit_j"):
+        err = max(err, _hold(getattr(eng.fabric, f), getattr(degraded, f), f"serve_fabric/{f}"))
+        assert getattr(eng.fabric, f) == getattr(card_fb, f), f
+    out = {"phase": "serve_fabric", "model": cfg.name, "fabric": eng.fabric.name,
+           "fault": dataclasses.asdict(scen), "fault_iter": ns["fault_iter"],
+           "replans": ns["replans"], "decode_iters": ns["decode_iters"],
+           "collective_channels": {"healthy": plans[0], "degraded": eng.collective_channels},
+           "modeled_net_s": ns["modeled_net_s"], "modeled_net_s_cpu": net_cpu,
+           "modeled_net_s_per_iter": {"healthy": per_iter[0], "degraded": per_iter[1]},
+           "cross_pod_gbps": {"healthy": healthy.cross_pod_bw_bytes_per_s / 1e9,
+                              "degraded": eng.fabric.cross_pod_bw_bytes_per_s / 1e9},
+           "energy_per_bit_j": {"healthy": healthy.energy_per_bit_j,
+                                "degraded": eng.fabric.energy_per_bit_j},
+           "decode_s": eng.stats["decode_s"], "wall_s": wall, "launches": got,
+           "tokens_equal_serve_continuous": True, "max_rel_err_vs_cpu": err,
+           "rtol": ENGINE_RTOL}
     emit(out)
     return out
 
@@ -1757,12 +1907,39 @@ def train_step_launches(cfg, batch: int, seq: int) -> dict:
     return {k: v * (1 if cfg.remat == "none" else 2) for k, v in n.items()}
 
 
-def _train(ckpt: str, steps: int, fresh: bool):
-    """`launch/train.main` on the training path's flags."""
+def _train(ckpt: str, steps: int, fresh: bool, **fabric_kw):
+    """`launch/train.main` on the training path's flags (`fabric_kw`: the
+    modelled fabric and its fault, which `main` takes as arguments)."""
     argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
             "--steps", str(steps), "--ckpt", ckpt, "--ckpt-every", str(TRAIN_CKPT_EVERY),
             "--photonic-mac", "--kernels"] + (["--no-resume"] if fresh else [])
-    return train.main(argv, opt=TRAIN_OPT)
+    return train.main(argv, opt=TRAIN_OPT, **fabric_kw)
+
+
+def _train_fabric_check(trainer, res, scen) -> dict:
+    """The straight run's modelled fabric against the CPU's plan: 4 bytes a
+    master parameter of gradient, the `FABRIC_PRESET` fabric degraded on the
+    host; `net_s` healthy before step `FAULT_STEP`, higher from it on."""
+    grad_bytes = 4.0 * sum(t.numel() for t in T.leaves(trainer.state.params))
+    w = trainer.tcfg.overlap_window_s
+    plan = {}
+    for key, fb in (("healthy", EC.get_fabric(FABRIC_PRESET)),
+                    ("degraded", EC.degrade(FABRIC_PRESET, scen, device="cpu"))):
+        ch = EC.plan_collective_channels(grad_bytes, w, fabric=fb, max_channels=64)
+        plan[key] = {"channels": ch,
+                     "net_s": EC.overlapped_step_s(w, grad_bytes, fb, ch) - w,
+                     "cross_pod_gbps": fb.cross_pod_bw_bytes_per_s / 1e9}
+    net = [h["net_s"] for h in trainer.history]
+    k = FAULT_STEP - 1
+    assert res["collective_channels"] == plan["degraded"]["channels"], (res, plan)
+    assert net[:k] == [plan["healthy"]["net_s"]] * k, (net, plan)
+    assert all(v == res["net_s"] > net[0] for v in net[k:]), (net, res)
+    err = _hold(res["net_s"], plan["degraded"]["net_s"], "train/net_s")
+    assert res["fabric"] == f"{FABRIC_PRESET}|{scen.name}", res["fabric"]
+    return {"fabric": res["fabric"], "fault_step": FAULT_STEP, "grad_bytes": grad_bytes,
+            "overlap_window_s": w, "plan_cpu": plan,
+            "collective_channels": res["collective_channels"], "net_s": net,
+            "max_rel_err_vs_cpu": err}
 
 
 def _free() -> None:
@@ -1775,12 +1952,17 @@ def _gb(tree) -> float:
 
 
 def phase_train(ckpt: str) -> dict:
-    """The straight run: 8 steps from a fresh state, checkpoints every 2.
-    The launches must equal `train_step_launches` per step, the loss be
-    finite at every step and lower at step 8 than at step 1."""
+    """The straight run: 8 steps from a fresh state, checkpoints every 2,
+    with the `FABRIC_PRESET` fabric modelled and the BASE_MODEL severity-1
+    fault injected before step `FAULT_STEP`.  The launches must equal
+    `train_step_launches` per step, the loss be finite at every step and
+    lower at step 8 than at step 1, and the channel plan and `net_s` equal
+    the CPU's (`_train_fabric_check`)."""
     torch.cuda.reset_peak_memory_stats()
     before = counters()
-    trainer, res = _train(ckpt, TRAIN_STEPS, fresh=True)
+    scen = _fault_scenario()
+    trainer, res = _train(ckpt, TRAIN_STEPS, fresh=True, fabric=FABRIC_PRESET,
+                          fault_at=FAULT_STEP, fault_scenario=scen)
     torch.cuda.synchronize()
     got = _since(before)
     cfg, hist = trainer.cfg, trainer.history
@@ -1806,7 +1988,8 @@ def phase_train(ckpt: str) -> dict:
            "wall_s": res["wall_s"], "launches": got, "launches_per_step": per_step,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
-           "card_memory_gb": torch.cuda.get_device_properties(DEV).total_memory / 1e9}
+           "card_memory_gb": torch.cuda.get_device_properties(DEV).total_memory / 1e9,
+           "fabric": _train_fabric_check(trainer, res, scen)}
     emit(out)
     assert all(map(math.isfinite, losses)) and losses[-1] < losses[0], losses
     del trainer
@@ -2016,8 +2199,10 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
 
     zero_counters()
     if arch in ("yi-6b", "mixtral-8x7b", "qwen2-vl-72b"):
-        phase_serve_continuous(cfg, params, [60, 250, 131, 97, 200, 129, 77, 180],
-                               [4, 8, 6, 5, 7, 4, 8, 6], max_len=512, bucket=128)
+        lengths, max_news = [60, 250, 131, 97, 200, 129, 77, 180], [4, 8, 6, 5, 7, 4, 8, 6]
+        cont = phase_serve_continuous(cfg, params, lengths, max_news, max_len=512, bucket=128)
+        if arch == "yi-6b":
+            phase_serve_fabric(cfg, params, lengths, max_news, 512, cont)
         phase_serve_batch128(cfg, params, arch)
         if arch == "mixtral-8x7b":   # 33 x 128 tokens, past the 4096 window
             phase_long_prefill(cfg, params, 4224)
@@ -2059,7 +2244,7 @@ def main() -> None:
                                        "engine"],
                     default=None,
                     help="stop after this phase: a kernel's comparisons (for work on that "
-                         "kernel), or 'engine' for the five engine phases alone (no kernel "
+                         "kernel), or 'engine' for the engine phases alone (no kernel "
                          "build); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for decode and prefill, per model")

@@ -2,8 +2,9 @@
 (the paper's own evaluation methodology), the PyTorch port of the JAX
 package's `core`.  The scalar golden path is host numpy; the columnar,
 batched and streaming engines run in float64 on a device (``device=``,
-default "cuda").  The co-design search and the fabric layer are not ported
-yet, so their names are not exported here."""
+default "cuda").  The fabric layer (`core.fabric`) turns a design point
+into the link numbers the batcher and the trainer plan against.  The
+co-design search is not ported yet, so its names are not exported here."""
 
 from repro_torch.core.devices import (
     DeviceLibrary,
@@ -64,6 +65,15 @@ from repro_torch.core.faults import (
     degraded_network_columns,
     evaluate_degraded,
     faulted_columns_fn,
+)
+from repro_torch.core.fabric import (
+    Fabric,
+    DEFAULT_FABRIC,
+    FABRIC_PRESETS,
+    get_fabric,
+    metallic_ici,
+    degrade,
+    overlapped_step_s,
 )
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -163,18 +163,16 @@ def plan_collective_channels(
     Clamped so chunks stay large enough to amortize per-collective latency.
 
     The link bandwidth may be given directly (`link_bw_bytes_per_s`) or
-    derived from a network design point (`fabric` — anything with a
+    derived from a network design point (`fabric` — a `core.fabric.Fabric`,
+    a preset name like "trine_siph", or anything with a
     ``cross_pod_bw_bytes_per_s`` attribute); `fabric` wins when both are
-    passed, since it reflects the design under evaluation.  Fabric presets
-    by name (`core.fabric` of the JAX package) are not ported yet: a
-    `fabric` without that attribute raises NotImplementedError.
+    passed, since it reflects the design under evaluation.
     """
     if fabric is not None:
         link_bw_bytes_per_s = getattr(fabric, "cross_pod_bw_bytes_per_s", None)
         if link_bw_bytes_per_s is None:
-            raise NotImplementedError(
-                f"fabric {fabric!r} has no cross_pod_bw_bytes_per_s; fabric "
-                "presets (core.fabric) belong to a later slice of the port")
+            from repro_torch.core.fabric import get_fabric  # runtime: no cycle
+            link_bw_bytes_per_s = get_fabric(fabric).cross_pod_bw_bytes_per_s
     if link_bw_bytes_per_s is None:
         raise ValueError("pass link_bw_bytes_per_s or fabric")
     if link_bw_bytes_per_s <= 0:

@@ -26,12 +26,15 @@ from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 
 def main(argv: Optional[Sequence[str]] = None,
-         opt: Optional[OptConfig] = None) -> Tuple[Trainer, dict]:
+         opt: Optional[OptConfig] = None, fabric=None,
+         fault_at: Optional[int] = None, fault_scenario=None) -> Tuple[Trainer, dict]:
     """Parse the flags, build the trainer, run it to `--steps`.  Returns the
     trainer (its `state` and `history`) and the run's summary.  `opt`
     replaces the schedule the flags give (warmup min(20, steps // 5), total
     `--steps`, as in the reference), so that runs of different lengths can
-    share one schedule."""
+    share one schedule.  `fabric`, `fault_at` and `fault_scenario` go to
+    the trainer's modelled fabric (`Trainer(fabric=)`, `Trainer.run`); like
+    the reference's launcher, the command line sets none of them."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -80,8 +83,9 @@ def main(argv: Optional[Sequence[str]] = None,
         opt = OptConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                         total_steps=args.steps)
     trainer = Trainer(cfg, opt, data, TrainerConfig(ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every),
-                      resume=not args.no_resume, source=source, device=device)
-    out = trainer.run(args.steps)
+                      resume=not args.no_resume, source=source, fabric=fabric,
+                      device=device)
+    out = trainer.run(args.steps, fault_at=fault_at, fault_scenario=fault_scenario)
     print(f"done: {out}")
     return trainer, out
 

@@ -12,9 +12,15 @@ device span, so the step's device time splits as `loss`, `optimizer` and
 the rest.  The kernels run in the forward and again in its recomputation
 under `cfg.remat`; the backward is plain PyTorch (`kernels/ops.py`).
 
+With `fabric=` (a `core.fabric.Fabric` or a preset name) the trainer also
+models the photonic fabric under the data-parallel gradient collective: a
+channel plan and the exposed network seconds a step (`net_s` in each
+history row), replanned when `inject_fault` (or `run(fault_at=,
+fault_scenario=)`) degrades the fabric, and `FabricUnusableError` when
+nothing survives.  The model changes no numerics.
+
 Not ported yet: the sharded step over a mesh (`build_sharded_step`,
-`param_wire`) and the photonic-fabric hooks (`fabric=`, `_replan`); a mesh
-or a fabric raises `NotImplementedError`.
+`param_wire`); a mesh raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ import torch
 from repro_torch import require_device
 from repro_torch import tree as T
 from repro_torch.checkpoint import store
+from repro_torch.core.fabric import degrade, get_fabric, overlapped_step_s
+from repro_torch.core.faults import FabricUnusableError, FaultScenario
+from repro_torch.core.planner import plan_collective_channels
 from repro_torch.data.pipeline import DataConfig, DeadlineMonitor, SyntheticLM
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -112,6 +121,8 @@ class TrainerConfig:
     log_every: int = 10
     straggler_deadline_s: float = 1e9
     seed: int = 0
+    overlap_window_s: float = 50e-3   # compute window the gradient collective
+                                      # hides under (channel planning)
 
 
 def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -130,9 +141,6 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError("the sharded train step over a mesh is not ported "
                                       "(ROADMAP.md, Queue 1 items 11 and 12)")
-        if fabric is not None:
-            raise NotImplementedError("the trainer's fabric hooks are not ported "
-                                      "(ROADMAP.md, Queue 1 item 4)")
         self.cfg, self.opt, self.data_cfg, self.tcfg = cfg, opt, data, tcfg
         self.device = require_device(device)
         self.source = source if source is not None else SyntheticLM(cfg, data)
@@ -154,24 +162,56 @@ class Trainer:
                 self.state, self.start_step = restored[0], int(restored[1])
                 self.restore_s = time.perf_counter() - t0
 
-        self.fabric = None
+        # modeled photonic fabric under the data-parallel gradient collective:
+        # channel plan + exposed network time per step, replanned on faults
+        self.fabric = None if fabric is None else get_fabric(fabric)
+        self.collective_channels = None
+        self.net_s = 0.0
+        if self.fabric is not None:
+            self._grad_bytes = 4.0 * sum(p.numel() for p in T.leaves(self.state.params))
+            self._replan()
+
         self.monitor = DeadlineMonitor(tcfg.straggler_deadline_s)
         self.history: list = []
 
-    def inject_fault(self, scenario) -> None:
-        """Degrade the fabric under `scenario`; without a fabric (the only
-        case until the fabric hooks are ported) raises `ValueError`, as the
-        reference does."""
+    # ---- fault-epoch hook -------------------------------------------------
+    def _replan(self) -> None:
+        """(Re)plan the gradient-collective channels against the current
+        fabric and refresh the modeled exposed network time per step.
+        Raises FabricUnusableError when the fabric cannot carry the
+        collective at all (the hard-fail path)."""
+        if self.fabric.cross_pod_bw_bytes_per_s <= 0:
+            raise FabricUnusableError(
+                f"fabric {self.fabric.name!r} has no surviving bandwidth; "
+                f"the gradient collective cannot be scheduled")
+        w = self.tcfg.overlap_window_s
+        self.collective_channels = plan_collective_channels(
+            self._grad_bytes, w, fabric=self.fabric, max_channels=64)
+        self.net_s = overlapped_step_s(
+            w, self._grad_bytes, self.fabric, self.collective_channels) - w
+
+    def inject_fault(self, scenario: FaultScenario) -> None:
+        """Degrade the fabric under `scenario` and replan the collective —
+        training continues at the (modeled) reduced throughput, or hard-fails
+        with FabricUnusableError when nothing survives.  The degraded
+        design's energy is evaluated on the trainer's device."""
         if self.fabric is None:
             raise ValueError("trainer has no fabric to degrade")
+        self.fabric = degrade(self.fabric, scenario, device=self.device)
+        self._replan()
 
     def run(self, steps: int, fail_at: Optional[int] = None,
-            quiet: bool = False) -> Dict[str, Any]:
+            quiet: bool = False, fault_at: Optional[int] = None,
+            fault_scenario: Optional[FaultScenario] = None) -> Dict[str, Any]:
         """Train up to step `steps`.  Each `history` row holds the step's
         metrics, its seconds (`step_s`, host clock to the metrics on the
-        host) and, where a checkpoint was written, `ckpt_s`."""
+        host), where a checkpoint was written `ckpt_s`, and with a fabric
+        the modelled exposed network seconds `net_s`.  With `fault_at`,
+        `fault_scenario` is injected before step `fault_at` (1-based)."""
         t0 = time.perf_counter()
         for step in range(self.start_step, steps):
+            if fault_at is not None and step + 1 == fault_at:
+                self.inject_fault(fault_scenario)
             fetch_t0 = time.perf_counter()
             batch = self.source.batch_at(step)
             delivery = time.perf_counter() - fetch_t0
@@ -191,13 +231,20 @@ class Trainer:
             if not quiet and (step + 1) % self.tcfg.log_every == 0:
                 print(f"step {step+1}: loss={row['loss']:.4f} gnorm={row['grad_norm']:.3f}")
             row["step"] = step + 1
+            if self.fabric is not None:
+                row["net_s"] = self.net_s
             self.history.append(row)
-        return {
+        result = {
             "final_step": steps,
             "wall_s": time.perf_counter() - t0,
             "last_loss": self.history[-1]["loss"] if self.history else None,
             "straggler": dataclasses.asdict(self.monitor.stats),
         }
+        if self.fabric is not None:
+            result["fabric"] = self.fabric.name
+            result["collective_channels"] = self.collective_channels
+            result["net_s"] = self.net_s
+        return result
 
 
 def run_with_restarts(make_trainer, total_steps: int, fail_at=(), **run_kwargs):

@@ -14,10 +14,13 @@ provisioned lanes busy).
 Cache leaves are layer-stacked, (L, B, ...): slot `i` owns batch row `i`.
 The pooled cache is updated in place.
 
-Not ported yet: the modeled photonic fabric under the decode collectives
-(`fabric=`, `inject_fault`, `net_stats["modeled_net_s"]`), which needs the
-analytic engine (`core/fabric.py`, `core/faults.py`, `core/planner.py`); a
-non-None `fabric` raises `NotImplementedError` (ROADMAP.md, Queue 1).
+With `fabric=` (a `core.fabric.Fabric` or a preset name) the batcher also
+models the photonic fabric under each decode iteration's tensor-parallel
+collectives: a channel plan and the modelled network seconds per iteration
+(`net_stats`), replanned when `inject_fault` (or `run(fault_at_iter=,
+fault_scenario=)`) degrades the fabric, and `FabricUnusableError` when
+nothing survives.  The model changes no numerics: tokens are those of a
+batcher without a fabric.
 
 Encoder-decoder configs raise `ValueError` at construction: the reference's
 batcher prefills from tokens alone and decodes with no encoder output, so it
@@ -35,6 +38,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.fabric import degrade, get_fabric
+from repro_torch.core.faults import FabricUnusableError, FaultScenario
+from repro_torch.core.planner import plan_collective_channels
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -68,11 +74,7 @@ def _slot_update(cache_tree, slot_tree, slot: int, n_slots: int):
 class ContinuousBatcher:
     def __init__(self, cfg: ModelConfig, params, n_slots: int, max_len: int,
                  eos_id: Optional[int] = None, prompt_bucket: int = 16,
-                 fabric=None, device="cuda"):
-        if fabric is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(fabric=...) needs core/fabric.py, core/faults.py and "
-                "core/planner.py, which are not ported yet (ROADMAP.md, Queue 1)")
+                 fabric=None, decode_window_s: float = 2e-3, device="cuda"):
         if cfg.encoder_layers:
             raise ValueError(
                 f"{cfg.name}: ContinuousBatcher serves decoder-only configs; the reference's "
@@ -95,6 +97,45 @@ class ContinuousBatcher:
         # prefill call; a decode step ends in a copy to the host anyway
         self.stats = {"decode_iters": 0, "decode_tokens": 0, "decode_s": 0.0,
                       "prefill_calls": 0, "prefill_tokens": 0, "prefill_s": 0.0}
+
+        # modeled photonic fabric under the per-iteration tensor-parallel
+        # collectives (2 all-reduces of bf16 activations per layer, the
+        # whole decode batch); replanned on injected faults
+        self.fabric = None if fabric is None else get_fabric(fabric)
+        self.decode_window_s = decode_window_s
+        self.collective_channels = None
+        self.net_stats = {"decode_iters": 0, "modeled_net_s": 0.0,
+                          "fault_iter": None, "replans": 0}
+        if self.fabric is not None:
+            self._replan()
+
+    # ---- fault-epoch hook --------------------------------------------
+    def _iter_wire_bytes(self) -> float:
+        return float(self.cfg.n_layers * 2 * self.n_slots
+                     * self.cfg.d_model * 2)
+
+    def _replan(self) -> None:
+        if self.fabric.cross_pod_bw_bytes_per_s <= 0:
+            raise FabricUnusableError(
+                f"fabric {self.fabric.name!r} has no surviving bandwidth; "
+                f"decode collectives cannot be scheduled")
+        self.collective_channels = plan_collective_channels(
+            self._iter_wire_bytes(), self.decode_window_s,
+            fabric=self.fabric, min_chunk_bytes=1 << 10)
+        self._net_s_per_iter = self.fabric.collective_s(
+            self._iter_wire_bytes(),
+            n_collectives=self.cfg.n_layers * 2)
+        self.net_stats["replans"] += 1
+
+    def inject_fault(self, scenario: FaultScenario) -> None:
+        """Degrade the serving fabric and replan — decode continues at the
+        (modeled) reduced throughput, or hard-fails when nothing survives.
+        The degraded design's energy is evaluated on the batcher's device."""
+        if self.fabric is None:
+            raise ValueError("batcher has no fabric to degrade")
+        self.fabric = degrade(self.fabric, scenario, device=self.device)
+        self._replan()
+        self.net_stats["fault_iter"] = self.net_stats["decode_iters"]
 
     def _clock(self) -> float:
         if self.device.type == "cuda":
@@ -139,10 +180,18 @@ class ContinuousBatcher:
         self.last_tok[slot] = req.prompt[-1]
 
     # ------------------------------------------------------------------
-    def run(self) -> List[Request]:
-        """Drain the queue; returns all finished requests."""
+    def run(self, fault_at_iter: Optional[int] = None,
+            fault_scenario: Optional[FaultScenario] = None) -> List[Request]:
+        """Drain the queue; returns all finished requests.  With
+        `fault_at_iter`, `fault_scenario` is injected before that decode
+        iteration (0-based) — the modeled network time per iteration rises
+        and `net_stats` records the fault point."""
         finished: List[Request] = []
         while self.queue or any(r is not None for r in self.slot_req):
+            if (fault_at_iter is not None
+                    and self.net_stats["decode_iters"] == fault_at_iter
+                    and self.net_stats["fault_iter"] is None):
+                self.inject_fault(fault_scenario)
             # admit into free slots
             for s in range(self.n_slots):
                 if self.slot_req[s] is None and self.queue:
@@ -156,6 +205,9 @@ class ContinuousBatcher:
             self.stats["decode_s"] += self._clock() - t0
             self.stats["decode_iters"] += 1
             self.stats["decode_tokens"] += sum(r is not None for r in self.slot_req)
+            self.net_stats["decode_iters"] += 1
+            if self.fabric is not None:
+                self.net_stats["modeled_net_s"] += self._net_s_per_iter
             for s in range(self.n_slots):
                 req = self.slot_req[s]
                 if req is None:

@@ -193,8 +193,13 @@ def test_plan_collective_channels_matches_and_refuses():
 
     assert P.plan_collective_channels(1 << 32, 0.01, fabric=_Link()) == \
         JP.plan_collective_channels(1 << 32, 0.01, fabric=_Link())
-    with pytest.raises(NotImplementedError, match="fabric"):
-        P.plan_collective_channels(1 << 30, 0.05, fabric="trine_siph")
+    # a preset by name resolves through `core.fabric.get_fabric`, as the
+    # reference's does; an unknown name is refused as the reference refuses it
+    for name in ("trine_siph", "tree_siph", "metallic_ici"):
+        assert P.plan_collective_channels(1 << 30, 0.05, fabric=name, max_channels=64) == \
+            JP.plan_collective_channels(1 << 30, 0.05, fabric=name, max_channels=64)
+    with pytest.raises(KeyError, match="unknown fabric preset"):
+        P.plan_collective_channels(1 << 30, 0.05, fabric="copper_dream")
     with pytest.raises(FabricUnusableError):
         P.plan_collective_channels(1 << 30, 0.05, link_bw_bytes_per_s=0.0)
     with pytest.raises(ValueError):

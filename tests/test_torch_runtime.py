@@ -331,9 +331,12 @@ def test_launch_train_refuses_what_is_not_ported(tmp_path, flags):
 
 
 def test_trainer_refuses_mesh_fabric_and_fault_injection(tmp_path):
+    """A mesh is not ported; a fabric is, and an unknown preset name is
+    refused as the reference's `get_fabric` refuses it; a fault without a
+    fabric raises as the reference's does."""
     with pytest.raises(NotImplementedError, match="mesh"):
         _trainer(tmp_path, mesh=object())
-    with pytest.raises(NotImplementedError, match="fabric"):
+    with pytest.raises(KeyError, match="unknown fabric preset"):
         _trainer(tmp_path, fabric="trine")
     with pytest.raises(ValueError, match="no fabric"):
         _trainer(tmp_path).inject_fault(None)

@@ -186,9 +186,14 @@ def test_slot_update_writes_fused_batch_heads_leaves():
 
 
 def test_fabric_hook_is_not_ported():
+    """The fabric hook is ported (`tests/test_torch_fabric.py` holds its
+    fault epoch against the reference's); an unknown preset name is refused
+    at construction, as the reference's `get_fabric` refuses it."""
     _, _, cfg, params, _ = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(KeyError, match="unknown fabric preset"):
         ContinuousBatcher(cfg, params, n_slots=1, max_len=8, fabric="trine", device="cpu")
+    eng = ContinuousBatcher(cfg, params, n_slots=1, max_len=8, fabric="trine_siph", device="cpu")
+    assert eng.net_stats["replans"] == 1 and eng.collective_channels >= 1
 
 
 def test_encoder_decoder_config_is_refused_by_the_batcher():
