@@ -61,6 +61,18 @@ fields such as stage, bank and router counts exactly):
                `benchmarks/torch_resilience_bench.py` in full mode (102,400
                configurations x 16 scenarios in its yield grid), every check
                True, its curves equal to the CPU's
+  engine_pareto  the search: `pareto_mask` on clouds from `--seed` (m = 2,
+               3; 1 to 65,536 points; ties, duplicates, fronts of half the
+               cloud) against the definition on the CPU; then
+               `benchmarks/torch_pareto_bench.py` in full mode (its
+               exactness checks required, its timing bars reported): the
+               1,105,920-point co-design front verified exactly against the
+               card's own cloud, the streamed network and co-design fronts
+               bit-identical over materialize host/device x prefetch 0/2,
+               the front's points equal to the CPU's evaluation of the same
+               indices, the smoke grid's card and CPU fronts compared (a
+               differing index set is printed with its rows' gaps), and
+               `fabrics_from_front` on the front
 
 then the serving paths at full published width (bf16, photonic numerics,
 kernels on, random weights from a seed), one model at a time, at published
@@ -148,6 +160,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import configs as C  # noqa: E402
 from repro_torch import core as EC  # noqa: E402
 from repro_torch.core import faults as EF  # noqa: E402
+from repro_torch.core import search as ESR  # noqa: E402
 from repro_torch.core import sweep as ES  # noqa: E402
 from repro_torch.core.xp import TorchNS  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -1242,6 +1255,7 @@ def phase_engine_fabric(seed: int) -> dict:
     ENGINE_RTOL; then `benchmarks/torch_resilience_bench.py` in full mode
     on the card, every check True, its curves equal to the CPU's."""
     from benchmarks import torch_resilience_bench as rb
+    t_phase = time.perf_counter()
     spec = ES.grid_spec(STREAM_TOPOLOGIES, **STREAM_AXES)
     rows = np.random.default_rng(seed).choice(spec.n, 3, replace=False)
     fabrics = {name: EC.get_fabric(name) for name in EC.FABRIC_PRESETS}
@@ -1279,7 +1293,8 @@ def phase_engine_fabric(seed: int) -> dict:
                 else:
                     assert v == b[k], (part, k, v, b[k])
     assert bench["availability"] == cpu_avail, (bench["availability"], cpu_avail)
-    out = {"phase": "engine_fabric", "fabrics": len(fabrics), "scenarios": len(scenarios),
+    out = {"phase": "engine_fabric", "seconds": time.perf_counter() - t_phase,
+           "fabrics": len(fabrics), "scenarios": len(scenarios),
            "config_rows": [int(i) for i in rows], "degrade_s": degrade_s,
            "degraded": table, "bench_wall_s": bench["wall_s"], "bench_checks": bench["checks"],
            "recovery": bench["recovery"], "availability": bench["availability"],
@@ -1289,12 +1304,204 @@ def phase_engine_fabric(seed: int) -> dict:
     return out
 
 
+MASK_SIZES = (1, 17, 5000, 65536)
+MASK_BRUTE_MAX = 5000        # the literal O(n^2) brute force up to this size
+
+
+def _mask_cpu_check(pts: np.ndarray, mask: np.ndarray) -> str:
+    """Hold a front mask against the definition on the CPU (numpy): the
+    literal O(n^2) brute force (`pareto_mask_reference`) up to
+    MASK_BRUTE_MAX points; above it the streamed equivalent — the masked
+    points are mutually non-dominated (brute force over them) and every
+    other point is dominated by one of them, which by transitivity is the
+    brute force's verdict.  Returns which check ran; raises on a
+    difference."""
+    if pts.shape[0] <= MASK_BRUTE_MAX:
+        want = ESR.pareto_mask_reference(pts)
+        bad = np.flatnonzero(mask != want)
+        assert bad.size == 0, f"pareto_mask differs from the brute force at rows {bad[:8]}"
+        return "brute_force"
+    front = np.unique(pts[mask], axis=0)      # copies never dominate each other
+    assert ESR.pareto_mask_reference(front).all(), "a masked point dominates another"
+    rest = pts[~mask]
+    for s in range(0, rest.shape[0], 1024):
+        p = rest[s:s + 1024, None, :]
+        dom = ((front[None] <= p).all(-1) & (front[None] != p).any(-1)).any(1)
+        assert dom.all(), f"an unmasked point is not dominated (block at {s})"
+    return "front_brute_force_and_dominance"
+
+
+def _mask_clouds(seed: int):
+    """(name, points) clouds from `seed`, for m = 2 and 3 at each of
+    MASK_SIZES: normal clouds; coarse integer clouds (ties in every
+    objective, exact duplicates) with copies of their first rows appended;
+    and "plane" clouds whose front is half the cloud (integer points on the
+    plane sum = 40, many copies, the rest above it)."""
+    rng = np.random.default_rng(seed)
+    for m in (2, 3):
+        for n in MASK_SIZES:
+            yield f"normal/m{m}/n{n}", rng.normal(size=(n, m))
+            ties = rng.integers(0, 6, size=(n, m)).astype(np.float64)
+            yield f"ties/m{m}/n{n}", np.concatenate([ties, ties[: max(1, n // 8)]])
+            plane = rng.integers(0, 20, size=(n, m)).astype(np.float64)
+            on = rng.random(n) < 0.5
+            plane[on, -1] = 40.0 - plane[on, :-1].sum(1)
+            plane[~on, -1] += 41.0
+            yield f"plane/m{m}/n{n}", plane
+
+
+def _codesign_cpu_points(spec, mixes, wl, indices) -> np.ndarray:
+    """The port's CPU evaluation of joint indices (mix * spec.n + row):
+    network columns through the engine's selection, the accelerator grid
+    on the rows, the objectives of each index's own mix."""
+    mix_id, rows = np.divmod(np.asarray(indices, np.int64), spec.n)
+    cols, topo = _rows_cols(spec, rows)
+    nets = ES.network_columns_device(cols, topo, spec.topologies, device="cpu")
+    out = EC.evaluate_accelerator_grid(wl, mixes, nets, cols,
+                                       cols["n_mem_chiplets"] * cols["mem_bw_bytes_per_s"],
+                                       device="cpu")
+    j = np.arange(rows.size)
+    return np.stack([out[k][mix_id, j] for k in ESR.ACCEL_OBJECTIVES], -1)
+
+
+def _codesign_chunk_breakdown(spec, mixes, wl, chunk: int, front) -> dict:
+    """One chunk of the co-design stream taken apart, each part timed to its
+    end on the host clock: decode, network columns and the accelerator grid
+    on the card (to a synchronize), the copy of its objectives to the host,
+    and the fold into a running front (the final one).  The second of two
+    passes."""
+    xp = TorchNS(DEV)
+    tables = {k: xp.asarray(np.asarray(v, np.float64)) for k, v in spec.axes.items()}
+    base = {k: xp.asarray(v) for k, v in spec.base.items()}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cols, topo = ES._decode(spec, chunk, tables, base, 0, xp.device)
+        nets, mem_bw = ES._nets_program(cols, topo, spec.topologies, xp)
+        out = EC.evaluate_accelerator_grid(wl, mixes, nets, cols, mem_bw, as_numpy=False,
+                                           device=DEV)
+        pts_t = torch.stack([out[k] for k in ESR.ACCEL_OBJECTIVES], -1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pts = pts_t.reshape(-1, 3).cpu().numpy()
+        t2 = time.perf_counter()
+        idx = (np.arange(len(mixes))[:, None] * spec.n + np.arange(chunk)[None]).reshape(-1)
+        ESR._merge_into(front, pts, idx, front.objectives, DEV)
+        t3 = time.perf_counter()
+    total = t3 - t0
+    return {"chunk": chunk, "joint_points": int(pts.shape[0]), "device_ms": (t1 - t0) * 1e3,
+            "to_host_ms": (t2 - t1) * 1e3, "fold_ms": (t3 - t2) * 1e3,
+            "fold_share": (t3 - t2) / total}
+
+
+def phase_engine_pareto(seed: int) -> dict:
+    """The Pareto/co-design search on the card: `pareto_mask` against the
+    definition on the CPU for clouds from `seed`; then
+    `benchmarks/torch_pareto_bench.py` in full mode (the 1,105,920-point
+    co-design grid) with its front verified exactly against the card's own
+    cloud; the streamed network and co-design fronts bit-identical over
+    materialize host/device x prefetch 0/2; the co-design front's points
+    equal to the port's CPU evaluation of the same indices at ENGINE_RTOL;
+    the CPU's co-design front on the smoke grid against the card's (a
+    differing index set is printed with its rows' relative gaps); and
+    `fabrics_from_front` on the full front."""
+    from benchmarks import torch_pareto_bench as pb
+    t_phase = time.perf_counter()
+    masks = []
+    for name, pts in _mask_clouds(seed):
+        t0 = time.perf_counter()
+        got = ESR.pareto_mask(pts, device="cuda")
+        card_s = time.perf_counter() - t0
+        check = _mask_cpu_check(pts, got)
+        if pts.shape[0] <= MASK_BRUTE_MAX:     # and the port's own CPU path
+            assert np.array_equal(got, ESR.pareto_mask(pts, device="cpu")), name
+        masks.append({"cloud": name, "n": int(pts.shape[0]), "front": int(got.sum()),
+                      "card_s": card_s, "cpu_check": check})
+
+    bench = pb.run(csv=False, smoke=False, device="cuda")
+    exact = ("codesign_grid_at_least_1e6", "net_front_streaming_equals_monolithic",
+             "net_front_matches_bruteforce", "codesign_front_streaming_equals_monolithic",
+             "codesign_front_matches_bruteforce", "pipeline_modes_bit_identical",
+             "pipeline_grid_at_least_1e6")
+    _require_checks({k: bench["checks"][k] for k in exact}, "engine_pareto bench")
+    wl = EC.CNN_WORKLOADS["ResNet18"]()
+    mixes = pb._mix_library(False)
+    spec = ES.grid_spec(pb.TOPOLOGIES, **pb.FULL_NET_AXES)
+    cd_idx = np.asarray(bench["codesign"]["front_indices"], np.int64)
+    net_idx = np.asarray(bench["network"]["front_indices"], np.int64)
+    modes, fronts = {}, {}
+    for mat in ("host", "device"):
+        for depth in (0, 2):
+            t0 = time.perf_counter()
+            front, _ = ESR.codesign_pareto(wl, mixes, topologies=pb.TOPOLOGIES,
+                                           chunk_size=bench["codesign"]["search_chunk_size"],
+                                           materialize=mat, prefetch=depth, device="cuda",
+                                           **pb.FULL_NET_AXES)
+            seconds = time.perf_counter() - t0
+            net = ESR.pareto_search(wl.traffic(), topologies=pb.TOPOLOGIES,
+                                    chunk_size=bench["network"]["chunk_size"],
+                                    materialize=mat, prefetch=depth, device="cuda",
+                                    **pb.FULL_NET_AXES)
+            fronts[(mat, depth)] = front
+            assert np.array_equal(front.indices, cd_idx), f"co-design front {mat}/{depth}"
+            assert np.array_equal(net.indices, net_idx), f"network front {mat}/{depth}"
+            modes[f"{mat}/prefetch{depth}"] = {
+                "codesign_s": seconds,
+                "codesign_points_per_s": bench["codesign"]["n_joint_points"] / seconds}
+    ref = fronts[("device", 2)]
+    for key, f in fronts.items():
+        assert np.array_equal(f.points, ref.points), f"co-design front points {key}"
+    cpu_pts = _codesign_cpu_points(spec, mixes, wl, ref.indices)
+    err = _hold(ref.points, cpu_pts, "pareto/front_points")
+    breakdown = _codesign_chunk_breakdown(spec, mixes, wl,
+                                          bench["codesign"]["search_chunk_size"], ref)
+    # the CPU's co-design front on the smoke grid against the card's
+    small = dict(topologies=pb.TOPOLOGIES, chunk_size=64, **pb.SMOKE_NET_AXES)
+    f_card, sspec = ESR.codesign_pareto(wl, mixes, device="cuda", **small)
+    f_cpu, _ = ESR.codesign_pareto(wl, mixes, device="cpu", **small)
+    differ = sorted(set(f_card.indices.tolist()) ^ set(f_cpu.indices.tolist()))
+    gaps = []
+    if differ:   # each such row's CPU point, and its gap to the CPU front's nearest other
+        for i, p in zip(differ, _codesign_cpu_points(sspec, mixes, wl, differ)):
+            others = f_cpu.points[f_cpu.indices != i]
+            gaps.append({"index": i, "on_card_front": bool(np.isin(i, f_card.indices)),
+                         "point_cpu": p.tolist(), "nearest_rel_gap": float(
+                             np.min(np.max(np.abs(others - p) / np.abs(p), axis=1)))})
+        print(json.dumps({"engine_pareto_front_differs": gaps}), flush=True)
+    common = np.intersect1d(f_card.indices, f_cpu.indices)
+    err = max(err, _hold(f_card.points[np.argsort(f_card.indices)][
+                             np.isin(np.sort(f_card.indices), common)],
+                         f_cpu.points[np.argsort(f_cpu.indices)][
+                             np.isin(np.sort(f_cpu.indices), common)],
+                         "pareto/smoke_front_points"))
+    fabs = EC.fabrics_from_front(ref, spec, mixes=mixes)
+    keys = [tuple(sorted(f.source.items())) for f in fabs]
+    assert fabs and len(keys) == len(set(keys)), "fabrics_from_front: duplicates"
+    on_front = set(cd_idx.tolist())
+    assert all(int(f.name.rsplit("@", 1)[1]) in on_front for f in fabs)
+    out = {"phase": "engine_pareto", "seconds": time.perf_counter() - t_phase,
+           "masks": masks, "bench_checks": bench["checks"],
+           "bench_pass": bench["pass"], "network": {k: v for k, v in bench["network"].items()
+                                                    if k != "front_indices"},
+           "pipeline": bench["pipeline"],
+           "codesign": {k: v for k, v in bench["codesign"].items() if k != "front_indices"},
+           "modes": modes, "one_chunk": breakdown,
+           "smoke_grid_front": {"card": f_card.size, "cpu": f_cpu.size,
+                                "indices_differ": differ, "gaps": gaps},
+           "fabrics": {"n": len(fabs), "names": [f.name for f in fabs[:8]],
+                       "cross_pod_gbps": [f.cross_pod_bw_bytes_per_s / 1e9 for f in fabs[:8]]},
+           "max_rel_err_vs_cpu": err, "rtol": ENGINE_RTOL, "seed": seed}
+    emit(out)
+    return out
+
+
 def run_engine(seed: int) -> dict:
     """The engine phases, in order; any failed check raises."""
     return {"engine_fig4": phase_engine_fig4(), "engine_fig6": phase_engine_fig6(),
             "engine_sweep": phase_engine_sweep(), "engine_stream": phase_engine_stream(seed),
             "engine_availability": phase_engine_availability(seed),
-            "engine_fabric": phase_engine_fabric(seed)}
+            "engine_fabric": phase_engine_fabric(seed),
+            "engine_pareto": phase_engine_pareto(seed)}
 
 
 # ---------------------------------------------------------------------------

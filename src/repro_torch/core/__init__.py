@@ -2,9 +2,10 @@
 (the paper's own evaluation methodology), the PyTorch port of the JAX
 package's `core`.  The scalar golden path is host numpy; the columnar,
 batched and streaming engines run in float64 on a device (``device=``,
-default "cuda").  The fabric layer (`core.fabric`) turns a design point
-into the link numbers the batcher and the trainer plan against.  The
-co-design search is not ported yet, so its names are not exported here."""
+default "cuda").  The Pareto and co-design searches (`core.search`) find
+the frontier of a design grid; the fabric layer (`core.fabric`) turns a
+design point, or a whole frontier, into the link numbers the batcher and
+the trainer plan against."""
 
 from repro_torch.core.devices import (
     DeviceLibrary,
@@ -70,10 +71,21 @@ from repro_torch.core.fabric import (
     Fabric,
     DEFAULT_FABRIC,
     FABRIC_PRESETS,
+    fabrics_from_front,
     get_fabric,
     metallic_ici,
     degrade,
     overlapped_step_s,
+)
+# `pareto_search`/`codesign_pareto` are the one-call entry points; the rest
+# of the toolkit lives in `repro_torch.core.search`.
+from repro_torch.core.search import (
+    ParetoFront,
+    codesign_pareto,
+    frontier_configs,
+    pareto_front,
+    pareto_mask,
+    pareto_search,
 )
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -4,8 +4,9 @@ The bridge between the two halves of the repo.  Layer A (core.topology /
 core.power / core.faults) scores interposer-network *designs*; Layer B (the
 channel planner, the batcher's and the trainer's modelled collectives)
 prices *programs* against link numbers.  A `Fabric` converts a design point
-— a named preset, a `NetworkModel`, or a config dict from
-`GridSpec.config_at` — into the link numbers the Layer-B estimate path
+— a named preset, a `NetworkModel`, a config dict from
+`GridSpec.config_at` / `codesign_config_at`, or a whole `core.search`
+Pareto frontier — into the link numbers the Layer-B estimate path
 consumes:
 
   cross_pod_bw_bytes_per_s   the slow inter-pod link (the channel planner's
@@ -31,7 +32,11 @@ Entry points:
   Fabric.from_network_model(net)       any core.topology NetworkModel
   Fabric.from_config(cfg)              a config dict (topology + axis
                                        overrides) as emitted by
-                                       GridSpec.config_at
+                                       GridSpec.config_at or
+                                       codesign_config_at
+  fabrics_from_front(front, spec)      one Fabric per distinct network
+                                       design on a Pareto frontier — the
+                                       search -> system loop closed
   degrade(fabric, scenario)            the link numbers under a fault
                                        scenario (core.faults)
   overlapped_step_s(...)               a step's modelled time when a
@@ -45,7 +50,7 @@ evaluates the degraded design's energy on ``device=`` (default "cuda").
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence, TYPE_CHECKING
 
 import numpy as np
 
@@ -63,9 +68,13 @@ from repro_torch.core.topology import (
     electrical_mesh,
 )
 
+if TYPE_CHECKING:  # pragma: no cover
+    from repro_torch.core.search import ParetoFront
+    from repro_torch.core.sweep import GridSpec
+
 __all__ = [
     "Fabric", "DEFAULT_FABRIC", "FABRIC_PRESETS", "get_fabric",
-    "metallic_ici", "degrade", "overlapped_step_s",
+    "metallic_ici", "fabrics_from_front", "degrade", "overlapped_step_s",
     "DEFAULT_PEAK_FLOPS", "DEFAULT_HBM_BW", "METALLIC_ICI_BW",
 ]
 
@@ -83,7 +92,7 @@ METALLIC_ICI_BW = 50e9         # bytes/s per modelled metallic ICI link
 _PROBE = Traffic(bytes_read=1 << 30, bytes_written=1 << 30, n_transfers=16)
 
 # config-dict keys that describe the accelerator's compute side, not the
-# interposer link model — `from_config` drops them
+# interposer link model — `from_config`/`fabrics_from_front` drop them
 _COMPUTE_SIDE_KEYS = ("mix", "chiplets", "mac_rate_hz",
                       "lambda_slot_energy_j")
 
@@ -238,6 +247,43 @@ def get_fabric(fabric) -> Fabric:
                 f"{sorted(FABRIC_PRESETS)}")
         return FABRIC_PRESETS[fabric]()
     raise TypeError(f"expected Fabric | preset name | None, got {fabric!r}")
+
+
+def fabrics_from_front(
+    front: "ParetoFront",
+    spec: "GridSpec",
+    mixes: Optional[Sequence] = None,
+    devices: Optional[DeviceLibrary] = None,
+    max_fabrics: Optional[int] = None,
+    prefix: str = "pareto",
+    **kwargs,
+) -> List[Fabric]:
+    """One Fabric per *distinct network design* on a Pareto frontier.
+
+    Frontier rows from `codesign_pareto` encode (chiplet mix x network
+    config); different mixes over the same network collapse to one fabric
+    (the mix changes compute, not the link model).  Fabrics are named
+    ``{prefix}:{topology}@{flat_index}`` so what-if artifacts trace back to
+    the exact frontier row.  `max_fabrics` keeps what-if tables bounded
+    (first-come in the front's canonical order)."""
+    from repro_torch.core.search import frontier_configs  # local: import cycle
+
+    out: List[Fabric] = []
+    seen = set()
+    for idx, cfg in zip(front.indices, frontier_configs(front, spec, mixes)):
+        net_cfg = {k: v for k, v in cfg.items()
+                   if k not in _COMPUTE_SIDE_KEYS}
+        key = tuple(sorted((k, float(v) if k != "topology" else v)
+                           for k, v in net_cfg.items()))
+        if key in seen:
+            continue
+        seen.add(key)
+        out.append(Fabric.from_config(
+            net_cfg, name=f"{prefix}:{net_cfg['topology']}@{int(idx)}",
+            devices=devices, **kwargs))
+        if max_fabrics is not None and len(out) >= max_fabrics:
+            break
+    return out
 
 
 # --------------------------------------------------------------------------
