@@ -113,11 +113,6 @@ def _dominated_t(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _mask_exact(pts: torch.Tensor) -> torch.Tensor:
-    """Front membership of one block, every pair compared."""
-    return ~_dominated_t(pts, pts)
-
-
 def pareto_mask(points, device="cuda") -> np.ndarray:
     """Front membership (lower-is-better weak dominance) of an (n, m) point
     cloud, m in {2, 3}, computed on `device` from the definition: p is off
@@ -127,8 +122,9 @@ def pareto_mask(points, device="cuda") -> np.ndarray:
     (rank-transformed sort + scan) and `pareto_mask_reference`, duplicates
     included.  Clouds above `_FRONT_BLOCK` points are folded block by block:
     each block is prefiltered against the running front and only the
-    survivors take the all-pairs pass (a dominated point is always
-    dominated by some front member, so the prefilter is lossless).
+    survivors take the all-pairs pass with the front (a dominated point
+    is always dominated by some front member, so the prefilter is
+    lossless).
     """
     pts = np.asarray(points, np.float64)
     if pts.ndim != 2 or pts.shape[1] not in (2, 3):
@@ -142,15 +138,13 @@ def pareto_mask(points, device="cuda") -> np.ndarray:
             "larger grids through ParetoReducer / pareto_search")
     dev = require_device(device)
     p = torch.as_tensor(pts, device=dev)
-    if n <= _FRONT_BLOCK:
-        return _mask_exact(p).cpu().numpy()
     front = torch.zeros(0, dtype=torch.int64, device=dev)   # rows of `pts`
     for s in range(0, n, _FRONT_BLOCK):
         blk = torch.arange(s, min(s + _FRONT_BLOCK, n), device=dev)
         if front.numel():
             blk = blk[~_dominated_t(p[blk], p[front])]
         cand = torch.cat([front, blk])
-        front = cand[_mask_exact(p[cand])]
+        front = cand[~_dominated_t(p[cand], p[cand])]
     mask = torch.zeros(n, dtype=torch.bool, device=dev)
     mask[front] = True
     return mask.cpu().numpy()
@@ -205,13 +199,6 @@ class ParetoFront:
         return [spec.config_at(int(i)) for i in self.indices]
 
 
-def _front_exact(points: np.ndarray, indices: np.ndarray,
-                 objectives: Tuple[str, ...], device="cuda") -> ParetoFront:
-    mask = pareto_mask(points, device=device)
-    return ParetoFront(objectives, points[mask],
-                       np.asarray(indices)[mask].astype(np.int64)).canonical()
-
-
 def _dominated_by(pts: np.ndarray, front_pts: np.ndarray,
                   device="cuda") -> np.ndarray:
     """Which of `pts` are weakly dominated by some member of `front_pts`,
@@ -226,28 +213,13 @@ def _dominated_by(pts: np.ndarray, front_pts: np.ndarray,
 
 
 def _front_of(points: np.ndarray, indices: np.ndarray,
-              objectives: Tuple[str, ...],
-              block: int = _FRONT_BLOCK, device="cuda") -> ParetoFront:
-    """Exact front of an arbitrary point cloud.  Large clouds are folded
-    block-by-block: each block is prefiltered against the running front
-    (O(block * front_size)), and only the survivors go through the exact
-    all-pairs pass — so it never sees more than front_size + block points
-    at once.  A dominated point is always dominated by some *front* member
-    (dominance is transitive), so prefiltering against the running front
-    of everything seen so far is lossless."""
-    indices = np.asarray(indices).astype(np.int64)
-    n = points.shape[0]
-    if n <= block:
-        return _front_exact(points, indices, objectives, device)
-    front: Optional[ParetoFront] = None
-    for s in range(0, n, block):
-        pts_b, idx_b = points[s:s + block], indices[s:s + block]
-        if front is not None and front.size:
-            keep = ~_dominated_by(pts_b, front.points, device)
-            pts_b = np.concatenate([front.points, pts_b[keep]], axis=0)
-            idx_b = np.concatenate([front.indices, idx_b[keep]], axis=0)
-        front = _front_exact(pts_b, idx_b, objectives, device)
-    return front
+              objectives: Tuple[str, ...], device="cuda") -> ParetoFront:
+    """Exact front of an arbitrary point cloud, in canonical order
+    (`pareto_mask` folds a large cloud block by block against its running
+    front on the device, so the cost is O(n * front_size))."""
+    mask = pareto_mask(points, device=device)
+    return ParetoFront(objectives, points[mask],
+                       np.asarray(indices)[mask].astype(np.int64)).canonical()
 
 
 def merge_fronts(*fronts: ParetoFront, device="cuda") -> ParetoFront:
