@@ -3,7 +3,8 @@
 package's `core`.  The scalar golden path is host numpy; the columnar,
 batched and streaming engines run in float64 on a device (``device=``,
 default "cuda").  The Pareto and co-design searches (`core.search`) find
-the frontier of a design grid; the fabric layer (`core.fabric`) turns a
+the frontier of a design grid and refine its points by gradient and
+trust-region descent; the fabric layer (`core.fabric`) turns a
 design point, or a whole frontier, into the link numbers the batcher and
 the trainer plan against."""
 
@@ -86,6 +87,12 @@ from repro_torch.core.search import (
     pareto_front,
     pareto_mask,
     pareto_search,
+    refine_continuous,
+    refine_codesign,
+    refine_front,
+    refine_trust_region,
+    DEFAULT_REFINE_AXES,
+    ACCEL_REFINE_AXES,
 )
 
 __all__ = [n for n in dir() if not n.startswith("_")]
