@@ -72,7 +72,22 @@ fields such as stage, bank and router counts exactly):
                the front's points equal to the CPU's evaluation of the same
                indices, the smoke grid's card and CPU fronts compared (a
                differing index set is printed with its rows' gaps), and
-               `fabrics_from_front` on the front
+               `fabrics_from_front` on the front; the bench's refine
+               sections run there too
+  engine_refine  the refinement engines: the bench's refine checks (the
+               refined front weakly dominating its seeds and improving one,
+               the trust-region front dominating the first-order one, its
+               designs re-scoring bit for bit) True; `refine_front_point`
+               (48 steps), `refine_front` first order (top 3 seeds of the
+               full co-design front x 32 steps) and trust region (the same
+               seeds x 32 steps against a 3-CNN batch) on the card and on
+               the CPU: seconds and steps a second of each, launches of one
+               value-and-gradient call and one Hessian, the Hessian's share
+               of a trust-region step; integer designs, candidate counts,
+               accept/reject and line-search counts equal, traces, relaxed
+               values and sensitivities at rtol 1e-9 (a differing design is
+               printed with its exact scores on both devices and must tie);
+               then `examples/torch_photonic_design_space.py` in smoke mode
 
 then the serving paths at full published width (bf16, photonic numerics,
 kernels on, random weights from a seed), one model at a time, at published
@@ -141,6 +156,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import resource
 import shutil
 import subprocess
@@ -1492,16 +1508,273 @@ def phase_engine_pareto(seed: int) -> dict:
                        "cross_pod_gbps": [f.cross_pod_bw_bytes_per_s / 1e9 for f in fabs[:8]]},
            "max_rel_err_vs_cpu": err, "rtol": ENGINE_RTOL, "seed": seed}
     emit(out)
+    return out, bench, ref
+
+
+REFINE_RTOL = 1e-9           # refinement traces and values, card against the CPU
+REFINE_TIE_RTOL = 1e-12      # two differing integer designs must score this close
+REFINE_CHECKS = ("refinement_improves", "refined_front_dominates_seed",
+                 "refined_improves_a_seed", "trust_region_front_dominates_first_order",
+                 "trust_region_rescore_bit_identical")
+
+
+def _kernel_launches(fn) -> dict:
+    """Device kernels (and `cudaLaunchKernel` calls on the host) of one
+    call of `fn`, under `torch.profiler`; returns `fn`'s result too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    kernels = sum(e.count for e in avg if str(e.device_type).endswith("CUDA")
+                  and "memcpy" not in e.key.lower() and "memset" not in e.key.lower())
+    launches = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
+    return {"device_kernels": kernels, "cudaLaunchKernel": launches}, out
+
+
+class _RefineMeter:
+    """Wraps `search._value_and_grad` and `search._hessian` while it is
+    entered: counts and host seconds of each call (each ends in a copy to
+    the host, so its seconds include the device's work).  The first card
+    call of each is kept, to count its launches under the profiler once
+    every timed run is over (`launches`): a profiler, once started, slows
+    every later launch in the process."""
+
+    def __init__(self):
+        self.stats = {"vg_calls": 0, "vg_s": 0.0, "hess_calls": 0, "hess_s": 0.0}
+        self.first = {}
+
+    def _wrap(self, make, key):
+        def wrapped(loss_of, dev):
+            f = make(loss_of, dev)
+
+            def timed(theta):
+                if dev.type == "cuda" and key not in self.first:
+                    self.first[key] = (f, np.array(theta, np.float64))
+                t0 = time.perf_counter()
+                out = f(theta)
+                self.stats[f"{key}_s"] += time.perf_counter() - t0
+                self.stats[f"{key}_calls"] += 1
+                return out
+            return timed
+        return wrapped
+
+    def __enter__(self):
+        self._saved = ESR._value_and_grad, ESR._hessian
+        ESR._value_and_grad = self._wrap(self._saved[0], "vg")
+        ESR._hessian = self._wrap(self._saved[1], "hess")
+        return self
+
+    def __exit__(self, *exc):
+        ESR._value_and_grad, ESR._hessian = self._saved
+
+    def launches(self) -> dict:
+        return {key: _kernel_launches(lambda: f(theta))[0]
+                for key, (f, theta) in self.first.items()}
+
+    def summary(self, seconds: float, iterations: int) -> dict:
+        st = self.stats
+        per = {k: (st[f"{k}_s"] / st[f"{k}_calls"] * 1e3 if st[f"{k}_calls"] else None)
+               for k in ("vg", "hess")}
+        out = {"seconds": seconds, "iterations": iterations,
+               "iterations_per_s": iterations / seconds, **st,
+               "vg_ms": per["vg"], "hess_ms": per["hess"],
+               "engine_share": (st["vg_s"] + st["hess_s"]) / seconds}
+        if st["hess_calls"]:
+            out["hessian_share_of_step"] = per["hess"] / (per["hess"] + per["vg"])
+            out["hessian_share_of_call"] = st["hess_s"] / seconds
+        return out
+
+
+def _iterations(results) -> int:
+    """Descent iterations of `refine_codesign` results: first order, its
+    steps (each one value-and-gradient call, plus the closing one); trust
+    region, its accepted and rejected steps."""
+    return sum(len(r["tr_stats"]["radius_trace"]) if r["tr_stats"] else len(r["loss_trace"]) - 1
+               for r in results)
+
+
+def _score_design(r, spec, workloads, device) -> float:
+    """The exact scalarized score of a refined design on `device` (log of
+    the weighted-geomean EDP, as the refiner ranks designs)."""
+    cfg = dict(r["refined"]["config"])
+    chips = cfg.pop("chiplets")
+    cfg.pop("mix")
+    topo = cfg.pop("topology")
+    mac, slot = cfg.pop("mac_rate_hz"), cfg.pop("lambda_slot_energy_j")
+    c1 = {k: np.full(1, v, np.float64) for k, v in dict(spec.base, **cfg).items()}
+    n1 = ES._network_columns_arrays(c1, np.zeros(1, np.int64), (topo,))
+    mbw = c1["n_mem_chiplets"] * c1["mem_bw_bytes_per_s"]
+    total = 0.0
+    for wt, w in zip(r["weights"], workloads):
+        o = EC.evaluate_accelerator_grid(w, [chips], n1, c1, mbw, mac_rate_hz=mac,
+                                         lambda_slot_energy_j=slot, device=device)
+        total += wt * float(np.log(o["energy_j"][0, 0] * o["latency_s"][0, 0]))
+    return total
+
+
+def _hold_refine(card, cpu, spec, workloads, what: str) -> dict:
+    """One `refine_codesign` result on the card against the CPU's on the
+    same seed: counts exactly, traces, relaxed values, sensitivities
+    (against the vector's scale: a flat axis's gradient is rounding noise)
+    and values at REFINE_RTOL.  A differing integer design is printed with
+    both devices' exact scores of both designs, and fails unless they tie
+    within REFINE_TIE_RTOL."""
+    what = f"{what}@{card['flat_index']}"
+    design = [(c.n_units, c.vector_size) for c in card["refined"]["chiplets"]]
+    design_cpu = [(c.n_units, c.vector_size) for c in cpu["refined"]["chiplets"]]
+    cfg_card = {k: v for k, v in card["refined"]["config"].items() if k != "chiplets"}
+    cfg_cpu = {k: v for k, v in cpu["refined"]["config"].items() if k != "chiplets"}
+    same = design == design_cpu and _max_rel(
+        [v for v in cfg_card.values() if not isinstance(v, str)],
+        [v for v in cfg_cpu.values() if not isinstance(v, str)]) <= REFINE_RTOL
+    out = {"seed": card["flat_index"], "same_design": same, "design": design,
+           "improvement": card["improvement"], "n_candidates": card["n_candidates"]}
+    if not same:          # printed before any check can stop the run
+        scores = {dev: {"card_design": _score_design(card, spec, workloads, dev),
+                        "cpu_design": _score_design(cpu, spec, workloads, dev)}
+                  for dev in ("cuda", "cpu")}
+        print(json.dumps({"engine_refine_design_differs": what, "card": design,
+                          "cpu": design_cpu,
+                          "card_config": {k: str(v) for k, v in cfg_card.items()},
+                          "cpu_config": {k: str(v) for k, v in cfg_cpu.items()},
+                          "log_scores": scores, "relaxed_card": card["relaxed"],
+                          "relaxed_cpu": cpu["relaxed"]}), flush=True)
+        out["tie"] = scores
+    assert card["n_candidates"] == cpu["n_candidates"], f"{what}: n_candidates"
+    if card["tr_stats"] is not None:
+        for k in ("accepted", "rejected"):
+            assert card["tr_stats"][k] == cpu["tr_stats"][k], f"{what}: tr {k}"
+        for k in ("n_scored", "n_sweeps"):
+            assert card["line_search"][k] == cpu["line_search"][k], f"{what}: line search {k}"
+    err = _hold(card["loss_trace"], cpu["loss_trace"], f"{what}/loss_trace", REFINE_RTOL)
+    err = max(err, _hold(list(card["relaxed"].values()), list(cpu["relaxed"].values()),
+                         f"{what}/relaxed", REFINE_RTOL))
+    sc = np.asarray(list(card["sensitivity"].values()))
+    sp = np.asarray(list(cpu["sensitivity"].values()))
+    scale = float(np.abs(sp).max(initial=0.0))
+    sens_err = float(np.max(np.abs(sc - sp), initial=0.0)) / scale if scale else 0.0
+    assert sens_err <= REFINE_RTOL, f"{what}: sensitivity err {sens_err:.3e}"
+    out["sensitivity_err"] = sens_err
+    if same:
+        err = max(err, _hold(card["refined"]["value"], cpu["refined"]["value"],
+                             f"{what}/value", REFINE_RTOL))
+    else:
+        for dev, sc2 in out["tie"].items():
+            gap = abs(sc2["card_design"] - sc2["cpu_design"]) / abs(sc2["cpu_design"])
+            assert gap <= REFINE_TIE_RTOL, \
+                f"{what}: designs differ and do not tie on {dev} ({gap:.3e})"
+    out["max_rel_err"] = err
+    return out
+
+
+def _example_on_card() -> dict:
+    """`examples/torch_photonic_design_space.py` in smoke mode on the card,
+    in its own process: its seconds and that every section printed."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, REPRO_SMOKE="1",
+               PYTHONPATH=os.pathsep.join([str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, str(root / "examples/torch_photonic_design_space.py")],
+                       env=env, capture_output=True, text=True, timeout=600, cwd=root)
+    seconds = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"the design-space example failed: {p.stderr[-2000:]}")
+    sections = ("K-sweep", "WDM sweep", "Device sensitivity", "Full design-space search",
+                "Streaming Pareto search", "Gradient refinement (autograd",
+                "Co-design search", "Co-design refinement", "Six-CNN joint refinement",
+                "Fabric what-if")
+    missing = [x for x in sections if x not in p.stdout]
+    assert not missing, f"the design-space example did not print {missing}"
+    return {"seconds": seconds, "lines": len(p.stdout.splitlines()),
+            "refined_lines": [ln.strip() for ln in p.stdout.splitlines()
+                              if "->" in ln and "EDP" in ln][:4]}
+
+
+def phase_engine_refine(bench: dict, front) -> dict:
+    """The refinement engines on the card: `torch_pareto_bench`'s refine
+    sections in full mode (`engine_pareto` ran them) with every refine
+    check True; then, on the full co-design front's best-EDP seeds, each
+    refine call timed on the card and on the CPU (`refine_front_point`,
+    48 steps; `refine_front` first order, top 3 x 32 steps, ResNet18; and
+    trust region, top 3 x 32 steps, the bench's 3-CNN batch), its steps a
+    second, the launches of one value-and-gradient call and of one Hessian,
+    the Hessian's share of a trust-region step, and the card held against
+    the CPU (`_hold_refine`); then the design-space example in smoke mode."""
+    from benchmarks import torch_pareto_bench as pb
+    t_phase = time.perf_counter()
+    _require_checks({k: bench["checks"][k] for k in REFINE_CHECKS}, "engine_refine bench")
+    wl = EC.CNN_WORKLOADS["ResNet18"]()
+    mixes = pb._mix_library(False)
+    spec = ES.grid_spec(pb.TOPOLOGIES, **pb.FULL_NET_AXES)
+    row = bench["codesign"]["best_edp_index"] % spec.n
+    tr_wls = [wl] + [EC.CNN_WORKLOADS[n]() for n in pb.TR_WORKLOADS]
+    calls = {
+        "refine_front_point": lambda dev: ESR.refine_front_point(
+            spec, wl.traffic(), row, steps=48, lr=0.1, device=dev),
+        "first_order": lambda dev: ESR.refine_front(
+            front, spec, mixes, wl, top_k=3, steps=32, lr=0.1, device=dev),
+        "trust_region": lambda dev: ESR.refine_front(
+            front, spec, mixes, tr_wls, top_k=3, method="trust_region",
+            refine_axes=pb.TR_AXES, steps=32, device=dev),
+    }
+    out = {"phase": "engine_refine", "bench": {
+        "checks": {k: bench["checks"][k] for k in REFINE_CHECKS},
+        "refine": bench["refine"], "refined_front": bench["refined_front"],
+        "trust_region_front": bench["trust_region_front"],
+        "codesign_refine_s": bench["codesign"]["refine_s"]}}
+    err, meters = 0.0, {}
+    for name, call in calls.items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            with _RefineMeter() as meter:
+                t0 = time.perf_counter()
+                r = call(dev)
+                seconds = time.perf_counter() - t0
+            results = r["results"] if "results" in r else []
+            iters = _iterations(results) if results else len(r["loss_trace"]) - 1
+            res[dev] = (r, meter.summary(seconds, iters))
+            if dev == "cuda":
+                meters[name] = meter
+        (card, m_card), (cpu, m_cpu) = res["cuda"], res["cpu"]
+        entry = {"card": m_card, "cpu": m_cpu}
+        if name == "refine_front_point":
+            err = max(err, _hold(card["loss_trace"], cpu["loss_trace"], "refine/loss_trace",
+                                 REFINE_RTOL))
+            err = max(err, _hold(list(card["refined"].values()), list(cpu["refined"].values()),
+                                 "refine/refined", REFINE_RTOL))
+            err = max(err, _hold([card["metrics"][k] for k in cpu["metrics"]],
+                                 list(cpu["metrics"].values()), "refine/metrics", REFINE_RTOL))
+            entry["improvement"] = card["improvement"]
+        else:
+            wls = tr_wls if name == "trust_region" else [wl]
+            held = [_hold_refine(a, b, spec, wls, name)
+                    for a, b in zip(card["results"], cpu["results"])]
+            err = max([err] + [h["max_rel_err"] for h in held])
+            entry.update(seeds=held, n_improved=card["n_improved"],
+                         front_sizes=[card["seed_front"].size, card["front"].size])
+            if all(h["same_design"] for h in held):
+                assert np.array_equal(card["front"].indices, cpu["front"].indices), name
+        out[name] = entry
+    out["example_smoke"] = _example_on_card()
+    for name, meter in meters.items():          # after every timed run
+        out[name]["card"]["launches"] = meter.launches()
+    out.update(max_rel_err_vs_cpu=err, rtol=REFINE_RTOL,
+               seconds=time.perf_counter() - t_phase)
+    emit(out)
     return out
 
 
 def run_engine(seed: int) -> dict:
     """The engine phases, in order; any failed check raises."""
-    return {"engine_fig4": phase_engine_fig4(), "engine_fig6": phase_engine_fig6(),
-            "engine_sweep": phase_engine_sweep(), "engine_stream": phase_engine_stream(seed),
-            "engine_availability": phase_engine_availability(seed),
-            "engine_fabric": phase_engine_fabric(seed),
-            "engine_pareto": phase_engine_pareto(seed)}
+    out = {"engine_fig4": phase_engine_fig4(), "engine_fig6": phase_engine_fig6(),
+           "engine_sweep": phase_engine_sweep(), "engine_stream": phase_engine_stream(seed),
+           "engine_availability": phase_engine_availability(seed),
+           "engine_fabric": phase_engine_fabric(seed)}
+    out["engine_pareto"], bench, front = phase_engine_pareto(seed)
+    out["engine_refine"] = phase_engine_refine(bench, front)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Parity of the port's refinement engines (`repro_torch.core.search`:
 `refine_continuous`, `refine_front_point`, `refine_codesign` in both methods,
-`refine_trust_region`, `refine_front` and their host-side helpers) and the
-refine sections of `benchmarks/torch_pareto_bench.py` with the JAX package's
-on the CPU, and the counterparts of the reference's
+`refine_trust_region`, `refine_front` and their host-side helpers), its
+analytic roofline (`repro_torch.launch.hlo_analysis`), the refine sections of
+`benchmarks/torch_pareto_bench.py` and `examples/torch_photonic_design_space.py`
+with the JAX package's on the CPU, and the counterparts of the reference's
 own refine tests (`tests/test_search.py`).
 
 The port refines in float64 throughout; the reference runs its first-order
@@ -52,6 +53,7 @@ from repro.core.sweep import grid_spec as j_grid_spec  # noqa: E402
 from repro.core.topology import MODEL_FIELDS as J_MODEL_FIELDS  # noqa: E402
 from repro.core.topology import TOPOLOGY_ARRAYS as J_TOPOLOGY_ARRAYS  # noqa: E402
 from repro.core.workloads import CNN_WORKLOADS as JCNN  # noqa: E402
+from repro.launch import hlo_analysis as JH  # noqa: E402
 
 from repro_torch.core import fabric as FAB  # noqa: E402
 from repro_torch.core import search as S  # noqa: E402
@@ -60,6 +62,7 @@ from repro_torch.core.accelerator import evaluate_accelerator_grid  # noqa: E402
 from repro_torch.core.sweep import _network_columns_arrays, grid_spec  # noqa: E402
 from repro_torch.core.workloads import CNN_WORKLOADS  # noqa: E402
 from repro_torch.core.xp import TorchNS  # noqa: E402
+from repro_torch.launch import hlo_analysis as H  # noqa: E402
 
 RTOL = 1e-9
 HESS_RTOL = 1e-10
@@ -789,6 +792,39 @@ def test_first_order_deviation_from_the_float32_reference():
 
 
 # ---------------------------------------------------------------------------
+# the analytic roofline
+# ---------------------------------------------------------------------------
+
+
+def _stats(mod):
+    return mod.HloStats(dot_flops=1.7e10, dot_bytes=3.1e8, op_result_bytes=9.0e8,
+                        collective_bytes=25.8e6, collective_op_bytes={"all-reduce": 25.8e6},
+                        collective_op_counts={"all-reduce": 121, "all-gather": 4}, max_trip=1,
+                        collective_bytes_raw=51.6e6)
+
+
+def test_roofline_matches_reference():
+    assert (H.PEAK_FLOPS, H.HBM_BW, H.ICI_BW) == (JH.PEAK_FLOPS, JH.HBM_BW, JH.ICI_BW)
+    (wl, mixes, front, spec), (jwl, jmixes, jfront, jspec) = _setup()
+    fab = FAB.fabrics_from_front(front, spec, mixes=mixes, max_fabrics=1)[0]
+    jfab = JFAB.fabrics_from_front(jfront, jspec, mixes=jmixes, max_fabrics=1)[0]
+    assert _stats(H).to_json() == _stats(JH).to_json()
+    pairs = [(None, None), ("metallic_ici", "metallic_ici"), ("trine_siph", "trine_siph"),
+             (FAB.metallic_ici(), JFAB.metallic_ici()), (fab, jfab)]
+    for cost in ({}, {"flops": 2.0e10, "bytes accessed": 5.5e8}):
+        for io in (0.0, 2.15e9):
+            for f, jf in pairs:
+                got = H.roofline(_stats(H), cost, 1.5e10, io_bytes=io, fabric=f)
+                want = JH.roofline(_stats(JH), cost, 1.5e10, io_bytes=io, fabric=jf)
+                assert got.to_json() == want.to_json(), (f, cost, io)
+    zero = H.HloStats(0.0, 0.0, 0.0, 0.0, {}, {}, 0)
+    jzero = JH.HloStats(0.0, 0.0, 0.0, 0.0, {}, {}, 0)
+    assert H.roofline(zero, {}, 1.0).to_json() == JH.roofline(jzero, {}, 1.0).to_json()
+    with pytest.raises(KeyError):
+        H.roofline(_stats(H), {}, 1.0, fabric="no_such_fabric")
+
+
+# ---------------------------------------------------------------------------
 # benchmarks/torch_pareto_bench.py's refine sections and the example
 # ---------------------------------------------------------------------------
 
@@ -840,3 +876,20 @@ def test_torch_pareto_bench_refine_sections_match_reference():
     assert tr["line_search"][0]["n_scored"] == jr["line_search"]["n_scored"]
     _close(tr["line_search"][0]["value"], jr["line_search"]["value"], "tr line search")
     _close(tr["improvements"][0], jr["improvement"], "tr", rtol=1e-7)
+
+
+def test_example_torch_photonic_design_space_smoke():
+    env = dict(os.environ, REPRO_SMOKE="1",
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    p = subprocess.run([sys.executable, str(ROOT / "examples/torch_photonic_design_space.py"),
+                        "--device", "cpu"], env=env, capture_output=True, text=True,
+                       timeout=240, cwd=ROOT)
+    assert p.returncode == 0, p.stderr[-4000:]
+    for line in ("K-sweep: energy-delay product", "WDM sweep:", "Device sensitivity:",
+                 "Full design-space search:", "Streaming Pareto search:",
+                 "Gradient refinement (autograd through the", "Co-design search (ResNet18):",
+                 "Co-design refinement:", "refined best as Fabric:",
+                 "Six-CNN joint refinement", "six-CNN best as Fabric:",
+                 "Fabric what-if (yi_34b decode cell):"):
+        assert line in p.stdout, line
+    assert "jax" not in p.stdout
