@@ -225,9 +225,10 @@ def _weakly_dominates(front, seed) -> bool:
     return bool(np.all(~seed_on_union | seed_present))
 
 
-def _rescore_exact(r, spec, workloads, device) -> bool:
-    """A refined design's per-workload metrics equal, bit for bit, a
-    standalone `evaluate_accelerator_grid` call on its reported config."""
+def design_metrics(r, spec, workloads, device) -> list:
+    """Per-workload exact metrics of a `refine_codesign` result's refined
+    design: one standalone `evaluate_accelerator_grid` call per workload on
+    its reported config, on `device`."""
     cfg = dict(r["refined"]["config"])
     chips = cfg.pop("chiplets")
     cfg.pop("mix")
@@ -238,12 +239,16 @@ def _rescore_exact(r, spec, workloads, device) -> bool:
           for k, v in dict(spec.base, **cfg).items()}
     n1 = _network_columns_arrays(c1, np.zeros(1, np.int64), (topo,))
     mbw = c1["n_mem_chiplets"] * c1["mem_bw_bytes_per_s"]
-    for w, per in zip(workloads, r["refined"]["per_workload"]):
-        o = evaluate_accelerator_grid(w, [chips], n1, c1, mbw, mac_rate_hz=mac,
-                                      lambda_slot_energy_j=slot, device=device)
-        if any(float(o[k][0, 0]) != v for k, v in per.items()):
-            return False
-    return True
+    return [{k: float(v[0, 0]) for k, v in evaluate_accelerator_grid(
+                w, [chips], n1, c1, mbw, mac_rate_hz=mac,
+                lambda_slot_energy_j=slot, device=device).items()}
+            for w in workloads]
+
+
+def _rescore_exact(r, spec, workloads, device) -> bool:
+    """A refined design's per-workload metrics equal, bit for bit, a
+    standalone evaluation of its reported config on the same device."""
+    return design_metrics(r, spec, workloads, device) == r["refined"]["per_workload"]
 
 
 def run(csv: bool = True, smoke: bool = None, device="cuda") -> dict:

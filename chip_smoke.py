@@ -1518,19 +1518,16 @@ REFINE_CHECKS = ("refinement_improves", "refined_front_dominates_seed",
                  "trust_region_rescore_bit_identical")
 
 
-def _kernel_launches(fn) -> dict:
-    """Device kernels (and `cudaLaunchKernel` calls on the host) of one
-    call of `fn`, under `torch.profiler`; returns `fn`'s result too."""
+def _kernel_launches(fn) -> int:
+    """Device kernels of one call of `fn`, under `torch.profiler` (copies
+    and fills left out)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = fn()
+        fn()
         torch.cuda.synchronize()
-    avg = prof.key_averages()
-    kernels = sum(e.count for e in avg if str(e.device_type).endswith("CUDA")
-                  and "memcpy" not in e.key.lower() and "memset" not in e.key.lower())
-    launches = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
-    return {"device_kernels": kernels, "cudaLaunchKernel": launches}, out
+    return sum(e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+               and "memcpy" not in e.key.lower() and "memset" not in e.key.lower())
 
 
 class _RefineMeter:
@@ -1570,7 +1567,7 @@ class _RefineMeter:
         ESR._value_and_grad, ESR._hessian = self._saved
 
     def launches(self) -> dict:
-        return {key: _kernel_launches(lambda: f(theta))[0]
+        return {key: _kernel_launches(lambda: f(theta))
                 for key, (f, theta) in self.first.items()}
 
     def summary(self, seconds: float, iterations: int) -> dict:
@@ -1598,20 +1595,10 @@ def _iterations(results) -> int:
 def _score_design(r, spec, workloads, device) -> float:
     """The exact scalarized score of a refined design on `device` (log of
     the weighted-geomean EDP, as the refiner ranks designs)."""
-    cfg = dict(r["refined"]["config"])
-    chips = cfg.pop("chiplets")
-    cfg.pop("mix")
-    topo = cfg.pop("topology")
-    mac, slot = cfg.pop("mac_rate_hz"), cfg.pop("lambda_slot_energy_j")
-    c1 = {k: np.full(1, v, np.float64) for k, v in dict(spec.base, **cfg).items()}
-    n1 = ES._network_columns_arrays(c1, np.zeros(1, np.int64), (topo,))
-    mbw = c1["n_mem_chiplets"] * c1["mem_bw_bytes_per_s"]
-    total = 0.0
-    for wt, w in zip(r["weights"], workloads):
-        o = EC.evaluate_accelerator_grid(w, [chips], n1, c1, mbw, mac_rate_hz=mac,
-                                         lambda_slot_energy_j=slot, device=device)
-        total += wt * float(np.log(o["energy_j"][0, 0] * o["latency_s"][0, 0]))
-    return total
+    from benchmarks import torch_pareto_bench as pb
+    per = pb.design_metrics(r, spec, workloads, device)
+    return sum(wt * float(np.log(m["energy_j"] * m["latency_s"]))
+               for wt, m in zip(r["weights"], per))
 
 
 def _hold_refine(card, cpu, spec, workloads, what: str) -> dict:

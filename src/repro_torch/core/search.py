@@ -539,12 +539,11 @@ def _projected_descent(value_and_grad, theta0, lo, hi, steps: int,
     theta <- clip(theta - lr * grad, lo, hi), tracking the best iterate
     ever visited (the trajectory is not monotone across quantization
     boundaries).  `value_and_grad(theta) -> (float, float64 numpy)`; the
-    loop runs on the host in float64, clipping with maximum then minimum
-    as `TorchNS.clip` does.  Returns (best_loss, best_theta, trace, grad0)
-    where grad0 is the float64 gradient at theta0 — the per-axis
-    sensitivity `refine_codesign` reports."""
-    if isinstance(theta0, torch.Tensor):  # carry host values, never a graph
-        theta0 = theta0.detach().cpu().numpy()
+    loop carries theta as host float64 (so no autograd graph spans two
+    iterations), clipping with maximum then minimum as `TorchNS.clip`
+    does.  Returns (best_loss, best_theta, trace, grad0) where grad0 is
+    the float64 gradient at theta0 — the per-axis sensitivity
+    `refine_codesign` reports."""
     theta = theta0
     best_loss, best_theta = np.inf, theta
     trace: List[float] = []
