@@ -57,8 +57,8 @@ frontiers:
                              trust-region descent + coordinate-wise integer
                              line search to a local integer optimum).
   refine_trust_region(...)   `refine_codesign(method="trust_region")`.
-  refine_front(...)          frontier-wide driver: refine every (or top-k)
-                             row, merge the refined points back with
+  refine_front(...)          frontier-wide entry point: refine every (or
+                             top-k) row, merge the refined points back with
                              merge_fronts (the result weakly dominates the
                              seed front by construction — asserted), report
                              per-axis gradient-magnitude sensitivities.
@@ -79,7 +79,7 @@ The refiners evaluate their losses, gradients and Hessians in float64 on
 the device (`torch.autograd`, reverse over reverse for the Hessian) and
 run the descent loops, the trust-region subproblem and the integer line
 search on the host in float64.  The reference runs its first-order paths
-at the session precision (float32 unless x64 is on) and only its
+at jax's default precision (float32 unless x64 is on) and only its
 trust-region path in forced float64; the port is float64 throughout, so it
 equals the reference run inside `engine_x64()`.
 """

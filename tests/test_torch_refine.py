@@ -7,7 +7,7 @@ with the JAX package's on the CPU, and the counterparts of the reference's
 own refine tests (`tests/test_search.py`).
 
 The port refines in float64 throughout; the reference runs its first-order
-paths at the session precision and only its trust-region path in forced
+paths at jax's default precision and only its trust-region path in forced
 float64.  So the port is held against the reference run inside
 `repro.core.power.engine_x64()` (a context manager: `jax_enable_x64` is
 never flipped for the process), and one test records how the reference's
@@ -766,11 +766,12 @@ def test_refine_front_matches_reference_and_dominates_seed(method):
 
 
 def test_first_order_deviation_from_the_float32_reference():
-    """Recorded deviation: the reference's first-order path runs at the
-    session precision.  On this LeNet5 seed the float32 reference snaps to
-    another integer design than the float64 one; the port equals the
-    float64 reference (the design (255, 9), (127, 48)), and the float32
-    loss trace stays within float32 rounding of the port's."""
+    """Recorded deviation: the reference's first-order path runs at jax's
+    default precision (float32).  On this LeNet5 seed the float32
+    reference snaps to another integer design than the float64 one; the
+    port equals the float64 reference (the design (255, 9), (127, 48)),
+    and the float32 loss trace stays within float32 rounding of the
+    port's."""
     (wl, mixes, front, spec), (jwl, jmixes, jfront, jspec) = _setup()
     idx = int(front.indices[0])
     r = S.refine_codesign(spec, mixes, wl, idx, steps=8, device=CPU)
