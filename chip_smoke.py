@@ -88,7 +88,6 @@ fields such as stage, bank and router counts exactly):
                values and sensitivities at rtol 1e-9 (a differing design is
                printed with its exact scores on both devices and must tie);
                then `examples/torch_photonic_design_space.py` in smoke mode
-
 then the serving paths at full published width (bf16, photonic numerics,
 kernels on, random weights from a seed), one model at a time, at published
 depth except mixtral and qwen2-vl:
@@ -129,12 +128,24 @@ a fresh trainer without a fabric resumed from a step-2 checkpoint must
 reach the straight run's step-4 state bit for bit, the loss must be finite and fall,
 and one f32 step at B=2 x 2048 with the kernels and with their plain
 versions must agree in loss and gradient norm (`TRAIN_TOLERANCE`).
+Then `train_wire`: the same model and flags trained 4 steps of 8 x 2048
+tokens through `make_train_step(param_wire=)` under the 8-bit parameter
+wire (`parallel/wire.py`: layer stacks as int8 pairs dequantized in each
+layer body, the other weights quantized in place, gradients straight
+through to the f32 masters): the loss finite and falling, the launches
+those of `train_step_launches` (the wire launches no kernel), step
+seconds, tokens/s and peak memory beside `train`'s, and the pairs'
+payload; then, at the reference wire tests' setting (reduced yi-6b, B=2 x
+64, seed 0), the wire's master gradients within 0.05 (16 bits) and 0.25 (8
+bits) of the masters', one f32 step under the wire with the kernels
+against the port's plain CPU step (`TRAIN_TOLERANCE`), and
+`launch/train.py --wire-bits 8` training bit for bit as without the flag.
 
 Before each path the launch counters are set to 0; just after it they are
 read and must equal the counts reckoned from the dispatch predicates in
-`kernels/ops.py` (for training: the forward, and its recomputation under
-remat in the backward, which is plain), and every kernel of that path must
-have launched.  After each serving path, `end_to_end` holds kernels-on
+`kernels/ops.py` (for training, straight and under the wire: the forward,
+and its recomputation under remat in the backward, which is plain), and
+every kernel of that path must have launched.  After each serving path, `end_to_end` holds kernels-on
 against kernels-off logits of one prefill (in f32 for zamba2, xlstm and
 mixtral, whose routing or recurrence amplifies bf16 rounding;
 `E2E_TOLERANCE`; seamless against 32 frames;
@@ -193,6 +204,7 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel import wire as W  # noqa: E402
 from repro_torch.runtime import trainer as TR  # noqa: E402
 from repro_torch.serve.engine import ContinuousBatcher  # noqa: E402
 
@@ -2543,6 +2555,158 @@ def phase_train_kernels_vs_plain() -> dict:
     return out
 
 
+WIRE_BITS, WIRE_STEPS = 8, 4
+# the reference's wire tests (tests/test_kernels.py, tests/test_runtime.py):
+# reduced yi-6b at B=2 x 64, and the bars of the wire's master gradients
+WIRE_CHECK_ARCH, WIRE_CHECK_BATCH, WIRE_CHECK_SEQ = "yi_6b", 2, 64
+WIRE_GRAD_BARS = {16: 0.05, 8: 0.25}
+
+
+def _wire_payload(params, pw) -> dict:
+    """The wire's int8 pairs against the f32 masters they stand for: their
+    count, their bytes with the per-layer scales, and the share of the
+    master bytes they carry."""
+    pairs = [p for n, p in T.leaves_with_path(pw.quantize(params)) if n.endswith("['~q']")]
+    int8 = sum(q.numel() for q in pairs)
+    scales = 4 * sum(q.shape[0] for q in pairs)
+    masters = 4 * sum(t.numel() for t in T.leaves(params))
+    return {"pairs": len(pairs), "int8_bytes": int8, "scale_bytes": scales,
+            "f32_bytes_they_stand_for": 4 * int8,
+            "payload_ratio": (int8 + scales) / (4 * int8),
+            "share_of_master_bytes": 4 * int8 / masters}
+
+
+def _wire_grads_vs_master(device) -> dict:
+    """The reference test's bars (`test_wire_grads_close_to_master`) on
+    `device`: reduced yi-6b (kernels on), B=2 x 64 from seed 0, the wire's
+    master gradients within 0.05 (16 bits) and 0.25 (8 bits) of the f32
+    masters' in norm, leaf by leaf; returns the worst leaf of each."""
+    cfg = dataclasses.replace(C.get_reduced(WIRE_CHECK_ARCH), use_kernels=True)
+    params = M.init(cfg, seed=SEED, device=device)
+    gen = np.random.default_rng(SEED)
+    batch = {k: torch.as_tensor(gen.integers(0, cfg.vocab, (WIRE_CHECK_BATCH, WIRE_CHECK_SEQ)))
+             .to(device) for k in ("tokens", "labels")}
+
+    def grads(tree, leaves):
+        return torch.autograd.grad(M.loss_fn(cfg, tree, batch, device=device)[0], leaves)
+
+    p0 = T.map_structure(lambda p: p.detach().requires_grad_(True), params)
+    g0 = grads(p0, T.leaves(p0))
+    names = [n for n, _ in T.leaves_with_path(params)]
+    out = {}
+    for bits, bar in WIRE_GRAD_BARS.items():
+        pw = W.make_param_wire(dataclasses.replace(cfg, wire_bits=bits))
+        v = T.map_structure(lambda p: p.detach().requires_grad_(True), pw.carrier(params))
+        g = grads(pw.graft(pw.quantize(params), v), T.leaves(v))
+        rel = [float(torch.linalg.norm(a - b) / torch.linalg.norm(a)) for a, b in zip(g0, g)]
+        worst = int(np.argmax(rel))
+        out[bits] = {"bar": bar, "worst_leaf": names[worst], "worst_rel": rel[worst]}
+        assert all(float(torch.linalg.norm(a - b)) <= bar * float(torch.linalg.norm(a)) + 1e-6
+                   for a, b in zip(g0, g)), (bits, out[bits])
+    return out
+
+
+def _wire_step_vs_cpu() -> dict:
+    """One f32 step of reduced yi-6b (photonic numerics) under the 8-bit
+    wire, kernels on, on the card against the port's plain step on the CPU
+    from the same state: loss and gradient norm within TRAIN_TOLERANCE."""
+    cfg = dataclasses.replace(C.get_reduced(WIRE_CHECK_ARCH), use_photonic_mac=True,
+                              use_kernels=True, wire_bits=WIRE_BITS)
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    data = SyntheticLM(cfg, DataConfig(global_batch=WIRE_CHECK_BATCH,
+                                       seq_len=WIRE_CHECK_SEQ)).batch_at(0)
+    params = M.init(cfg, seed=SEED, device="cpu")
+    res = {}
+    for name, c, dev in (("card", cfg, DEV), ("cpu_plain", plain, torch.device("cpu"))):
+        state = adamw.init_state(TRAIN_OPT, T.map_structure(lambda t: t.to(dev), params))
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in data.items()}
+        _, m = TR.make_train_step(c, TRAIN_OPT, param_wire=W.make_param_wire(c),
+                                  device=dev)(state, batch)
+        res[name] = {k: float(v) for k, v in m.items()}
+    card, cpu = res["card"], res["cpu_plain"]
+    out = dict(res, loss_rel=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+               grad_norm_rel=abs(card["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"])
+    assert (out["loss_rel"] < TRAIN_TOLERANCE["loss"]
+            and out["grad_norm_rel"] < TRAIN_TOLERANCE["grad_norm"]), out
+    return out
+
+
+def _wire_launcher_check() -> dict:
+    """`launch/train.py --wire-bits 8` (no mesh) for 2 reduced steps on the
+    card: losses bit for bit those of the same run without the flag, as
+    the reference's launcher trains."""
+    losses = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wire_") as tmp:
+        for flag in ([], ["--wire-bits", str(WIRE_BITS)]):
+            trainer, _ = train.main(["--arch", WIRE_CHECK_ARCH, "--reduced", "--steps", "2",
+                                     "--batch", str(WIRE_CHECK_BATCH), "--seq",
+                                     str(WIRE_CHECK_SEQ), "--ckpt", f"{tmp}/{len(flag)}",
+                                     "--no-resume", "--photonic-mac", "--kernels"] + flag)
+            losses["with_flag" if flag else "without"] = [h["loss"] for h in trainer.history]
+    assert losses["with_flag"] == losses["without"] and len(losses["without"]) == 2, losses
+    return losses
+
+
+def phase_train_wire(train_out: dict) -> dict:
+    """zamba2-1.2b at published width and depth, as `phase_train` builds it
+    (bf16 compute, f32 masters, photonic numerics, kernels on, remat
+    "full", TRAIN_OPT), trained WIRE_STEPS steps of 8 x 2048 `SyntheticLM`
+    tokens through `make_train_step(param_wire=)` under the 8-bit wire:
+    the loss finite and falling, the launches per step equal to
+    `train_step_launches` (the wire launches no kernel), all three kernels
+    launched; step seconds, tokens/s and peak memory beside `train`'s, the
+    pairs and their payload.  Then, at the reference tests' setting
+    (reduced yi-6b, B=2 x 64, seed 0): the master-gradient bars, one f32
+    step against the port's plain CPU step, and the launcher's flag."""
+    cfg = dataclasses.replace(C.get(TRAIN_CFG_ID), use_photonic_mac=True, use_kernels=True)
+    cfg8 = dataclasses.replace(cfg, wire_bits=WIRE_BITS)
+    state = adamw.init_state(TRAIN_OPT, M.init(cfg, seed=SEED, device=DEV,
+                                               expert_dtype=torch.float32))
+    pw = W.make_param_wire(cfg8)
+    payload = _wire_payload(state.params, pw)
+    step = TR.make_train_step(cfg8, TRAIN_OPT, param_wire=pw, device=DEV)
+    src = SyntheticLM(cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = counters()
+    hist = []
+    for i in range(WIRE_STEPS):
+        batch = {k: torch.as_tensor(v).to(DEV) for k, v in src.batch_at(i).items()}
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        row = {k: float(v) for k, v in m.items()}            # the metrics on the host
+        row["step_s"] = time.perf_counter() - t0
+        hist.append(row)
+    got = _since(before)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = train_step_launches(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    want = {k: v * WIRE_STEPS for k, v in per_step.items()}
+    losses = [h["loss"] for h in hist]
+    step_s = [h["step_s"] for h in hist]
+    med = sorted(step_s[1:])[(len(step_s) - 1) // 2]
+    out = {"phase": "train_wire", "model": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+           "wire_bits": WIRE_BITS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist], "step_s": step_s,
+           "median_step_s_after_first": med, "train_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+           "train_phase": {"median_step_s_after_first": train_out["median_step_s_after_first"],
+                           "train_tokens_per_s": train_out["train_tokens_per_s"],
+                           "peak_memory_gb": train_out["peak_memory_gb"]},
+           "peak_memory_gb": peak, "launches": got, "launches_per_step": per_step,
+           "payload": payload}
+    del state, step, batch
+    _free()
+    out["grads_vs_master"] = _wire_grads_vs_master(DEV)
+    out["f32_step_vs_cpu_plain"] = _wire_step_vs_cpu()
+    out["launcher_wire_bits"] = _wire_launcher_check()
+    emit(out)
+    assert got == want, f"launch counts {got} differ from {want}"
+    assert all(got[name] > 0 for name in KERNELS), got
+    assert all(map(math.isfinite, losses)) and losses[-1] < losses[0], losses
+    _free()
+    return out
+
+
 def phase_train_profile() -> dict:
     """Device time of one train step at the path's size (a fresh state),
     by kernel and by range: the trainer's `loss` and `optimizer`, the
@@ -2568,15 +2732,21 @@ def phase_train_profile() -> dict:
 
 
 def run_train_path(profile: bool) -> dict:
-    """The training path: the straight run with the counters at 0 just
-    before it and read just after (the path's launches), then the resume,
-    kernels-on-vs-off and (with `profile`) profiler phases."""
+    """The training paths, each with the counters at 0 just before it and
+    read just after: the straight run (then the resume and kernels-on-vs-off
+    checks), and the 8-bit wire's run (`train_wire`, then its reduced-size
+    checks); then (with `profile`) the profiler phase.  Returns each path's
+    launches."""
+    launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_", dir=TRAIN_CKPT_ROOT) as tmp:
         zero_counters()
-        phase_train(f"{tmp}/straight")
-        launches = counters()
+        straight = phase_train(f"{tmp}/straight")
+        launches["zamba2-1.2b train"] = counters()
         phase_train_resume(f"{tmp}/straight", f"{tmp}/resumed")
     phase_train_kernels_vs_plain()
+    zero_counters()
+    wire = phase_train_wire(straight)
+    launches["zamba2-1.2b train_wire"] = wire["launches"]
     if profile:
         phase_train_profile()
     return launches
@@ -2737,9 +2907,10 @@ def main() -> None:
         by_path[arch] = run_path(cfg_id, arch, args.profile)
         for name in needs:
             assert by_path[arch][name] > 0, f"the {arch} path never launched {name}"
-    by_path["zamba2-1.2b train"] = run_train_path(args.profile)
-    for name in KERNELS:
-        assert by_path["zamba2-1.2b train"][name] > 0, f"the train path never launched {name}"
+    for path, n in run_train_path(args.profile).items():
+        by_path[path] = n
+        for name in KERNELS:
+            assert n[name] > 0, f"the {path} path never launched {name}"
     launches = {name: sum(n[name] for n in by_path.values()) for name in KERNELS}
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

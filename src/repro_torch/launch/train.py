@@ -7,9 +7,12 @@ Runs on the card unless `--device cpu` is given (`--reduced` makes that
 practical).  The trainer checkpoints atomically and auto-resumes from the
 newest valid checkpoint in `--ckpt`.  The flags are the reference's, plus
 `--kernels` (the hand-written CUDA kernels in the forward) and `--device`.
-`--wire-bits` other than 0 and `--mesh` other than `none` raise
-`NotImplementedError`: the parameter wire format and the sharded step are
-not ported.
+`--wire-bits N` sets `cfg.wire_bits` and, as in the reference, changes
+nothing else: without a mesh the trainer builds its step with no parameter
+wire, so the run trains exactly as without the flag (the wire itself is
+`make_train_step(param_wire=parallel.wire.make_param_wire(cfg))`).
+`--mesh` other than `none` raises `NotImplementedError`: the sharded step
+is not ported.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ def main(argv: Optional[Sequence[str]] = None,
     ap.add_argument("--photonic-mac", action="store_true",
                     help="route linears through the photonic-MAC QAT numerics")
     ap.add_argument("--wire-bits", type=int, default=0,
-                    help="int8/bf16 parameter wire format (not ported: only 0)")
+                    help="int8/bf16 parameter wire format (8 or 16); sets cfg.wire_bits, "
+                         "which only a sharded step reads: without --mesh it trains as "
+                         "without the flag, as the reference does")
     ap.add_argument("--moe-dispatch", choices=["einsum", "index"], default=None)
     ap.add_argument("--data-file", default=None,
                     help="mmap token corpus (.bin uint16); default synthetic")
@@ -60,16 +65,15 @@ def main(argv: Optional[Sequence[str]] = None,
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.wire_bits:
-        raise NotImplementedError("--wire-bits: the parameter wire format is not ported "
-                                  "(ROADMAP.md, Queue 1 item 11)")
     if args.mesh != "none":
         raise NotImplementedError("--mesh: the sharded train step is not ported "
-                                  "(ROADMAP.md, Queue 1 items 11 and 12)")
+                                  "(ROADMAP.md, Queue 1 item 8)")
     device = require_device(args.device)
     cfg = C.get_reduced(args.arch) if args.reduced else C.get(args.arch)
     cfg = dataclasses.replace(cfg, use_photonic_mac=args.photonic_mac or cfg.use_photonic_mac,
                               use_kernels=args.kernels)
+    if args.wire_bits:
+        cfg = dataclasses.replace(cfg, wire_bits=args.wire_bits)
     if args.moe_dispatch:
         cfg = dataclasses.replace(cfg, moe_dispatch=args.moe_dispatch)
 

@@ -32,6 +32,10 @@ of kinds), each encoder layer and the head of each cross-entropy chunk runs
 under its own checkpoint.  "none" saves everything; "full", "dots" and
 "dots_all" all recompute in full (the reference's "dots" policies save the
 products' outputs; the numbers are the same either way).
+
+Layer-stacked weights may arrive as int8 wire pairs (`parallel.wire`, the
+trainer's `param_wire`); each layer body dequantizes its own slice at entry
+(`wire.dequant_subtree`), and a tree without pairs passes through untouched.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch.utils.checkpoint
 from repro_torch import require_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import wire as W
 
 Params = Dict[str, Any]
 
@@ -336,11 +341,13 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
         scache = cache[si] if cache is not None else None
 
         def body(x, i, sp=sp, scache=scache, kinds=kinds):
+            # int8 wire pairs dequantize at body entry, as in the reference
+            layer_p = W.dequant_subtree(_layer(sp, i), L.compute_dtype(cfg))
             aux_sum = None
             for j, kind in enumerate(kinds):
                 name = f"{kind}_{j}"
                 c_j = _layer(scache[name], i) if scache is not None else None
-                x, _, aux = _apply_block(cfg, kind, _layer(sp.get(name, {}), i), x, positions,
+                x, _, aux = _apply_block(cfg, kind, layer_p.get(name, {}), x, positions,
                                          shared=shared, cache=c_j, cache_pos=cache_pos,
                                          cache_pos_max=cache_pos_max, enc_out=enc_out)
                 if aux is not None:
@@ -360,8 +367,14 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
 
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
+    table, dt = params["embed"], L.compute_dtype(cfg)
+    if table.dtype.itemsize < dt.itemsize:
+        # a table narrower than the compute dtype (the parameter wire's
+        # bf16 under f32 compute): widen it first, as the reference does,
+        # so that its gradient sums in the compute dtype
+        return table.to(dt)[tokens]
     # index first, then cast: the same values as casting the whole table
-    return params["embed"][tokens].to(L.compute_dtype(cfg))
+    return table[tokens].to(dt)
 
 
 def logits_head(cfg: ModelConfig, params: Params, h: torch.Tensor):
@@ -402,7 +415,8 @@ def encode(cfg: ModelConfig, params: Params, enc_embeds, device="cuda") -> torch
     remat = _remat_on(cfg, params)
 
     def layer(x, i):
-        return _apply_block(cfg, "enc", _layer(blocks, i), x, positions, shared=None,
+        layer_p = W.dequant_subtree(_layer(blocks, i), L.compute_dtype(cfg))
+        return _apply_block(cfg, "enc", layer_p, x, positions, shared=None,
                             cache=None, cache_pos=None, cache_pos_max=0, enc_out=None)[0]
 
     with L._span("encode"):

@@ -19,8 +19,11 @@ history row), replanned when `inject_fault` (or `run(fault_at=,
 fault_scenario=)`) degrades the fabric, and `FabricUnusableError` when
 nothing survives.  The model changes no numerics.
 
-Not ported yet: the sharded step over a mesh (`build_sharded_step`,
-`param_wire`); a mesh raises `NotImplementedError`.
+`make_train_step(param_wire=)` trains under the parameter wire format
+(`parallel.wire`) on one device.  Not ported yet: the sharded step over a
+mesh (`build_sharded_step`); a mesh raises `NotImplementedError`.  As in
+the reference, the trainer without a mesh builds its step with no wire,
+whatever `cfg.wire_bits` says.
 """
 
 from __future__ import annotations
@@ -69,36 +72,52 @@ def check_masters(params) -> None:
                          + (f" and {len(bad) - 4} more" if len(bad) > 4 else ""))
 
 
-def make_train_step(cfg: ModelConfig, opt: adamw.OptConfig, accum_steps: int = 1,
-                    device="cuda"):
+def make_train_step(cfg: ModelConfig, opt: adamw.OptConfig, param_wire=None,
+                    accum_steps: int = 1, device="cuda"):
     """`step(state, batch) -> (new_state, metrics)`, metrics {ce, aux, loss,
     grad_norm} as f32 scalar tensors; `batch` holds tensors on `device`.
+
+    `param_wire` (`parallel.wire.ParamWire`) runs the loss on the wire's
+    tree: the layer-stacked masters quantized once per step outside
+    autograd into int8 pairs, dequantized inside each layer body, and the
+    other weights quantized (or cast) in place; the differentiated leaves
+    are the wire's carrier, so the gradients come back as the master
+    tree's, straight through.
 
     `accum_steps` > 1 runs gradient accumulation: the batch is split into
     microbatches run in turn, gradients summed in f32 and averaged, ONE
     optimizer update."""
     device = require_device(device)
 
-    def grads_of(leaves, params, mb):
+    def grads_of(leaves, params_of, mb):
         with L._span("loss"):
-            loss, metrics = M.loss_fn(cfg, params, mb, device=device)
+            loss, metrics = M.loss_fn(cfg, params_of(), mb, device=device)
         with L._span("backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
 
     def step_fn(state: adamw.TrainState, batch: Dict[str, torch.Tensor]):
-        params = T.map_structure(lambda p: p.detach().requires_grad_(True), state.params)
-        leaves = T.leaves(params)
+        if param_wire is None:
+            diff_var = state.params
+        else:
+            qtree = param_wire.quantize(state.params)     # outside autograd, once
+            diff_var = param_wire.carrier(state.params)
+        diff_var = T.map_structure(lambda p: p.detach().requires_grad_(True), diff_var)
+        leaves = T.leaves(diff_var)
+
+        def params_of():       # the loss's tree, built anew for each microbatch
+            return diff_var if param_wire is None else param_wire.graft(qtree, diff_var)
+
         if accum_steps == 1:
-            loss, metrics, grads = grads_of(leaves, params, batch)
+            loss, metrics, grads = grads_of(leaves, params_of, batch)
         else:
             mbs = _split_microbatches(batch, accum_steps)
             g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
             l_sum = torch.zeros((), dtype=torch.float32, device=device)
             mets = []
             for i in range(accum_steps):
-                l, m, g = grads_of(leaves, params, {k: v[i] for k, v in mbs.items()})
+                l, m, g = grads_of(leaves, params_of, {k: v[i] for k, v in mbs.items()})
                 g_sum = [a + b for a, b in zip(g_sum, g)]
                 l_sum = l_sum + l
                 mets.append(m)
@@ -140,7 +159,7 @@ class Trainer:
                  fabric=None, device="cuda", state: Optional[adamw.TrainState] = None):
         if mesh is not None:
             raise NotImplementedError("the sharded train step over a mesh is not ported "
-                                      "(ROADMAP.md, Queue 1 items 11 and 12)")
+                                      "(ROADMAP.md, Queue 1 item 8)")
         self.cfg, self.opt, self.data_cfg, self.tcfg = cfg, opt, data, tcfg
         self.device = require_device(device)
         self.source = source if source is not None else SyntheticLM(cfg, data)

@@ -323,11 +323,50 @@ def test_launch_train_main_reads_a_token_file(tmp_path, corpus):
     assert isinstance(trainer.source, TokenFileSource) and np.isfinite(out["last_loss"])
 
 
-@pytest.mark.parametrize("flags", [["--wire-bits", "8"], ["--mesh", "single"]])
+@pytest.mark.parametrize("flags", [["--mesh", "single"]])
 def test_launch_train_refuses_what_is_not_ported(tmp_path, flags):
     with pytest.raises(NotImplementedError):
         launch_train.main(["--arch", "yi-6b", "--reduced", "--device", "cpu", "--ckpt",
                            str(tmp_path)] + flags)
+
+
+def _ref_launch_losses(monkeypatch, capsys, argv) -> list:
+    """The reference launcher's per-step losses for `argv` (its `main` reads
+    `sys.argv` and returns nothing: `Trainer.run` is wrapped to keep them)."""
+    from repro.launch import train as ref_train
+    from repro.runtime import trainer as JT
+    kept = []
+    run = JT.Trainer.run
+
+    def keep(self, *a, **kw):
+        out = run(self, *a, **kw)
+        kept.append([h["loss"] for h in self.history])
+        return out
+
+    monkeypatch.setattr(JT.Trainer, "run", keep)
+    monkeypatch.setattr(sys, "argv", ["train.py"] + argv)
+    ref_train.main()
+    capsys.readouterr()
+    return kept[-1]
+
+
+def test_launch_train_wire_bits_trains_as_without_it(tmp_path, monkeypatch, capsys):
+    """`--wire-bits 8` without a mesh sets `cfg.wire_bits` and trains bit
+    for bit as without the flag, on the port and on the reference (whose
+    trainer builds its step with no wire when there is no mesh)."""
+    base = ["--arch", "yi-6b", "--reduced", "--steps", "2", "--batch", "2", "--seq", "32",
+            "--no-resume"]
+    runs = {}
+    for flag in ([], ["--wire-bits", "8"]):
+        trainer, _ = launch_train.main(base + ["--device", "cpu", "--ckpt",
+                                               str(tmp_path / f"port{len(flag)}")] + flag)
+        assert trainer.cfg.wire_bits == (8 if flag else 0)
+        runs[tuple(flag)] = [h["loss"] for h in trainer.history]
+    assert len(runs[()]) == 2 and runs[()] == runs[("--wire-bits", "8")]
+    ref = {tuple(flag): _ref_launch_losses(
+        monkeypatch, capsys, base + ["--ckpt", str(tmp_path / f"ref{len(flag)}")] + flag)
+        for flag in ([], ["--wire-bits", "8"])}
+    assert len(ref[()]) == 2 and ref[()] == ref[("--wire-bits", "8")]
 
 
 def test_trainer_refuses_mesh_fabric_and_fault_injection(tmp_path):
