@@ -88,6 +88,15 @@ fields such as stage, bank and router counts exactly):
                values and sensitivities at rtol 1e-9 (a differing design is
                printed with its exact scores on both devices and must tie);
                then `examples/torch_photonic_design_space.py` in smoke mode
+  engine_whatif  the benchmarks that price LM steps over photonic fabrics:
+               `benchmarks/torch_fabric_whatif.py` in full mode (its
+               co-design frontier searched on the card; every check True;
+               the ranking, every cell's bottleneck under every fabric and
+               every results row equal to the CPU run's), then
+               `torch_collectives_bench.py` and `torch_roofline.py` (its
+               photonic roofline on the card), each equal to the CPU's;
+               seconds of each on both
+
 then the serving paths at full published width (bf16, photonic numerics,
 kernels on, random weights from a seed), one model at a time, at published
 depth except mixtral and qwen2-vl:
@@ -1765,6 +1774,72 @@ def phase_engine_refine(bench: dict, front) -> dict:
     return out
 
 
+def _hold_tree(got, want, what: str, rtol: float = ENGINE_RTOL) -> float:
+    """A bench's output on the card against the CPU's: every float at
+    `rtol` (`_hold`), every other field equal.  Returns the worst relative
+    error."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), (what, set(got) ^ set(want))
+        return max([0.0] + [_hold_tree(got[k], want[k], f"{what}/{k}", rtol) for k in want])
+    if isinstance(want, (list, tuple)):
+        assert len(got) == len(want), (what, len(got), len(want))
+        return max([0.0] + [_hold_tree(a, b, f"{what}[{i}]", rtol)
+                            for i, (a, b) in enumerate(zip(got, want))])
+    if isinstance(want, float) and not isinstance(want, bool):
+        return _hold(got, want, what, rtol)
+    assert got == want, (what, got, want)
+    return 0.0
+
+
+def phase_engine_whatif() -> dict:
+    """The benchmarks that price LM steps over photonic fabrics, on the card
+    and on the CPU: `benchmarks/torch_fabric_whatif.py` in full mode (its
+    co-design frontier searched on the device; every check True; the
+    ranking, every cell's bottleneck under every fabric, and every results
+    row equal to the CPU run's at ENGINE_RTOL), then
+    `torch_collectives_bench.py` and `torch_roofline.py` (its photonic
+    roofline on the device), each equal to the CPU; seconds of each."""
+    from benchmarks import torch_collectives_bench as cb
+    from benchmarks import torch_fabric_whatif as wb
+    from benchmarks import torch_roofline as rb
+    t_phase = time.perf_counter()
+    out = {"phase": "engine_whatif"}
+    err = 0.0
+    for name, run in (("fabric_whatif", lambda dev: wb.run(csv=False, smoke=False, device=dev)),
+                      ("collectives", lambda dev: cb.run(csv=False, device=dev)),
+                      ("roofline", lambda dev: rb.run(csv=False, device=dev))):
+        res, seconds = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res[dev] = run(dev)
+            seconds[dev] = time.perf_counter() - t0
+        card, cpu = res["cuda"], res["cpu"]
+        entry = {"card_s": seconds["cuda"], "cpu_s": seconds["cpu"]}
+        if name == "fabric_whatif":
+            _require_checks(card["checks"], "engine_whatif fabric_whatif")
+            base = {(r["arch"], r["shape"]): r["bottleneck"] for r in card["results"]
+                    if r["fabric"] == "metallic_ici"}
+            flips = [(r["arch"], r["shape"], r["fabric"], base[(r["arch"], r["shape"])],
+                      r["bottleneck"])
+                     for r in card["results"] if r["bottleneck"] != base[(r["arch"], r["shape"])]]
+            entry.update(checks=card["checks"], n_fabrics=len(card["fabrics"]),
+                         n_cells=len(card["cells"]), edp_front_size=card["edp_front_size"],
+                         ranking=[r["fabric"] for r in card["ranking"]],
+                         frontier_ranking=card["frontier_ranking"], bottleneck_flips=flips)
+            card = {k: v for k, v in card.items() if k != "elapsed_s"}
+            cpu = {k: v for k, v in cpu.items() if k != "elapsed_s"}
+        elif name == "collectives":
+            entry["rows"] = len(card["rows"])
+        else:
+            entry.update(n_ok=card["n_ok"], photonic_rows=len(card["photonic"]))
+        entry["max_rel_err_vs_cpu"] = _hold_tree(card, cpu, f"whatif/{name}")
+        err = max(err, entry["max_rel_err_vs_cpu"])
+        out[name] = entry
+    out.update(max_rel_err_vs_cpu=err, rtol=ENGINE_RTOL, seconds=time.perf_counter() - t_phase)
+    emit(out)
+    return out
+
+
 def run_engine(seed: int) -> dict:
     """The engine phases, in order; any failed check raises."""
     out = {"engine_fig4": phase_engine_fig4(), "engine_fig6": phase_engine_fig6(),
@@ -1773,6 +1848,7 @@ def run_engine(seed: int) -> dict:
            "engine_fabric": phase_engine_fabric(seed)}
     out["engine_pareto"], bench, front = phase_engine_pareto(seed)
     out["engine_refine"] = phase_engine_refine(bench, front)
+    out["engine_whatif"] = phase_engine_whatif()
     return out
 
 
