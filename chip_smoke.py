@@ -2734,6 +2734,7 @@ def phase_train_wire(train_out: dict) -> dict:
     pairs and their payload.  Then, at the reference tests' setting
     (reduced yi-6b, B=2 x 64, seed 0): the master-gradient bars, one f32
     step against the port's plain CPU step, and the launcher's flag."""
+    t_phase = time.perf_counter()
     cfg = dataclasses.replace(C.get(TRAIN_CFG_ID), use_photonic_mac=True, use_kernels=True)
     cfg8 = dataclasses.replace(cfg, wire_bits=WIRE_BITS)
     state = adamw.init_state(TRAIN_OPT, M.init(cfg, seed=SEED, device=DEV,
@@ -2775,6 +2776,7 @@ def phase_train_wire(train_out: dict) -> dict:
     out["grads_vs_master"] = _wire_grads_vs_master(DEV)
     out["f32_step_vs_cpu_plain"] = _wire_step_vs_cpu()
     out["launcher_wire_bits"] = _wire_launcher_check()
+    out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     assert got == want, f"launch counts {got} differ from {want}"
     assert all(got[name] > 0 for name in KERNELS), got

@@ -10,13 +10,13 @@ On this jax a mesh built by `jax.make_mesh((1, 1), ...)` has Explicit axes,
 under which `with_sharding_constraint` raises; a (1, 1) mesh with Auto axes
 (`_ref_mesh`) runs it, so the whole wire path has an oracle here.
 
-Tolerances: int8 levels and scales exactly; the photonic product of bf16
-weights at 1e-6 of its largest output (the reference op by op; compiled,
-it keeps the bf16 scales unrounded, 1.5e-3 away), its bf16 dw at one bf16
-step; and every transformed leaf of
-the wire's tree (pairs, `_quant_leaf`'s per-tensor treatment of stacked
-2-D leaves, the bf16 casts) exactly: both sides do the same f32 and bf16
-arithmetic.  Losses at rtol 1e-5.  Master gradients per leaf within one
+Tolerances: int8 levels and scales, and every transformed leaf of the
+wire's tree (pairs, `_quant_leaf`'s per-tensor treatment of stacked 2-D
+leaves, the bf16 casts), exactly: both sides do the same f32 and bf16
+arithmetic.  The photonic product of bf16 weights at 1e-6 of its largest
+output (the reference op by op; compiled, it keeps the bf16 scales
+unrounded, 1.5e-3 away), its bf16 dw at one bf16 step.  Losses at rtol
+1e-5.  Master gradients per leaf within one
 bf16 step (2^-8) of the leaf's norm: under the wire a weight reaches the
 model in bf16, so its gradient is rounded to bf16 where the model casts
 it, and two summation orders may land one bf16 step apart; the worst seen
