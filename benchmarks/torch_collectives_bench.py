@@ -16,35 +16,22 @@ nothing here measures the card.
 
 The PyTorch port's counterpart of `benchmarks/collectives_bench.py`: the
 same rows from `repro_torch`.  The byte model and the pricing are host
-arithmetic; `device` (default "cuda", raising without a card) is resolved
-for a uniform command line with the other benches, and nothing else runs
-on it.  Writes `artifacts/torch_collectives.json`.
+arithmetic: nothing runs on a device, so the bench takes none and runs
+anywhere.  Writes `artifacts/torch_collectives.json`.
 
-    PYTHONPATH=src python benchmarks/torch_collectives_bench.py [--device cpu]
+    PYTHONPATH=src python benchmarks/torch_collectives_bench.py
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import time
 from pathlib import Path
 
-import numpy as np
-
-from repro_torch import require_device
 from repro_torch.core.fabric import DEFAULT_FABRIC, get_fabric
-from repro_torch.parallel.collectives import collective_bytes_estimate
+from repro_torch.parallel.collectives import MeshGeometry, collective_bytes_estimate
 
 ARTIFACTS = Path(__file__).resolve().parent / "artifacts"
-
-
-class _MeshLike:
-    """Geometry stand-in: the mesh's axis names and shape, no devices."""
-
-    def __init__(self, shape, names):
-        self.axis_names = names
-        self.devices = np.empty(shape, dtype=object)
 
 
 GRAD_SIZES = {
@@ -62,9 +49,8 @@ FABRIC_NAMES = ("metallic_ici", "trine_siph", "tree_siph")
 _N_CROSS_HOPS = {"flat": 1, "trine": 1, "trine_int8": 2}
 
 
-def run(csv: bool = True, device="cuda") -> dict:
-    require_device(device)
-    mesh = _MeshLike((2, 16, 16), ("pod", "data", "model"))
+def run(csv: bool = True) -> dict:
+    mesh = MeshGeometry((2, 16, 16), ("pod", "data", "model"))
     fabrics = [get_fabric(f) for f in FABRIC_NAMES]
     rows = []
     t0 = time.perf_counter()
@@ -101,6 +87,4 @@ def run(csv: bool = True, device="cuda") -> dict:
 
 
 if __name__ == "__main__":
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--device", default="cuda")
-    run(device=ap.parse_args().device)
+    run()

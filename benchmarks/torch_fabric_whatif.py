@@ -50,7 +50,7 @@ from repro_torch.core.workloads import CNN_WORKLOADS
 from repro_torch.env import smoke_mode
 from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch.dryrun import model_flops_per_device
-from repro_torch.parallel.collectives import collective_bytes_estimate
+from repro_torch.parallel.collectives import MeshGeometry, collective_bytes_estimate
 
 ARTIFACTS = Path(__file__).resolve().parent / "artifacts"
 
@@ -58,15 +58,7 @@ ARTIFACTS = Path(__file__).resolve().parent / "artifacts"
 MESH_SHAPE = (2, 16, 16)
 
 
-class _MeshLike:
-    """Geometry stand-in: the mesh's axis names and shape, no devices."""
-
-    def __init__(self, shape, names):
-        self.axis_names = names
-        self.devices = np.empty(shape, dtype=object)
-
-
-_MESH = _MeshLike(MESH_SHAPE, ("pod", "data", "model"))
+_MESH = MeshGeometry(MESH_SHAPE, ("pod", "data", "model"))
 _N_DEV = int(np.prod(MESH_SHAPE))
 
 ARCHS_FULL = ("yi_6b", "yi_34b", "deepseek_67b", "grok1_314b")

@@ -9,7 +9,8 @@ newest valid checkpoint in `--ckpt`.  The flags are the reference's, plus
 `--kernels` (the hand-written CUDA kernels in the forward) and `--device`.
 `--wire-bits N` sets `cfg.wire_bits` and, as in the reference, changes
 nothing else: without a mesh the trainer builds its step with no parameter
-wire, so the run trains exactly as without the flag (the wire itself is
+wire, so the run trains exactly as without the flag, and the launcher warns
+so (the wire itself is
 `make_train_step(param_wire=parallel.wire.make_param_wire(cfg))`).
 `--mesh` other than `none` raises `NotImplementedError`: the sharded step
 is not ported.
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import warnings
 from typing import Optional, Sequence, Tuple
 
 from repro_torch import configs as C
@@ -54,7 +56,7 @@ def main(argv: Optional[Sequence[str]] = None,
     ap.add_argument("--wire-bits", type=int, default=0,
                     help="int8/bf16 parameter wire format (8 or 16); sets cfg.wire_bits, "
                          "which only a sharded step reads: without --mesh it trains as "
-                         "without the flag, as the reference does")
+                         "without the flag, as the reference does, and warns")
     ap.add_argument("--moe-dispatch", choices=["einsum", "index"], default=None)
     ap.add_argument("--data-file", default=None,
                     help="mmap token corpus (.bin uint16); default synthetic")
@@ -74,6 +76,9 @@ def main(argv: Optional[Sequence[str]] = None,
                               use_kernels=args.kernels)
     if args.wire_bits:
         cfg = dataclasses.replace(cfg, wire_bits=args.wire_bits)
+        warnings.warn(f"--wire-bits {args.wire_bits} without --mesh changes nothing: the "
+                      f"step runs with no parameter wire and trains as without the flag",
+                      stacklevel=2)
     if args.moe_dispatch:
         cfg = dataclasses.replace(cfg, moe_dispatch=args.moe_dispatch)
 

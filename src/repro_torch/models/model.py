@@ -35,7 +35,8 @@ products' outputs; the numbers are the same either way).
 
 Layer-stacked weights may arrive as int8 wire pairs (`parallel.wire`, the
 trainer's `param_wire`); each layer body dequantizes its own slice at entry
-(`wire.dequant_subtree`), and a tree without pairs passes through untouched.
+(`wire.dequant_subtree`).  Whether a stack holds pairs is looked up once
+per stage and forward, so a tree without pairs costs no walk per layer.
 """
 
 from __future__ import annotations
@@ -339,10 +340,12 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
     for si, (repeat, kinds) in enumerate(stages(cfg)):
         sp = params["stages"][si]
         scache = cache[si] if cache is not None else None
+        paired = W.has_pair(sp)
 
-        def body(x, i, sp=sp, scache=scache, kinds=kinds):
-            # int8 wire pairs dequantize at body entry, as in the reference
-            layer_p = W.dequant_subtree(_layer(sp, i), L.compute_dtype(cfg))
+        def body(x, i, sp=sp, scache=scache, kinds=kinds, paired=paired):
+            layer_p = _layer(sp, i)
+            if paired:      # int8 wire pairs dequantize at body entry, as in the reference
+                layer_p = W.dequant_subtree(layer_p, L.compute_dtype(cfg))
             aux_sum = None
             for j, kind in enumerate(kinds):
                 name = f"{kind}_{j}"
@@ -413,9 +416,12 @@ def encode(cfg: ModelConfig, params: Params, enc_embeds, device="cuda") -> torch
     positions = torch.arange(se, dtype=torch.int32, device=device)[None].expand(b, se)
     blocks = params["encoder"]["blocks"]
     remat = _remat_on(cfg, params)
+    paired = W.has_pair(blocks)
 
     def layer(x, i):
-        layer_p = W.dequant_subtree(_layer(blocks, i), L.compute_dtype(cfg))
+        layer_p = _layer(blocks, i)
+        if paired:
+            layer_p = W.dequant_subtree(layer_p, L.compute_dtype(cfg))
         return _apply_block(cfg, "enc", layer_p, x, positions, shared=None,
                             cache=None, cache_pos=None, cache_pos_max=0, enc_out=None)[0]
 

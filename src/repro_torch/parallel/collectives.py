@@ -15,20 +15,23 @@ module carries what one device runs and what prices them:
     symmetric int8 quantization with per-chunk max-abs scales, on the
     tensor's own device;
   * `collective_bytes_estimate`: per-device total and cross-pod bytes of
-    each schedule, op for op as the shard_map programs issue them;
+    each schedule, op for op as the shard_map programs issue them, on a
+    mesh's geometry alone (`MeshGeometry`: the benches price meshes that no
+    process holds);
   * `plan_channels`: the bandwidth-matching planner for collective
     chunking (`core.planner.plan_collective_channels`).
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
 
 from repro_torch.core.planner import plan_collective_channels as plan_channels  # noqa: F401 (re-export)
 
-__all__ = ["collective_bytes_estimate", "plan_channels"]
+__all__ = ["MeshGeometry", "collective_bytes_estimate", "plan_channels"]
 
 
 def _pad_to(x: torch.Tensor, mult: int):
@@ -66,6 +69,15 @@ def _dequantize_int8(q: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tens
     return (q.to(torch.float32) * scale[:, None]).reshape(-1)[:n]
 
 
+class MeshGeometry:
+    """A mesh's axis names and shape, without devices: what
+    `collective_bytes_estimate` reads of a mesh."""
+
+    def __init__(self, shape, names=("pod", "data", "model")):
+        self.axis_names = tuple(names)
+        self.devices = SimpleNamespace(shape=tuple(shape))
+
+
 def collective_bytes_estimate(n_elems: int, dtype_bytes: int, mesh, schedule: str,
                               chunk_elems: Optional[int] = None) -> dict:
     """Napkin-math model: bytes per device, in all and across the slow (pod)
@@ -73,7 +85,7 @@ def collective_bytes_estimate(n_elems: int, dtype_bytes: int, mesh, schedule: st
     "trine_int8"), with the ring-algorithm factors and padding of the
     shard_map programs (for "trine_int8", the residual all-gather and the
     per-chunk f32 scales too).  `mesh` is anything with `axis_names` and
-    `devices.shape` (a geometry stand-in will do).  `chunk_elems` must be
+    `devices.shape` (a `MeshGeometry` will do).  `chunk_elems` must be
     the compressed all-reduce's (None = one global scale per shard)."""
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     n_pod = sizes.get("pod", 1)

@@ -26,8 +26,10 @@ stay f32.  Quantization scales are per leading index for ndim >= 3 (per
 layer for a stack; per row of a non-stacked 3-D leaf, such as zamba2's
 shared attention), per tensor otherwise.
 
-There is no mesh here: `mesh`, `rules` and `param_specs` describe the
-sharded wire, which is not ported (a mesh raises `NotImplementedError`).
+The wire computes in bf16 (`WIRE_COMPUTE_DTYPE`), as the reference's
+always does.  There is no mesh here: `make_param_wire`'s `mesh`, `rules`
+and `param_specs` describe the sharded wire, which is not ported (a mesh
+raises `NotImplementedError`).
 """
 
 from __future__ import annotations
@@ -36,10 +38,11 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["WIRE_Q", "WIRE_S", "WIRE_D", "is_pair", "dequant_subtree", "ParamWire",
-           "make_param_wire"]
+__all__ = ["WIRE_Q", "WIRE_S", "WIRE_D", "WIRE_COMPUTE_DTYPE", "is_pair", "has_pair",
+           "dequant_subtree", "ParamWire", "make_param_wire"]
 
 WIRE_Q, WIRE_S, WIRE_D = "~q", "~s", "~d"
+WIRE_COMPUTE_DTYPE = torch.bfloat16
 
 
 def is_pair(x) -> bool:
@@ -59,13 +62,14 @@ def _quantize_array(w: torch.Tensor, bits: int):
     return q, scale
 
 
-def _has_pair(tree) -> bool:
+def has_pair(tree) -> bool:
+    """Whether any wire pair lies in `tree`."""
     if is_pair(tree):
         return True
     if isinstance(tree, dict):
-        return any(_has_pair(v) for v in tree.values())
+        return any(has_pair(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
-        return any(_has_pair(v) for v in tree)
+        return any(has_pair(v) for v in tree)
     return False
 
 
@@ -87,7 +91,7 @@ def dequant_subtree(subtree, compute_dtype):
     `~q` times `~s` in the compute dtype (the scale rounded to it first),
     plus `~d`.  A subtree without pairs comes back as it is: the same
     object, no copy."""
-    if not _has_pair(subtree):
+    if not has_pair(subtree):
         return subtree
     return _dequant(subtree, compute_dtype)
 
@@ -129,7 +133,7 @@ def _map_with_path(fn: Callable, tree: Any, *rest: Any, path: tuple = ()) -> Any
 class ParamWire:
     """Wire transform for one config on one device.  Usage (trainer):
 
-        pw = ParamWire(cfg)
+        pw = make_param_wire(cfg)
         qtree = pw.quantize(state.params)            # outside autograd
         v = leaves of pw.carrier(state.params), requiring grad
         loss = loss_fn(cfg, pw.graft(qtree, v), batch)
@@ -139,13 +143,8 @@ class ParamWire:
     # parameter subtrees stacked on a leading layer axis
     SCANNED_PREFIXES = (("stages",), ("encoder", "blocks"))
 
-    def __init__(self, cfg, mesh=None, rules=None, param_specs=None,
-                 compute_dtype=torch.bfloat16):
-        if mesh is not None or rules is not None or param_specs is not None:
-            raise NotImplementedError("the sharded parameter wire over a mesh is not ported "
-                                      "(ROADMAP.md, Queue 1 item 8)")
+    def __init__(self, cfg):
         self.bits = int(getattr(cfg, "wire_bits", 0) or 0)
-        self.compute_dtype = compute_dtype
 
     def _is_scanned(self, path) -> bool:
         return any(tuple(path[:len(p)]) == p for p in self.SCANNED_PREFIXES)
@@ -196,14 +195,18 @@ class ParamWire:
             if not _eligible(w):
                 return w
             if self._int8_pairs():
-                return _quant_leaf(w, self.bits, self.compute_dtype)
+                return _quant_leaf(w, self.bits, WIRE_COMPUTE_DTYPE)
             if self.bits == 16:
-                return w.to(self.compute_dtype)
+                return w.to(WIRE_COMPUTE_DTYPE)
             return w
 
         return _map_with_path(leaf, qtree, vtree)
 
 
-def make_param_wire(cfg, mesh=None, rules=None, param_specs=None,
-                    compute_dtype=torch.bfloat16) -> ParamWire:
-    return ParamWire(cfg, mesh, rules, param_specs, compute_dtype)
+def make_param_wire(cfg, mesh=None, rules=None, param_specs=None) -> ParamWire:
+    """The reference's factory: the wire of `cfg.wire_bits` on one device.
+    The sharded wire (`mesh`, `rules`, `param_specs`) raises."""
+    if mesh is not None or rules is not None or param_specs is not None:
+        raise NotImplementedError("the sharded parameter wire over a mesh is not ported "
+                                  "(ROADMAP.md, Queue 1 item 8)")
+    return ParamWire(cfg)

@@ -10,6 +10,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import jax
@@ -353,14 +354,20 @@ def _ref_launch_losses(monkeypatch, capsys, argv) -> list:
 def test_launch_train_wire_bits_trains_as_without_it(tmp_path, monkeypatch, capsys):
     """`--wire-bits 8` without a mesh sets `cfg.wire_bits` and trains bit
     for bit as without the flag, on the port and on the reference (whose
-    trainer builds its step with no wire when there is no mesh)."""
+    trainer builds its step with no wire when there is no mesh); the
+    port's launcher warns that the flag changes nothing."""
     base = ["--arch", "yi-6b", "--reduced", "--steps", "2", "--batch", "2", "--seq", "32",
             "--no-resume"]
     runs = {}
     for flag in ([], ["--wire-bits", "8"]):
-        trainer, _ = launch_train.main(base + ["--device", "cpu", "--ckpt",
-                                               str(tmp_path / f"port{len(flag)}")] + flag)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            trainer, _ = launch_train.main(base + ["--device", "cpu", "--ckpt",
+                                                   str(tmp_path / f"port{len(flag)}")] + flag)
         assert trainer.cfg.wire_bits == (8 if flag else 0)
+        assert [str(w.message) for w in seen if "--wire-bits" in str(w.message)] == (
+            ["--wire-bits 8 without --mesh changes nothing: the step runs with no parameter "
+             "wire and trains as without the flag"] if flag else [])
         runs[tuple(flag)] = [h["loss"] for h in trainer.history]
     assert len(runs[()]) == 2 and runs[()] == runs[("--wire-bits", "8")]
     ref = {tuple(flag): _ref_launch_losses(

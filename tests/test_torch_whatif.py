@@ -73,14 +73,6 @@ def _ref_model_flops_per_device():
     return ns["model_flops_per_device"]
 
 
-class _MeshLike:
-    """Geometry stand-in, as the benches' own."""
-
-    def __init__(self, shape, names=("pod", "data", "model")):
-        self.axis_names = names
-        self.devices = np.empty(shape, dtype=object)
-
-
 def _same(got, want, path="", rtol=RTOL) -> None:
     """`got` equal to `want`: floats at `rtol`, everything else exactly."""
     if isinstance(want, dict):
@@ -185,7 +177,7 @@ def test_quantize_chunk_handles_padding_and_clamp():
 @pytest.mark.parametrize("schedule", ["flat", "trine", "trine_int8"])
 @pytest.mark.parametrize("shape", [(1, 1, 1), (2, 2, 2), (2, 16, 16)])
 def test_collective_bytes_estimate_matches_reference(shape, schedule, chunk):
-    mesh = _MeshLike(shape)
+    mesh = COL.MeshGeometry(shape)
     for n, dtype_bytes in ((1, 4), (1_000_003, 2), (int(6.1e9 / 256), 2), (2 ** 31, 4)):
         want = JCOL.collective_bytes_estimate(n, dtype_bytes, mesh, schedule, chunk)
         got = COL.collective_bytes_estimate(n, dtype_bytes, mesh, schedule, chunk)
@@ -193,7 +185,7 @@ def test_collective_bytes_estimate_matches_reference(shape, schedule, chunk):
 
 
 def test_collective_bytes_estimate_on_a_two_axis_mesh_and_unknown_schedule():
-    mesh = _MeshLike((16, 16), ("data", "model"))
+    mesh = COL.MeshGeometry((16, 16), ("data", "model"))
     for s in ("flat", "trine", "trine_int8"):
         assert (COL.collective_bytes_estimate(12345, 2, mesh, s)
                 == JCOL.collective_bytes_estimate(12345, 2, mesh, s))
@@ -304,19 +296,19 @@ def test_torch_roofline_fabric_columns():
 def test_torch_collectives_bench_matches_reference():
     import benchmarks.collectives_bench as ref
     import benchmarks.torch_collectives_bench as port
-    got = port.run(csv=False, device="cpu")
+    got = port.run(csv=False)
     assert got and len(got["rows"]) == len(port.GRAD_SIZES)
     _same(got, ref.run(csv=False))
     assert (port.ARTIFACTS / "torch_collectives.json").exists()
 
 
 def test_benches_refuse_a_missing_card(monkeypatch):
-    """`device` defaults to "cuda" and raises without a card; nothing falls
-    back to the CPU."""
-    import benchmarks.torch_collectives_bench as cb
+    """The benches that run on a device (the what-if's co-design search, the
+    roofline's photonic section): `device` defaults to "cuda" and raises
+    without a card; nothing falls back to the CPU."""
     import benchmarks.torch_fabric_whatif as wb
     import benchmarks.torch_roofline as rb
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for run in (cb.run, lambda **kw: wb.run(smoke=True, **kw), rb.run):
+    for run in (lambda **kw: wb.run(smoke=True, **kw), rb.run):
         with pytest.raises(RuntimeError, match="cuda"):
             run(csv=False)

@@ -243,6 +243,64 @@ def test_dequant_subtree_without_pairs_returns_the_same_tensors():
     assert W.dequant_subtree(params, torch.float32) is params
 
 
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "seamless_m4t_medium"])
+def test_forward_dequantizes_only_trees_with_pairs(arch, monkeypatch):
+    """The model looks for pairs once per stack and forward: a tree without
+    pairs runs no dequantization (no walk per layer on the serving paths);
+    under the 8-bit wire every layer body, the encoder's included,
+    dequantizes its own slice once."""
+    cfg = C.get_reduced(arch)
+    params = M.init(cfg, device="cpu")
+    calls = []
+    dequant = W.dequant_subtree
+    monkeypatch.setattr(W, "dequant_subtree", lambda t, dt: calls.append(1) or dequant(t, dt))
+    batch = SyntheticLM(cfg, DATA).batch_at(0)
+    with torch.no_grad():
+        M.loss_fn(cfg, params, batch, device="cpu")
+        assert calls == []
+        pw = W.make_param_wire(dataclasses.replace(cfg, wire_bits=8))
+        M.loss_fn(cfg, pw.graft(pw.quantize(params), pw.carrier(params)), batch, device="cpu")
+    layers = sum(repeat for repeat, _ in M.stages(cfg)) + cfg.encoder_layers
+    assert len(calls) == layers
+
+
+def test_wire_moves_the_gradient_norm_as_the_reference():
+    """In bf16 compute with the photonic numerics (the training path's
+    flags), the 8-bit wire's int8 weights move the master gradient's norm
+    away from the straight step's; the port's wire moves it as the
+    reference's does, from the same weights and batch (reduced zamba2).
+    Each norm within 2e-2: both sides round every bf16 product (the
+    reference op by op), in different summation orders, over every layer;
+    the ratio of the two seen here differs by 6e-3.  Compiled, the
+    reference keeps bf16 products in f32 where a cast follows (module
+    docstring) and its ratio moves by 3 %."""
+    jcfg, jparams, specs, cfg, params = _pair("zamba2_1p2b")
+    jcfg, cfg = (dataclasses.replace(c, dtype="bfloat16", use_photonic_mac=True)
+                 for c in (jcfg, cfg))
+    batch = JSyntheticLM(jcfg, JDataConfig(global_batch=2, seq_len=64)).batch_at(0)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jpw = _ref_wire(jcfg, specs, 8)
+    with jax.disable_jit():        # op by op: every bf16 product rounds (module docstring)
+        jg0 = jax.grad(lambda p: JM.loss_fn(jcfg, p, jbatch)[0])(jparams)
+        jq = jpw.quantize(jparams)
+        jg8 = jax.grad(lambda v: JM.loss_fn(jcfg, jpw.graft(jq, v), jbatch)[0])(
+            jpw.carrier(jparams))
+    pw = W.make_param_wire(dataclasses.replace(cfg, wire_bits=8))
+    p0, v = _requires_grad(params), _requires_grad(pw.carrier(params))
+    g0 = torch.autograd.grad(M.loss_fn(cfg, p0, batch, device="cpu")[0], T.leaves(p0))
+    g8 = torch.autograd.grad(M.loss_fn(cfg, pw.graft(pw.quantize(params), v), batch,
+                                       device="cpu")[0], T.leaves(v))
+
+    def norm(leaves):
+        return float(np.sqrt(sum(float(np.sum(np.square(np.asarray(x, np.float64))))
+                                 for x in leaves)))
+
+    want = [norm(map(_jnp_np, jax.tree.leaves(t))) for t in (jg0, jg8)]
+    got = [norm(map(_np, t)) for t in (g0, g8)]
+    np.testing.assert_allclose(got, want, rtol=2e-2)
+    np.testing.assert_allclose(got[1] / got[0], want[1] / want[0], rtol=2e-2)
+
+
 @pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,k,n", [(128, 256, 128), (24, 64, 40)])  # tiled; per-column
 def test_photonic_matmul_of_bf16_weights_matches_reference(m, k, n, xdt):
