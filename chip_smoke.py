@@ -18,7 +18,7 @@ line, and fails if any phase fails:
   kernels           `photonic_mac`, `flash_attention` and `ssm_scan` against
                     their plain PyTorch versions on the card, at the shapes of
                     the reference's kernel tests, at ragged and edge shapes,
-                    and at the serving shapes of the six models below, with
+                    and at the serving shapes of the ten models below, with
                     times, a library call's time as yardstick where one
                     PyTorch call computes the same function, and the card's
                     bound for the same work
@@ -100,7 +100,8 @@ fields such as stage, bank and router counts exactly):
 
 then the serving paths at full published width (bf16, photonic numerics,
 kernels on, random weights from a seed), one model at a time, at published
-depth except mixtral and qwen2-vl:
+depth except the six larger models, each cut to the deepest stack that
+leaves 4 GB of the card free at its batch-128 prefill's peak (`DEPTH`):
 
   yi-6b        serve_continuous (ContinuousBatcher, bucketed prefill),
                serve_fabric (the same requests through a batcher modelling
@@ -127,6 +128,10 @@ depth except mixtral and qwen2-vl:
   qwen2-vl-72b 18 of its 80 layers (3.51 GB a layer in f32; 73.2 GB of
                weights); serve_continuous and serve_batch128 as yi-6b, with
                M-RoPE positions (per-slot (3, B, 1) in the batcher's decode)
+  yi-34b       32 of 60 layers, deepseek-67b 24 of 95, gemma3-27b 40 of 62
+               (its head the tied embedding, 262144 wide), each as yi-6b
+  grok-1-314b  6 of 64 layers (bf16 experts, 9.66 GB a layer, d_ff 32768);
+               serve_continuous and serve_batch128 as yi-6b (no window)
 
 and the training path (`train`): zamba2-1.2b at published width and depth
 (bf16 compute, f32 masters and AdamW moments, photonic numerics, kernels on,
@@ -158,15 +163,17 @@ read and must equal the counts reckoned from the dispatch predicates in
 `kernels/ops.py` (for training, straight and under the wire: the forward,
 and its recomputation under remat in the backward, which is plain), and
 every kernel of that path must have launched.  After each serving path, `end_to_end` holds kernels-on
-against kernels-off logits of one prefill (in f32 for zamba2, xlstm and
-mixtral, whose routing or recurrence amplifies bf16 rounding;
+against kernels-off logits of one prefill (in f32 for zamba2, xlstm,
+mixtral and grok-1, whose routing or recurrence amplifies bf16 rounding;
 `E2E_TOLERANCE`; seamless against 32 frames;
 qwen2-vl every position's logits through `train_logits`, with 64 pixel
-embeddings and distinct M-RoPE streams).  For mixtral it also counts the
+embeddings and distinct M-RoPE streams).  For mixtral and grok-1 it also counts the
 expert choices that differ between the two bf16 runs and holds the bf16
-logits with the plain run's choices, and it runs once more in f32 at 4224
+logits with the plain run's choices; mixtral runs once more in f32 at 4224
 tokens, past the window (16 layers: `E2E_LONG`), where the plain version
-with the window off must fail the tolerance.  The last lines are the
+with the window off must fail the tolerance; gemma3-27b as published, 5:1
+local:global (12 layers), in bf16 at 2048 tokens, past its 1024 window,
+likewise.  The last lines are the
 `{"kernels": [...]}` summary, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
 """
@@ -206,7 +213,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.photonic_mac import (  # noqa: E402
-    dispatch, mac_plan, mac_splits, photonic_mac, quantize_weights)
+    dispatch, mac_plan, mac_ranges, mac_splits, photonic_mac, quantize_weights)
 from repro_torch.kernels import ssm_scan as SS  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
 from repro_torch import tree as T  # noqa: E402
@@ -241,6 +248,16 @@ MIXTRAL_KN = [(4096, 1024), (4096, 32000)]
 SEAMLESS_KN = [(4096, 1024)]
 # qwen2-vl's wq/wo, wk/wv, wg/wi, mlp wo, lm_head
 QWEN_KN = [(8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192), (8192, 152064)]
+# yi-34b's wq/wo, wk/wv, wg/wi, mlp wo
+YI34_KN = [(7168, 7168), (7168, 1024), (7168, 20480), (20480, 7168)]
+# deepseek-67b's wq/wo, wk/wv, wg/wi, mlp wo
+DEEPSEEK_KN = [(8192, 8192), (8192, 1024), (8192, 22016), (22016, 8192)]
+# gemma3-27b's wq, wk/wv, wo (32 heads of 128 make 4096, not 5376), wg/wi,
+# mlp wo
+GEMMA3_KN = [(5376, 4096), (5376, 2048), (4096, 5376), (5376, 21504), (21504, 5376)]
+# grok-1's wq/wo and wk/wv (its experts are plain products, its router
+# never tiles)
+GROK_KN = [(6144, 6144), (6144, 1024)]
 # the timed products (model, M, K, N), bf16 activations as on the path: M = 128
 # is a batch-128 decode step, 512 a B=1 prefill of 512 tokens, 16384 the
 # batch-128 x 128 prefill (its widest linear, and every (K, N) whose K is
@@ -257,6 +274,14 @@ MAC_TIMED = ([("yi-6b", m, k, n) for m in (128, 512) for (k, n) in YI_KN]
              + [("seamless-m4t-medium", m, k, n) for m in (128, 128 * 128)
                 for (k, n) in SEAMLESS_KN]
              + [("qwen2-vl-72b", m, k, n) for m in (128, 128 * 128) for (k, n) in QWEN_KN]
+             + [(model, m, k, n) for model, kns in (("yi-34b", YI34_KN),
+                                                    ("deepseek-67b", DEEPSEEK_KN),
+                                                    ("gemma3-27b", GEMMA3_KN),
+                                                    ("grok-1-314b", GROK_KN))
+                for m in (128, 128 * 128) for (k, n) in kns]
+             # gemma3's tied head, embed.t(), in a batch-128 decode step:
+             # 2048 column tiles
+             + [("gemma3-27b head", 128, 5376, 262144)]
              # the training path's tiled linears (zamba2 at B=8 x 2048: out_proj
              # and the shared attention's projections at 16384 rows, the head
              # once per 1024-token CE chunk, 8192 rows)
@@ -273,7 +298,9 @@ MAC_HEADLINE = (128, 4096, 11008)        # the shape reported in the summary lin
 # 128, window 4096, which at S = 4224 does) and qwen2-vl (64/8 heads of
 # 128), causal; seamless (16/16 heads of 64) with no mask: its encoder over
 # 1024 frames, and its decoder's cross-attention, 128 queries against 32
-# frames (the batch-128 path) and against 1024 (the long-encoder path)
+# frames (the batch-128 path) and against 1024 (the long-encoder path);
+# GQA groups of 7 (yi-34b, 56/8), 6 (grok-1, 48/8) and 2 (gemma3, 32/16),
+# and gemma3's local layers, window 1024, at 2048 tokens
 ATTN_TIMED = [("yi-6b", 1, 128, 128, 32, 4, 128, True, 0),
               ("yi-6b", 1, 256, 256, 32, 4, 128, True, 0),
               ("yi-6b", 1, 512, 512, 32, 4, 128, True, 0),
@@ -287,7 +314,14 @@ ATTN_TIMED = [("yi-6b", 1, 128, 128, 32, 4, 128, True, 0),
               ("seamless-m4t-medium cross", 1, 128, 1024, 16, 16, 64, False, 0),
               ("qwen2-vl-72b", 1, 128, 128, 64, 8, 128, True, 0),
               ("qwen2-vl-72b", 128, 128, 128, 64, 8, 128, True, 0),
-              ("zamba2-1.2b train", 8, 2048, 2048, 32, 32, 64, True, 4096)]
+              ("zamba2-1.2b train", 8, 2048, 2048, 32, 32, 64, True, 4096),
+              ("yi-34b", 1, 128, 128, 56, 8, 128, True, 0),
+              ("yi-34b", 128, 128, 128, 56, 8, 128, True, 0),
+              ("grok-1-314b", 1, 128, 128, 48, 8, 128, True, 0),
+              ("grok-1-314b", 128, 128, 128, 48, 8, 128, True, 0),
+              ("gemma3-27b", 1, 128, 128, 32, 16, 128, True, 0),
+              ("gemma3-27b", 128, 128, 128, 32, 16, 128, True, 0),
+              ("gemma3-27b local", 1, 2048, 2048, 32, 16, 128, True, 1024)]
 ATTN_HEADLINE = (1, 128)                 # (batch, prompt length) reported in the summary
 SSM_HEADLINE = "zamba2 B=128 L=128"      # the scan shape reported in the summary
 
@@ -448,15 +482,19 @@ def check_photonic_mac(gen) -> dict:
             _same_rows(x, w_q, sc, 100, f"{dtype}, tensor_cores={tc}", tensor_cores=tc)
         checks.append({"what": f"mac bit-identity 100 of 128 rows {dtype}", "max_abs_err": 0.0})
     # (16 and 100 rows take a cluster split; 16384 rows sum the same ranges
-    # in turn in each block)
-    for (k, n) in [(11008, 4096), (4096, 512), (1024, 1024)]:
+    # in turn in each block); gemma3's wk/wv split 42 banks into ranges of
+    # 10, 11, 10 and 11, yi-34b's and grok-1's 56 and 48 into 8 of 7 and 6
+    for (k, n) in [(11008, 4096), (4096, 512), (1024, 1024), (5376, 2048), (7168, 1024),
+                   (6144, 1024)]:
         for m_full in (128, 512, 16384):
             x, w_q, sc = _mac_inputs(gen, m_full, k, n, torch.bfloat16, 8)
             for rows in (16, 100):
                 _same_rows(x, w_q, sc, rows, f"{rows} of {m_full} rows, K={k} N={n}")
             plan = mac_plan(m_full, k, n)
+            sizes = [hi - lo for lo, hi in mac_ranges(k, plan.splits)]
             checks.append({"what": f"mac bit-identity 16 and 100 of {m_full} rows, K={k} N={n}, "
-                                   f"{plan.splits} K ranges on a cluster of {plan.cluster}",
+                                   f"{plan.splits} K ranges of {sizes} banks on a cluster of "
+                                   f"{plan.cluster}",
                            "max_abs_err": 0.0})
             del x, w_q, sc
     # the serving shapes, bf16 activations as on the path; the tensor-core
@@ -1944,6 +1982,15 @@ def _add(total: dict, part: dict) -> dict:
     return {k: total[k] + part[k] for k in total}
 
 
+def layout_window(cfg) -> int:
+    """The window the blocks of `cfg`'s layout attend within (0: none).
+    Keyed on the kinds `M.stages` builds, not on `cfg.window`: gemma3-27b
+    sets a window, but as published (family "dense") its `attn` blocks take
+    none, as the reference builds them."""
+    return max((M._kind_window(cfg, kind) for _, kinds in M.stages(cfg) for kind in kinds),
+               default=0)
+
+
 def _drive_batcher(cfg, params, lengths, max_news, max_len, bucket, fabric=None,
                    **run_kw) -> tuple:
     """Ragged requests churn through 4 slots of the `ContinuousBatcher`
@@ -2125,8 +2172,9 @@ def phase_long_prefill(cfg, params, seq: int = 4096) -> dict:
     assert got == want, f"launch counts {got} differ from {want}"
     assert tuple(logits.shape) == (1, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
     kv_len = next(c["k"].shape[3] for st in cache for c in st.values() if "k" in c)
-    if cfg.window and seq > cfg.window:
-        assert kv_len == cfg.window, (kv_len, cfg.window)
+    window = layout_window(cfg)
+    if window and seq > window:
+        assert kv_len == window, (kv_len, window)
     nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
     step, _ = M.serve_step(cfg, params, cache, nxt, seq, device=DEV)
     assert bool(torch.isfinite(step).all())
@@ -2193,9 +2241,18 @@ E2E_TOLERANCE = {
     # flipped by the order of a sum decorrelates the logits.
     # seamless, qwen2-vl: dense, no routing or recurrence, so yi-6b's bf16
     # check.
+    # yi-34b, deepseek-67b, gemma3-27b: dense attention and MLP blocks like
+    # yi-6b's, with no routing or recurrence to turn a rounding into a
+    # different path, so the serving dtype, bf16, at yi-6b's tolerance
+    # (gemma3 also as published, 5:1 local:global, at 2048 tokens: `E2E_LONG`).
+    # grok-1: routed like mixtral (8 experts, top 2), so mixtral's f32 check,
+    # and in bf16 the routing flips and the logits with the plain run's
+    # choices (`_routing_flips`).
     "yi-6b": ("bfloat16", 3e-2), "zamba2-1.2b": ("float32", 2e-2),
     "xlstm-350m": ("float32", 2e-2), "mixtral-8x7b": ("float32", 2e-2),
     "seamless-m4t-medium": ("bfloat16", 3e-2), "qwen2-vl-72b": ("bfloat16", 3e-2),
+    "yi-34b": ("bfloat16", 3e-2), "deepseek-67b": ("bfloat16", 3e-2),
+    "gemma3-27b": ("bfloat16", 3e-2), "grok-1-314b": ("float32", 2e-2),
 }
 # the vision end-to-end check's image: an 8 x 8 grid of patch embeddings
 PATCH_GRID = 8
@@ -2330,7 +2387,8 @@ def phase_end_to_end(cfg, params, seq: int = 128) -> dict:
            "plain_top2_gap_rel": float((top2[0] - top2[1]) / lg_p.abs().max())}
     if cfg.frontend == "vision":   # the last position's argmax is held, as elsewhere
         out["positions_with_equal_argmax"] = int((lg_k.argmax(-1) == lg_p.argmax(-1)).sum())
-    if cfg.window and seq > cfg.window:    # the check must see a wrong window
+    window = layout_window(cfg)
+    if window and seq > window:            # the check must see a wrong window
         lg_w, _ = M.prefill(dataclasses.replace(cfg_c, window=0, use_kernels=False), params,
                             batch, device=DEV)
         out["plain_window_off_max_rel_to_largest_logit"] = _rel(lg_w, lg_p)
@@ -2410,17 +2468,17 @@ def phase_profile(cfg, params) -> dict:
     gen.manual_seed(SEED + 3)
     batch = model_inputs(cfg, gen, 128, 128)
     one = {k: v[:1] for k, v in batch.items()}
+    # the prefills first, while no batch-128 cache is held (gemma3's is 5 GB)
+    out = {"phase": "profile", "model": cfg.name,
+           "prefill_b1_s128": profile_window(lambda: M.prefill(cfg, params, one, device=DEV)),
+           "prefill_b128_s128": profile_window(lambda: M.prefill(cfg, params, batch,
+                                                                 device=DEV))}
     logits, cache = M.prefill(cfg, params, batch, cache_len=132, device=DEV)
     enc_out = (M.encode(cfg, params, batch["enc_embeds"], device=DEV)
                if cfg.encoder_layers else None)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-
-    out = {"phase": "profile", "model": cfg.name,
-           "decode_step_b128": profile_window(
-               lambda: M.serve_step(cfg, params, cache, tok, 128, enc_out=enc_out, device=DEV)),
-           "prefill_b1_s128": profile_window(lambda: M.prefill(cfg, params, one, device=DEV)),
-           "prefill_b128_s128": profile_window(lambda: M.prefill(cfg, params, batch,
-                                                                 device=DEV))}
+    out["decode_step_b128"] = profile_window(
+        lambda: M.serve_step(cfg, params, cache, tok, 128, enc_out=enc_out, device=DEV))
     emit(out)
     return out
 
@@ -2898,18 +2956,44 @@ PATHS = [
     ("mixtral_8x7b", "mixtral-8x7b", ("photonic_mac", "flash_attention")),
     ("seamless_m4t_medium", "seamless-m4t-medium", ("photonic_mac", "flash_attention")),
     ("qwen2_vl_72b", "qwen2-vl-72b", ("photonic_mac", "flash_attention")),
+    ("yi_34b", "yi-34b", ("photonic_mac", "flash_attention")),
+    ("deepseek_67b", "deepseek-67b", ("photonic_mac", "flash_attention")),
+    ("gemma3_27b", "gemma3-27b", ("photonic_mac", "flash_attention")),
+    ("grok1_314b", "grok-1-314b", ("photonic_mac", "flash_attention")),
 ]
+# the paths that take yi-6b's phases: the batcher's 8 ragged requests, then
+# batch 128
+BATCHER_ARCHS = ("yi-6b", "mixtral-8x7b", "qwen2-vl-72b", "yi-34b", "deepseek-67b",
+                 "gemma3-27b", "grok-1-314b")
 # depth cuts (config id -> layers served): mixtral's bf16 experts are 2.82 GB
 # a layer, so 24 layers (72.7 GB of weights with the f32 attention, embedding
 # and head) leave room for batch-128 transients on an 80 GB card; a
 # qwen2-vl layer is 3.51 GB in f32 and its embedding and head 9.97 GB, so
 # 18 layers (73.2 GB) are the deepest stack that leaves 4 GB free at the
-# batch-128 prefill's peak (PERF.md, section 4)
-DEPTH = {"mixtral_8x7b": 24, "qwen2_vl_72b": 18}
-# the f32 end-to-end check past the window (config id -> (tokens, layers)):
-# the plain attention's f32 scores at 4224 tokens take about 9 GB, which 24
-# layers of weights do not leave, so that model is built again at 16 layers
-E2E_LONG = {"mixtral_8x7b": (4224, 16)}
+# batch-128 prefill's peak (PERF.md, section 4).  The same rule for the
+# other four, from one measured peak each (card 85.02 GB, so the peak may
+# reach 81.02; a layer costs its f32 weights plus its share of the
+# batch-128 x 132 K/V cache, the rest of the peak is depth-independent):
+#   yi-34b      2.231 GB a layer + 0.069 cache, embedding and head 3.67;
+#               31 layers peaked at 78.65, so 32 reach about 80.95
+#   deepseek-67b  2.768 + 0.069, 6.71; 23 peaked at 75.97, so 24 reach
+#               about 78.80 and 25 about 81.64
+#   gemma3-27b  1.652 + 0.138 (16 K/V heads), tied 5.64; 38 peaked at
+#               77.21, so 40 reach about 80.79 and 41 about 82.58
+#   grok-1      10.016 (bf16 experts, 9.66 of it) + 0.069, 6.44; 5 peaked
+#               at 66.36 (the experts' f32 silu rows at d_ff 32768), so 6
+#               reach about 76.45 and 7 do not fit
+DEPTH = {"mixtral_8x7b": 24, "qwen2_vl_72b": 18, "yi_34b": 32, "deepseek_67b": 24,
+         "gemma3_27b": 40, "grok1_314b": 6}
+# the end-to-end check past the window (config id -> (tokens, layers, config
+# changes)), on a model built again: mixtral in f32 at 4224 tokens, whose
+# plain attention's f32 scores take about 9 GB, which 24 layers of weights
+# do not leave, so at 16 layers; gemma3-27b as published, 5:1 local:global
+# (the reference reaches those kinds only through family "interleaved"),
+# two groups of 5 local (window 1024) + 1 global layers at 2048 tokens, in
+# bf16
+E2E_LONG = {"mixtral_8x7b": (4224, 16, {}),
+            "gemma3_27b": (2048, 12, {"family": "interleaved"})}
 
 
 def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
@@ -2933,7 +3017,7 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
           "seconds": time.perf_counter() - t0})
 
     zero_counters()
-    if arch in ("yi-6b", "mixtral-8x7b", "qwen2-vl-72b"):
+    if arch in BATCHER_ARCHS:
         lengths, max_news = [60, 250, 131, 97, 200, 129, 77, 180], [4, 8, 6, 5, 7, 4, 8, 6]
         cont = phase_serve_continuous(cfg, params, lengths, max_news, max_len=512, bucket=128)
         if arch == "yi-6b":
@@ -2963,8 +3047,8 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     if cfg_id in E2E_LONG:
-        seq, depth = E2E_LONG[cfg_id]
-        cut = dataclasses.replace(cfg, n_layers=depth)
+        seq, depth, changes = E2E_LONG[cfg_id]
+        cut = dataclasses.replace(cfg, n_layers=depth, **changes)
         params = M.init(cut, seed=SEED, device=DEV)
         phase_end_to_end(cut, params, seq)
         del params

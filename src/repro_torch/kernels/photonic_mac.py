@@ -109,6 +109,15 @@ def mac_splits(k: int, n: int) -> int:
     return splits
 
 
+def mac_ranges(k: int, splits: int) -> list:
+    """The bank ranges [lo, hi) that `mac_kernel_sm90` sums K as: range q
+    holds banks [q * banks // splits, (q + 1) * banks // splits), so where
+    `splits` does not divide the banks, neighbouring ranges differ by one
+    (gemma3's 42 banks over 4: 10, 11, 10, 11)."""
+    banks = k // BANK
+    return [(q * banks // splits, (q + 1) * banks // splits) for q in range(splits)]
+
+
 def mac_plan(m: int, k: int, n: int) -> MacPlan:
     """The plan for an (m,k) by (k,n) product with K, N multiples of 128:
     the split from `mac_splits`.  Where 128-row tiles alone make SEQ_BLOCKS

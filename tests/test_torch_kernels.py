@@ -32,7 +32,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.photonic_mac import (
-    SEQ_BLOCKS, dispatch, mac_plan, mac_splits, photonic_mac, quantize_weights)
+    SEQ_BLOCKS, dispatch, mac_plan, mac_ranges, mac_splits, photonic_mac, quantize_weights)
 from repro_torch.kernels.ssm_scan import ssm_scan
 
 
@@ -596,12 +596,19 @@ def test_ssm_plan_rule_at_the_serving_shapes(bh, l, p, n, dts, groups, rt, ns, r
 # yi-6b (wq/wo, wk/wv, wg/wi, mlp wo, lm_head), zamba2 (out_proj, shared
 # attention, head), xlstm (wqkv, wo, sLSTM wx, tied head), mixtral and
 # seamless (wk/wv and mlp wo; seamless's others are xlstm's), qwen2-vl
-# (wq/wo, wk/wv, wg/wi, mlp wo, lm_head)
+# (wq/wo, wk/wv, wg/wi, mlp wo, lm_head); yi-34b, deepseek-67b (its wq/wo
+# and wk/wv are qwen2-vl's), gemma3-27b (wq, wk/wv, wo, wg/wi, mlp wo, the
+# tied head) and grok-1 (wq/wo, wk/wv, head; its experts are plain products)
 MAIN_PATH_KN = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000),
                 (4096, 2048), (2048, 2048), (2048, 32000),
                 (1024, 3072), (1024, 1024), (1024, 4096), (1024, 50304),
                 (4096, 1024),
-                (8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192), (8192, 152064)]
+                (8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192), (8192, 152064),
+                (7168, 7168), (7168, 1024), (7168, 20480), (20480, 7168), (7168, 64000),
+                (8192, 22016), (22016, 8192), (8192, 102400),
+                (5376, 4096), (5376, 2048), (4096, 5376), (5376, 21504), (21504, 5376),
+                (5376, 262144),
+                (6144, 6144), (6144, 1024), (6144, 131072)]
 
 
 @pytest.mark.parametrize("k,n", MAIN_PATH_KN)
@@ -615,6 +622,29 @@ def test_mac_plan_k_ranges_do_not_depend_on_m(k, n):
         assert p.splits == plans[0].splits == mac_splits(k, n)
         assert p.cluster in (1, p.splits) and p.m_tiles * p.bm >= 1 and p.n_tiles == n // 128
     assert 1 <= plans[0].splits <= min(16, k // 128)
+
+
+@pytest.mark.parametrize("k,n", MAIN_PATH_KN)
+def test_mac_ranges_cover_every_bank_once(k, n):
+    """The kernel's K ranges (`mac_ranges`, the formula of
+    `mac_kernel_sm90`) tile the banks in order, each bank once, none
+    empty, and differ by at most one bank."""
+    splits = mac_splits(k, n)
+    ranges = mac_ranges(k, splits)
+    assert len(ranges) == splits and ranges[0][0] == 0 and ranges[-1][1] == k // 128
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [hi - lo for lo, hi in ranges]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("k,n,sizes", [
+    (5376, 2048, [10, 11, 10, 11]),      # gemma3's wk/wv: 42 banks over 4, uneven
+    (7168, 1024, [7] * 8),               # yi-34b's wk/wv: 56 banks over 8
+    (6144, 1024, [6] * 8),               # grok-1's wk/wv: 48 banks over 8
+    (4096, 512, [2] * 16), (11008, 4096, [43, 43])])
+def test_mac_ranges_at_the_serving_splits(k, n, sizes):
+    """The range lengths the serving paths' split products sum."""
+    assert [hi - lo for lo, hi in mac_ranges(k, mac_splits(k, n))] == sizes
 
 
 @pytest.mark.parametrize("k,n", MAIN_PATH_KN)

@@ -71,6 +71,13 @@ CASES = {
     "reduced": ("yi_6b", {}, 2, 24),
     "reduced_photonic": ("yi_6b", {"use_photonic_mac": True}, 2, 24),
     "reduced_photonic_4bit": ("yi_6b", {"use_photonic_mac": True, "photonic_bits": 4}, 2, 24),
+    "yi_34b": ("yi_34b", {}, 2, 24),
+    "deepseek_67b": ("deepseek_67b", {}, 2, 24),
+    "deepseek_67b_photonic": ("deepseek_67b", {"use_photonic_mac": True}, 2, 24),
+    # a GQA group of 7 (yi-34b's 56/8 heads is one), an odd group: JAX runs
+    # its Pallas flash attention in interpret mode
+    "yi_34b_gqa7_kernels": ("yi_34b", {"n_heads": 7, "n_kv_heads": 1, "use_kernels": True},
+                            1, 128),
     # tiled path: JAX runs the Pallas kernels in interpret mode
     "aligned_tiled_kernels": ("yi_6b", {**ALIGNED, "use_kernels": True}, 1, 128),
     "aligned_tiled_plain": ("yi_6b", {**ALIGNED, "use_kernels": False}, 2, 64),
