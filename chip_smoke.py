@@ -158,6 +158,13 @@ bits) of the masters', one f32 step under the wire with the kernels
 against the port's plain CPU step (`TRAIN_TOLERANCE`), and
 `launch/train.py --wire-bits 8` training bit for bit as without the flag.
 
+Last, `examples`: the five model examples (`examples/torch_quickstart.py`,
+`torch_continuous_batching.py`, `torch_serve_batched.py`, which runs the
+serving launcher in its own process, `torch_photonic_mac_ablation.py` and
+`torch_train_e2e.py` with LM_100M for 60 steps and a failure injected at
+step 30) and `benchmarks/torch_kernels_bench.py`, each `main` on the card,
+with the reference smoke tests' checks and their seconds.
+
 Before each path the launch counters are set to 0; just after it they are
 read and must equal the counts reckoned from the dispatch predicates in
 `kernels/ops.py` (for training, straight and under the wire: the forward,
@@ -2909,6 +2916,95 @@ def run_train_path(profile: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the model examples and the kernel bench
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+# the training example's run: LM_100M, a node failure injected at step 30
+E2E_TRAIN_ARGS = ["--full-100m", "--steps", "60", "--fail-at", "30"]
+
+
+def _script_module(path: str):
+    """One of the repo's example or benchmark scripts, loaded from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(Path(path).stem, ROOT / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_main(path: str, argv: list) -> tuple:
+    """`main(argv)` of a script on the card, its printed lines kept aside:
+    (its result, its stdout, seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = _script_module(path).main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    return res, buf.getvalue(), time.perf_counter() - t0
+
+
+def _falls(losses) -> bool:
+    return bool(np.all(np.isfinite(losses))) and losses[-1] < losses[0]
+
+
+def phase_examples() -> dict:
+    """The five model examples and the kernel bench, each `main` on the card
+    at its default size (`torch_train_e2e` at `E2E_TRAIN_ARGS`), held to
+    checks like the reference's smoke tests': the paper's claims True and a
+    falling loss (quickstart), every request finished (continuous
+    batching), the launcher's report (serve batched), errors that grow as
+    the banks narrow and finite losses (ablation), a resume after the
+    injected failure and a lower loss at the end than at the start
+    (training), and the bench's distortion rows and times."""
+    out, t_all = {"phase": "examples"}, time.perf_counter()
+
+    res, text, sec = _run_main("examples/torch_quickstart.py", [])
+    assert all(res["checks"].values()) and _falls(res["losses"]), res
+    out["quickstart"] = {"seconds": sec, "checks": res["checks"], "losses": res["losses"]}
+
+    res, text, sec = _run_main("examples/torch_continuous_batching.py", [])
+    assert len(res["finished"]) == len(res["requests"]), "requests left unfinished"
+    assert all(r.done and len(r.out) == r.max_new for r in res["requests"])
+    out["continuous_batching"] = {"seconds": sec, "requests": len(res["requests"]),
+                                  "new_tokens": res["new_tokens"], "run_s": res["seconds"]}
+
+    res, text, sec = _run_main("examples/torch_serve_batched.py", [])
+    assert "prefill:" in text and "decode" in text and "generated shape: (4, 16)" in text, text
+    out["serve_batched"] = {"seconds": sec, "report": [ln for ln in text.splitlines()
+                                                       if ln.startswith(("prefill", "decode"))]}
+
+    res, text, sec = _run_main("examples/torch_photonic_mac_ablation.py", [])
+    errs = [res["quant_rel_error"][b] for b in sorted(res["quant_rel_error"], reverse=True)]
+    losses = [res["f32_loss"], *res["photonic_loss"].values()]
+    assert errs == sorted(errs) and bool(np.all(np.isfinite(losses))), res
+    out["photonic_mac_ablation"] = {"seconds": sec, **res}
+
+    res, text, sec = _run_main("examples/torch_train_e2e.py", E2E_TRAIN_ARGS)
+    losses = [h["loss"] for h in res["history"]]
+    assert res["restarts"] == 1 and res["resumed_from"] == [20], res["resumed_from"]
+    assert [h["step"] for h in res["history"]] == list(range(1, 61)) and _falls(losses), losses
+    out["train_e2e"] = {"seconds": sec, "args": E2E_TRAIN_ARGS, "resumed_from": res["resumed_from"],
+                        "first_loss": losses[0], "last_loss": losses[-1],
+                        "median_step_s": float(np.median([h["step_s"] for h in res["history"]]))}
+
+    bench = _script_module("benchmarks/torch_kernels_bench.py")
+    t0 = time.perf_counter()
+    res = bench.run(csv=False, device=DEV)
+    errs = [r["rel_err"] for r in res["rows"]]
+    assert errs == sorted(errs) and all(0 < e < 1 for e in errs), res["rows"]
+    assert all(r["ms"] > 0 for r in res["timed"]), res["timed"]
+    out["kernels_bench"] = {"seconds": time.perf_counter() - t0, **res}
+    out["seconds"] = time.perf_counter() - t_all
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_summary(kern: dict, launches: dict, by_path: dict) -> dict:
@@ -3094,6 +3190,7 @@ def main() -> None:
         for name in KERNELS:
             assert n[name] > 0, f"the {path} path never launched {name}"
     launches = {name: sum(n[name] for n in by_path.values()) for name in KERNELS}
+    phase_examples()
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernel_summary(kern, launches, by_path))
