@@ -40,7 +40,7 @@ TIMED = [(512, 512, 512, "float32"), (512, 512, 512, "bfloat16"),
          (128, 4096, 11008, "bfloat16")]
 # published dense peaks of one H100 SXM (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def inputs(m: int, k: int, n: int, seed: int = 0):
@@ -59,11 +59,12 @@ def distortion(x: torch.Tensor, w: torch.Tensor, bits: int) -> float:
     return float(torch.linalg.vector_norm(out - exact) / torch.linalg.vector_norm(exact))
 
 
-def bound_ms(m: int, k: int, n: int, dtype: str) -> dict:
-    """The least time the card could take: x, the int8 levels and the
-    scales read once and the f32 output written once, or the product's
-    operations at the activations' peak rate, whichever is longer."""
-    nbytes = (m * k * (2 if dtype == "bfloat16" else 4) + k * n
+def mac_bound_ms(m: int, k: int, n: int, dtype: torch.dtype) -> dict:
+    """The least time the card could take for an (M,K) x (K,N) product with
+    `dtype` activations: x, the int8 levels and the scales read once and
+    the f32 output written once, or the product's operations at the
+    activations' peak rate, whichever is longer."""
+    nbytes = (m * k * (2 if dtype == torch.bfloat16 else 4) + k * n
               + 4 * (-(-k // 128)) * (-(-n // 128)) + 4 * m * n)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * m * k * n / PEAK_FLOPS[dtype] * 1e3
@@ -72,9 +73,12 @@ def bound_ms(m: int, k: int, n: int, dtype: str) -> dict:
 
 
 def time_ms(fn) -> float:
-    """Mean device time of `fn` in ms: CUDA events around 3 to 50 calls
-    (about 20 ms of work), after two warm calls, with a spin kernel keeping
-    the device busy while the host enqueues them."""
+    """Mean device time of `fn` in ms, by CUDA events around a run of calls
+    (3 to 50, about 20 ms of work), after two warm calls.  The device is
+    first kept busy with a spin kernel while the host enqueues the whole
+    run, so the events bracket back-to-back device work and not the host's
+    cost of launching it.  Inputs stay warm in L2 between calls, as they are
+    on the serving path, where each is produced just before use."""
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     fn()
     fn()
@@ -83,7 +87,7 @@ def time_ms(fn) -> float:
     e1.record()
     torch.cuda.synchronize()
     iters = max(3, min(50, int(20.0 / max(e0.elapsed_time(e1), 1e-3))))
-    torch.cuda._sleep(10_000_000)
+    torch.cuda._sleep(10_000_000)          # a few ms of spinning
     e0.record()
     for _ in range(iters):
         fn()
@@ -111,7 +115,7 @@ def timed_rows(device: torch.device) -> list:
                      "ms": time_ms(lambda: photonic_mac(x, wq, sc)),
                      "plain_ms": time_ms(lambda: ref.photonic_mac_ref(x, wq, sc)),
                      "library_ms": time_ms(lambda: torch.matmul(x, w_dq)),
-                     **bound_ms(m, k, n, dtype)})
+                     **mac_bound_ms(m, k, n, x.dtype)})
         rows[-1]["tflops"] = 2.0 * m * k * n / rows[-1]["ms"] / 1e9
     return rows
 

@@ -6,8 +6,10 @@ reference's examples (`tests/test_benchmarks_smoke.py`).  The numbers the
 bench and the ablation print are held against the JAX package: the same
 numpy weight quantized by `repro.kernels.photonic_mac.quantize_weights` and
 dequantized by `repro.kernels.ref.dequantize_ref` gives the same relative
-error at every bit width (rtol 1e-5: both sides quantize to the same
-levels, and differ only in the order of the f32 sums of the norms).
+error at every bit width: rtol 1e-5 for the ablation's (both sides
+quantize to the same levels and differ only in the order of the f32 sums
+of the norms), 1e-4 for the bench's distortion (the port multiplies in
+f32, the check in f64).
 """
 
 import importlib.util
@@ -63,10 +65,10 @@ def test_example_torch_train_e2e():
 
 def test_train_e2e_resumes_after_the_injected_failure():
     res = _module("examples/torch_train_e2e.py").main(
-        ["--device", "cpu", "--steps", "30", "--fail-at", "25"])
+        ["--device", "cpu", "--steps", "24", "--fail-at", "22", "--batch", "2", "--seq", "64"])
     assert res["restarts"] == 1 and res["resumed_from"] == [20]
     steps = [h["step"] for h in res["history"]]
-    assert steps == list(range(1, 31))          # every step once: 21-25 replayed
+    assert steps == list(range(1, 25))          # every step once: 21-22 replayed
     assert res["history"][-1]["loss"] < res["history"][0]["loss"]
 
 
