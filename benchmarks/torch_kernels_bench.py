@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -28,19 +27,16 @@ import torch
 from repro_torch import require_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.photonic_mac import dispatch, photonic_mac, quantize_weights
+from repro_torch.kernels.timing import card, mac_bound_ms, time_ms
 
 OUT = Path(__file__).resolve().parent / "artifacts" / "torch_kernels.json"
 
 BITS = (8, 6, 4, 2)
 SHAPE = (512, 512, 512)
 # the timed products (M, K, N, activation dtype): the distortion's shape with
-# f32 activations (the FMA kernel) and bf16 ones (the tensor-core kernel),
-# and yi-6b's wg/wi in a batch-128 decode step, bf16 (PERF.md's headline)
-TIMED = [(512, 512, 512, "float32"), (512, 512, 512, "bfloat16"),
-         (128, 4096, 11008, "bfloat16")]
-# published dense peaks of one H100 SXM (NVIDIA data sheet), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# f32 activations (the FMA kernel) and bf16 ones (the tensor-core kernel);
+# the serving paths' shapes are timed by `chip_smoke.py`'s kernels phase
+TIMED = [(512, 512, 512, "float32"), (512, 512, 512, "bfloat16")]
 
 
 def inputs(m: int, k: int, n: int, seed: int = 0):
@@ -57,50 +53,6 @@ def distortion(x: torch.Tensor, w: torch.Tensor, bits: int) -> float:
     out = photonic_mac(x, wq, sc)
     exact = x @ w
     return float(torch.linalg.vector_norm(out - exact) / torch.linalg.vector_norm(exact))
-
-
-def mac_bound_ms(m: int, k: int, n: int, dtype: torch.dtype) -> dict:
-    """The least time the card could take for an (M,K) x (K,N) product with
-    `dtype` activations: x, the int8 levels and the scales read once and
-    the f32 output written once, or the product's operations at the
-    activations' peak rate, whichever is longer."""
-    nbytes = (m * k * (2 if dtype == torch.bfloat16 else 4) + k * n
-              + 4 * (-(-k // 128)) * (-(-n // 128)) + 4 * m * n)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * m * k * n / PEAK_FLOPS[dtype] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def time_ms(fn) -> float:
-    """Mean device time of `fn` in ms, by CUDA events around a run of calls
-    (3 to 50, about 20 ms of work), after two warm calls.  The device is
-    first kept busy with a spin kernel while the host enqueues the whole
-    run, so the events bracket back-to-back device work and not the host's
-    cost of launching it.  Inputs stay warm in L2 between calls, as they are
-    on the serving path, where each is produced just before use."""
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    fn()
-    fn()
-    e0.record()
-    fn()
-    e1.record()
-    torch.cuda.synchronize()
-    iters = max(3, min(50, int(20.0 / max(e0.elapsed_time(e1), 1e-3))))
-    torch.cuda._sleep(10_000_000)          # a few ms of spinning
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def timed_rows(device: torch.device) -> list:

@@ -180,7 +180,8 @@ logits with the plain run's choices; mixtral runs once more in f32 at 4224
 tokens, past the window (16 layers: `E2E_LONG`), where the plain version
 with the window off must fail the tolerance; gemma3-27b as published, 5:1
 local:global (12 layers), in bf16 at 2048 tokens, past its 1024 window,
-likewise.  The last lines are the
+likewise.  yi-34b, deepseek-67b and gemma3-27b (both builds), checked in
+bf16, are held in f32 too (`E2E_F32_WITNESS`).  The last lines are the
 `{"kernels": [...]}` summary, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
 """
@@ -233,9 +234,9 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel import wire as W  # noqa: E402
 from repro_torch.runtime import trainer as TR  # noqa: E402
 from repro_torch.serve.engine import ContinuousBatcher  # noqa: E402
-# the card's peaks, a photonic_mac product's bound and the kernel timer
-from benchmarks.torch_kernels_bench import (  # noqa: E402
-    HBM_BYTES_PER_S, PEAK_FLOPS, mac_bound_ms, time_ms)
+# the card's peaks, a photonic_mac product's bound, the kernel timer, the card
+from repro_torch.kernels.timing import (  # noqa: E402
+    HBM_BYTES_PER_S, PEAK_FLOPS, card, mac_bound_ms, time_ms)
 
 DEV = torch.device("cuda")
 SEED = 0
@@ -259,6 +260,12 @@ YI34_KN = [(7168, 7168), (7168, 1024), (7168, 20480), (20480, 7168)]
 # deepseek-67b's wg/wi and mlp wo (its wq/wo and wk/wv are qwen2-vl's,
 # timed under that name)
 DEEPSEEK_KN = [(8192, 22016), (22016, 8192)]
+# the heads of yi-34b, deepseek-67b, grok-1 and gemma3-27b (its tied
+# embed.t(), 2048 column tiles); a prefill takes the head on its last
+# position only, so M is the batch: 128 in a batch-128 decode step and the
+# batch-128 prefill, 1 in a B=1 prefill (the end-to-end check)
+NEW_HEADS = [("yi-34b head", 7168, 64000), ("deepseek-67b head", 8192, 102400),
+             ("grok-1-314b head", 6144, 131072), ("gemma3-27b head", 5376, 262144)]
 # gemma3-27b's wq, wk/wv, wo (32 heads of 128 make 4096, not 5376), wg/wi,
 # mlp wo
 GEMMA3_KN = [(5376, 4096), (5376, 2048), (4096, 5376), (5376, 21504), (21504, 5376)]
@@ -286,9 +293,7 @@ MAC_TIMED = ([("yi-6b", m, k, n) for m in (128, 512) for (k, n) in YI_KN]
                                                     ("gemma3-27b", GEMMA3_KN),
                                                     ("grok-1-314b", GROK_KN))
                 for m in (128, 128 * 128) for (k, n) in kns]
-             # gemma3's tied head, embed.t(), in a batch-128 decode step:
-             # 2048 column tiles
-             + [("gemma3-27b head", 128, 5376, 262144)]
+             + [(model, m, k, n) for (model, k, n) in NEW_HEADS for m in (1, 128)]
              # the training path's tiled linears (zamba2 at B=8 x 2048: out_proj
              # and the shared attention's projections at 16384 rows, the head
              # once per 1024-token CE chunk, 8192 rows)
@@ -307,7 +312,8 @@ MAC_HEADLINE = (128, 4096, 11008)        # the shape reported in the summary lin
 # 1024 frames, and its decoder's cross-attention, 128 queries against 32
 # frames (the batch-128 path) and against 1024 (the long-encoder path);
 # GQA groups of 7 (yi-34b, 56/8), 6 (grok-1, 48/8) and 2 (gemma3, 32/16),
-# and gemma3's local layers, window 1024, at 2048 tokens
+# and gemma3 as published at 2048 tokens: its local layers (window 1024)
+# and its global ones (no window)
 ATTN_TIMED = [("yi-6b", 1, 128, 128, 32, 4, 128, True, 0),
               ("yi-6b", 1, 256, 256, 32, 4, 128, True, 0),
               ("yi-6b", 1, 512, 512, 32, 4, 128, True, 0),
@@ -328,7 +334,8 @@ ATTN_TIMED = [("yi-6b", 1, 128, 128, 32, 4, 128, True, 0),
               ("grok-1-314b", 128, 128, 128, 48, 8, 128, True, 0),
               ("gemma3-27b", 1, 128, 128, 32, 16, 128, True, 0),
               ("gemma3-27b", 128, 128, 128, 32, 16, 128, True, 0),
-              ("gemma3-27b local", 1, 2048, 2048, 32, 16, 128, True, 1024)]
+              ("gemma3-27b local", 1, 2048, 2048, 32, 16, 128, True, 1024),
+              ("gemma3-27b global", 1, 2048, 2048, 32, 16, 128, True, 0)]
 ATTN_HEADLINE = (1, 128)                 # (batch, prompt length) reported in the summary
 SSM_HEADLINE = "zamba2 B=128 L=128"      # the scan shape reported in the summary
 
@@ -388,9 +395,7 @@ def _ptxas_lines() -> list:
 def phase_device(build: bool = True) -> dict:
     """The card's name and power limit, versions, and (with `build`) the
     kernels' build; the engine phases alone need no build."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     if build:
         _build.library()
     info = {"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
@@ -2230,6 +2235,11 @@ E2E_TOLERANCE = {
     "yi-34b": ("bfloat16", 3e-2), "deepseek-67b": ("bfloat16", 3e-2),
     "gemma3-27b": ("bfloat16", 3e-2), "grok-1-314b": ("float32", 2e-2),
 }
+# the dense models whose bf16 check also runs in f32, held at mixtral's f32
+# tolerance with the same argmax: at yi-34b's 32 layers and gemma3-27b's 40
+# the bf16 kernels-vs-plain gap is as large as the plain run's top-2 gap, so
+# a bf16 argmax flip needs a witness that tells rounding from a fault
+E2E_F32_WITNESS = ("yi-34b", "deepseek-67b", "gemma3-27b")
 # the vision end-to-end check's image: an 8 x 8 grid of patch embeddings
 PATCH_GRID = 8
 
@@ -2377,8 +2387,19 @@ def phase_end_to_end(cfg, params, seq: int = 128) -> dict:
         out[f"{cfg.dtype}_argmax_equal"] = bool(lg_k[0, -1].argmax() == lg_p[0, -1].argmax())
         if cfg.family == "moe":
             out[f"{cfg.dtype}_routing"] = _routing_flips(cfg, params, toks)
+    if cfg.name in E2E_F32_WITNESS:
+        lg_k, lg_p, _ = _prefill_pair(dataclasses.replace(cfg, dtype="float32"), params, batch)
+        top2 = torch.topk(lg_p[0, -1], 2).values
+        out["float32"] = {"max_rel_to_largest_logit": _rel(lg_k, lg_p),
+                          "tolerance": E2E_TOLERANCE["mixtral-8x7b"][1],
+                          "argmax_equal": bool(lg_k[0, -1].argmax() == lg_p[0, -1].argmax()),
+                          "plain_top2_gap_rel": float((top2[0] - top2[1]) / lg_p.abs().max())}
+        del lg_k, lg_p
     emit(out)
     assert rel < tol and out["argmax_equal"], out
+    if "float32" in out:
+        f32 = out["float32"]
+        assert f32["max_rel_to_largest_logit"] < f32["tolerance"] and f32["argmax_equal"], out
     return out
 
 
@@ -2444,17 +2465,19 @@ def phase_profile(cfg, params) -> dict:
     gen.manual_seed(SEED + 3)
     batch = model_inputs(cfg, gen, 128, 128)
     one = {k: v[:1] for k, v in batch.items()}
-    # the prefills first, while no batch-128 cache is held (gemma3's is 5 GB)
-    out = {"phase": "profile", "model": cfg.name,
-           "prefill_b1_s128": profile_window(lambda: M.prefill(cfg, params, one, device=DEV)),
-           "prefill_b128_s128": profile_window(lambda: M.prefill(cfg, params, batch,
-                                                                 device=DEV))}
     logits, cache = M.prefill(cfg, params, batch, cache_len=132, device=DEV)
     enc_out = (M.encode(cfg, params, batch["enc_embeds"], device=DEV)
                if cfg.encoder_layers else None)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    out["decode_step_b128"] = profile_window(
-        lambda: M.serve_step(cfg, params, cache, tok, 128, enc_out=enc_out, device=DEV))
+    # decode first: a profiler session slows the launches after it, and a
+    # decode step is bound by the host's launch rate
+    out = {"phase": "profile", "model": cfg.name,
+           "decode_step_b128": profile_window(
+               lambda: M.serve_step(cfg, params, cache, tok, 128, enc_out=enc_out, device=DEV))}
+    del logits, cache, enc_out, tok      # the prefills below build a cache of their own
+    torch.cuda.empty_cache()
+    out["prefill_b1_s128"] = profile_window(lambda: M.prefill(cfg, params, one, device=DEV))
+    out["prefill_b128_s128"] = profile_window(lambda: M.prefill(cfg, params, batch, device=DEV))
     emit(out)
     return out
 
