@@ -158,6 +158,26 @@ bits) of the masters', one f32 step under the wire with the kernels
 against the port's plain CPU step (`TRAIN_TOLERANCE`), and
 `launch/train.py --wire-bits 8` training bit for bit as without the flag.
 
+Then `mesh`, the cross-device layer (`launch/mesh.py`,
+`parallel/collectives.py`, `parallel/pipeline.py`, `parallel/sharding.py`,
+the sharded step of `runtime/trainer.py`) through NCCL at world size 1 on a
+file-store rendezvous, `make_test_mesh(1, 1, 1)` on the card: the flat,
+TRINE and compressed all-reduces on one f32 vector of zamba2-1.2b's
+gradient length (`cfg.param_count()` elements; flat and TRINE equal to
+their input exactly, the compressed one's output plus new residual equal
+to input plus incoming residual within f32 rounding and its error within
+the reference test's 8 max|x| / 127, for one scale and 64-element chunks,
+the int8 levels and scales of a 2^24-element slice equal to the CPU's),
+`pipelined_apply` at S = 1 forward and backward against
+`sequential_reference`, and zamba2-1.2b at full size trained `MESH_STEPS`
+steps of 8 x 2048 through `Trainer(mesh=)` (DTensor state, the gradient
+through `trine_all_reduce`, a checkpoint gathered at the end) against the
+first steps of `train`'s straight run, a `Trainer(mesh=None)`: losses and
+gradient norms within `MESH_TOLERANCE`, its launches per step, step
+seconds and peak memory beside the card.  NCCL takes no two ranks on
+one card: the phase proves the path builds and launches, not that it
+splits work.
+
 Last, `examples`: the five model examples (`examples/torch_quickstart.py`,
 `torch_continuous_batching.py`, `torch_serve_batched.py`, which runs the
 serving launcher in its own process, `torch_photonic_mac_ablation.py` and
@@ -167,7 +187,8 @@ with the reference smoke tests' checks and their seconds.
 
 Before each path the launch counters are set to 0; just after it they are
 read and must equal the counts reckoned from the dispatch predicates in
-`kernels/ops.py` (for training, straight and under the wire: the forward,
+`kernels/ops.py` (for training, straight, under the wire and under the
+mesh: the forward,
 and its recomputation under remat in the backward, which is plain), and
 every kernel of that path must have launched.  After each serving path, `end_to_end` holds kernels-on
 against kernels-off logits of one prefill (in f32 for zamba2, xlstm,
@@ -205,6 +226,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs one GPU")
@@ -228,9 +250,12 @@ from repro_torch import tree as T  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel import collectives as CC  # noqa: E402
+from repro_torch.parallel import pipeline as PP  # noqa: E402
 from repro_torch.parallel import wire as W  # noqa: E402
 from repro_torch.runtime import trainer as TR  # noqa: E402
 from repro_torch.serve.engine import ContinuousBatcher  # noqa: E402
@@ -2889,9 +2914,9 @@ def phase_train_profile() -> dict:
 def run_train_path(profile: bool) -> dict:
     """The training paths, each with the counters at 0 just before it and
     read just after: the straight run (then the resume and kernels-on-vs-off
-    checks), and the 8-bit wire's run (`train_wire`, then its reduced-size
-    checks); then (with `profile`) the profiler phase.  Returns each path's
-    launches."""
+    checks), the 8-bit wire's run (`train_wire`, then its reduced-size
+    checks) and the sharded run over a one-card mesh (`mesh`); then (with
+    `profile`) the profiler phase.  Returns each path's launches."""
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_", dir=TRAIN_CKPT_ROOT) as tmp:
         zero_counters()
@@ -2902,9 +2927,162 @@ def run_train_path(profile: bool) -> dict:
     zero_counters()
     wire = phase_train_wire(straight)
     launches["zamba2-1.2b train_wire"] = wire["launches"]
+    launches["zamba2-1.2b train_mesh"] = phase_mesh(straight)["launches"]
     if profile:
         phase_train_profile()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the cross-device layer through NCCL, at world size 1
+# ---------------------------------------------------------------------------
+
+# the compressed all-reduce's chunk sizes (None: one scale per shard), the
+# slice whose int8 levels and scales are held against the CPU's, the
+# pipeline's shape (the reference test's stages, zamba2's width), and the
+# sharded run's steps (the training path's batch, sequence and schedule)
+MESH_CHUNKS = (None, 64)
+MESH_QUANT_SLICE = 1 << 24
+MESH_PIPE = dict(L=2, D=2048, M=6, MB=8)
+MESH_STEPS = 3
+MESH_TOLERANCE = {"loss": 1e-5, "grad_norm": 1e-3}     # tests/test_torch_train.py
+
+
+def _mesh_collectives(mesh) -> dict:
+    """The three all-reduces on one f32 vector of zamba2-1.2b's gradient
+    length: at world size 1 each must return its input exactly (flat and
+    TRINE) or within int8 (compressed: out + new residual equals input +
+    incoming residual within f32 rounding, the error within the reference
+    test's 8 max|x| / 127), and the int8 levels and scales of a 2^24-element
+    slice must equal the CPU's exactly."""
+    n = int(C.get(TRAIN_CFG_ID).param_count())
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    x = torch.randn(n, generator=gen, device=DEV)
+    res_in = 0.01 * torch.randn(n, generator=gen, device=DEV)
+    out = {"elements": n, "bytes": 4 * n}
+    flat, trine = CC.flat_all_reduce(x, mesh), CC.trine_all_reduce(x, mesh)
+    assert torch.equal(flat, x) and torch.equal(trine, x), "flat/trine differ from the input"
+    del flat, trine
+    out["flat_ms"] = time_ms(lambda: CC.flat_all_reduce(x, mesh))
+    out["trine_ms"] = time_ms(lambda: CC.trine_all_reduce(x, mesh))
+    want = x + res_in
+    top = float(want.abs().max())
+    for chunk in MESH_CHUNKS:
+        got, new_res = CC.compressed_all_reduce(x, mesh, residual=res_in, chunk_elems=chunk)
+        rounding = float((got + new_res - want).abs().max())
+        err = float((got - want).abs().max())
+        del got, new_res
+        row = {"chunk_elems": chunk, "max_abs_err": err, "bound": 8 * top / 127,
+               "out_plus_residual_err": rounding, "rounding_bound": 4 * 2.0 ** -24 * top,
+               "ms": time_ms(lambda: CC.compressed_all_reduce(x, mesh, residual=res_in,
+                                                              chunk_elems=chunk))}
+        part = x[:MESH_QUANT_SLICE]
+        q, sc = CC._quantize_int8(part, chunk)
+        qc, scc = CC._quantize_int8(part.cpu(), chunk)
+        row["slice_levels_equal"] = torch.equal(q.cpu(), qc)
+        row["slice_scales_equal"] = torch.equal(sc.cpu(), scc)
+        out[f"compressed_chunk_{chunk}"] = row
+        assert err <= row["bound"] and rounding <= row["rounding_bound"], row
+        assert row["slice_levels_equal"] and row["slice_scales_equal"], row
+    del x, res_in, want
+    _free()
+    return out
+
+
+def _mesh_pipeline() -> dict:
+    """`pipelined_apply` over a one-rank `pipe` mesh (S = 1) against
+    `sequential_reference`, forward and gradients, at the reference test's
+    tolerances."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    pmesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
+    p = MESH_PIPE
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    params = {"w": torch.randn((1, p["L"], p["D"], p["D"]), generator=gen, device=DEV)
+              * p["D"] ** -0.5,
+              "b": 0.01 * torch.randn((1, p["L"], p["D"]), generator=gen, device=DEV)}
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    xs = torch.randn((p["M"], p["MB"], p["D"]), generator=gen, device=DEV)
+
+    def stage_fn(sp, h):
+        for i in range(sp["w"].shape[0]):
+            h = torch.tanh(h @ sp["w"][i] + sp["b"][i])
+        return h
+
+    y = PP.pipelined_apply(stage_fn, params, xs, pmesh)
+    g = torch.autograd.grad(torch.sum(y ** 2), [params["w"], params["b"]])
+    ys = PP.sequential_reference(stage_fn, params, xs)
+    gs = torch.autograd.grad(torch.sum(ys ** 2), [params["w"], params["b"]])
+    out = {"shape": p, "forward": compare(y.detach(), ys.detach(), 2e-5, 2e-5, "pipeline forward")}
+    for name, a, b in zip(("grad_w", "grad_b"), g, gs):
+        out[name] = compare(a, b, 5e-5, 5e-5, f"pipeline {name}")
+    return out
+
+
+def phase_mesh(straight: dict) -> dict:
+    """The cross-device layer through NCCL at world size 1: a file-store
+    rendezvous, `make_test_mesh(1, 1, 1)` on the card, the three
+    all-reduces at zamba2-1.2b's full gradient length, the pipeline at
+    S = 1, and zamba2-1.2b trained `MESH_STEPS` steps at full size through
+    `Trainer(mesh=)` against the first `MESH_STEPS` steps of `train`'s
+    straight run (`straight`, a `Trainer(mesh=None)` on the same flags,
+    state and batches): losses and gradient norms within `MESH_TOLERANCE`,
+    and its launches per step.  The counters are set to 0 just before the
+    sharded run and read just after.  NCCL takes no two ranks on one card,
+    so nothing here splits work (ROADMAP.md)."""
+    t0 = time.perf_counter()
+    out = {"phase": "mesh", "card": card(), "world_size": 1}
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_mesh_")      # the store lives as long as the group
+    here = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(here)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous", rank=0,
+                            world_size=1, device_id=here)
+    try:
+        mesh = make_test_mesh(data=1, model=1, pod=1, device_type="cuda")
+        out["backend"] = dist.get_backend()
+        out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        out["collectives"] = _mesh_collectives(mesh)
+        out["pipeline"] = _mesh_pipeline()
+
+        cfg = dataclasses.replace(C.get(TRAIN_CFG_ID), use_photonic_mac=True, use_kernels=True)
+        data = DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_ckpt_",
+                                         dir=TRAIN_CKPT_ROOT) as tmp:
+            tcfg = TR.TrainerConfig(ckpt_dir=tmp, ckpt_every=MESH_STEPS, log_every=10 ** 9)
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters()
+            trainer = TR.Trainer(cfg, TRAIN_OPT, data, tcfg, mesh=mesh, resume=False,
+                                 device=DEV)
+            trainer.run(MESH_STEPS, quiet=True)
+            torch.cuda.synchronize()
+            launches = counters()
+            hist = trainer.history
+            del trainer
+        _free()
+        sharded = {"losses": [h["loss"] for h in hist],
+                   "grad_norms": [h["grad_norm"] for h in hist],
+                   "step_s": [h["step_s"] for h in hist], "ckpt_s": hist[-1]["ckpt_s"],
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        single = {k: straight[k][:MESH_STEPS] for k in ("losses", "grad_norms", "step_s")}
+        single["peak_memory_gb"] = straight["peak_memory_gb"]
+        want = {k: v * MESH_STEPS for k, v in straight["launches_per_step"].items()}
+        rel = {k: [abs(a - b) / abs(b) for a, b in zip(sharded[k], single[k])]
+               for k in ("losses", "grad_norms")}
+        out.update(sharded=sharded, single=single, launches=launches, steps=MESH_STEPS,
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, tolerance=MESH_TOLERANCE, rel_diff=rel,
+                   seconds=time.perf_counter() - t0)
+        emit(out)
+        assert launches == want, (launches, want)
+        assert all(n > 0 for n in launches.values()), launches
+        assert max(rel["losses"]) < MESH_TOLERANCE["loss"], rel
+        assert max(rel["grad_norms"]) < MESH_TOLERANCE["grad_norm"], rel
+        assert all(map(math.isfinite, sharded["losses"])), sharded
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------

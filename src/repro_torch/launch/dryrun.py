@@ -4,10 +4,16 @@ cell: the useful-work numerator of the roofline.
 The JAX package's `launch/dryrun.py` also lowers and compiles every cell's
 real step on the production meshes and reads FLOPs, bytes and the
 collective schedule from the compiled XLA HLO (`hlo_analysis.analyze_hlo`).
-The torch side compiles no XLA HLO; how the port counts a step's FLOPs and
-bytes (`torch.utils.flop_counter` or analytic counts) waits for a design
-note (ROADMAP.md, Queue 1 item 6), and the lowering with it.  Until then
-this module holds `model_flops_per_device` alone.
+The port has what that lowering places the step with: the production
+meshes (`launch.mesh`), the sharding rules and layouts (`parallel.sharding`:
+`rules_for`, `tree_shardings`, `cache_shardings`, on a mesh's geometry
+alone) and the abstract trees (`models.model.init_abstract`,
+`init_cache_abstract`).  The torch side compiles no XLA HLO; how the port
+counts a step's FLOPs and bytes (`torch.utils.flop_counter` or analytic
+counts, on a process group of PyTorch's "fake" backend standing for the
+512 devices) waits for a design note (ROADMAP.md, Queue 1 item 6), and
+the lowering with it.  Until then this module holds
+`model_flops_per_device` alone.
 """
 
 from __future__ import annotations

@@ -33,20 +33,6 @@ _BLOCK_LEAVES = {
 }
 
 
-def _subs(cfg: ModelConfig, kind: str):
-    """The parameter groups a block of `kind` holds (shared_attn holds none:
-    its parameters live once, at the top of the tree)."""
-    if kind in ("attn", "local", "global", "enc"):
-        return ("attn", "mlp") if cfg.d_ff else ("attn",)
-    if kind == "dec":
-        return ("attn", "cross", "mlp")
-    if kind == "moe":
-        return ("attn", "moe")
-    if kind == "shared_attn":
-        return ()
-    return (kind,)
-
-
 def _leaf(a, device, dtype) -> torch.Tensor:
     a = np.array(a)                         # a copy: the source may be read-only
     if a.dtype.name == "bfloat16":          # the reference's bf16, which numpy knows by name
@@ -62,7 +48,7 @@ def _blocks(cfg: ModelConfig, kind: str, src: Params, repeat: int, where: str,
             device, dtype) -> Params:
     """`repeat` blocks of `kind` from the reference's layer-stacked tree."""
     block = {}
-    for sub in _subs(cfg, kind):
+    for sub in M.block_groups(cfg, kind):
         block[sub] = {}
         for leaf in _BLOCK_LEAVES[sub]:
             t = _leaf(src[sub][leaf], device, dtype)

@@ -21,7 +21,9 @@ Block kinds:
                encoder's output, MLP); seamless
 
 Entry points: `init`, `loss_fn` (training), `train_logits`, `prefill` +
-`serve_step` (inference), `encode` (enc-dec).
+`serve_step` (inference), `encode` (enc-dec).  `init_abstract` and
+`init_cache_abstract` give the trees on the "meta" device with their
+logical-axis spec trees, the sharding rules' input (`parallel.sharding`).
 Each takes `device`, which defaults to "cuda" and raises without a card; the
 CPU is used only on request.  The serving cache is updated in place.
 
@@ -152,7 +154,8 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda",
     `expert_dtype`, by default the compute dtype (`layers.init_moe`); the
     trainer asks for f32."""
     device = require_device(device)
-    gen = torch.Generator(device=device)
+    # a "meta" device (`init_abstract`) has no generator of its own
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(seed)
     emb_scale = cfg.d_model ** -0.5
     p: Params = {}
@@ -174,6 +177,97 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda",
         p["encoder"] = {"blocks": _init_blocks(cfg, "enc", gen, device, cfg.encoder_layers),
                         "norm": torch.zeros((cfg.d_model,), device=device)}
     return p
+
+
+# ---------------------------------------------------------------------------
+# logical-axis spec trees (the sharding rules' input, `parallel.sharding`)
+# ---------------------------------------------------------------------------
+
+_ATTN_SPECS = {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+               "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed"),
+               "norm": (None,)}
+# the logical axes of each leaf of a block's parameter groups
+_GROUP_SPECS = {
+    "attn": _ATTN_SPECS,
+    "cross": _ATTN_SPECS,
+    "mlp": {"wi": ("embed", "ffn"), "wg": ("embed", "ffn"), "wo": ("ffn", "embed"),
+            "norm": (None,)},
+    "moe": {"router": ("embed", None), "wi": ("experts", "embed", "ffn"),
+            "wg": ("experts", "embed", "ffn"), "wo": ("experts", "ffn", "embed"),
+            "norm": (None,)},
+    "mamba": {"in_proj": ("embed", "ffn"), "conv": (None, "ffn"), "A_log": (None,),
+              "D": (None,), "dt_bias": (None,), "out_proj": ("ffn", "embed"),
+              "norm": (None,), "gate_norm": (None,)},
+    "mlstm": {"wqkv": ("embed", "ffn"), "wif": ("embed", None), "wo": ("ffn", "embed"),
+              "norm": (None,)},
+    "slstm": {"wx": ("embed", "ffn"), "wr": ("embed", "ffn"), "bias": (None,),
+              "wo": ("embed", "embed"), "norm": (None,)},
+}
+
+
+def block_groups(cfg: ModelConfig, kind: str) -> Tuple[str, ...]:
+    """The parameter groups a block of `kind` holds (shared_attn holds none:
+    its parameters live once, at the top of the tree)."""
+    if kind in ("attn", "local", "global", "enc"):
+        return ("attn", "mlp") if cfg.d_ff else ("attn",)
+    if kind == "dec":
+        return ("attn", "cross", "mlp")
+    if kind == "moe":
+        return ("attn", "moe")
+    if kind == "shared_attn":
+        return ()
+    return (kind,)
+
+
+def _stacked_specs(cfg: ModelConfig, kind: str) -> Params:
+    return {g: {leaf: ("layers",) + axes for leaf, axes in _GROUP_SPECS[g].items()}
+            for g in block_groups(cfg, kind)}
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The logical-axis spec tree of `init`'s parameters: one tuple of axis
+    names (or None) per leaf dimension, "layers" first in the stacks."""
+    s: Params = {"embed": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ("embed", "vocab")
+    s["final_norm"] = (None,)
+    s["stages"] = [{f"{kind}_{j}": _stacked_specs(cfg, kind) for j, kind in enumerate(kinds)}
+                   for _, kinds in stages(cfg)]
+    if has_shared_attn(cfg):
+        s["shared_attn"] = dict(_ATTN_SPECS)
+    if cfg.encoder_layers:
+        s["encoder"] = {"blocks": _stacked_specs(cfg, "enc"), "norm": (None,)}
+    return s
+
+
+def init_abstract(cfg: ModelConfig):
+    """(parameters on the "meta" device: shapes and f32 dtypes, no storage;
+    their spec tree), so that a 314B-parameter tree costs nothing."""
+    return init(cfg, device="meta", expert_dtype=torch.float32), param_specs(cfg)
+
+
+def _kind_cache_specs(kind: str) -> Params:
+    if kind in _ATTN_KINDS:
+        kv = ("batch", "kv_heads", "cache", "head_dim")
+        return {"k": kv, "v": kv}
+    if kind == "mamba":
+        return {"state": ("batch", None, None, None), "conv": ("batch", None, "ffn")}
+    if kind == "mlstm":
+        return {"C": ("batch", None, None), "n": ("batch", None, None)}
+    if kind == "slstm":
+        return {k: ("batch", None) for k in ("h", "c", "n", "m")}
+    raise ValueError(kind)
+
+
+def cache_specs(cfg: ModelConfig) -> list:
+    """The logical-axis spec tree of `init_cache`'s serving cache."""
+    return [{f"{kind}_{j}": {k: ("layers",) + axes for k, axes in _kind_cache_specs(kind).items()}
+             for j, kind in enumerate(kinds)} for _, kinds in stages(cfg)]
+
+
+def init_cache_abstract(cfg: ModelConfig, batch: int, cache_len: int):
+    """(the serving cache on the "meta" device, its spec tree)."""
+    return init_cache(cfg, batch, cache_len, device="meta"), cache_specs(cfg)
 
 
 def has_shared_attn(cfg: ModelConfig) -> bool:

@@ -8,15 +8,19 @@
 The step is an int32 scalar tensor on the parameters' device, and the
 schedule and the bias corrections `1 - b ** step` are computed from it in
 f32 on that device, as the reference computes them from its int32 step
-(not in Python floats, whose rounding differs).  The reference's
-`state_specs` (mesh metadata) has no counterpart yet.
+(not in Python floats, whose rounding differs).  `state_specs` gives the
+state's logical-axis spec tree (the params', for m and v too: the state is
+sharded as the params are).  `apply_updates(grad_norm=)` takes the clipping
+norm from the caller, so that a rank updating only its shards of the
+state clips by the whole gradient's norm (`runtime.trainer`'s sharded
+step).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -54,6 +58,11 @@ def init_state(cfg: OptConfig, params) -> TrainState:
     )
 
 
+def state_specs(param_specs) -> TrainState:
+    """Logical-axis spec tree for a TrainState built over `param_specs`."""
+    return TrainState(step=None, params=param_specs, m=param_specs, v=param_specs)
+
+
 def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     """The learning rate at `step` (an int32 tensor), f32."""
     s = step.to(torch.float32)
@@ -70,13 +79,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: OptConfig, state: TrainState, grads) -> TrainState:
-    """One AdamW step: clip `grads` to `cfg.clip_norm` in global norm, update
-    the moments in f32, step the masters.  Returns a new state; `state` is
-    not modified."""
+def apply_updates(cfg: OptConfig, state: TrainState, grads,
+                  grad_norm: Optional[torch.Tensor] = None) -> TrainState:
+    """One AdamW step: clip `grads` to `cfg.clip_norm` in global norm
+    (`grad_norm` when given, else `global_norm(grads)`), update the moments
+    in f32, step the masters.  Returns a new state; `state` is not
+    modified."""
     step = state.step + 1
     lr = schedule(cfg, step)
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2

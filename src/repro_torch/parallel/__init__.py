@@ -1,4 +1,5 @@
-"""The communication layer on one device: the parameter wire format
-(`wire`) and the collectives' int8 numerics and byte model
-(`collectives`).  The multi-device schedules, sharding rules, pipeline and
-activation constraints of the JAX package's `parallel` are not ported."""
+"""The communication layer: the parameter wire format (`wire`), the TRINE
+all-reduce schedules over a device mesh with their int8 numerics and byte
+model (`collectives`), the GPipe schedule (`pipeline`), the logical-axis
+sharding rules and DTensor layouts (`sharding`) and the activation-sharding
+context (`actx`).  The sharded parameter wire is not ported."""

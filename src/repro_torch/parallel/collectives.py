@@ -1,22 +1,26 @@
-"""The TRINE-inspired collectives' one-device parts: the int8 chunk
-quantizer of the compressed all-reduce and the byte model of every
-schedule.
+"""TRINE-inspired collective schedules over a device mesh, and their byte
+model.
 
-The JAX package's `parallel/collectives.py` runs three all-reduce schedules
-as shard_map programs over a device mesh: `flat_all_reduce` (one stage over
-every device, the bus analog), `trine_all_reduce` (reduce-scatter inside
-the pod, all-reduce across pods, all-gather back: the slow axis crossed
-once) and `compressed_all_reduce` (the cross-pod stage at int8 with
-per-chunk scales and an error-feedback residual).  Those schedules need
-several devices and are not ported (ROADMAP.md, Queue 1 item 8).  This
-module carries what one device runs and what prices them:
+The paper's interposer insight mapped to mesh collectives (the JAX
+package's `parallel/collectives.py`, where each schedule is a shard_map
+program; here each is a sequence of `torch.distributed` collectives on the
+process groups of a `DeviceMesh`'s named dimensions, NCCL on the card and
+gloo on the CPU).  Each rank's local tensor takes the place of the
+reference's replicated input, and each rank returns the whole result:
 
-  * `_quantize_int8` / `_dequantize_int8`: the cross-pod stage's
-    symmetric int8 quantization with per-chunk max-abs scales, on the
-    tensor's own device;
+  * `flat_all_reduce`: one all-reduce over the (pod, data) ranks that share
+    a `model` index: the bus analog, a ring through every device;
+  * `trine_all_reduce`: reduce-scatter inside the pod (`data`), all-reduce
+    across pods (`pod`), all-gather back inside the pod: the slow axis is
+    crossed once, by a 1/data share of the bytes (TRINE's 2-stage tree);
+  * `compressed_all_reduce`: the same with the cross-pod stage at int8
+    (each pod's levels and per-chunk f32 scales gathered on `pod`,
+    dequantized and summed locally) and an error-feedback residual;
+  * `_quantize_int8` / `_dequantize_int8`: that stage's symmetric int8
+    quantization with per-chunk max-abs scales;
   * `collective_bytes_estimate`: per-device total and cross-pod bytes of
-    each schedule, op for op as the shard_map programs issue them, on a
-    mesh's geometry alone (`MeshGeometry`: the benches price meshes that no
+    each schedule, op for op as the schedules issue them, on a mesh's
+    geometry alone (`MeshGeometry`: the benches price meshes that no
     process holds);
   * `plan_channels`: the bandwidth-matching planner for collective
     chunking (`core.planner.plan_collective_channels`).
@@ -25,13 +29,16 @@ module carries what one device runs and what prices them:
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.planner import plan_collective_channels as plan_channels  # noqa: F401 (re-export)
+from repro_torch.launch.mesh import mesh_axis_sizes
 
-__all__ = ["MeshGeometry", "collective_bytes_estimate", "plan_channels"]
+__all__ = ["MeshGeometry", "flat_all_reduce", "trine_all_reduce",
+           "compressed_all_reduce", "collective_bytes_estimate", "plan_channels"]
 
 
 def _pad_to(x: torch.Tensor, mult: int):
@@ -58,7 +65,10 @@ def _quantize_int8(v: torch.Tensor, chunk_elems: Optional[int] = None):
     chunk = n if chunk_elems is None else max(1, min(int(chunk_elems), n))
     vp, _ = _pad_to(v, chunk)
     blocks = vp.reshape(-1, chunk)
-    scale = (torch.amax(torch.abs(blocks), dim=1).clamp_min(1e-20) / 127.0).to(torch.float32)
+    # a divisor on the device: CUDA turns division by a host scalar into a
+    # product with its reciprocal, which may round the scale differently
+    qmax = torch.full((), 127.0, dtype=blocks.dtype, device=v.device)
+    scale = (torch.amax(torch.abs(blocks), dim=1).clamp_min(1e-20) / qmax).to(torch.float32)
     q = torch.clamp(torch.round(blocks / scale[:, None]), -127, 127).to(torch.int8)
     return q, scale
 
@@ -67,6 +77,101 @@ def _dequantize_int8(q: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tens
     """Inverse of `_quantize_int8`: (n_chunks, chunk) int8 x (n_chunks,)
     scales -> the first `n` dequantized f32 elements."""
     return (q.to(torch.float32) * scale[:, None]).reshape(-1)[:n]
+
+
+# the tensor forms of all-gather and reduce-scatter, under their newer
+# names where this torch has them
+_ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+
+
+def _axis_group(mesh, axes: Sequence[str]):
+    """The process group of this rank's ranks along `axes` of a
+    `DeviceMesh` (several axes: their flattened group, made once on every
+    rank)."""
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's `x`s stacked on a new leading axis, in group-rank order."""
+    n = dist.get_world_size(group)
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    _ALL_GATHER(out, x.contiguous(), group=group)
+    return out.view((n,) + tuple(x.shape))
+
+
+def _reduce_scatter(flat: torch.Tensor, group) -> torch.Tensor:
+    """This rank's tile of the group's sum of `flat` (a length divisible by
+    the group's size), tiles in group-rank order."""
+    out = torch.empty(flat.shape[0] // dist.get_world_size(group), dtype=flat.dtype,
+                      device=flat.device)
+    _REDUCE_SCATTER(out, flat.contiguous(), group=group)
+    return out
+
+
+def flat_all_reduce(x: torch.Tensor, mesh, axes: Sequence[str] = ("pod", "data")) -> torch.Tensor:
+    """Baseline: one all-reduce (sum) over every rank of `axes` that the
+    mesh has (the bus-topology analog).  Returns a new tensor."""
+    axes = tuple(a for a in axes if a in mesh.mesh_dim_names)
+    if not axes:
+        return x.clone()
+    return _all_reduce(x, _axis_group(mesh, axes))
+
+
+def trine_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Hierarchical: reduce-scatter on `data`, all-reduce on `pod`,
+    all-gather on `data`, the flattened tensor zero-padded to a multiple of
+    the data size.  Cross-pod bytes drop by the data-axis size against the
+    flat schedule.  Without a `pod` axis: `flat_all_reduce` over `data`."""
+    if "pod" not in mesh.mesh_dim_names:
+        return flat_all_reduce(x, mesh, axes=("data",))
+    data = mesh.get_group("data")
+    flat, orig = _pad_to(x.reshape(-1), dist.get_world_size(data))
+    piece = _reduce_scatter(flat, data)
+    dist.all_reduce(piece, group=mesh.get_group("pod"))
+    full = _all_gather(piece, data).reshape(-1)
+    return full[:orig].reshape(x.shape)
+
+
+def compressed_all_reduce(x: torch.Tensor, mesh, residual: Optional[torch.Tensor] = None,
+                          chunk_elems: Optional[int] = None):
+    """Hierarchical all-reduce with int8 compression on the cross-pod stage
+    and error feedback.  Returns (result, new_residual).
+
+    Inside the pod it runs at full precision (fast links); only the pod
+    stage carries 8-bit payloads: each pod's int8 shard and its per-chunk
+    f32 scales are all-gathered on `pod` and dequantized and summed
+    locally (an int8 sum would overflow, and an f32 one would put full-width
+    bytes on the slow link).  `chunk_elems` sets the quantization
+    granularity (None: one scale per shard).  The local quantization error
+    is gathered back as the residual, to be fed into the next call (EF-SGD).
+    On a mesh without `pod` nothing is quantized: the residual is folded
+    into the payload and drained."""
+    if residual is None:
+        residual = torch.zeros_like(x)
+    if "pod" not in mesh.mesh_dim_names:
+        return flat_all_reduce(x + residual, mesh, axes=("data",)), torch.zeros_like(x)
+    data = mesh.get_group("data")
+    flat, orig = _pad_to((x + residual).reshape(-1), dist.get_world_size(data))
+    piece = _reduce_scatter(flat, data)
+    q, scale = _quantize_int8(piece, chunk_elems)
+    new_res = piece - _dequantize_int8(q, scale, piece.shape[0])
+    pod = mesh.get_group("pod")
+    qg, sg = _all_gather(q, pod), _all_gather(scale, pod)
+    deq = qg.to(torch.float32) * sg[:, :, None]
+    summed = torch.sum(deq.reshape(deq.shape[0], -1)[:, :piece.shape[0]], dim=0)
+    full = _all_gather(summed, data).reshape(-1)
+    res_full = _all_gather(new_res, data).reshape(-1)
+    return full[:orig].reshape(x.shape), res_full[:orig].reshape(x.shape)
 
 
 class MeshGeometry:
@@ -83,11 +188,12 @@ def collective_bytes_estimate(n_elems: int, dtype_bytes: int, mesh, schedule: st
     """Napkin-math model: bytes per device, in all and across the slow (pod)
     links, of the gradient all-reduce under each schedule ("flat", "trine",
     "trine_int8"), with the ring-algorithm factors and padding of the
-    shard_map programs (for "trine_int8", the residual all-gather and the
-    per-chunk f32 scales too).  `mesh` is anything with `axis_names` and
-    `devices.shape` (a `MeshGeometry` will do).  `chunk_elems` must be
-    the compressed all-reduce's (None = one global scale per shard)."""
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    schedules above (for "trine_int8", the residual all-gather and the
+    per-chunk f32 scales too).  `mesh` is a `DeviceMesh` or anything with
+    `axis_names` and `devices.shape` (a `MeshGeometry` will do).
+    `chunk_elems` must be the compressed all-reduce's (None = one global
+    scale per shard)."""
+    sizes = mesh_axis_sizes(mesh)
     n_pod = sizes.get("pod", 1)
     n_data = sizes.get("data", 1)
     total = n_elems * dtype_bytes

@@ -27,9 +27,11 @@ layer for a stack; per row of a non-stacked 3-D leaf, such as zamba2's
 shared attention), per tensor otherwise.
 
 The wire computes in bf16 (`WIRE_COMPUTE_DTYPE`), as the reference's
-always does.  There is no mesh here: `make_param_wire`'s `mesh`, `rules`
-and `param_specs` describe the sharded wire, which is not ported (a mesh
-raises `NotImplementedError`).
+always does.  It is the one-device wire: `make_param_wire`'s `mesh`,
+`rules` and `param_specs` describe the sharded wire (its pairs laid out by
+the sharding rules, `parallel.sharding`), which is not ported, so a mesh
+raises `NotImplementedError`, and so does `cfg.wire_bits` in the sharded
+train step (`runtime.trainer.build_sharded_step`).
 """
 
 from __future__ import annotations

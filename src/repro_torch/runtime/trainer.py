@@ -1,4 +1,4 @@
-"""Fault-tolerant training runtime on one device.
+"""Fault-tolerant training runtime, on one device or over a device mesh.
 
 Builds the train step, wires the data pipeline, checkpoints step-atomically
 and resumes bitwise-identically, injects failures, and accounts stragglers
@@ -20,20 +20,24 @@ fault_scenario=)`) degrades the fabric, and `FabricUnusableError` when
 nothing survives.  The model changes no numerics.
 
 `make_train_step(param_wire=)` trains under the parameter wire format
-(`parallel.wire`) on one device.  Not ported yet: the sharded step over a
-mesh (`build_sharded_step`); a mesh raises `NotImplementedError`.  As in
-the reference, the trainer without a mesh builds its step with no wire,
-whatever `cfg.wire_bits` says.
+(`parallel.wire`) on one device.  `build_sharded_step` and
+`Trainer(mesh=)` train over a `DeviceMesh`: DTensor-sharded state, the
+batch split over the data-parallel ranks, the gradients summed by the
+TRINE all-reduce (`parallel.collectives`), additional `gather` and
+`grad_reduce` ranges.  As in the reference, the trainer without a mesh
+builds its step with no wire, whatever `cfg.wire_bits` says; under a mesh
+`cfg.wire_bits` raises, since the sharded wire is not ported.
 """
-
 from __future__ import annotations
 
 import dataclasses
 import time
+from types import SimpleNamespace
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import require_device
 from repro_torch import tree as T
@@ -46,6 +50,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.parallel import actx
+from repro_torch.parallel import collectives as CC
+from repro_torch.parallel import sharding as S
+from repro_torch.parallel import wire as W
 
 
 class FailureInjected(RuntimeError):
@@ -72,6 +80,44 @@ def check_masters(params) -> None:
                          + (f" and {len(bad) - 4} more" if len(bad) > 4 else ""))
 
 
+def _loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], param_wire,
+                    accum_steps: int, device: torch.device):
+    """(loss, metrics {ce, aux}, gradients in `T.leaves(params)` order) of
+    one batch, as `make_train_step` describes."""
+    def grads_of(leaves, params_of, mb):
+        with L._span("loss"):
+            loss, metrics = M.loss_fn(cfg, params_of(), mb, device=device)
+        with L._span("backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+    if param_wire is None:
+        diff_var = params
+    else:
+        qtree = param_wire.quantize(params)     # outside autograd, once
+        diff_var = param_wire.carrier(params)
+    diff_var = T.map_structure(lambda p: p.detach().requires_grad_(True), diff_var)
+    leaves = T.leaves(diff_var)
+
+    def params_of():       # the loss's tree, built anew for each microbatch
+        return diff_var if param_wire is None else param_wire.graft(qtree, diff_var)
+
+    if accum_steps == 1:
+        return grads_of(leaves, params_of, batch)
+    mbs = _split_microbatches(batch, accum_steps)
+    g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+    l_sum = torch.zeros((), dtype=torch.float32, device=device)
+    mets = []
+    for i in range(accum_steps):
+        l, m, g = grads_of(leaves, params_of, {k: v[i] for k, v in mbs.items()})
+        g_sum = [a + b for a, b in zip(g_sum, g)]
+        l_sum = l_sum + l
+        mets.append(m)
+    metrics = {k: torch.mean(torch.stack([m[k] for m in mets])) for k in mets[0]}
+    return l_sum / accum_steps, metrics, [g / accum_steps for g in g_sum]
+
+
 def make_train_step(cfg: ModelConfig, opt: adamw.OptConfig, param_wire=None,
                     accum_steps: int = 1, device="cuda"):
     """`step(state, batch) -> (new_state, metrics)`, metrics {ce, aux, loss,
@@ -89,47 +135,163 @@ def make_train_step(cfg: ModelConfig, opt: adamw.OptConfig, param_wire=None,
     optimizer update."""
     device = require_device(device)
 
-    def grads_of(leaves, params_of, mb):
-        with L._span("loss"):
-            loss, metrics = M.loss_fn(cfg, params_of(), mb, device=device)
-        with L._span("backward"):
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
-
     def step_fn(state: adamw.TrainState, batch: Dict[str, torch.Tensor]):
-        if param_wire is None:
-            diff_var = state.params
-        else:
-            qtree = param_wire.quantize(state.params)     # outside autograd, once
-            diff_var = param_wire.carrier(state.params)
-        diff_var = T.map_structure(lambda p: p.detach().requires_grad_(True), diff_var)
-        leaves = T.leaves(diff_var)
-
-        def params_of():       # the loss's tree, built anew for each microbatch
-            return diff_var if param_wire is None else param_wire.graft(qtree, diff_var)
-
-        if accum_steps == 1:
-            loss, metrics, grads = grads_of(leaves, params_of, batch)
-        else:
-            mbs = _split_microbatches(batch, accum_steps)
-            g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-            l_sum = torch.zeros((), dtype=torch.float32, device=device)
-            mets = []
-            for i in range(accum_steps):
-                l, m, g = grads_of(leaves, params_of, {k: v[i] for k, v in mbs.items()})
-                g_sum = [a + b for a, b in zip(g_sum, g)]
-                l_sum = l_sum + l
-                mets.append(m)
-            grads = [g / accum_steps for g in g_sum]
-            loss = l_sum / accum_steps
-            metrics = {k: torch.mean(torch.stack([m[k] for m in mets])) for k in mets[0]}
+        loss, metrics, grads = _loss_and_grads(cfg, state.params, batch, param_wire,
+                                               accum_steps, device)
         with L._span("optimizer"):
             grad_tree = T.unflatten(state.params, grads)
             new_state = adamw.apply_updates(opt, state, grad_tree)
             metrics = dict(metrics, loss=loss, grad_norm=adamw.global_norm(grad_tree))
         return new_state, metrics
     return step_fn
+
+
+# ---------------------------------------------------------------------------
+# the sharded step over a device mesh
+# ---------------------------------------------------------------------------
+
+
+def distribute(mesh, tree, shardings):
+    """Full tensors (the same on every rank) -> DTensors holding this
+    rank's shards, laid out as `shardings` (a tree of `NamedSharding`s of
+    the same structure; a leaf whose spec is empty, such as the step,
+    stays a plain replicated tensor).  No communication."""
+    from torch.distributed.tensor import DTensor
+
+    def leaf(t, sh):
+        if not any(a is not None for a in sh.spec):
+            return t
+        local = S.local_shard(mesh, sh.spec, t)
+        if local.numel() != t.numel():       # free the full tensor
+            local = local.contiguous().clone()
+        return DTensor.from_local(local, mesh, S.placements(mesh, sh.spec, t.ndim),
+                                  run_check=False, shape=t.shape,
+                                  stride=torch.empty(t.shape, device="meta").stride())
+
+    return T.map_structure(leaf, tree, shardings)
+
+
+def gather(tree, device=None):
+    """Every DTensor leaf as its full tensor (a collective: every rank of its
+    mesh calls it), moved to `device` when given; other leaves as they are.
+    The shards are all-gathered along each sharded mesh dimension, the
+    innermost first, with the c10d calls of `parallel.collectives`; a
+    dimension of size 1 holds the whole (no copy: at one rank the result is
+    the shard's own storage)."""
+    from torch.distributed.tensor import DTensor
+
+    def leaf(t):
+        if isinstance(t, DTensor):
+            full = t.to_local()
+            for i in reversed(range(t.device_mesh.ndim)):
+                p = t.placements[i]
+                if p.is_shard() and t.device_mesh.size(i) > 1:
+                    parts = CC._all_gather(full, t.device_mesh.get_group(i))
+                    full = torch.cat(tuple(parts), dim=p.dim)
+            t = full
+        return t if device is None else t.to(device)
+
+    return T.map_structure(leaf, tree)
+
+
+def _batch_reduce(mesh, axes):
+    """The sum over the ranks the batch is split on: the TRINE schedule when
+    they are the mesh's (pod, data), or its `data` alone on a mesh without
+    `pod`; one flat all-reduce over any other split; none when the batch
+    is not split."""
+    if axes is None:
+        return lambda t: t
+    if axes == tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names):
+        return lambda t: CC.trine_all_reduce(t, mesh)
+    return lambda t: CC.flat_all_reduce(t, mesh, axes=axes)
+
+
+def _make_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, state_sh, batch_sh,
+                       accum_steps: int, device: torch.device):
+    from torch.distributed.tensor import DTensor
+
+    axes = batch_sh["tokens"].spec[0]
+    axes = (axes,) if isinstance(axes, str) else axes
+    reduce = _batch_reduce(mesh, axes)
+    param_sh = T.leaves(state_sh.params)
+
+    def to_local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def step_fn(state: adamw.TrainState, batch: Dict[str, torch.Tensor]):
+        local = {k: S.local_shard(mesh, batch_sh[k].spec, v) for k, v in batch.items()}
+        share = local["tokens"].numel() / batch["tokens"].numel()   # this rank's tokens
+        with L._span("gather"):
+            params = gather(state.params)
+        with actx.activation_sharding(mesh, axes):
+            loss, metrics, grads = _loss_and_grads(cfg, params, local, None, accum_steps,
+                                                   device)
+        del params
+        with L._span("grad_reduce"):
+            # the global batch's mean: each rank's mean weighted by its tokens
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            flat = reduce(flat * share if share != 1 else flat)
+            scalars = torch.stack([loss, metrics["ce"], metrics["aux"]])
+            scalars = CC.flat_all_reduce(scalars * share, mesh, axes) if axes else scalars
+        grads = [f.view(g.shape) for f, g in zip(torch.split(flat, [g.numel() for g in grads]),
+                                                 grads)]
+        with L._span("optimizer"):
+            gn = adamw.global_norm(grads)
+            mine = [S.local_shard(mesh, sh.spec, g).contiguous() for g, sh in zip(grads, param_sh)]
+            local_state = T.map_structure(to_local, state)
+            new_local = adamw.apply_updates(opt, local_state, T.unflatten(state.params, mine),
+                                            grad_norm=gn)
+            new_state = T.map_structure(
+                lambda t, old: DTensor.from_local(t, old.device_mesh, old.placements,
+                                                  run_check=False, shape=old.shape,
+                                                  stride=old.stride())
+                if isinstance(old, DTensor) else t, new_local, state)
+        metrics = {"ce": scalars[1], "aux": scalars[2], "loss": scalars[0], "grad_norm": gn}
+        return new_state, metrics
+    return step_fn
+
+
+def build_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, param_specs,
+                       batch_example, device="cuda", accum_steps: int = 1):
+    """The train step over `mesh` (a `DeviceMesh`): returns (step,
+    state_shardings, batch_shardings); `mesh=None` returns the one-device
+    step alone, as the reference's does.
+
+    The state (params, m, v) lives as DTensors laid out by
+    `enforce_divisibility(tree_shardings(mesh, state_specs(param_specs),
+    rules_for(cfg, mesh)))` (`distribute` puts a full state there).
+    `step(state, batch)` takes the GLOBAL batch on every rank and runs on
+    the rank's shard of it (`train_batch_shardings`); it gathers the
+    parameters whole, runs `make_train_step`'s forward and backward on
+    plain local tensors (the kernels see no DTensor), sums the gradients,
+    each rank's weighted by its share of the tokens, over the ranks the
+    batch is split on (`trine_all_reduce` over (pod, data), `flat_all_reduce`
+    otherwise), and updates each rank's shards with AdamW clipped by the
+    whole gradient's norm.  The loss, its parts and the clipping norm are
+    the global batch's.  The `model`-axis ranks hold the same batch shard
+    and compute the same gradients: GSPMD splits that work in the
+    reference, and this step does not (ROADMAP.md).
+
+    MoE configs raise `NotImplementedError` (their expert-parallel dispatch
+    is not ported), and so does `cfg.wire_bits` (the sharded parameter
+    wire)."""
+    device = require_device(device)
+    if mesh is None:
+        return make_train_step(cfg, opt, accum_steps=accum_steps, device=device)
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: an MoE config under a mesh needs the "
+                                  f"expert-parallel dispatch, which is not ported")
+    if cfg.wire_bits:
+        W.make_param_wire(cfg, mesh)     # raises: the sharded wire is not ported
+    rules = S.rules_for(cfg, mesh)
+    shapes, _ = M.init_abstract(cfg)
+    abstract = adamw.TrainState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                                params=shapes, m=shapes, v=shapes)
+    state_sh = S.enforce_divisibility(
+        S.tree_shardings(mesh, adamw.state_specs(param_specs), rules), abstract)
+    batch_sh = S.train_batch_shardings(cfg, mesh, batch_example)
+    step = _make_sharded_step(cfg, opt, mesh, state_sh, batch_sh, accum_steps, device)
+    return step, state_sh, batch_sh
 
 
 @dataclasses.dataclass
@@ -152,23 +314,35 @@ class Trainer:
     """Trains `cfg` on `device` from `state` (default: `model.init` at
     `tcfg.seed`, with f32 experts, and a fresh optimizer state), restoring
     the newest valid checkpoint in `tcfg.ckpt_dir` when `resume`.  A state
-    with any non-f32 master raises `ValueError`."""
+    with any non-f32 master raises `ValueError`.
+
+    With `mesh` (a `DeviceMesh`; every rank of it builds a trainer with the
+    same arguments) the step is `build_sharded_step`'s: the full state
+    (the same on every rank) is split into each rank's DTensor shards, each
+    rank draws the global batch and trains on its shard of it.  A
+    checkpoint gathers the state and rank 0 writes it; a restore reads it
+    on every rank and takes the rank's shards again.  `full_state()` gives
+    the whole state on every rank."""
 
     def __init__(self, cfg: ModelConfig, opt: adamw.OptConfig, data: DataConfig,
                  tcfg: TrainerConfig, mesh=None, resume: bool = True, source=None,
                  fabric=None, device="cuda", state: Optional[adamw.TrainState] = None):
-        if mesh is not None:
-            raise NotImplementedError("the sharded train step over a mesh is not ported "
-                                      "(ROADMAP.md, Queue 1 item 8)")
         self.cfg, self.opt, self.data_cfg, self.tcfg = cfg, opt, data, tcfg
+        self.mesh = mesh
         self.device = require_device(device)
         self.source = source if source is not None else SyntheticLM(cfg, data)
         if state is None:
             params = M.init(cfg, seed=tcfg.seed, device=self.device, expert_dtype=torch.float32)
             state = adamw.init_state(opt, params)
         check_masters(state.params)
+        self.state_sh = None
+        if mesh is None:
+            self._step = make_train_step(cfg, opt, device=self.device)
+        else:
+            self._step, self.state_sh, _ = build_sharded_step(
+                cfg, opt, mesh, M.param_specs(cfg), self.source.batch_at(0), device=self.device)
+            state = distribute(mesh, state, self.state_sh)
         self.state = state
-        self._step = make_train_step(cfg, opt, device=self.device)
 
         self.start_step = 0
         self.restore_s = None
@@ -176,7 +350,7 @@ class Trainer:
             # corrupt/truncated latest checkpoints (bad SHA1, missing
             # manifest) are dropped and the previous retained step restored
             t0 = time.perf_counter()
-            restored = store.restore_latest_valid(tcfg.ckpt_dir, self.state)
+            restored = self._restore()
             if restored is not None:
                 self.state, self.start_step = restored[0], int(restored[1])
                 self.restore_s = time.perf_counter() - t0
@@ -192,6 +366,37 @@ class Trainer:
 
         self.monitor = DeadlineMonitor(tcfg.straggler_deadline_s)
         self.history: list = []
+
+    # ---- checkpoints ------------------------------------------------------
+    def full_state(self) -> adamw.TrainState:
+        """The whole state (under a mesh a collective: every rank calls it)."""
+        return self.state if self.mesh is None else gather(self.state)
+
+    def _save(self, step: int) -> None:
+        if self.mesh is None:
+            store.save(self.tcfg.ckpt_dir, step, self.state, keep=self.tcfg.keep)
+            return
+        rank0 = dist.get_rank() == 0
+        full = gather(self.state, device="cpu" if rank0 else None)
+        if rank0:
+            store.save(self.tcfg.ckpt_dir, step, full, keep=self.tcfg.keep)
+        del full
+        dist.barrier()
+
+    def _restore(self):
+        if self.mesh is None:
+            return store.restore_latest_valid(self.tcfg.ckpt_dir, self.state)
+        like = T.map_structure(lambda t: SimpleNamespace(shape=tuple(t.shape), dtype=t.dtype,
+                                                         device=self.device), self.state)
+        restored = store.restore_latest_valid(self.tcfg.ckpt_dir, like)
+        step = -1 if restored is None else int(restored[1])
+        seen = torch.tensor([step, -step], device=self.device)
+        dist.all_reduce(seen, op=dist.ReduceOp.MAX)
+        if int(seen[0]) != -int(seen[1]):
+            raise RuntimeError(f"ranks restored different checkpoints (this rank: step {step})")
+        if restored is None:
+            return None
+        return distribute(self.mesh, restored[0], self.state_sh), step
 
     # ---- fault-epoch hook -------------------------------------------------
     def _replan(self) -> None:
@@ -243,7 +448,7 @@ class Trainer:
             row["step_s"] = time.perf_counter() - t_step
             if (step + 1) % self.tcfg.ckpt_every == 0 or step + 1 == steps:
                 t_ck = time.perf_counter()
-                store.save(self.tcfg.ckpt_dir, step + 1, self.state, keep=self.tcfg.keep)
+                self._save(step + 1)
                 row["ckpt_s"] = time.perf_counter() - t_ck
             if fail_at is not None and step + 1 == fail_at:
                 raise FailureInjected(f"injected node failure at step {step + 1}")

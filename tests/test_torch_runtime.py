@@ -324,9 +324,14 @@ def test_launch_train_main_reads_a_token_file(tmp_path, corpus):
     assert isinstance(trainer.source, TokenFileSource) and np.isfinite(out["last_loss"])
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "single"]])
-def test_launch_train_refuses_what_is_not_ported(tmp_path, flags):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("flags", [["--mesh", "single"], ["--mesh", "multi"]])
+def test_launch_train_refuses_what_is_not_ported(tmp_path, flags, monkeypatch):
+    """`--mesh` outside torchrun (no process group, no rendezvous
+    variables) raises, naming the ranks it needs."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    ranks = 512 if "multi" in flags else 256
+    with pytest.raises(RuntimeError, match=f"needs {ranks} ranks: run under torchrun"):
         launch_train.main(["--arch", "yi-6b", "--reduced", "--device", "cpu", "--ckpt",
                            str(tmp_path)] + flags)
 
@@ -377,11 +382,14 @@ def test_launch_train_wire_bits_trains_as_without_it(tmp_path, monkeypatch, caps
 
 
 def test_trainer_refuses_mesh_fabric_and_fault_injection(tmp_path):
-    """A mesh is not ported; a fabric is, and an unknown preset name is
-    refused as the reference's `get_fabric` refuses it; a fault without a
-    fabric raises as the reference's does."""
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _trainer(tmp_path, mesh=object())
+    """Under a mesh, an MoE config and the parameter wire are not ported and
+    raise before the mesh is read; a fabric is ported, and an unknown
+    preset name is refused as the reference's `get_fabric` refuses it; a
+    fault without a fabric raises as the reference's does."""
+    tc = TrainerConfig(ckpt_dir=str(tmp_path))
+    for cfg in (C.get_reduced("mixtral_8x7b"), dataclasses.replace(CFG, wire_bits=8)):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            Trainer(cfg, OPT, DATA, tc, mesh=object(), resume=False, device="cpu")
     with pytest.raises(KeyError, match="unknown fabric preset"):
         _trainer(tmp_path, fabric="trine")
     with pytest.raises(ValueError, match="no fabric"):
