@@ -17,8 +17,9 @@ Mesh semantics:
   model  the tensor-parallel axis (compute chiplets).
 
 `device_type` defaults to "cuda" (NCCL); "cpu" (gloo) is used only when
-the caller asks.  `mesh_axis_sizes` and `has_pod_axis` also read a
-`parallel.collectives.MeshGeometry`, a mesh's shape without a process group.
+the caller asks.  `mesh_axis_sizes` and `has_pod_axis` (re-exported from
+`parallel.collectives`) also read a `MeshGeometry`, a mesh's shape without
+a process group.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from __future__ import annotations
 import math
 
 import torch.distributed as dist
+
+from repro_torch.parallel.collectives import has_pod_axis, mesh_axis_sizes  # noqa: F401 (re-export)
 
 __all__ = ["make_production_mesh", "make_test_mesh", "mesh_axis_sizes", "has_pod_axis"]
 
@@ -56,15 +59,3 @@ def make_test_mesh(data: int = 2, model: int = 2, pod: int = 0, device_type: str
     if pod:
         return _make((pod, data, model), ("pod", "data", "model"), device_type)
     return _make((data, model), ("data", "model"), device_type)
-
-
-def mesh_axis_sizes(mesh) -> dict:
-    """{axis name: size} of a `DeviceMesh` or a `MeshGeometry`."""
-    names = getattr(mesh, "mesh_dim_names", None)
-    if names is not None:
-        return dict(zip(names, mesh.shape))
-    return dict(zip(mesh.axis_names, mesh.devices.shape))
-
-
-def has_pod_axis(mesh) -> bool:
-    return "pod" in mesh_axis_sizes(mesh)

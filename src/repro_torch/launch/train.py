@@ -23,7 +23,11 @@ on the card, gloo with `--device cpu`):
 
 Without torchrun's variables, or with another world size, `--mesh` raises.
 Under a mesh `--wire-bits` raises (the sharded wire is not ported), and so
-does an MoE config.
+does an MoE config.  The sharded step keeps only the state (params, m, v)
+sharded: in a step each rank holds the full f32 parameters and gradient,
+8-12 bytes a parameter besides the activations, so a config trains under
+a mesh only if it trains on one card (zamba2-1.2b at 8.8-13.2 GB; yi-34b
+and larger cannot on 80 GB cards; ROADMAP.md, Deviations).
 """
 
 from __future__ import annotations

@@ -4,10 +4,12 @@ The counterpart of the JAX package's `parallel/actx.py`.  There, GSPMD
 propagates parameter shardings into activations, and model code pins
 activations to batch-over-DP at stable points through this context (a
 `with_sharding_constraint`).  Here the context says how a rank's
-activations are laid out: the sharded train step (`runtime.trainer`) runs
-the model on plain tensors that ARE the rank's batch shard, so a
-constraint to batch-over-DP holds already, and `constrain` returns a plain
-tensor as it is; a `DTensor` is redistributed to the resolved placements.
+activations are laid out: `constrain` redistributes a `DTensor` to the
+resolved placements and returns a plain tensor, which holds the rank's
+shard already, as it is.  No model code of the port calls a constraint
+yet, and the sharded train step (`runtime.trainer`) opens no context: it
+runs the model on plain tensors that ARE the rank's batch shard.  The
+first caller is the tensor-parallel split of the compute (ROADMAP.md).
 Without the context (one device, the unit tests) every call is a no-op,
 as in the reference.
 """
@@ -21,29 +23,22 @@ import torch
 
 from repro_torch.parallel.sharding import P, PartitionSpec, placements
 
-__all__ = ["activation_sharding", "wire_active", "active", "resolve", "constrain",
-           "constrain_batch", "constrain_seq", "constrain_unseq"]
+__all__ = ["activation_sharding", "active", "resolve", "constrain", "constrain_batch",
+           "constrain_seq", "constrain_unseq"]
 
-_STATE: dict = {"mesh": None, "dp": None, "tp": None, "seq_tp": False, "wire_ok": False}
+_STATE: dict = {"mesh": None, "dp": None, "tp": None, "seq_tp": False}
 
 
 @contextlib.contextmanager
 def activation_sharding(mesh, dp_axes: Optional[Tuple[str, ...]],
                         tp_axis: Optional[str] = "model",
-                        seq_tp: bool = False, wire_ok: bool = False):
+                        seq_tp: bool = False):
     prev = dict(_STATE)
-    _STATE.update(mesh=mesh, dp=dp_axes, tp=tp_axis, seq_tp=seq_tp, wire_ok=wire_ok)
+    _STATE.update(mesh=mesh, dp=dp_axes, tp=tp_axis, seq_tp=seq_tp)
     try:
         yield
     finally:
         _STATE.update(prev)
-
-
-def wire_active() -> bool:
-    """The int8 weight wire format is meaningful only when parameters are
-    fully sharded and compute wants them whole (ZeRO-3 / fsdp_all): the
-    launcher sets `wire_ok` there."""
-    return bool(_STATE["wire_ok"]) and active()
 
 
 def active() -> bool:

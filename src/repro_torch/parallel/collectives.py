@@ -18,10 +18,12 @@ reference's replicated input, and each rank returns the whole result:
     dequantized and summed locally) and an error-feedback residual;
   * `_quantize_int8` / `_dequantize_int8`: that stage's symmetric int8
     quantization with per-chunk max-abs scales;
+  * `all_gather`: a group's tensors stacked on a new leading axis (the
+    schedules' last stage, and the trainer's parameter gather);
   * `collective_bytes_estimate`: per-device total and cross-pod bytes of
     each schedule, op for op as the schedules issue them, on a mesh's
     geometry alone (`MeshGeometry`: the benches price meshes that no
-    process holds);
+    process holds; `mesh_axis_sizes` and `has_pod_axis` read either);
   * `plan_channels`: the bandwidth-matching planner for collective
     chunking (`core.planner.plan_collective_channels`).
 """
@@ -35,10 +37,31 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.planner import plan_collective_channels as plan_channels  # noqa: F401 (re-export)
-from repro_torch.launch.mesh import mesh_axis_sizes
 
-__all__ = ["MeshGeometry", "flat_all_reduce", "trine_all_reduce",
-           "compressed_all_reduce", "collective_bytes_estimate", "plan_channels"]
+__all__ = ["MeshGeometry", "mesh_axis_sizes", "has_pod_axis", "all_gather", "flat_all_reduce",
+           "trine_all_reduce", "compressed_all_reduce", "collective_bytes_estimate",
+           "plan_channels"]
+
+
+class MeshGeometry:
+    """A mesh's axis names and shape, without devices: what
+    `collective_bytes_estimate` and the sharding rules read of a mesh."""
+
+    def __init__(self, shape, names=("pod", "data", "model")):
+        self.axis_names = tuple(names)
+        self.devices = SimpleNamespace(shape=tuple(shape))
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    """{axis name: size} of a `DeviceMesh` or a `MeshGeometry`."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def has_pod_axis(mesh) -> bool:
+    return "pod" in mesh_axis_sizes(mesh)
 
 
 def _pad_to(x: torch.Tensor, mult: int):
@@ -101,7 +124,7 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """The group's `x`s stacked on a new leading axis, in group-rank order."""
     n = dist.get_world_size(group)
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
@@ -138,7 +161,7 @@ def trine_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
     flat, orig = _pad_to(x.reshape(-1), dist.get_world_size(data))
     piece = _reduce_scatter(flat, data)
     dist.all_reduce(piece, group=mesh.get_group("pod"))
-    full = _all_gather(piece, data).reshape(-1)
+    full = all_gather(piece, data).reshape(-1)
     return full[:orig].reshape(x.shape)
 
 
@@ -166,21 +189,14 @@ def compressed_all_reduce(x: torch.Tensor, mesh, residual: Optional[torch.Tensor
     q, scale = _quantize_int8(piece, chunk_elems)
     new_res = piece - _dequantize_int8(q, scale, piece.shape[0])
     pod = mesh.get_group("pod")
-    qg, sg = _all_gather(q, pod), _all_gather(scale, pod)
+    qg, sg = all_gather(q, pod), all_gather(scale, pod)
     deq = qg.to(torch.float32) * sg[:, :, None]
     summed = torch.sum(deq.reshape(deq.shape[0], -1)[:, :piece.shape[0]], dim=0)
-    full = _all_gather(summed, data).reshape(-1)
-    res_full = _all_gather(new_res, data).reshape(-1)
+    full = all_gather(summed, data).reshape(-1)
+    res_full = all_gather(new_res, data).reshape(-1)
     return full[:orig].reshape(x.shape), res_full[:orig].reshape(x.shape)
 
 
-class MeshGeometry:
-    """A mesh's axis names and shape, without devices: what
-    `collective_bytes_estimate` reads of a mesh."""
-
-    def __init__(self, shape, names=("pod", "data", "model")):
-        self.axis_names = tuple(names)
-        self.devices = SimpleNamespace(shape=tuple(shape))
 
 
 def collective_bytes_estimate(n_elems: int, dtype_bytes: int, mesh, schedule: str,

@@ -34,7 +34,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 from repro_torch import tree as T
-from repro_torch.launch.mesh import mesh_axis_sizes
+from repro_torch.parallel.collectives import mesh_axis_sizes
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["PartitionSpec", "P", "NamedSharding", "rules_for", "spec_to_pspec", "is_axes_leaf",

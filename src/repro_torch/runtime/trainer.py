@@ -2,7 +2,7 @@
 
 Builds the train step, wires the data pipeline, checkpoints step-atomically
 and resumes bitwise-identically, injects failures, and accounts stragglers
-by the deadline policy.
+by the deadline policy (under a mesh the ranks drop a step together).
 
 train_step = forward (chunked CE, `models.model.loss_fn`) -> backward
 (autograd) -> AdamW update; each part runs inside a `layers._span` range
@@ -27,6 +27,16 @@ TRINE all-reduce (`parallel.collectives`), additional `gather` and
 `grad_reduce` ranges.  As in the reference, the trainer without a mesh
 builds its step with no wire, whatever `cfg.wire_bits` says; under a mesh
 `cfg.wire_bits` raises, since the sharded wire is not ported.
+
+Under a mesh each rank holds only its shards of the state (params, m, v:
+12/N bytes a parameter over N ranks) between steps, but the step itself is
+not memory-sharded: it gathers the full f32 parameters (4 bytes a
+parameter) and computes the full gradient (4 bytes), and the reduction
+holds the flat gradient and the schedule's full result (8 bytes, 12 when
+the length needs padding to the data size) once the parameters are freed.
+So a rank needs about 8-12 bytes a parameter besides the activations,
+whatever the mesh: only configs that train on one card train under a mesh
+(ROADMAP.md, Deviations).
 """
 from __future__ import annotations
 
@@ -50,7 +60,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
-from repro_torch.parallel import actx
 from repro_torch.parallel import collectives as CC
 from repro_torch.parallel import sharding as S
 from repro_torch.parallel import wire as W
@@ -151,24 +160,48 @@ def make_train_step(cfg: ModelConfig, opt: adamw.OptConfig, param_wire=None,
 # ---------------------------------------------------------------------------
 
 
-def distribute(mesh, tree, shardings):
+def _as_dtensor(mesh, local: torch.Tensor, spec, shape):
+    """This rank's shard `local` of a tensor of `shape` laid out as `spec`."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, mesh, S.placements(mesh, spec, len(shape)),
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def distribute(mesh, tree, shardings, device=None):
     """Full tensors (the same on every rank) -> DTensors holding this
     rank's shards, laid out as `shardings` (a tree of `NamedSharding`s of
     the same structure; a leaf whose spec is empty, such as the step,
-    stays a plain replicated tensor).  No communication."""
-    from torch.distributed.tensor import DTensor
-
+    stays a plain replicated tensor), moved to `device` when given (only
+    the shard is copied).  No communication."""
     def leaf(t, sh):
+        dev = t.device if device is None else torch.device(device)
         if not any(a is not None for a in sh.spec):
-            return t
+            return t.to(dev)
         local = S.local_shard(mesh, sh.spec, t)
-        if local.numel() != t.numel():       # free the full tensor
-            local = local.contiguous().clone()
-        return DTensor.from_local(local, mesh, S.placements(mesh, sh.spec, t.ndim),
-                                  run_check=False, shape=t.shape,
-                                  stride=torch.empty(t.shape, device="meta").stride())
+        if local.numel() != t.numel() or local.device != dev:    # free the full tensor
+            local = local.to(dev, copy=True, memory_format=torch.contiguous_format)
+        return _as_dtensor(mesh, local, sh.spec, t.shape)
 
     return T.map_structure(leaf, tree, shardings)
+
+
+def sharded_init(mesh, opt: adamw.OptConfig, params, state_sh) -> adamw.TrainState:
+    """A fresh optimizer state over full `params` (the same on every rank),
+    laid out as `state_sh`, with no full moment allocated: the parameters
+    are split first and the moments made as the rank's shards."""
+    from torch.distributed.tensor import DTensor
+
+    params = distribute(mesh, params, state_sh.params)
+    local = adamw.init_state(opt, T.map_structure(
+        lambda p: p.to_local() if isinstance(p, DTensor) else p, params))
+
+    def wrap(z, p, sh):
+        return _as_dtensor(mesh, z, sh.spec, p.shape) if isinstance(p, DTensor) else z
+
+    return local._replace(params=params, m=T.map_structure(wrap, local.m, params, state_sh.m),
+                          v=T.map_structure(wrap, local.v, params, state_sh.v))
 
 
 def gather(tree, device=None):
@@ -186,7 +219,7 @@ def gather(tree, device=None):
             for i in reversed(range(t.device_mesh.ndim)):
                 p = t.placements[i]
                 if p.is_shard() and t.device_mesh.size(i) > 1:
-                    parts = CC._all_gather(full, t.device_mesh.get_group(i))
+                    parts = CC.all_gather(full, t.device_mesh.get_group(i))
                     full = torch.cat(tuple(parts), dim=p.dim)
             t = full
         return t if device is None else t.to(device)
@@ -223,18 +256,20 @@ def _make_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, state_sh, b
         share = local["tokens"].numel() / batch["tokens"].numel()   # this rank's tokens
         with L._span("gather"):
             params = gather(state.params)
-        with actx.activation_sharding(mesh, axes):
-            loss, metrics, grads = _loss_and_grads(cfg, params, local, None, accum_steps,
-                                                   device)
+        loss, metrics, grads = _loss_and_grads(cfg, params, local, None, accum_steps, device)
         del params
         with L._span("grad_reduce"):
             # the global batch's mean: each rank's mean weighted by its tokens
+            shapes = [g.shape for g in grads]
             flat = torch.cat([g.reshape(-1) for g in grads])
-            flat = reduce(flat * share if share != 1 else flat)
+            del grads
+            if share != 1:
+                flat.mul_(share)
+            flat = reduce(flat)
             scalars = torch.stack([loss, metrics["ce"], metrics["aux"]])
             scalars = CC.flat_all_reduce(scalars * share, mesh, axes) if axes else scalars
-        grads = [f.view(g.shape) for f, g in zip(torch.split(flat, [g.numel() for g in grads]),
-                                                 grads)]
+        grads = [f.view(sh) for f, sh in zip(torch.split(flat, [sh.numel() for sh in shapes]),
+                                             shapes)]
         with L._span("optimizer"):
             gn = adamw.global_norm(grads)
             mine = [S.local_shard(mesh, sh.spec, g).contiguous() for g, sh in zip(grads, param_sh)]
@@ -259,7 +294,8 @@ def build_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, param_specs
 
     The state (params, m, v) lives as DTensors laid out by
     `enforce_divisibility(tree_shardings(mesh, state_specs(param_specs),
-    rules_for(cfg, mesh)))` (`distribute` puts a full state there).
+    rules_for(cfg, mesh)))` (`distribute` puts a full state there,
+    `sharded_init` a fresh one).
     `step(state, batch)` takes the GLOBAL batch on every rank and runs on
     the rank's shard of it (`train_batch_shardings`); it gathers the
     parameters whole, runs `make_train_step`'s forward and backward on
@@ -270,7 +306,8 @@ def build_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, param_specs
     whole gradient's norm.  The loss, its parts and the clipping norm are
     the global batch's.  The `model`-axis ranks hold the same batch shard
     and compute the same gradients: GSPMD splits that work in the
-    reference, and this step does not (ROADMAP.md).
+    reference, and this step does not (ROADMAP.md).  Nor does it shard
+    the step's memory: the module docstring counts what a rank holds.
 
     MoE configs raise `NotImplementedError` (their expert-parallel dispatch
     is not ported), and so does `cfg.wire_bits` (the sharded parameter
@@ -317,12 +354,14 @@ class Trainer:
     with any non-f32 master raises `ValueError`.
 
     With `mesh` (a `DeviceMesh`; every rank of it builds a trainer with the
-    same arguments) the step is `build_sharded_step`'s: the full state
-    (the same on every rank) is split into each rank's DTensor shards, each
-    rank draws the global batch and trains on its shard of it.  A
-    checkpoint gathers the state and rank 0 writes it; a restore reads it
-    on every rank and takes the rank's shards again.  `full_state()` gives
-    the whole state on every rank."""
+    same arguments) the step is `build_sharded_step`'s: the state (the same
+    on every rank) is split into each rank's DTensor shards (a fresh one
+    by `sharded_init`), each rank draws the global batch and trains on its
+    shard of it.  A checkpoint gathers the state leaf by leaf and rank 0
+    writes it; a restore reads it on every rank's host and moves the
+    rank's shards to the device.  `full_state()` gives the whole state on
+    every rank.  The straggler deadline drops a step on every rank when
+    any rank's delivery missed it (`_admit`)."""
 
     def __init__(self, cfg: ModelConfig, opt: adamw.OptConfig, data: DataConfig,
                  tcfg: TrainerConfig, mesh=None, resume: bool = True, source=None,
@@ -331,17 +370,20 @@ class Trainer:
         self.mesh = mesh
         self.device = require_device(device)
         self.source = source if source is not None else SyntheticLM(cfg, data)
+        params = None
         if state is None:
             params = M.init(cfg, seed=tcfg.seed, device=self.device, expert_dtype=torch.float32)
-            state = adamw.init_state(opt, params)
-        check_masters(state.params)
+        check_masters(params if state is None else state.params)
         self.state_sh = None
         if mesh is None:
             self._step = make_train_step(cfg, opt, device=self.device)
+            state = adamw.init_state(opt, params) if state is None else state
         else:
             self._step, self.state_sh, _ = build_sharded_step(
                 cfg, opt, mesh, M.param_specs(cfg), self.source.batch_at(0), device=self.device)
-            state = distribute(mesh, state, self.state_sh)
+            state = (sharded_init(mesh, opt, params, self.state_sh) if state is None
+                     else distribute(mesh, state, self.state_sh))
+        del params
         self.state = state
 
         self.start_step = 0
@@ -377,7 +419,12 @@ class Trainer:
             store.save(self.tcfg.ckpt_dir, step, self.state, keep=self.tcfg.keep)
             return
         rank0 = dist.get_rank() == 0
-        full = gather(self.state, device="cpu" if rank0 else None)
+
+        def leaf(t):   # one whole leaf on the device at a time; rank 0 keeps it on the host
+            t = gather(t, device="cpu" if rank0 else None)
+            return t if rank0 else None
+
+        full = T.map_structure(leaf, self.state)
         if rank0:
             store.save(self.tcfg.ckpt_dir, step, full, keep=self.tcfg.keep)
         del full
@@ -387,7 +434,7 @@ class Trainer:
         if self.mesh is None:
             return store.restore_latest_valid(self.tcfg.ckpt_dir, self.state)
         like = T.map_structure(lambda t: SimpleNamespace(shape=tuple(t.shape), dtype=t.dtype,
-                                                         device=self.device), self.state)
+                                                         device="cpu"), self.state)
         restored = store.restore_latest_valid(self.tcfg.ckpt_dir, like)
         step = -1 if restored is None else int(restored[1])
         seen = torch.tensor([step, -step], device=self.device)
@@ -396,7 +443,18 @@ class Trainer:
             raise RuntimeError(f"ranks restored different checkpoints (this rank: step {step})")
         if restored is None:
             return None
-        return distribute(self.mesh, restored[0], self.state_sh), step
+        return distribute(self.mesh, restored[0], self.state_sh, device=self.device), step
+
+    def _admit(self, delivery_s: float) -> bool:
+        """The deadline policy's verdict on this step's batch.  Under a mesh
+        the ranks decide together, on the slowest rank's delivery: a rank
+        that skipped a step its peers entered would leave their
+        collectives unmatched."""
+        if self.mesh is not None:
+            t = torch.tensor([delivery_s], dtype=torch.float64, device=self.device)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            delivery_s = float(t[0])
+        return self.monitor.admit(delivery_s)
 
     # ---- fault-epoch hook -------------------------------------------------
     def _replan(self) -> None:
@@ -439,8 +497,8 @@ class Trainer:
             fetch_t0 = time.perf_counter()
             batch = self.source.batch_at(step)
             delivery = time.perf_counter() - fetch_t0
-            if not self.monitor.admit(delivery):
-                continue  # straggler drop: skip this host's contribution
+            if not self._admit(delivery):
+                continue  # straggler drop: skip this step's batch (every rank's, under a mesh)
 
             t_step = time.perf_counter()
             self.state, metrics = self._step(self.state, _to_device(batch, self.device))

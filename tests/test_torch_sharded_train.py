@@ -26,7 +26,8 @@ Explicit axes) at `REF_STEP_TOL`, measured: XLA compiles the step with
 excess precision and its own reduction orders (ROADMAP.md, Queue 3); the
 measurements stand beside `REF_STEP_TOL`.  A
 trainer under the mesh saved at step 1 and resumed reaches the straight
-run's step-2 state bit for bit.
+run's step-2 state bit for bit.  A rank that delivers a batch past the
+straggler deadline makes every rank drop that step.
 
 One module-scoped fixture runs the reference subprocess and the 8 port
 ranks together, each writing its results to files; the tests read them.
@@ -76,6 +77,9 @@ OPT_KW = dict(lr=1e-3, warmup_steps=2, total_steps=16)
 # at rtol 1e-5 (loss), 2e-4 (gradient norm), and 0.1 lr absolute with
 # rtol 1e-4 (parameters).
 REF_STEP_TOL = {"loss": 1e-5, "grad_norm": 2e-4, "params_rtol": 1e-4, "params_lr": 0.1}
+# the straggler case: rank 1 sleeps LATE_S before one batch, past the
+# trainer's deadline by a margin no loaded host closes
+DEADLINE_S, LATE_S = 1.0, 2.5
 
 
 def _enc(spec):
@@ -256,11 +260,11 @@ RANK_SCRIPT = textwrap.dedent("""
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
                             world_size=world)
     sys.path.insert(0, tests)
-    from test_torch_sharded_train import OPT_KW, STEP_ARCHS, STEPS, describe_port
+    from test_torch_sharded_train import DEADLINE_S, LATE_S, OPT_KW, STEP_ARCHS, STEPS, describe_port
     from torch.distributed.tensor import DTensor
     from repro_torch import configs as C
     from repro_torch import tree as T
-    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import model as M
@@ -333,6 +337,26 @@ RANK_SCRIPT = textwrap.dedent("""
                         resume=False, device="cpu")
     single.run(2, quiet=True)
     out["trainer_losses_single"] = np.array([h["loss"] for h in single.history])
+
+    # a straggler: rank 1 delivers step 2's batch past the deadline; every
+    # rank drops that step, and none waits in a collective its peers skip
+    class Late:
+        def __init__(self, source):
+            self.source = source
+
+        def batch_at(self, step):
+            if rank == 1 and step == 1:
+                time.sleep(LATE_S)
+            return self.source.batch_at(step)
+
+    late = TR.Trainer(cfg, opt, data, dataclasses.replace(tc, ckpt_dir=f"{tmp}/late",
+                                                           straggler_deadline_s=DEADLINE_S),
+                      resume=False, device="cpu", mesh=mesh,
+                      source=Late(SyntheticLM(cfg, data)))
+    stats = late.run(3, quiet=True)["straggler"]
+    out["late_steps"] = np.array([h["step"] for h in late.history])
+    out["late_losses"] = np.array([h["loss"] for h in late.history])
+    out["late_stats"] = np.array([stats["steps"], stats["dropped"]])
 
     # what stays refused under a mesh
     def refusal(fn):
@@ -470,6 +494,18 @@ def test_trainer_under_the_mesh_resumes_bitwise(runs):
 def test_trainer_under_the_mesh_matches_the_one_device_trainer(runs):
     for got in runs["ranks"]:
         np.testing.assert_allclose(got["trainer_losses"], got["trainer_losses_single"], rtol=1e-5)
+
+
+def test_a_late_rank_drops_the_step_on_every_rank(runs):
+    """Rank 1 misses the deadline on step 2 alone: every rank drops step 2
+    and trains steps 1 and 3 with the same losses (a rank deciding alone
+    would leave its peers' collectives unmatched)."""
+    first = runs["ranks"][0]
+    assert 2 not in list(first["late_steps"]) and 1 <= int(first["late_stats"][1])
+    assert int(first["late_stats"][0]) == 3
+    for got in runs["ranks"]:
+        for key in ("late_steps", "late_losses", "late_stats"):
+            np.testing.assert_array_equal(got[key], first[key], err_msg=key)
 
 
 @pytest.mark.parametrize("what, want", [
