@@ -170,13 +170,18 @@ the reference test's 8 max|x| / 127, for one scale and 64-element chunks,
 the int8 levels and scales of a 2^24-element slice equal to the CPU's),
 `pipelined_apply` at S = 1 forward and backward against
 `sequential_reference`, and zamba2-1.2b at full size trained `MESH_STEPS`
-steps of 8 x 2048 through `Trainer(mesh=)` (DTensor state, the gradient
-through `trine_all_reduce`, a checkpoint gathered at the end) against the
-first steps of `train`'s straight run, a `Trainer(mesh=None)`: losses and
-gradient norms within `MESH_TOLERANCE`, its launches per step, step
-seconds and peak memory beside the card.  NCCL takes no two ranks on
-one card: the phase proves the path builds and launches, not that it
-splits work.
+steps of 8 x 2048 through `Trainer(mesh=)` (a state drawn shard by shard,
+each layer's weights gathered at its use and its gradient reduced into
+the rank's shard, a checkpoint written by the rank's slices at the end)
+against the first steps of `train`'s straight run, a `Trainer(mesh=None)`:
+losses and gradient norms within `MESH_TOLERANCE`, its launches per step,
+step seconds and peak memory beside the card.  Then mixtral-8x7b at
+published width and `MESH_MOE_DEPTH` layers, `MESH_STEPS` steps of
+`MESH_MOE_BATCH` through `Trainer(mesh=)` against the one-device step on
+the same state and batches, the same checks (its own path of launches,
+`mixtral-8x7b train_mesh`).  NCCL takes no two ranks on one card: the
+phase proves the path builds and launches, not that it splits work or
+memory.
 
 Last, `examples`: the five model examples (`examples/torch_quickstart.py`,
 `torch_continuous_batching.py`, `torch_serve_batched.py`, which runs the
@@ -2927,7 +2932,9 @@ def run_train_path(profile: bool) -> dict:
     zero_counters()
     wire = phase_train_wire(straight)
     launches["zamba2-1.2b train_wire"] = wire["launches"]
-    launches["zamba2-1.2b train_mesh"] = phase_mesh(straight)["launches"]
+    mesh = phase_mesh(straight)
+    launches["zamba2-1.2b train_mesh"] = mesh["launches"]
+    launches["mixtral-8x7b train_mesh"] = mesh["moe"]["launches"]
     if profile:
         phase_train_profile()
     return launches
@@ -2946,6 +2953,21 @@ MESH_QUANT_SLICE = 1 << 24
 MESH_PIPE = dict(L=2, D=2048, M=6, MB=8)
 MESH_STEPS = 3
 MESH_TOLERANCE = {"loss": 1e-5, "grad_norm": 1e-3}     # tests/test_torch_train.py
+# mixtral-8x7b trained under the mesh at published width (d_model 4096,
+# d_ff 14336, 8 experts, top-2), bf16 compute, f32 masters and experts, cut
+# in depth: a layer holds 1.451e9 parameters (its experts 1.409e9), the
+# embedding and head 0.262e9.  At world size 1 the sharded step holds 16
+# bytes a parameter (parameters, m, v, gradient; the update in place), so
+# one layer is 27.4 GB and two 50.6 GB, before the optimizer's per-leaf
+# temporaries (a few copies of one layer's 1.88 GB expert stack) and the
+# activations.  The one-device step it is held against keeps the old and
+# the new state beside the gradient at its update, 28 bytes a parameter:
+# 48.0 GB for one layer and 88.5 GB for two, which no 80 GB card holds.
+# So one layer; the tokens are mixtral's sequence at `train`'s 8 x 2048
+# halved in batch, the experts' f32 rows then about 4.7 GB.
+MESH_MOE_ID = "mixtral_8x7b"
+MESH_MOE_DEPTH = 1
+MESH_MOE_BATCH = (4, 2048)
 
 
 def _mesh_collectives(mesh) -> dict:
@@ -3021,6 +3043,74 @@ def _mesh_pipeline() -> dict:
     return out
 
 
+def _mesh_moe(mesh) -> dict:
+    """mixtral-8x7b at published width, `MESH_MOE_DEPTH` layers, trained
+    `MESH_STEPS` steps through `Trainer(mesh=)` (the counters at 0 just
+    before and read just after), then the one-device step
+    (`make_train_step`, what `Trainer(mesh=None)` runs, without its
+    checkpoint) on `M.init`'s state at the same seed and the same batches:
+    losses and gradient norms within `MESH_TOLERANCE`, launches equal to
+    `train_step_launches` per step on both runs, step seconds and peaks."""
+    cfg = dataclasses.replace(C.get(MESH_MOE_ID), n_layers=MESH_MOE_DEPTH,
+                              use_photonic_mac=True, use_kernels=True)
+    data = DataConfig(global_batch=MESH_MOE_BATCH[0], seq_len=MESH_MOE_BATCH[1])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_moe_", dir=TRAIN_CKPT_ROOT) as tmp:
+        tcfg = TR.TrainerConfig(ckpt_dir=tmp, ckpt_every=MESH_STEPS, log_every=10 ** 9,
+                                seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        trainer = TR.Trainer(cfg, TRAIN_OPT, data, tcfg, mesh=mesh, resume=False, device=DEV)
+        trainer.run(MESH_STEPS, quiet=True)
+        torch.cuda.synchronize()
+        launches = counters()
+        hist = trainer.history
+        parameters = sum(t.numel() for t in T.leaves(trainer.state.params))
+        del trainer
+    _free()
+    sharded = {"losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+               "step_s": [h["step_s"] for h in hist], "ckpt_s": hist[-1]["ckpt_s"],
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    torch.cuda.reset_peak_memory_stats()
+    before = counters()
+    step = TR.make_train_step(cfg, TRAIN_OPT, device=DEV)
+    state = adamw.init_state(TRAIN_OPT, M.init(cfg, seed=SEED, device=DEV,
+                                               expert_dtype=torch.float32))
+    source = SyntheticLM(cfg, data)
+    single = {"losses": [], "grad_norms": [], "step_s": []}
+    for i in range(MESH_STEPS):
+        batch = {k: torch.as_tensor(v).to(DEV) for k, v in source.batch_at(i).items()}
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        single["losses"].append(float(m["loss"]))
+        single["grad_norms"].append(float(m["grad_norm"]))
+        single["step_s"].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    single_launches = _since(before)
+    single["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, step
+    _free()
+    want = {k: v * MESH_STEPS for k, v in
+            train_step_launches(cfg, MESH_MOE_BATCH[0], MESH_MOE_BATCH[1]).items()}
+    rel = {k: [abs(a - b) / abs(b) for a, b in zip(sharded[k], single[k])]
+           for k in ("losses", "grad_norms")}
+    out = {"model": cfg.name, "n_layers": cfg.n_layers, "published_n_layers":
+           C.get(MESH_MOE_ID).n_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+           "n_experts": cfg.n_experts, "top_k": cfg.top_k, "dtype": cfg.dtype,
+           "parameters": parameters, "batch": MESH_MOE_BATCH[0], "seq": MESH_MOE_BATCH[1],
+           "steps": MESH_STEPS, "tolerance": MESH_TOLERANCE, "sharded": sharded,
+           "single": single, "launches": launches, "single_launches": single_launches,
+           "rel_diff": rel, "bitwise": (sharded["losses"] == single["losses"]
+                                        and sharded["grad_norms"] == single["grad_norms"])}
+    emit({"phase": "mesh_moe", **out})
+    assert launches == want and single_launches == want, (launches, single_launches, want)
+    assert launches["photonic_mac"] > 0 and launches["flash_attention"] > 0, launches
+    assert max(rel["losses"]) < MESH_TOLERANCE["loss"], rel
+    assert max(rel["grad_norms"]) < MESH_TOLERANCE["grad_norm"], rel
+    assert all(map(math.isfinite, sharded["losses"])), sharded
+    return out
+
+
 def phase_mesh(straight: dict) -> dict:
     """The cross-device layer through NCCL at world size 1: a file-store
     rendezvous, `make_test_mesh(1, 1, 1)` on the card, the three
@@ -3029,9 +3119,10 @@ def phase_mesh(straight: dict) -> dict:
     `Trainer(mesh=)` against the first `MESH_STEPS` steps of `train`'s
     straight run (`straight`, a `Trainer(mesh=None)` on the same flags,
     state and batches): losses and gradient norms within `MESH_TOLERANCE`,
-    and its launches per step.  The counters are set to 0 just before the
-    sharded run and read just after.  NCCL takes no two ranks on one card,
-    so nothing here splits work (ROADMAP.md)."""
+    and its launches per step; then the sharded mixtral run (`_mesh_moe`).
+    The counters are set to 0 just before each sharded run and read just
+    after.  NCCL takes no two ranks on one card, so nothing here splits
+    work or memory (ROADMAP.md)."""
     t0 = time.perf_counter()
     out = {"phase": "mesh", "card": card(), "world_size": 1}
     rdv = tempfile.mkdtemp(prefix="chip_smoke_mesh_")      # the store lives as long as the group
@@ -3072,13 +3163,17 @@ def phase_mesh(straight: dict) -> dict:
                for k in ("losses", "grad_norms")}
         out.update(sharded=sharded, single=single, launches=launches, steps=MESH_STEPS,
                    batch=TRAIN_BATCH, seq=TRAIN_SEQ, tolerance=MESH_TOLERANCE, rel_diff=rel,
-                   seconds=time.perf_counter() - t0)
+                   bitwise=(sharded["losses"] == single["losses"]
+                            and sharded["grad_norms"] == single["grad_norms"]))
         emit(out)
         assert launches == want, (launches, want)
         assert all(n > 0 for n in launches.values()), launches
         assert max(rel["losses"]) < MESH_TOLERANCE["loss"], rel
         assert max(rel["grad_norms"]) < MESH_TOLERANCE["grad_norm"], rel
         assert all(map(math.isfinite, sharded["losses"])), sharded
+        out["moe"] = _mesh_moe(mesh)
+        out["seconds"] = time.perf_counter() - t0
+        emit({"phase": "mesh_total", "seconds": out["seconds"]})
     finally:
         dist.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
@@ -3225,6 +3320,8 @@ PATHS = [
     ("gemma3_27b", "gemma3-27b", ("photonic_mac", "flash_attention")),
     ("grok1_314b", "grok-1-314b", ("photonic_mac", "flash_attention")),
 ]
+# the training paths that run fewer than all three kernels (the others run all)
+TRAIN_PATH_NEEDS = {"mixtral-8x7b train_mesh": ("photonic_mac", "flash_attention")}
 # the paths that take yi-6b's phases: the batcher's 8 ragged requests, then
 # batch 128
 BATCHER_ARCHS = ("yi-6b", "mixtral-8x7b", "qwen2-vl-72b", "yi-34b", "deepseek-67b",
@@ -3355,7 +3452,7 @@ def main() -> None:
             assert by_path[arch][name] > 0, f"the {arch} path never launched {name}"
     for path, n in run_train_path(args.profile).items():
         by_path[path] = n
-        for name in KERNELS:
+        for name in TRAIN_PATH_NEEDS.get(path, KERNELS):
             assert n[name] > 0, f"the {path} path never launched {name}"
     launches = {name: sum(n[name] for n in by_path.values()) for name in KERNELS}
     phase_examples()

@@ -22,12 +22,14 @@ on the card, gloo with `--device cpu`):
       --arch zamba2-1.2b --mesh single --steps 20 --batch 256 --seq 4096
 
 Without torchrun's variables, or with another world size, `--mesh` raises.
-Under a mesh `--wire-bits` raises (the sharded wire is not ported), and so
-does an MoE config.  The sharded step keeps only the state (params, m, v)
-sharded: in a step each rank holds the full f32 parameters and gradient,
-8-12 bytes a parameter besides the activations, so a config trains under
-a mesh only if it trains on one card (zamba2-1.2b at 8.8-13.2 GB; yi-34b
-and larger cannot on 80 GB cards; ROADMAP.md, Deviations).
+Under a mesh `--wire-bits` raises (the sharded wire is not ported); MoE
+configs train, in both `--moe-dispatch` modes.  The sharded step holds on
+each rank its shards of the f32 parameters, m, v and gradient (16/N bytes
+a parameter over the N ranks that split a leaf), plus one layer's full
+parameters and gradient while that layer runs, plus the gathered
+embedding and head while they are in use, plus the activations
+(`runtime.trainer`); a checkpoint is written and read by every rank, each
+its own slices, in the one-device format.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +29,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
+# `keep(name, leaf)`: what an init stores of a leaf it has just drawn
+Keep = Optional[Callable[[str, torch.Tensor], torch.Tensor]]
 
 
 # ---------------------------------------------------------------------------
@@ -50,6 +52,13 @@ def _dense_init(gen: torch.Generator, shape, in_axes=(0,), *, device, layers: in
     for i in range(layers):
         out[i].copy_(_dense_init(gen, shape, in_axes, device=device))
     return out
+
+
+def _draw(keep: Keep, leaves: Sequence[Tuple[str, Callable[[], torch.Tensor]]]) -> Params:
+    """{name: draw()} in the order given, each leaf handed to `keep` (when
+    given) as soon as it is drawn, before the next is: a sharded init keeps
+    a rank's shard of it and frees the rest (`model.init(keep=)`)."""
+    return {name: draw() if keep is None else keep(name, draw()) for name, draw in leaves}
 
 
 def _zeros(shape, *, device, layers: int = 0):
@@ -74,6 +83,24 @@ def linear(cfg: ModelConfig, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         y = ops.photonic_matmul(x2, w2, cfg.photonic_bits, cfg.use_kernels)
         return y.reshape(*x.shape[:-1], *out_shape).to(x.dtype)
     return torch.matmul(x, w.reshape(k, -1).to(x.dtype)).reshape(*x.shape[:-1], *out_shape)
+
+
+# the sharded train step's mean over its batch ranks (`runtime.trainer`): a
+# differentiable function of this rank's mean, each rank's weighted by its
+# tokens; None (one device) leaves a rank's mean as it is
+_BATCH_MEAN: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def batch_mean(fn: Optional[Callable[[torch.Tensor], torch.Tensor]]):
+    """Within the context, the MoE load-balance statistics are averaged by
+    `fn` over the ranks a sharded step splits the batch on (`apply_moe`)."""
+    global _BATCH_MEAN
+    prev, _BATCH_MEAN = _BATCH_MEAN, fn
+    try:
+        yield
+    finally:
+        _BATCH_MEAN = prev
 
 
 def _span(name: str):
@@ -139,17 +166,19 @@ def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> to
 # ---------------------------------------------------------------------------
 
 
-def init_attention(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0) -> Params:
-    """One attention block, or `layers` of them stacked on a leading axis."""
+def init_attention(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0,
+                   keep: Keep = None) -> Params:
+    """One attention block, or `layers` of them stacked on a leading axis;
+    each leaf through `keep` as it is drawn (`_draw`), as in every init."""
     m, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     kw = {"device": device, "layers": layers}
-    return {
-        "wq": _dense_init(gen, (m, h, dh), **kw),
-        "wk": _dense_init(gen, (m, hk, dh), **kw),
-        "wv": _dense_init(gen, (m, hk, dh), **kw),
-        "wo": _dense_init(gen, (h, dh, m), in_axes=(0, 1), **kw),
-        "norm": _zeros((m,), **kw),
-    }
+    return _draw(keep, [
+        ("wq", lambda: _dense_init(gen, (m, h, dh), **kw)),
+        ("wk", lambda: _dense_init(gen, (m, hk, dh), **kw)),
+        ("wv", lambda: _dense_init(gen, (m, hk, dh), **kw)),
+        ("wo", lambda: _dense_init(gen, (h, dh, m), in_axes=(0, 1), **kw)),
+        ("norm", lambda: _zeros((m,), **kw)),
+    ])
 
 
 def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
@@ -257,9 +286,9 @@ def decode_attention(q, k, v, pos, *, window: int = 0):
 
 
 def init_cross_attention(cfg: ModelConfig, gen: torch.Generator, *, device,
-                         layers: int = 0) -> Params:
+                         layers: int = 0, keep: Keep = None) -> Params:
     """The decoder's cross-attention: the leaves of an attention block."""
-    return init_attention(cfg, gen, device=device, layers=layers)
+    return init_attention(cfg, gen, device=device, layers=layers, keep=keep)
 
 
 def apply_cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -287,15 +316,16 @@ def apply_cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0) -> Params:
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0,
+             keep: Keep = None) -> Params:
     m, f = cfg.d_model, cfg.d_ff
     kw = {"device": device, "layers": layers}
-    return {
-        "wi": _dense_init(gen, (m, f), **kw),
-        "wg": _dense_init(gen, (m, f), **kw),
-        "wo": _dense_init(gen, (f, m), **kw),
-        "norm": _zeros((m,), **kw),
-    }
+    return _draw(keep, [
+        ("wi", lambda: _dense_init(gen, (m, f), **kw)),
+        ("wg", lambda: _dense_init(gen, (m, f), **kw)),
+        ("wo", lambda: _dense_init(gen, (f, m), **kw)),
+        ("norm", lambda: _zeros((m,), **kw)),
+    ])
 
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -311,7 +341,7 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0,
-             expert_dtype: Optional[torch.dtype] = None) -> Params:
+             expert_dtype: Optional[torch.dtype] = None, keep: Keep = None) -> Params:
     """Router (M,E) and the experts' SwiGLU stacks wi/wg (E,M,F), wo (E,F,M).
 
     By default the expert stacks are stored in the compute dtype: both
@@ -322,13 +352,13 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0,
     m, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     kw = {"device": device, "layers": layers}
     dt = expert_dtype or compute_dtype(cfg)
-    return {
-        "router": _dense_init(gen, (m, e), **kw),
-        "wi": _dense_init(gen, (e, m, f), in_axes=(1,), dtype=dt, **kw),
-        "wg": _dense_init(gen, (e, m, f), in_axes=(1,), dtype=dt, **kw),
-        "wo": _dense_init(gen, (e, f, m), in_axes=(1,), dtype=dt, **kw),
-        "norm": _zeros((m,), **kw),
-    }
+    return _draw(keep, [
+        ("router", lambda: _dense_init(gen, (m, e), **kw)),
+        ("wi", lambda: _dense_init(gen, (e, m, f), in_axes=(1,), dtype=dt, **kw)),
+        ("wg", lambda: _dense_init(gen, (e, m, f), in_axes=(1,), dtype=dt, **kw)),
+        ("wo", lambda: _dense_init(gen, (e, f, m), in_axes=(1,), dtype=dt, **kw)),
+        ("norm", lambda: _zeros((m,), **kw)),
+    ])
 
 
 def _experts(p: Params, xe: torch.Tensor) -> torch.Tensor:
@@ -402,7 +432,10 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor):
     dispatch/combine einsums ("einsum", the default) or `_moe_index_path`;
     each rounds as its reference function does (the einsum path sums the
     gates over k in f32 and casts once, the index path weights and sums in
-    the compute dtype)."""
+    the compute dtype).  Each sequence routes on its own (the capacity is per
+    sequence), so a sharded step's rank routes its batch shard as the
+    reference's batch-manual dispatch does; only the load-balance
+    statistics couple the ranks (`batch_mean`)."""
     b, s, m = x.shape
     e, k = cfg.n_experts, cfg.top_k
     f32 = torch.float32
@@ -420,9 +453,13 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor):
         pos_in_expert = torch.cumsum(flat, dim=1) - flat              # (B,kS,E)
         keep = (pos_in_expert < cap) * flat
         pos_ce = torch.einsum("bte,bte->bt", pos_in_expert, keep)     # (B,kS)
-        # load-balance aux loss (Switch) + router z-loss
+        # load-balance aux loss (Switch) + router z-loss; under a sharded
+        # step `me` and `ce` are the global batch's (`batch_mean`), and the
+        # z-loss, a mean, is weighted as the step weights the loss
         me = probs.mean(dim=(0, 1))                                   # (E,)
         ce = onehot.sum(dim=2).mean(dim=(0, 1))                       # fraction routed
+        if _BATCH_MEAN is not None:
+            me, ce = _BATCH_MEAN(me), _BATCH_MEAN(ce)
         aux = e * torch.sum(me * ce) + 1e-3 * torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
     if cfg.moe_dispatch == "index":
@@ -446,20 +483,21 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def init_mamba(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0) -> Params:
+def init_mamba(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0,
+               keep: Keep = None) -> Params:
     m, din, n, hm = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     kw = {"device": device, "layers": layers}
     proj_out = 2 * din + 2 * n + hm  # [z, x, B, C, dt]
-    return {
-        "in_proj": _dense_init(gen, (m, proj_out), **kw),
-        "conv": _dense_init(gen, (cfg.conv_width, din), **kw).mul_(0.1),
-        "A_log": _full((hm,), math.log(0.5), **kw),
-        "D": _full((hm,), 1.0, **kw),
-        "dt_bias": _zeros((hm,), **kw),
-        "out_proj": _dense_init(gen, (din, m), **kw),
-        "norm": _zeros((m,), **kw),
-        "gate_norm": _zeros((din,), **kw),
-    }
+    return _draw(keep, [
+        ("in_proj", lambda: _dense_init(gen, (m, proj_out), **kw)),
+        ("conv", lambda: _dense_init(gen, (cfg.conv_width, din), **kw).mul_(0.1)),
+        ("A_log", lambda: _full((hm,), math.log(0.5), **kw)),
+        ("D", lambda: _full((hm,), 1.0, **kw)),
+        ("dt_bias", lambda: _zeros((hm,), **kw)),
+        ("out_proj", lambda: _dense_init(gen, (din, m), **kw)),
+        ("norm", lambda: _zeros((m,), **kw)),
+        ("gate_norm", lambda: _zeros((din,), **kw)),
+    ])
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] = None):
@@ -539,16 +577,17 @@ def apply_mamba(cfg: ModelConfig, p: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_mlstm(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0) -> Params:
+def init_mlstm(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0,
+               keep: Keep = None) -> Params:
     m, dh, h = cfg.d_model, cfg.head_dim_, cfg.n_heads
     din = h * dh
     kw = {"device": device, "layers": layers}
-    return {
-        "wqkv": _dense_init(gen, (m, 3 * din), **kw),
-        "wif": _dense_init(gen, (m, 2 * h), **kw).mul_(0.1),
-        "wo": _dense_init(gen, (din, m), **kw),
-        "norm": _zeros((m,), **kw),
-    }
+    return _draw(keep, [
+        ("wqkv", lambda: _dense_init(gen, (m, 3 * din), **kw)),
+        ("wif", lambda: _dense_init(gen, (m, 2 * h), **kw).mul_(0.1)),
+        ("wo", lambda: _dense_init(gen, (din, m), **kw)),
+        ("norm", lambda: _zeros((m,), **kw)),
+    ])
 
 
 def apply_mlstm(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -607,16 +646,17 @@ def apply_mlstm(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return x + linear(cfg, p["wo"], hout.to(x.dtype)), cache
 
 
-def init_slstm(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0) -> Params:
+def init_slstm(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0,
+               keep: Keep = None) -> Params:
     m = cfg.d_model
     kw = {"device": device, "layers": layers}
-    return {
-        "wx": _dense_init(gen, (m, 4 * m), **kw),
-        "wr": _dense_init(gen, (m, 4 * m), **kw).mul_(0.5),
-        "bias": _zeros((4 * m,), **kw),
-        "wo": _dense_init(gen, (m, m), **kw),
-        "norm": _zeros((m,), **kw),
-    }
+    return _draw(keep, [
+        ("wx", lambda: _dense_init(gen, (m, 4 * m), **kw)),
+        ("wr", lambda: _dense_init(gen, (m, 4 * m), **kw).mul_(0.5)),
+        ("bias", lambda: _zeros((4 * m,), **kw)),
+        ("wo", lambda: _dense_init(gen, (m, m), **kw)),
+        ("norm", lambda: _zeros((m,), **kw)),
+    ])
 
 
 def apply_slstm(cfg: ModelConfig, p: Params, x: torch.Tensor,

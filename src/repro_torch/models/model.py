@@ -39,11 +39,23 @@ Layer-stacked weights may arrive as int8 wire pairs (`parallel.wire`, the
 trainer's `param_wire`); each layer body dequantizes its own slice at entry
 (`wire.dequant_subtree`).  Whether a stack holds pairs is looked up once
 per stage and forward, so a tree without pairs costs no walk per layer.
+
+Under a sharded train step the parameters are a rank's shards, and the
+step's gather (`param_gather`) makes each weight whole where it is used:
+a layer's slice of every stack at the entry of its body (inside the
+checkpoint, so that the recomputation gathers again and a layer's full
+weights live only while it runs), and `embed`, `lm_head`, `final_norm`,
+`shared_attn` and the encoder's norm where they are used, once per
+forward (a weight used twice, zamba2's shared block or a tied embedding,
+sums its whole gradient before the gather's backward reduces it).
+Without the hook (serving, the one-device step, the wire) nothing
+changes.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import contextlib
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,64 +130,95 @@ def _kind_window(cfg: ModelConfig, kind: str) -> int:
 # ---------------------------------------------------------------------------
 
 
+# `keep(axes, leaf)`: what `init` stores of a leaf it has just drawn, given
+# the leaf's logical axes (`param_specs`)
+InitKeep = Optional[Callable[[Tuple, torch.Tensor], torch.Tensor]]
+
+
+def _keep_group(keep: InitKeep, specs: Dict[str, Tuple]) -> L.Keep:
+    """`keep` for the leaves of one parameter group, named as `specs` names
+    their axes."""
+    if keep is None:
+        return None
+    return lambda name, t: keep(specs[name], t)
+
+
 def _init_blocks(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
-                 repeat: int, expert_dtype: Optional[torch.dtype] = None) -> Params:
+                 repeat: int, expert_dtype: Optional[torch.dtype] = None,
+                 keep: InitKeep = None) -> Params:
     """`repeat` blocks of one kind, leaves stacked on a leading layer axis."""
     kw = {"device": device, "layers": repeat}
+    specs = _stacked_specs(cfg, kind)
+
+    def group(name, init_fn, **extra):
+        return init_fn(cfg, gen, keep=_keep_group(keep, specs[name]), **kw, **extra)
+
     if kind in ("attn", "local", "global", "enc"):
-        p = {"attn": L.init_attention(cfg, gen, **kw)}
+        p = {"attn": group("attn", L.init_attention)}
         if cfg.d_ff:
-            p["mlp"] = L.init_mlp(cfg, gen, **kw)
+            p["mlp"] = group("mlp", L.init_mlp)
         return p
     if kind == "moe":
-        return {"attn": L.init_attention(cfg, gen, **kw),
-                "moe": L.init_moe(cfg, gen, expert_dtype=expert_dtype, **kw)}
+        return {"attn": group("attn", L.init_attention),
+                "moe": group("moe", L.init_moe, expert_dtype=expert_dtype)}
     if kind == "shared_attn":
         return {}  # the parameters live once, at params["shared_attn"]
     if kind == "mamba":
-        return {"mamba": L.init_mamba(cfg, gen, **kw)}
+        return {"mamba": group("mamba", L.init_mamba)}
     if kind == "mlstm":
-        return {"mlstm": L.init_mlstm(cfg, gen, **kw)}
+        return {"mlstm": group("mlstm", L.init_mlstm)}
     if kind == "slstm":
-        return {"slstm": L.init_slstm(cfg, gen, **kw)}
+        return {"slstm": group("slstm", L.init_slstm)}
     if kind == "dec":
-        return {"attn": L.init_attention(cfg, gen, **kw),
-                "cross": L.init_cross_attention(cfg, gen, **kw),
-                "mlp": L.init_mlp(cfg, gen, **kw)}
+        return {"attn": group("attn", L.init_attention),
+                "cross": group("cross", L.init_cross_attention),
+                "mlp": group("mlp", L.init_mlp)}
     raise ValueError(kind)
 
 
 def init(cfg: ModelConfig, seed: int = 0, device="cuda",
-         expert_dtype: Optional[torch.dtype] = None) -> Params:
+         expert_dtype: Optional[torch.dtype] = None, keep: InitKeep = None) -> Params:
     """Random weights in the reference's layout, drawn from a seeded
     `torch.Generator` on `device` (not the reference's numbers: parity tests
     carry the reference's weights over with `convert.params_from_reference`).
     f32 masters, except the MoE expert stacks, which are stored in
     `expert_dtype`, by default the compute dtype (`layers.init_moe`); the
-    trainer asks for f32."""
+    trainer asks for f32.
+
+    `keep(axes, leaf)`, when given, receives each leaf as soon as it is
+    drawn, with its logical axes (`param_specs`), and the tree holds what
+    it returns: a sharded init keeps the rank's shard, so that a rank holds
+    at most one whole leaf (`runtime.trainer.sharded_init`).  The draws,
+    and their order, are the same either way."""
     device = require_device(device)
     # a "meta" device (`init_abstract`) has no generator of its own
     gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(seed)
+    specs = param_specs(cfg)
+    top = _keep_group(keep, specs) or (lambda name, t: t)
     emb_scale = cfg.d_model ** -0.5
     p: Params = {}
-    p["embed"] = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
-                             device=device).mul_(emb_scale)
+    p["embed"] = top("embed", torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                                          device=device).mul_(emb_scale))
     if not cfg.tie_embeddings:
-        p["lm_head"] = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
-                                   device=device).mul_(emb_scale)
-    p["final_norm"] = torch.zeros((cfg.d_model,), device=device)
+        p["lm_head"] = top("lm_head", torch.randn((cfg.d_model, cfg.vocab), generator=gen,
+                                                  device=device).mul_(emb_scale))
+    p["final_norm"] = top("final_norm", torch.zeros((cfg.d_model,), device=device))
     p["stages"] = []
     for repeat, kinds in stages(cfg):
         sp = {}
         for j, kind in enumerate(kinds):
-            sp[f"{kind}_{j}"] = _init_blocks(cfg, kind, gen, device, repeat, expert_dtype)
+            sp[f"{kind}_{j}"] = _init_blocks(cfg, kind, gen, device, repeat, expert_dtype, keep)
         p["stages"].append(sp)
     if has_shared_attn(cfg):
-        p["shared_attn"] = L.init_attention(cfg, gen, device=device)
+        p["shared_attn"] = L.init_attention(cfg, gen, device=device,
+                                            keep=_keep_group(keep, specs["shared_attn"]))
     if cfg.encoder_layers:
-        p["encoder"] = {"blocks": _init_blocks(cfg, "enc", gen, device, cfg.encoder_layers),
-                        "norm": torch.zeros((cfg.d_model,), device=device)}
+        enc = specs["encoder"]
+        p["encoder"] = {"blocks": _init_blocks(cfg, "enc", gen, device, cfg.encoder_layers,
+                                               keep=keep),
+                        "norm": (_keep_group(keep, enc) or (lambda name, t: t))(
+                            "norm", torch.zeros((cfg.d_model,), device=device))}
     return p
 
 
@@ -406,6 +449,44 @@ def _layer(tree: Params, i: int) -> Params:
     return tree[i]
 
 
+# the sharded train step's parameter gather (`runtime.trainer`): called as
+# `fn(tree, i)`, it gives the whole tensors of `tree`'s leaves (of layer `i`
+# of a layer-stacked tree when `i` is not None) from this rank's shards;
+# None (one device) takes the leaves as they are
+_PARAM_GATHER: Optional[Callable[..., Any]] = None
+
+
+@contextlib.contextmanager
+def param_gather(fn: Optional[Callable[..., Any]]):
+    """Within the context, every parameter is made whole by `fn` where the
+    forward uses it (`_gathered`)."""
+    global _PARAM_GATHER
+    prev, _PARAM_GATHER = _PARAM_GATHER, fn
+    try:
+        yield
+    finally:
+        _PARAM_GATHER = prev
+
+
+def _gathered(tree, i: Optional[int] = None):
+    """`tree` (layer `i` of it when `i` is not None) as the forward uses it:
+    the whole weights under a sharded step's gather, else the leaves (or
+    `_layer`'s views) themselves.  The gather passes a tensor it did not
+    shard through, so a weight gathered once and handed on is not
+    gathered again."""
+    if _PARAM_GATHER is None:
+        return tree if i is None else _layer(tree, i)
+    return _PARAM_GATHER(tree, i)
+
+
+def _with_gathered(params: Params, *names: str) -> Params:
+    """`params` with its top-level leaves `names` gathered (a shallow copy
+    under a sharded step's gather; `params` itself without one)."""
+    if _PARAM_GATHER is None:
+        return params
+    return dict(params, **{n: _gathered(params[n]) for n in names if n in params})
+
+
 def _remat_on(cfg: ModelConfig, params: Params) -> bool:
     """True when `cfg.remat` applies: a backward can follow this forward
     (grad enabled, and the weights require it)."""
@@ -428,7 +509,8 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
     None when no block has one).  Weights whose layout is not `cfg`'s raise
     `ValueError` (`check_params_layout`)."""
     check_params_layout(cfg, params)
-    shared = params.get("shared_attn")
+    # used by every shared_attn block: gathered once, outside the checkpoints
+    shared = _gathered(params.get("shared_attn"))
     remat = cache is None and _remat_on(cfg, params)
     aux_total = None
     for si, (repeat, kinds) in enumerate(stages(cfg)):
@@ -437,7 +519,7 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
         paired = W.has_pair(sp)
 
         def body(x, i, sp=sp, scache=scache, kinds=kinds, paired=paired):
-            layer_p = _layer(sp, i)
+            layer_p = _gathered(sp, i)
             if paired:      # int8 wire pairs dequantize at body entry, as in the reference
                 layer_p = W.dequant_subtree(layer_p, L.compute_dtype(cfg))
             aux_sum = None
@@ -464,7 +546,7 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
 
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
-    table, dt = params["embed"], L.compute_dtype(cfg)
+    table, dt = _gathered(params["embed"]), L.compute_dtype(cfg)
     if table.dtype.itemsize < dt.itemsize:
         # a table narrower than the compute dtype (the parameter wire's
         # bf16 under f32 compute): widen it first, as the reference does,
@@ -475,7 +557,7 @@ def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
 
 
 def logits_head(cfg: ModelConfig, params: Params, h: torch.Tensor):
-    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    w = _gathered(params["embed"]).t() if cfg.tie_embeddings else _gathered(params["lm_head"])
     return L.linear(cfg, w, h).to(torch.float32)
 
 
@@ -513,7 +595,7 @@ def encode(cfg: ModelConfig, params: Params, enc_embeds, device="cuda") -> torch
     paired = W.has_pair(blocks)
 
     def layer(x, i):
-        layer_p = _layer(blocks, i)
+        layer_p = _gathered(blocks, i)
         if paired:
             layer_p = W.dequant_subtree(layer_p, L.compute_dtype(cfg))
         return _apply_block(cfg, "enc", layer_p, x, positions, shared=None,
@@ -522,7 +604,7 @@ def encode(cfg: ModelConfig, params: Params, enc_embeds, device="cuda") -> torch
     with L._span("encode"):
         for i in range(cfg.encoder_layers):
             x = _checkpoint(layer, x, i) if remat else layer(x, i)
-        return L.rms_norm(x, params["encoder"]["norm"])
+        return L.rms_norm(x, _gathered(params["encoder"]["norm"]))
 
 
 def _batch_enc_out(cfg: ModelConfig, params: Params, batch: Dict[str, Any], device):
@@ -566,7 +648,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any], devi
     x, _, aux = _run_stages(cfg, params, x, positions, enc_out=enc_out)
     if aux is None:
         aux = torch.zeros((), device=device)
-    return L.rms_norm(x, params["final_norm"]), aux
+    return L.rms_norm(x, _gathered(params["final_norm"])), aux
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], device="cuda"):
@@ -575,8 +657,13 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], device="cud
     (under `cfg.remat`, each chunk's head is recomputed in the backward), so
     the (B,S,V) tensor never exists.  `batch["labels"]` (B,S) holds the
     next token of each position.  Returns (loss, {"ce", "aux"}), f32
-    scalars; ce is the summed `logsumexp - gold logit` over B*S."""
+    scalars; ce is the summed `logsumexp - gold logit` over B*S.  Under a
+    sharded step's gather the head is gathered once for every chunk, and a
+    tied embedding once for the embedding and the head."""
+    if cfg.tie_embeddings:
+        params = _with_gathered(params, "embed")
     h, aux = forward_hidden(cfg, params, batch, device=device)
+    params = _with_gathered(params, "lm_head")
     labels = torch.as_tensor(batch["labels"]).to(device=h.device, dtype=torch.long)
     b, s, _ = h.shape
     chunk = min(cfg.loss_chunk, s)

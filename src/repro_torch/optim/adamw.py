@@ -12,8 +12,10 @@ f32 on that device, as the reference computes them from its int32 step
 state's logical-axis spec tree (the params', for m and v too: the state is
 sharded as the params are).  `apply_updates(grad_norm=)` takes the clipping
 norm from the caller, so that a rank updating only its shards of the
-state clips by the whole gradient's norm (`runtime.trainer`'s sharded
-step).
+state clips by the whole gradient's norm, which the sharded step forms
+from the shards' `sum_of_squares` (`runtime.trainer`), and
+`apply_updates(inplace=True)` writes the update into the state's tensors
+leaf by leaf, so that no second copy of the state exists.
 """
 
 from __future__ import annotations
@@ -73,18 +75,26 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
+def sum_of_squares(leaves) -> torch.Tensor:
+    """The sum over `leaves` of each leaf's f32 sum of squares, leaf by leaf
+    in order."""
+    return sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in T.leaves(tree)))
+    return torch.sqrt(sum_of_squares(T.leaves(tree)))
 
 
 @torch.no_grad()
 def apply_updates(cfg: OptConfig, state: TrainState, grads,
-                  grad_norm: Optional[torch.Tensor] = None) -> TrainState:
+                  grad_norm: Optional[torch.Tensor] = None, inplace: bool = False) -> TrainState:
     """One AdamW step: clip `grads` to `cfg.clip_norm` in global norm
     (`grad_norm` when given, else `global_norm(grads)`), update the moments
     in f32, step the masters.  Returns a new state; `state` is not
-    modified."""
+    modified, unless `inplace`: then each leaf's new params, m and v are
+    copied into `state`'s tensors as soon as they are computed (the same
+    values), and the returned state holds those tensors."""
     step = state.step + 1
     lr = schedule(cfg, step)
     gn = global_norm(grads) if grad_norm is None else grad_norm
@@ -105,8 +115,13 @@ def apply_updates(cfg: OptConfig, state: TrainState, grads,
         newp = p.to(f32) - lr * update
         return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
 
-    out = [upd(*leaf) for leaf in zip(*(T.leaves(t) for t in (state.params, grads,
-                                                               state.m, state.v)))]
+    leaves = zip(*(T.leaves(t) for t in (state.params, grads, state.m, state.v)))
+    if inplace:
+        for p, g, m, v in leaves:
+            for old, new in zip((p, m, v), upd(p, g, m, v)):
+                old.copy_(new)
+        return state._replace(step=step)
+    out = [upd(*leaf) for leaf in leaves]
     return TrainState(step=step,
                       params=T.unflatten(state.params, [o[0] for o in out]),
                       m=T.unflatten(state.m, [o[1] for o in out]),

@@ -19,7 +19,15 @@ reference's replicated input, and each rank returns the whole result:
   * `_quantize_int8` / `_dequantize_int8`: that stage's symmetric int8
     quantization with per-chunk max-abs scales;
   * `all_gather`: a group's tensors stacked on a new leading axis (the
-    schedules' last stage, and the trainer's parameter gather);
+    schedules' last stage);
+  * `gather_shards` / `reduce_to_shard`: the sharded train step's pair for
+    one leaf (`runtime.trainer`): a DTensor's local shard all-gathered
+    whole, and the gradient of that whole turned straight into the
+    rank's gradient shard (reduce-scatter on the batch axes the leaf is
+    sharded on, all-reduce on those it is not, the rank's slice on its
+    other shard axes): over (pod, data) for a leaf sharded on `data`,
+    TRINE's reduce-scatter and cross-pod all-reduce without the last
+    all-gather;
   * `collective_bytes_estimate`: per-device total and cross-pod bytes of
     each schedule, op for op as the schedules issue them, on a mesh's
     geometry alone (`MeshGeometry`: the benches price meshes that no
@@ -30,6 +38,7 @@ reference's replicated input, and each rank returns the whole result:
 
 from __future__ import annotations
 
+import math
 from types import SimpleNamespace
 from typing import Optional, Sequence
 
@@ -38,9 +47,9 @@ import torch.distributed as dist
 
 from repro_torch.core.planner import plan_collective_channels as plan_channels  # noqa: F401 (re-export)
 
-__all__ = ["MeshGeometry", "mesh_axis_sizes", "has_pod_axis", "all_gather", "flat_all_reduce",
-           "trine_all_reduce", "compressed_all_reduce", "collective_bytes_estimate",
-           "plan_channels"]
+__all__ = ["MeshGeometry", "mesh_axis_sizes", "has_pod_axis", "all_gather", "gather_shards",
+           "reduce_to_shard", "flat_all_reduce", "trine_all_reduce", "compressed_all_reduce",
+           "collective_bytes_estimate", "plan_channels"]
 
 
 class MeshGeometry:
@@ -141,6 +150,77 @@ def _reduce_scatter(flat: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def gather_shards(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """The full tensor of which `x` is this rank's shard, laid out as the
+    DTensor `placements` over `mesh` (a collective: every rank of the mesh
+    calls it).  All-gathered along each sharded mesh dimension, the
+    innermost first, which undoes DTensor's nested (major-first) split; a
+    dimension of size 1 holds the whole, so at one rank the result is `x`
+    itself (no copy)."""
+    for i in reversed(range(mesh.ndim)):
+        p = placements[i]
+        if p.is_shard() and mesh.size(i) > 1:
+            x = torch.cat(tuple(all_gather(x, mesh.get_group(i))), dim=p.dim)
+    return x
+
+
+def _reduce_scatter_axis(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """This rank's block (kept as a size-1 axis) of the group's sum of `x`
+    along `axis`, whose length is the group's size."""
+    moved = x.movedim(axis, 0)
+    piece = _reduce_scatter(moved.reshape(-1), group)
+    return piece.view((1,) + tuple(moved.shape[1:])).movedim(0, axis)
+
+
+def reduce_to_shard(g: torch.Tensor, mesh, placements, batch_axes: Optional[Sequence[str]],
+                    share: float = 1.0) -> torch.Tensor:
+    """`g`, this rank's gradient of the full tensor `gather_shards` made
+    from its shard, as the rank's gradient shard of the batch's sum: `g`
+    times `share` (the rank's share of the tokens), summed over the ranks of
+    the mesh dimensions named in `batch_axes` and cut to the rank's block
+    on the others (their ranks hold the same batch shard).
+
+    A tensor dimension sharded on mesh dimensions i < j < ... is viewed as
+    (size_i, size_j, ..., rest), so each mesh dimension owns one axis of
+    the view.  The cuts come first (no communication); then, innermost mesh
+    dimension first, a reduce-scatter on each batch dimension the leaf is
+    sharded on and an all-reduce on each it is not (the scaling comes
+    between, on the cut tensor).  So the slow `pod`
+    axis is crossed last, by the smallest tensor, and the blocks land as
+    DTensor's pod-major split lays them out.  Size-1 mesh dimensions are
+    skipped: at one rank the result is a view of `g` (times `share`)."""
+    names = mesh.mesh_dim_names
+    batch = set(batch_axes or ())
+    coord = mesh.get_coordinate()
+    on_dim: dict = {}                      # tensor dimension -> its mesh dimensions
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            on_dim.setdefault(p.dim, []).append(i)
+    view, axis_of, local = [], {}, []
+    for d, n in enumerate(g.shape):
+        blocks = [mesh.size(i) for i in on_dim.get(d, ())]
+        for i in on_dim.get(d, ()):
+            axis_of[i] = len(view)
+            view.append(mesh.size(i))
+        view.append(n // math.prod(blocks))
+        local.append(n // math.prod(blocks))
+    g = g.reshape(view)
+    for i in axis_of:
+        if names[i] not in batch and mesh.size(i) > 1:
+            g = g.narrow(axis_of[i], coord[i], 1)
+    if share != 1:
+        g = g * share
+    for i in reversed(range(mesh.ndim)):
+        if names[i] not in batch or mesh.size(i) == 1:
+            continue
+        if i in axis_of:
+            g = _reduce_scatter_axis(g, mesh.get_group(i), axis_of[i])
+        else:
+            g = g.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(g, group=mesh.get_group(i))
+    return g.reshape(local)
+
+
 def flat_all_reduce(x: torch.Tensor, mesh, axes: Sequence[str] = ("pod", "data")) -> torch.Tensor:
     """Baseline: one all-reduce (sum) over every rank of `axes` that the
     mesh has (the bus-topology analog).  Returns a new tensor."""
@@ -195,8 +275,6 @@ def compressed_all_reduce(x: torch.Tensor, mesh, residual: Optional[torch.Tensor
     full = all_gather(summed, data).reshape(-1)
     res_full = all_gather(new_res, data).reshape(-1)
     return full[:orig].reshape(x.shape), res_full[:orig].reshape(x.shape)
-
-
 
 
 def collective_bytes_estimate(n_elems: int, dtype_bytes: int, mesh, schedule: str,

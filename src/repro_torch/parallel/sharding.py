@@ -22,6 +22,9 @@ The layer has three parts:
     `DeviceMesh`: a dimension on ("pod", "data") becomes `Shard(d)` on
     both mesh dimensions, which DTensor splits pod-major, as the reference
     lays the flattened axes out.  Every config's `fsdp_axes` is pod-major.
+    `shard_index` and `local_shard` give a rank's block of that layout,
+    `owns_shard` the one rank that counts (or writes) a block several
+    ranks hold.
 
 The mapping follows the paper: `data` is the memory-chiplet side (FSDP
 parameter all-gathers and gradient reductions), `model` the compute-chiplet
@@ -40,7 +43,7 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["PartitionSpec", "P", "NamedSharding", "rules_for", "spec_to_pspec", "is_axes_leaf",
            "tree_pspecs", "tree_shardings", "batch_axes", "batch_pspec",
            "train_batch_shardings", "cache_shardings", "fix_pspec_for_shape",
-           "enforce_divisibility", "placements", "local_shard"]
+           "enforce_divisibility", "placements", "shard_index", "local_shard", "owns_shard"]
 
 
 def _canonical(part):
@@ -318,22 +321,38 @@ def placements(mesh, spec: PartitionSpec, ndim: int) -> list:
     return out
 
 
-def local_shard(mesh, spec: PartitionSpec, t):
-    """This rank's shard of a full tensor `t` laid out as `spec` over a
-    `DeviceMesh` (a view; no communication): on a dimension on axes (a, b),
-    block a_index * size_b + b_index of size_a * size_b equal blocks, the
-    layout `placements` gives DTensor.  Raises on a dimension the axes do
-    not divide (`enforce_divisibility` first)."""
+def shard_index(mesh, spec: PartitionSpec, shape) -> tuple:
+    """The slices of a tensor of `shape` laid out as `spec` over a
+    `DeviceMesh` that this rank holds: on a dimension on axes (a, b), block
+    a_index * size_b + b_index of size_a * size_b equal blocks, the layout
+    `placements` gives DTensor.  Raises on a dimension the axes do not
+    divide (`enforce_divisibility` first)."""
     sizes = mesh_axis_sizes(mesh)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    index = [slice(None)] * len(shape)
     for d, ax in enumerate(spec):
         if ax is None:
             continue
         idx, n = 0, 1
         for a in ((ax,) if isinstance(ax, str) else ax):
             idx, n = idx * sizes[a] + coord[a], n * sizes[a]
-        if t.shape[d] % n:
-            raise ValueError(f"dimension {d} of {tuple(t.shape)} does not split {n} ways ({ax})")
-        size = t.shape[d] // n
-        t = t.narrow(d, idx * size, size)
-    return t
+        if shape[d] % n:
+            raise ValueError(f"dimension {d} of {tuple(shape)} does not split {n} ways ({ax})")
+        size = shape[d] // n
+        index[d] = slice(idx * size, (idx + 1) * size)
+    return tuple(index)
+
+
+def local_shard(mesh, spec: PartitionSpec, t):
+    """This rank's shard of a full tensor `t` laid out as `spec` over a
+    `DeviceMesh` (a view; no communication; `shard_index`)."""
+    return t[shard_index(mesh, spec, tuple(t.shape))]
+
+
+def owns_shard(mesh, spec: PartitionSpec) -> bool:
+    """True on the one rank of each group of ranks that hold the same shard
+    of a leaf laid out as `spec`: coordinate 0 on every mesh axis the spec
+    does not name."""
+    used = {a for ax in spec if ax is not None for a in ((ax,) if isinstance(ax, str) else ax)}
+    return all(c == 0 for name, c in zip(mesh.mesh_dim_names, mesh.get_coordinate())
+               if name not in used)

@@ -22,21 +22,24 @@ nothing survives.  The model changes no numerics.
 `make_train_step(param_wire=)` trains under the parameter wire format
 (`parallel.wire`) on one device.  `build_sharded_step` and
 `Trainer(mesh=)` train over a `DeviceMesh`: DTensor-sharded state, the
-batch split over the data-parallel ranks, the gradients summed by the
-TRINE all-reduce (`parallel.collectives`), additional `gather` and
+batch split over the data-parallel ranks, each weight gathered whole where
+the forward uses it and its gradient reduce-scattered straight into the
+rank's shard (`parallel.collectives`), additional `gather` and
 `grad_reduce` ranges.  As in the reference, the trainer without a mesh
 builds its step with no wire, whatever `cfg.wire_bits` says; under a mesh
 `cfg.wire_bits` raises, since the sharded wire is not ported.
 
-Under a mesh each rank holds only its shards of the state (params, m, v:
-12/N bytes a parameter over N ranks) between steps, but the step itself is
-not memory-sharded: it gathers the full f32 parameters (4 bytes a
-parameter) and computes the full gradient (4 bytes), and the reduction
-holds the flat gradient and the schedule's full result (8 bytes, 12 when
-the length needs padding to the data size) once the parameters are freed.
-So a rank needs about 8-12 bytes a parameter besides the activations,
-whatever the mesh: only configs that train on one card train under a mesh
-(ROADMAP.md, Deviations).
+What a rank holds under a mesh of N ranks (a leaf sharded N ways; a leaf
+a mesh axis does not split is held whole along that axis): 16/N bytes a
+parameter for its shards of the f32 parameters, m, v and gradient (the
+update is written into the shards in place), plus one layer's full
+parameters and their gradient while that layer runs forward, is
+recomputed or runs backward (`cfg.remat` "full", every config's default,
+and "dots", which recomputes in full here), plus the gathered embedding
+and head (and zamba2's shared attention block) while they are in use,
+plus the activations.  Under `cfg.remat="none"` autograd keeps each
+layer's gathered weights for the backward, so a rank holds the full
+parameters through the backward (ROADMAP.md, Deviations).
 """
 from __future__ import annotations
 
@@ -89,11 +92,12 @@ def check_masters(params) -> None:
                          + (f" and {len(bad) - 4} more" if len(bad) > 4 else ""))
 
 
-def _loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], param_wire,
-                    accum_steps: int, device: torch.device):
-    """(loss, metrics {ce, aux}, gradients in `T.leaves(params)` order) of
-    one batch, as `make_train_step` describes."""
-    def grads_of(leaves, params_of, mb):
+def _accumulate(cfg: ModelConfig, leaves, params_of, batch: Dict[str, torch.Tensor],
+                accum_steps: int, device: torch.device):
+    """(loss, metrics {ce, aux}, gradients of `leaves`) of one batch, the
+    loss taken on `params_of()`'s tree, over `accum_steps` microbatches run
+    in turn (gradients summed in f32 and averaged)."""
+    def grads_of(mb):
         with L._span("loss"):
             loss, metrics = M.loss_fn(cfg, params_of(), mb, device=device)
         with L._span("backward"):
@@ -101,6 +105,25 @@ def _loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], pa
                                         materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
 
+    if accum_steps == 1:
+        return grads_of(batch)
+    mbs = _split_microbatches(batch, accum_steps)
+    g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+    l_sum = torch.zeros((), dtype=torch.float32, device=device)
+    mets = []
+    for i in range(accum_steps):
+        l, m, g = grads_of({k: v[i] for k, v in mbs.items()})
+        g_sum = [a + b for a, b in zip(g_sum, g)]
+        l_sum = l_sum + l
+        mets.append(m)
+    metrics = {k: torch.mean(torch.stack([m[k] for m in mets])) for k in mets[0]}
+    return l_sum / accum_steps, metrics, [g / accum_steps for g in g_sum]
+
+
+def _loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], param_wire,
+                    accum_steps: int, device: torch.device):
+    """(loss, metrics {ce, aux}, gradients in `T.leaves(params)` order) of
+    one batch, as `make_train_step` describes."""
     if param_wire is None:
         diff_var = params
     else:
@@ -112,19 +135,7 @@ def _loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], pa
     def params_of():       # the loss's tree, built anew for each microbatch
         return diff_var if param_wire is None else param_wire.graft(qtree, diff_var)
 
-    if accum_steps == 1:
-        return grads_of(leaves, params_of, batch)
-    mbs = _split_microbatches(batch, accum_steps)
-    g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-    l_sum = torch.zeros((), dtype=torch.float32, device=device)
-    mets = []
-    for i in range(accum_steps):
-        l, m, g = grads_of(leaves, params_of, {k: v[i] for k, v in mbs.items()})
-        g_sum = [a + b for a, b in zip(g_sum, g)]
-        l_sum = l_sum + l
-        mets.append(m)
-    metrics = {k: torch.mean(torch.stack([m[k] for m in mets])) for k in mets[0]}
-    return l_sum / accum_steps, metrics, [g / accum_steps for g in g_sum]
+    return _accumulate(cfg, leaves, params_of, batch, accum_steps, device)
 
 
 def make_train_step(cfg: ModelConfig, opt: adamw.OptConfig, param_wire=None,
@@ -169,59 +180,76 @@ def _as_dtensor(mesh, local: torch.Tensor, spec, shape):
                               stride=torch.empty(shape, device="meta").stride())
 
 
+def _is_sharded(sh) -> bool:
+    """True when a leaf laid out by the `NamedSharding` `sh` is split (held
+    as a DTensor); a leaf whose spec names no axis stays a plain tensor."""
+    return any(a is not None for a in sh.spec)
+
+
+def _to_local(t):
+    """A DTensor's local shard (its storage), any other leaf as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def distribute(mesh, tree, shardings, device=None):
-    """Full tensors (the same on every rank) -> DTensors holding this
-    rank's shards, laid out as `shardings` (a tree of `NamedSharding`s of
-    the same structure; a leaf whose spec is empty, such as the step,
-    stays a plain replicated tensor), moved to `device` when given (only
-    the shard is copied).  No communication."""
+    """Full tensors (the same on every rank) -> DTensors holding copies of
+    this rank's shards, laid out as `shardings` (a tree of `NamedSharding`s
+    of the same structure; a leaf whose spec is empty, such as the step,
+    stays a plain tensor, also a copy), moved to `device` when given.  No
+    communication.  The copies are the state's own: the sharded step
+    updates them in place."""
     def leaf(t, sh):
         dev = t.device if device is None else torch.device(device)
-        if not any(a is not None for a in sh.spec):
-            return t.to(dev)
+        if not _is_sharded(sh):
+            return t.to(dev, copy=True)
         local = S.local_shard(mesh, sh.spec, t)
-        if local.numel() != t.numel() or local.device != dev:    # free the full tensor
-            local = local.to(dev, copy=True, memory_format=torch.contiguous_format)
+        local = local.to(dev, copy=True, memory_format=torch.contiguous_format)
         return _as_dtensor(mesh, local, sh.spec, t.shape)
 
     return T.map_structure(leaf, tree, shardings)
 
 
-def sharded_init(mesh, opt: adamw.OptConfig, params, state_sh) -> adamw.TrainState:
-    """A fresh optimizer state over full `params` (the same on every rank),
-    laid out as `state_sh`, with no full moment allocated: the parameters
-    are split first and the moments made as the rank's shards."""
-    from torch.distributed.tensor import DTensor
+def sharded_init(mesh, opt: adamw.OptConfig, cfg: ModelConfig, state_sh, seed: int = 0,
+                 device="cuda") -> adamw.TrainState:
+    """A fresh state over `mesh`, laid out as `state_sh`, built shard by
+    shard: every rank draws `M.init(cfg, seed)`'s leaves in its order, on
+    `device`, with f32 experts, and keeps only its shard of each as soon as
+    it is drawn (`M.init(keep=)`), so that a rank holds at most one whole
+    leaf; the moments are made as the rank's shards.  Its shards equal
+    those `distribute` cuts from `M.init`'s state, bit for bit."""
+    rules = S.rules_for(cfg, mesh)
 
-    params = distribute(mesh, params, state_sh.params)
-    local = adamw.init_state(opt, T.map_structure(
-        lambda p: p.to_local() if isinstance(p, DTensor) else p, params))
+    def keep(axes, t):
+        spec = S.fix_pspec_for_shape(mesh, S.spec_to_pspec(axes, rules), tuple(t.shape))
+        local = S.local_shard(mesh, spec, t)
+        if local.numel() == t.numel():
+            return t
+        return local.clone(memory_format=torch.contiguous_format)   # frees the whole leaf
 
-    def wrap(z, p, sh):
-        return _as_dtensor(mesh, z, sh.spec, p.shape) if isinstance(p, DTensor) else z
+    local = adamw.init_state(opt, M.init(cfg, seed=seed, device=device,
+                                         expert_dtype=torch.float32, keep=keep))
+    shapes, _ = M.init_abstract(cfg)
 
-    return local._replace(params=params, m=T.map_structure(wrap, local.m, params, state_sh.m),
-                          v=T.map_structure(wrap, local.v, params, state_sh.v))
+    def wrap(z, like, sh):
+        return _as_dtensor(mesh, z, sh.spec, like.shape) if _is_sharded(sh) else z
+
+    return local._replace(**{k: T.map_structure(wrap, getattr(local, k), shapes,
+                                                getattr(state_sh, k))
+                             for k in ("params", "m", "v")})
 
 
 def gather(tree, device=None):
     """Every DTensor leaf as its full tensor (a collective: every rank of its
-    mesh calls it), moved to `device` when given; other leaves as they are.
-    The shards are all-gathered along each sharded mesh dimension, the
-    innermost first, with the c10d calls of `parallel.collectives`; a
-    dimension of size 1 holds the whole (no copy: at one rank the result is
-    the shard's own storage)."""
+    mesh calls it; `collectives.gather_shards`), moved to `device` when
+    given; other leaves as they are.  A helper for tests and
+    `Trainer.full_state`: the step gathers layer by layer."""
     from torch.distributed.tensor import DTensor
 
     def leaf(t):
         if isinstance(t, DTensor):
-            full = t.to_local()
-            for i in reversed(range(t.device_mesh.ndim)):
-                p = t.placements[i]
-                if p.is_shard() and t.device_mesh.size(i) > 1:
-                    parts = CC.all_gather(full, t.device_mesh.get_group(i))
-                    full = torch.cat(tuple(parts), dim=p.dim)
-            t = full
+            t = CC.gather_shards(t.to_local(), t.device_mesh, t.placements)
         return t if device is None else t.to(device)
 
     return T.map_structure(leaf, tree)
@@ -239,51 +267,137 @@ def _batch_reduce(mesh, axes):
     return lambda t: CC.flat_all_reduce(t, mesh, axes=axes)
 
 
+class _Gather(torch.autograd.Function):
+    """A weight made whole from this rank's shard (`collectives.gather_shards`);
+    its gradient goes straight into the rank's gradient shard, summed over
+    the batch ranks and weighted by the rank's tokens
+    (`collectives.reduce_to_shard`).  The backward runs once per gather, so
+    a weight gathered once and used twice sums its whole gradient first."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, placements, axes, share):
+        ctx.args = (mesh, placements, axes, share)
+        with L._span("gather"):
+            return CC.gather_shards(local, mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with L._span("grad_reduce"):
+            return (CC.reduce_to_shard(grad, *ctx.args),) + (None,) * 4
+
+
+class _BatchMean(torch.autograd.Function):
+    """The batch ranks' mean of a per-rank mean, each rank's weighted by its
+    tokens (`share`): a flat all-reduce of `x * share`.  Its backward is the
+    transpose, `share` times the all-reduced gradient; with the step's
+    equal shares (`S.local_shard` splits the batch evenly) and its weighting
+    of each rank's gradient by `share`, the gradient is the global batch's."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, share):
+        ctx.args = (mesh, axes, share)
+        return CC.flat_all_reduce(x * share, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axes, share = ctx.args
+        return (CC.flat_all_reduce(grad, mesh, axes) * share, None, None, None)
+
+
+class _ShardGather:
+    """The sharded step's parameter gather (`models.model.param_gather`):
+    for the leaves of this step's local tree (known by identity), `_Gather`
+    of the leaf, or of its layer `i`, whose placements lose the layer
+    dimension (never sharded: the rules map "layers" to no axis); any other
+    tensor as it is (a replicated leaf, or a weight gathered already)."""
+
+    def __init__(self, mesh, axes, share: float, leaves, shardings):
+        from torch.distributed.tensor import Shard
+
+        self.mesh, self.axes, self.share = mesh, axes, share
+        self.placements = {}          # id -> (the leaf's placements, a layer's)
+        for t, sh in zip(leaves, shardings):
+            if _is_sharded(sh):
+                pl = S.placements(mesh, sh.spec, t.ndim)
+                self.placements[id(t)] = (pl, [Shard(p.dim - 1) if p.is_shard() else p
+                                               for p in pl])
+
+    def __call__(self, tree, i=None):
+        def leaf(t):
+            x = t if i is None else t[i]
+            pl = self.placements.get(id(t))
+            if pl is None:
+                return x
+            return _Gather.apply(x, self.mesh, pl[i is not None], self.axes, self.share)
+
+        return T.map_structure(leaf, tree)
+
+
+def shard_global_norm(mesh, shards, shardings) -> torch.Tensor:
+    """The global norm of the tensors whose shards on this rank are
+    `shards`, laid out as `shardings` (a collective over the whole mesh):
+    each rank sums the squares of the blocks it owns (`S.owns_shard`: a
+    block several ranks hold counts once), in the leaves' order, and one
+    all-reduce adds the ranks' sums."""
+    sq = adamw.sum_of_squares(g for g, sh in zip(shards, shardings)
+                              if S.owns_shard(mesh, sh.spec))
+    sq = torch.as_tensor(sq, dtype=torch.float32, device=shards[0].device)
+    return torch.sqrt(CC.flat_all_reduce(sq, mesh, mesh.mesh_dim_names))
+
+
 def _make_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, state_sh, batch_sh,
                        accum_steps: int, device: torch.device):
-    from torch.distributed.tensor import DTensor
-
     axes = batch_sh["tokens"].spec[0]
     axes = (axes,) if isinstance(axes, str) else axes
     reduce = _batch_reduce(mesh, axes)
     param_sh = T.leaves(state_sh.params)
-
-    def to_local(t):
-        return t.to_local() if isinstance(t, DTensor) else t
+    replicated = [j for j, sh in enumerate(param_sh) if not _is_sharded(sh)]
 
     def step_fn(state: adamw.TrainState, batch: Dict[str, torch.Tensor]):
         local = {k: S.local_shard(mesh, batch_sh[k].spec, v) for k, v in batch.items()}
         share = local["tokens"].numel() / batch["tokens"].numel()   # this rank's tokens
-        with L._span("gather"):
-            params = gather(state.params)
-        loss, metrics, grads = _loss_and_grads(cfg, params, local, None, accum_steps, device)
-        del params
+        leaves = [_to_local(p).detach().requires_grad_(True) for p in T.leaves(state.params)]
+        params = T.unflatten(state.params, leaves)
+        gather_fn = _ShardGather(mesh, axes, share, leaves, param_sh)
+        mean_fn = None if axes is None else (lambda x: _BatchMean.apply(x, mesh, axes, share))
+        with M.param_gather(gather_fn), L.batch_mean(mean_fn):
+            loss, metrics, grads = _accumulate(cfg, leaves, lambda: params, local,
+                                               accum_steps, device)
         with L._span("grad_reduce"):
-            # the global batch's mean: each rank's mean weighted by its tokens
-            shapes = [g.shape for g in grads]
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            del grads
-            if share != 1:
-                flat.mul_(share)
-            flat = reduce(flat)
+            # the sharded leaves' gradients came back as this rank's shards
+            # of the global batch's; the replicated leaves' (norm scales and
+            # the like) are summed here, in one all-reduce
+            if replicated and axes:
+                flat = torch.cat([grads[j].reshape(-1) for j in replicated])
+                if share != 1:
+                    flat.mul_(share)
+                flat = reduce(flat)
+                sizes = [grads[j].numel() for j in replicated]
+                for j, f in zip(replicated, torch.split(flat, sizes)):
+                    grads[j] = f.view(grads[j].shape)
             scalars = torch.stack([loss, metrics["ce"], metrics["aux"]])
             scalars = CC.flat_all_reduce(scalars * share, mesh, axes) if axes else scalars
-        grads = [f.view(sh) for f, sh in zip(torch.split(flat, [sh.numel() for sh in shapes]),
-                                             shapes)]
         with L._span("optimizer"):
-            gn = adamw.global_norm(grads)
-            mine = [S.local_shard(mesh, sh.spec, g).contiguous() for g, sh in zip(grads, param_sh)]
-            local_state = T.map_structure(to_local, state)
-            new_local = adamw.apply_updates(opt, local_state, T.unflatten(state.params, mine),
-                                            grad_norm=gn)
-            new_state = T.map_structure(
-                lambda t, old: DTensor.from_local(t, old.device_mesh, old.placements,
-                                                  run_check=False, shape=old.shape,
-                                                  stride=old.stride())
-                if isinstance(old, DTensor) else t, new_local, state)
+            gn = shard_global_norm(mesh, grads, param_sh)
+            local_state = T.map_structure(_to_local, state)
+            new_local = adamw.apply_updates(opt, local_state, T.unflatten(state.params, grads),
+                                            grad_norm=gn, inplace=True)
+            new_state = state._replace(step=new_local.step)
         metrics = {"ce": scalars[1], "aux": scalars[2], "loss": scalars[0], "grad_norm": gn}
         return new_state, metrics
     return step_fn
+
+
+def state_shardings(cfg: ModelConfig, mesh, param_specs=None):
+    """The train state's layout over `mesh`: `enforce_divisibility(
+    tree_shardings(mesh, state_specs(param_specs), rules_for(cfg, mesh)))`
+    on `init_abstract`'s shapes (`param_specs` defaults to `cfg`'s)."""
+    shapes, specs = M.init_abstract(cfg)
+    abstract = adamw.TrainState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                                params=shapes, m=shapes, v=shapes)
+    return S.enforce_divisibility(S.tree_shardings(
+        mesh, adamw.state_specs(specs if param_specs is None else param_specs),
+        S.rules_for(cfg, mesh)), abstract)
 
 
 def build_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, param_specs,
@@ -293,39 +407,38 @@ def build_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, param_specs
     step alone, as the reference's does.
 
     The state (params, m, v) lives as DTensors laid out by
-    `enforce_divisibility(tree_shardings(mesh, state_specs(param_specs),
-    rules_for(cfg, mesh)))` (`distribute` puts a full state there,
-    `sharded_init` a fresh one).
+    `state_shardings` (`distribute` puts a copy of a full state there,
+    `sharded_init` draws a fresh one shard by shard).
     `step(state, batch)` takes the GLOBAL batch on every rank and runs on
-    the rank's shard of it (`train_batch_shardings`); it gathers the
-    parameters whole, runs `make_train_step`'s forward and backward on
-    plain local tensors (the kernels see no DTensor), sums the gradients,
-    each rank's weighted by its share of the tokens, over the ranks the
-    batch is split on (`trine_all_reduce` over (pod, data), `flat_all_reduce`
-    otherwise), and updates each rank's shards with AdamW clipped by the
-    whole gradient's norm.  The loss, its parts and the clipping norm are
-    the global batch's.  The `model`-axis ranks hold the same batch shard
-    and compute the same gradients: GSPMD splits that work in the
-    reference, and this step does not (ROADMAP.md).  Nor does it shard
-    the step's memory: the module docstring counts what a rank holds.
+    the rank's shard of it (`train_batch_shardings`).  The forward and
+    backward are `make_train_step`'s, on plain local tensors: each weight is
+    gathered whole where the forward uses it (`model.param_gather`: a
+    layer's weights at its body's entry, inside the checkpoint, so that the
+    recomputation gathers them again), and the kernels see plain,
+    contiguous, whole tensors, never a DTensor.  Each gather's backward
+    turns the weight's gradient straight into the rank's gradient shard,
+    each rank's weighted by its share of the tokens and summed over the
+    ranks the batch is split on (`collectives.reduce_to_shard`); the
+    replicated leaves' gradients are summed in one all-reduce
+    (`trine_all_reduce` over (pod, data), `flat_all_reduce` otherwise).
+    MoE layers average their load-balance statistics over the batch ranks
+    inside the forward (`layers.batch_mean`).  The clipping norm comes from
+    the shards (each block counted on one rank, one all-reduce), and AdamW
+    updates each rank's shards in place: the state passed in is the one
+    returned, with its step advanced.  The loss, its parts and the clipping
+    norm are the global batch's.  The `model`-axis ranks hold the same batch
+    shard and compute the same gradients: GSPMD splits that work in the
+    reference, and this step does not (ROADMAP.md).  The module docstring
+    counts what a rank holds.
 
-    MoE configs raise `NotImplementedError` (their expert-parallel dispatch
-    is not ported), and so does `cfg.wire_bits` (the sharded parameter
-    wire)."""
+    `cfg.wire_bits` raises `NotImplementedError` (the sharded parameter
+    wire is not ported)."""
     device = require_device(device)
     if mesh is None:
         return make_train_step(cfg, opt, accum_steps=accum_steps, device=device)
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: an MoE config under a mesh needs the "
-                                  f"expert-parallel dispatch, which is not ported")
     if cfg.wire_bits:
         W.make_param_wire(cfg, mesh)     # raises: the sharded wire is not ported
-    rules = S.rules_for(cfg, mesh)
-    shapes, _ = M.init_abstract(cfg)
-    abstract = adamw.TrainState(step=torch.empty((), dtype=torch.int32, device="meta"),
-                                params=shapes, m=shapes, v=shapes)
-    state_sh = S.enforce_divisibility(
-        S.tree_shardings(mesh, adamw.state_specs(param_specs), rules), abstract)
+    state_sh = state_shardings(cfg, mesh, param_specs)
     batch_sh = S.train_batch_shardings(cfg, mesh, batch_example)
     step = _make_sharded_step(cfg, opt, mesh, state_sh, batch_sh, accum_steps, device)
     return step, state_sh, batch_sh
@@ -354,14 +467,18 @@ class Trainer:
     with any non-f32 master raises `ValueError`.
 
     With `mesh` (a `DeviceMesh`; every rank of it builds a trainer with the
-    same arguments) the step is `build_sharded_step`'s: the state (the same
-    on every rank) is split into each rank's DTensor shards (a fresh one
-    by `sharded_init`), each rank draws the global batch and trains on its
-    shard of it.  A checkpoint gathers the state leaf by leaf and rank 0
-    writes it; a restore reads it on every rank's host and moves the
-    rank's shards to the device.  `full_state()` gives the whole state on
-    every rank.  The straggler deadline drops a step on every rank when
-    any rank's delivery missed it (`_admit`)."""
+    same arguments) the step is `build_sharded_step`'s: a given state (the
+    same on every rank) is cut into each rank's DTensor shards, a fresh one
+    is drawn shard by shard (`sharded_init`), and each rank draws the
+    global batch and trains on its shard of it.  A checkpoint is written
+    by every rank, each its own slices (`store.save_sharded`), in the
+    one-device format; a restore is verified on rank 0 and each rank reads
+    its slices alone (`store.read_slices`), so no rank holds a whole leaf
+    on its device or the whole state on its host, and a checkpoint
+    written at one mesh (or on one device) restores at another.
+    `full_state()` gives the whole state on every rank.  The straggler
+    deadline drops a step on every rank when any rank's delivery missed it
+    (`_admit`)."""
 
     def __init__(self, cfg: ModelConfig, opt: adamw.OptConfig, data: DataConfig,
                  tcfg: TrainerConfig, mesh=None, resume: bool = True, source=None,
@@ -370,20 +487,19 @@ class Trainer:
         self.mesh = mesh
         self.device = require_device(device)
         self.source = source if source is not None else SyntheticLM(cfg, data)
-        params = None
-        if state is None:
-            params = M.init(cfg, seed=tcfg.seed, device=self.device, expert_dtype=torch.float32)
-        check_masters(params if state is None else state.params)
         self.state_sh = None
         if mesh is None:
             self._step = make_train_step(cfg, opt, device=self.device)
-            state = adamw.init_state(opt, params) if state is None else state
+            if state is None:
+                state = adamw.init_state(opt, M.init(cfg, seed=tcfg.seed, device=self.device,
+                                                     expert_dtype=torch.float32))
         else:
             self._step, self.state_sh, _ = build_sharded_step(
                 cfg, opt, mesh, M.param_specs(cfg), self.source.batch_at(0), device=self.device)
-            state = (sharded_init(mesh, opt, params, self.state_sh) if state is None
-                     else distribute(mesh, state, self.state_sh))
-        del params
+            state = (sharded_init(mesh, opt, cfg, self.state_sh, seed=tcfg.seed,
+                                  device=self.device) if state is None
+                     else distribute(mesh, state, self.state_sh, device=self.device))
+        check_masters(state.params)
         self.state = state
 
         self.start_step = 0
@@ -414,36 +530,64 @@ class Trainer:
         """The whole state (under a mesh a collective: every rank calls it)."""
         return self.state if self.mesh is None else gather(self.state)
 
+    def _shards(self):
+        """(path name, the leaf, its full shape, its `NamedSharding`) of each
+        state leaf under the mesh."""
+        return [(name, t, tuple(t.shape), sh) for (name, t), sh in
+                zip(T.leaves_with_path(self.state), T.leaves(self.state_sh))]
+
     def _save(self, step: int) -> None:
         if self.mesh is None:
             store.save(self.tcfg.ckpt_dir, step, self.state, keep=self.tcfg.keep)
             return
-        rank0 = dist.get_rank() == 0
 
-        def leaf(t):   # one whole leaf on the device at a time; rank 0 keeps it on the host
-            t = gather(t, device="cpu" if rank0 else None)
-            return t if rank0 else None
+        def pieces(t, shape, sh):    # this rank's slice, when it is the one to write it
+            if not S.owns_shard(self.mesh, sh.spec):
+                return lambda: []
+            return lambda: [(S.shard_index(self.mesh, sh.spec, shape), _to_local(t))]
 
-        full = T.map_structure(leaf, self.state)
-        if rank0:
-            store.save(self.tcfg.ckpt_dir, step, full, keep=self.tcfg.keep)
-        del full
-        dist.barrier()
+        leaves = [(name, shape, t.dtype, pieces(t, shape, sh))
+                  for name, t, shape, sh in self._shards()]
+        store.save_sharded(self.tcfg.ckpt_dir, step, leaves, keep=self.tcfg.keep,
+                           first=dist.get_rank() == 0, barrier=dist.barrier)
 
     def _restore(self):
         if self.mesh is None:
             return store.restore_latest_valid(self.tcfg.ckpt_dir, self.state)
-        like = T.map_structure(lambda t: SimpleNamespace(shape=tuple(t.shape), dtype=t.dtype,
-                                                         device="cpu"), self.state)
-        restored = store.restore_latest_valid(self.tcfg.ckpt_dir, like)
-        step = -1 if restored is None else int(restored[1])
-        seen = torch.tensor([step, -step], device=self.device)
-        dist.all_reduce(seen, op=dist.ReduceOp.MAX)
-        if int(seen[0]) != -int(seen[1]):
-            raise RuntimeError(f"ranks restored different checkpoints (this rank: step {step})")
-        if restored is None:
+        shards = self._shards()
+        full = T.unflatten(self.state, [SimpleNamespace(shape=shape, dtype=t.dtype)
+                                        for _, t, shape, _ in shards])
+
+        # rank 0 walks back to the newest valid step, dropping corrupt ones,
+        # and every rank takes its answer: the step, -1 for none, -2 for
+        # another structure, -3 for any other failure
+        found, error = -1, None
+        if dist.get_rank() == 0:
+            try:
+                step = store.latest_valid_step(self.tcfg.ckpt_dir, full)
+                found = -1 if step is None else step
+            except store.StructureMismatch as e:
+                found, error = -2, e
+            except Exception as e:
+                found, error = -3, e
+        seen = torch.tensor([found], dtype=torch.int64, device=self.device)
+        dist.broadcast(seen, src=0)
+        step = int(seen[0])
+        if step <= -2:
+            if error is not None:
+                raise error
+            raise (store.StructureMismatch if step == -2 else RuntimeError)(
+                "the checkpoint check failed on rank 0")
+        if step == -1:
             return None
-        return distribute(self.mesh, restored[0], self.state_sh, device=self.device), step
+        like = T.unflatten(self.state, [
+            SimpleNamespace(index=S.shard_index(self.mesh, sh.spec, shape),
+                            shape=tuple(_to_local(t).shape), dtype=t.dtype,
+                            device=self.device) for _, t, shape, sh in shards])
+        local = store.read_slices(self.tcfg.ckpt_dir, step, like)
+        return T.map_structure(
+            lambda z, sh, s: _as_dtensor(self.mesh, z, sh.spec, s.shape)
+            if _is_sharded(sh) else z, local, self.state_sh, full), step
 
     def _admit(self, delivery_s: float) -> bool:
         """The deadline policy's verdict on this step's batch.  Under a mesh

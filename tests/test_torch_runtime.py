@@ -382,14 +382,18 @@ def test_launch_train_wire_bits_trains_as_without_it(tmp_path, monkeypatch, caps
 
 
 def test_trainer_refuses_mesh_fabric_and_fault_injection(tmp_path):
-    """Under a mesh, an MoE config and the parameter wire are not ported and
-    raise before the mesh is read; a fabric is ported, and an unknown
-    preset name is refused as the reference's `get_fabric` refuses it; a
-    fault without a fabric raises as the reference's does."""
+    """Under a mesh the parameter wire is not ported and raises before the
+    mesh is read, while an MoE config goes on to read it (it trains under a
+    mesh: `tests/test_torch_sharded_train.py`); a fabric is ported, and an
+    unknown preset name is refused as the reference's `get_fabric` refuses
+    it; a fault without a fabric raises as the reference's does."""
     tc = TrainerConfig(ckpt_dir=str(tmp_path))
-    for cfg in (C.get_reduced("mixtral_8x7b"), dataclasses.replace(CFG, wire_bits=8)):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            Trainer(cfg, OPT, DATA, tc, mesh=object(), resume=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Trainer(dataclasses.replace(CFG, wire_bits=8), OPT, DATA, tc, mesh=object(),
+                resume=False, device="cpu")
+    with pytest.raises(AttributeError, match="axis_names"):     # the mesh, read
+        Trainer(C.get_reduced("mixtral_8x7b"), OPT, DATA, tc, mesh=object(), resume=False,
+                device="cpu")
     with pytest.raises(KeyError, match="unknown fabric preset"):
         _trainer(tmp_path, fabric="trine")
     with pytest.raises(ValueError, match="no fabric"):

@@ -11,23 +11,48 @@ the production geometries (16, 16) and (2, 16, 16) (a geometry stand-in on
 both sides; the reference's `NamedSharding` replaced, in its subprocess,
 by a holder of the spec, since a real one needs the devices).
 
-Shards: for reduced yi-6b and zamba2, each rank's local shard of each
+Shards: for each case of the step below, each rank's local shard of each
 parameter equals the reference's addressable shard on the device at the
-same mesh coordinate.
+same mesh coordinate.  `sharded_init` draws, for every config, the shards
+`distribute` cuts from `M.init`'s state, bit for bit.
 
-The sharded step: reduced yi-6b and zamba2, SyntheticLM batches of 4 x 64
-on (2, 2, 2), two steps from the reference's initial state.  Against the
-port's unsharded step at the tolerances of `tests/test_torch_train.py`
-(the loss at rtol 1e-5, parameters as its gradient-accumulation test: rtol
-2e-4, atol 2e-5).  Against the reference's compiled sharded step (jit with
-the state and batch shardings under `activation_sharding`, on a mesh of
-`AxisType.Auto` axes: the constraints raise on this jax's default
-Explicit axes) at `REF_STEP_TOL`, measured: XLA compiles the step with
-excess precision and its own reduction orders (ROADMAP.md, Queue 3); the
-measurements stand beside `REF_STEP_TOL`.  A
-trainer under the mesh saved at step 1 and resumed reaches the straight
-run's step-2 state bit for bit.  A rank that delivers a batch past the
-straggler deadline makes every rank drop that step.
+The sharded step (each weight gathered where it is used, its gradient
+reduce-scattered into the rank's shard): `STEP_CASES`, reduced yi-6b and
+zamba2, one config of each other family (gemma3-27b and xlstm-350m with
+their tied heads, seamless-m4t-medium with its encoder, qwen2-vl-72b),
+reduced mixtral-8x7b and grok-1 in both MoE dispatch modes, and yi-6b
+over two accumulated microbatches, on SyntheticLM batches of 4 x 64 a
+microbatch on (2, 2, 2), two steps from the reference's initial state.  Against the port's unsharded step at the
+tolerances of `tests/test_torch_train.py` (the loss at rtol 1e-5,
+parameters as its gradient-accumulation test: rtol 2e-4, atol 2e-5).
+Against the reference's compiled sharded step (jit with the state and
+batch shardings under `activation_sharding`, on a mesh of `AxisType.Auto`
+axes: the constraints raise on this jax's default Explicit axes) at
+`REF_STEP_TOL`, measured: XLA compiles the step with excess precision and
+its own reduction orders (ROADMAP.md, Queue 3); the measurements stand
+beside `REF_STEP_TOL`.  For yi-6b and zamba2 also against
+`whole_gather_step`, a copy of the step that gathered the whole model
+and all-reduced the flat gradient, at the unsharded step's tolerances.
+The clipping norm from the shards equals the whole gradient's within
+1e-6.
+
+Memory: on `MEMORY_CFG` (8 layers at d_model 512, whose parameters dominate
+its activations at 4 x 16), each rank's peak allocation in one step
+(`torch.profiler`, `profile_memory=True`, on top of the state it held
+before the step; the least of three steps, `step_growth`) stays below `memory_bound`: 16/N bytes a parameter
+for its shards of the parameters, m, v and gradient, one layer's full
+parameters and gradient, the embedding and head gathered with their
+gradient, and a margin; and `whole_gather_step`'s peak does not.
+
+A trainer under the mesh saved at step 1 and resumed reaches the straight
+run's step-2 state bit for bit; its step-2 checkpoint, written by the 8
+ranks, restores on one device to the same state, and a one-device
+trainer's checkpoint restores under the mesh to the one-device state.
+Rank 0 checks a restore for every rank: a corrupt newest checkpoint is
+dropped and every rank resumes from the one before, and a manifest rank 0
+fails to read raises on every rank.  A
+rank that delivers a batch past the straggler deadline makes every rank
+drop that step.
 
 One module-scoped fixture runs the reference subprocess and the 8 port
 ranks together, each writing its results to files; the tests read them.
@@ -35,8 +60,10 @@ The test process itself never imports jax here: the port's ranks import
 this module for `describe_port`.
 """
 
+import dataclasses
 import json
 import textwrap
+from typing import Dict
 
 import numpy as np
 import pytest
@@ -49,6 +76,7 @@ from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as S
+from repro_torch.parallel import collectives as CC
 from repro_torch.parallel.collectives import MeshGeometry
 from test_torch_distributed import _run_both  # the reference and 8 ranks, started together
 
@@ -56,6 +84,15 @@ WORLD = 8
 TIMEOUT_S = 600
 ARCHS = list(C.ARCH_IDS)
 STEP_ARCHS = ("yi_6b", "zamba2_1p2b")
+MOE_ARCHS = ("mixtral_8x7b", "grok1_314b")
+# the other families: gemma3's and xlstm's heads are the tied embedding,
+# seamless runs an encoder, qwen2-vl splices pixel embeddings under M-RoPE
+FAMILY_ARCHS = ("gemma3_27b", "xlstm_350m", "seamless_m4t_medium", "qwen2_vl_72b")
+# the sharded step's cases: name -> (config, MoE dispatch, accumulation steps)
+STEP_CASES = {a: (a, "einsum", 1) for a in STEP_ARCHS + FAMILY_ARCHS}
+STEP_CASES.update({f"{a}-{d}": (a, d, 1) for a in MOE_ARCHS for d in ("einsum", "index")})
+STEP_CASES["yi_6b-accum2"] = ("yi_6b", "einsum", 2)
+STEP_BATCH = (4, 64)            # global sequences a microbatch, tokens a sequence
 STEPS = 2
 CACHE_BATCHES = (4, 1)          # (pod, data) divides 4, not 1
 CACHE_LEN = 64
@@ -80,6 +117,121 @@ REF_STEP_TOL = {"loss": 1e-5, "grad_norm": 2e-4, "params_rtol": 1e-4, "params_lr
 # the straggler case: rank 1 sleeps LATE_S before one batch, past the
 # trainer's deadline by a margin no loaded host closes
 DEADLINE_S, LATE_S = 1.0, 2.5
+# the memory case: reduced yi-6b widened to 8 layers at d_model 512 (18.4M
+# parameters, 2.2M a layer), 4 sequences of 16 tokens, one to each batch
+# rank (yi-6b shards on `data` and `model`: 4 ways on (2, 2, 2)).  The
+# margin: the optimizer's f32 temporaries, a few copies of the leaf it is
+# updating (the scaled gradient, m, v, their update and the new parameter:
+# `MEMORY_TEMPORARIES` copies of the largest local leaf), and
+# `MEMORY_SLACK` for the activations (16 tokens a rank) and the
+# collectives' buffers, which gloo's worker threads release a little later
+# on some ranks than on others
+MEMORY_CFG = dict(n_layers=8, d_model=512, n_heads=8, n_kv_heads=2, head_dim=64, d_ff=1024)
+MEMORY_BATCH = (4, 16)
+MEMORY_TEMPORARIES = 8
+MEMORY_SLACK = 24 << 20
+MEMORY_STEPS = 4
+
+
+def memory_cfg():
+    return dataclasses.replace(C.get_reduced("yi_6b"), **MEMORY_CFG)
+
+
+def case_cfg(case: str):
+    arch, dispatch, _ = STEP_CASES[case]
+    return dataclasses.replace(C.get_reduced(arch), moe_dispatch=dispatch)
+
+
+def step_growth(init, step, batch) -> int:
+    """The most bytes one step from `init()`'s state had allocated and not
+    yet freed, on top of what was allocated when it began: the profiler's
+    allocation events (`profile_memory=True`), recorded from before the
+    state is drawn, so that every block a step frees was allocated under
+    the profiler.  A step begins at its `loss` range.  The least over the
+    steps after the first (`MEMORY_STEPS` in all): gloo's worker thread
+    lets go of a collective's buffers only after the rank has gone on, and
+    later on a loaded host, which lifts one step's reading now and then."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
+        state = init()
+        for _ in range(MEMORY_STEPS):
+            state, _ = step(state, batch)
+    events = list(prof.profiler.kineto_results.events())
+    begins = sorted(e.start_ns() for e in events if e.name() == "loss")[1:] + [float("inf")]
+    growth, now, k, start, peak = [], 0, 0, None, 0
+    for e in sorted((e for e in events if e.name() == "[memory]"), key=lambda e: e.start_ns()):
+        while e.start_ns() >= begins[k]:      # a step begins before this event
+            if start is not None:
+                growth.append(peak - start)
+            start = peak = now
+            k += 1
+        now += e.nbytes()
+        peak = max(peak, now)
+    growth.append(peak - start)
+    return min(growth)
+
+
+def whole_gather_step(cfg, opt, mesh, state_sh, batch_sh):
+    """The sharded step as it was before it was memory-sharded: the whole
+    model gathered, the flat gradient all-reduced whole (TRINE) and only
+    then cut to the rank's shards, the norm taken on the whole gradient.
+    Kept here as the memory case's mutant and the per-leaf reduction's
+    comparison."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.runtime import trainer as TR
+
+    axes = batch_sh["tokens"].spec[0]
+    axes = (axes,) if isinstance(axes, str) else axes
+    reduce = TR._batch_reduce(mesh, axes)
+    param_sh = T.leaves(state_sh.params)
+
+    def to_local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def step_fn(state, batch):
+        local = {k: S.local_shard(mesh, batch_sh[k].spec, v) for k, v in batch.items()}
+        share = local["tokens"].numel() / batch["tokens"].numel()
+        params = TR.gather(state.params)
+        loss, metrics, grads = TR._loss_and_grads(cfg, params, local, None, 1, torch.device("cpu"))
+        del params
+        shapes = [g.shape for g in grads]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        del grads
+        if share != 1:
+            flat.mul_(share)
+        flat = reduce(flat)
+        scalars = CC.flat_all_reduce(torch.stack([loss, metrics["ce"], metrics["aux"]]) * share,
+                                     mesh, axes)
+        grads = [f.view(sh) for f, sh in zip(torch.split(flat, [sh.numel() for sh in shapes]),
+                                             shapes)]
+        gn = adamw.global_norm(grads)
+        mine = [S.local_shard(mesh, sh.spec, g).contiguous() for g, sh in zip(grads, param_sh)]
+        new_local = adamw.apply_updates(opt, T.map_structure(to_local, state),
+                                        T.unflatten(state.params, mine), grad_norm=gn)
+        new_state = T.map_structure(
+            lambda t, old: DTensor.from_local(t, old.device_mesh, old.placements, run_check=False,
+                                              shape=old.shape, stride=old.stride())
+            if isinstance(old, DTensor) else t, new_local, state)
+        return new_state, {"ce": scalars[1], "aux": scalars[2], "loss": scalars[0],
+                           "grad_norm": gn}
+    return step_fn
+
+
+def memory_bound(got: Dict[str, np.ndarray]) -> int:
+    """What a rank may hold in a step of `MEMORY_CFG`: its shards of the
+    parameters, m, v and gradient (16/N bytes a parameter), one layer's full
+    parameters and gradient, the embedding and head gathered with their
+    gradient, and the margin (`MEMORY_TEMPORARIES`, `MEMORY_SLACK`)."""
+    return int(4 * got["mem_shard_bytes"] + 2 * got["mem_layer_bytes"]
+               + 2 * got["mem_top_bytes"] + MEMORY_TEMPORARIES * got["mem_largest_shard_bytes"]
+               + MEMORY_SLACK)
+
+
+def memory_peak(got: Dict[str, np.ndarray], which: str) -> int:
+    """The state's shards held before the step (params, m, v) and the
+    step's growth over them."""
+    return int(3 * got["mem_shard_bytes"] + got[f"mem_growth|{which}"])
 
 
 def _enc(spec):
@@ -128,7 +280,7 @@ def describe_port(mesh) -> dict:
 
 
 REF_SCRIPT = textwrap.dedent("""
-    import json, os, sys
+    import dataclasses, json, os, sys
     from types import SimpleNamespace
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     import jax, jax.experimental
@@ -199,22 +351,23 @@ REF_SCRIPT = textwrap.dedent("""
 
     # the reduced configs' initial weights, first (the port's ranks wait
     # for them), then their addressable shards by mesh coordinate
-    inits = {a: M.init(C.get_reduced(a), jax.random.PRNGKey(0)) for a in cfgs["step_archs"]}
+    inits = {a: M.init(C.get_reduced(a), jax.random.PRNGKey(0))
+             for a in {arch for arch, _, _ in cfgs["cases"].values()}}
     np.savez(f"{tmp}/init.tmp.npz", **{f"{a}|{keystr(k)}": np.asarray(v)
                                         for a, (p, _) in inits.items()
                                         for k, v in jax.tree_util.tree_leaves_with_path(p)})
     os.replace(f"{tmp}/init.tmp.npz", f"{tmp}/ref_init.npz")
     arrays = {}
     coords = {d: tuple(int(i) for i in c) for c, d in np.ndenumerate(mesh.devices)}
-    for arch in cfgs["step_archs"]:
-        cfg = C.get_reduced(arch)
+    for case, (arch, dispatch, accum) in cfgs["cases"].items():
+        cfg = dataclasses.replace(C.get_reduced(arch), moe_dispatch=dispatch)
         params, pspecs = inits[arch]
         rules = S.rules_for(cfg, mesh)
         sh = S.enforce_divisibility(S.tree_shardings(mesh, pspecs, rules), params)
         placed = jax.device_put(params, sh)
         for k, v in jax.tree_util.tree_leaves_with_path(placed):
             for s in v.addressable_shards:
-                arrays[f"shard|{arch}|{keystr(k)}|{coords[s.device]}"] = np.asarray(s.data)
+                arrays[f"shard|{case}|{keystr(k)}|{coords[s.device]}"] = np.asarray(s.data)
 
         # the compiled sharded step, two steps
         opt = adamw.OptConfig(**cfgs["opt"])
@@ -222,18 +375,19 @@ REF_SCRIPT = textwrap.dedent("""
         state_sh = S.enforce_divisibility(
             S.tree_shardings(mesh, adamw.state_specs(pspecs), rules),
             jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), state))
-        batch = {k[len(arch) + 7:]: jnp.asarray(v) for k, v in inp.items()
-                 if k.startswith(f"batch|{arch}|")}
+        batch = {k[len(case) + 7:]: jnp.asarray(v) for k, v in inp.items()
+                 if k.startswith(f"batch|{case}|")}
         batch_sh = S.train_batch_shardings(cfg, mesh, batch)
         with mesh, actx.activation_sharding(mesh, S.batch_axes(mesh, 4)):
-            step = jax.jit(make_train_step(cfg, opt), in_shardings=(state_sh, batch_sh))
+            step = jax.jit(make_train_step(cfg, opt, accum_steps=accum),
+                           in_shardings=(state_sh, batch_sh))
             for i in range(cfgs["steps"]):
                 # the compiled step may lay its outputs out otherwise
                 state, m = step(jax.device_put(state, state_sh), jax.device_put(batch, batch_sh))
                 for name, val in m.items():
-                    arrays[f"step|{arch}|{i}|{name}"] = np.asarray(val)
+                    arrays[f"step|{case}|{i}|{name}"] = np.asarray(val)
         for k, v in jax.tree_util.tree_leaves_with_path(state.params):
-            arrays[f"stepped|{arch}|{keystr(k)}"] = np.asarray(v)
+            arrays[f"stepped|{case}|{keystr(k)}"] = np.asarray(v)
     np.savez(f"{tmp}/ref.npz", **arrays)
     rules_out = {"test": describe(mesh, NamedSharding)}
 
@@ -260,10 +414,13 @@ RANK_SCRIPT = textwrap.dedent("""
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
                             world_size=world)
     sys.path.insert(0, tests)
-    from test_torch_sharded_train import DEADLINE_S, LATE_S, OPT_KW, STEP_ARCHS, STEPS, describe_port
+    from test_torch_sharded_train import (ARCHS, DEADLINE_S, LATE_S, MEMORY_BATCH, OPT_KW,
+                                          STEP_ARCHS, STEP_CASES, STEPS, case_cfg, describe_port,
+                                          memory_cfg, whole_gather_step, step_growth)
     from torch.distributed.tensor import DTensor
     from repro_torch import configs as C
     from repro_torch import tree as T
+    from repro_torch.checkpoint import store
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_test_mesh
@@ -289,31 +446,79 @@ RANK_SCRIPT = textwrap.dedent("""
         return T.unflatten(like, [torch.from_numpy(ref[f"{arch}|{n}"])
                                   for n, _ in T.leaves_with_path(like)])
 
-    for arch in STEP_ARCHS:
-        cfg = C.get_reduced(arch)
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    for case, (arch, _, accum) in STEP_CASES.items():
+        cfg = case_cfg(case)
         params = ref_params(arch, cfg)
         sh = S.enforce_divisibility(
             S.tree_shardings(mesh, M.param_specs(cfg), S.rules_for(cfg, mesh)), params)
         for n, t in T.leaves_with_path(TR.distribute(mesh, params, sh)):
-            out[f"shard|{arch}|{n}"] = t.to_local() if isinstance(t, DTensor) else t
+            out[f"shard|{case}|{n}"] = local(t)
 
-        batch = {k[len(arch) + 7:]: torch.from_numpy(v) for k, v in inp.items()
-                 if k.startswith(f"batch|{arch}|")}
-        step, state_sh, _ = TR.build_sharded_step(cfg, opt, mesh, M.param_specs(cfg), batch,
-                                                  device="cpu")
+        batch = {k[len(case) + 7:]: torch.from_numpy(v) for k, v in inp.items()
+                 if k.startswith(f"batch|{case}|")}
+        step, state_sh, batch_sh = TR.build_sharded_step(cfg, opt, mesh, M.param_specs(cfg),
+                                                         batch, device="cpu", accum_steps=accum)
         state = TR.distribute(mesh, adamw.init_state(opt, params), state_sh)
-        plain = TR.make_train_step(cfg, opt, device="cpu")
+        plain = TR.make_train_step(cfg, opt, device="cpu", accum_steps=accum)
         pstate = adamw.init_state(opt, params)
+        old = (whole_gather_step(cfg, opt, mesh, state_sh, batch_sh) if case in STEP_ARCHS
+               else None)
+        ostate = TR.distribute(mesh, adamw.init_state(opt, params), state_sh)
         for i in range(STEPS):
             state, m = step(state, batch)
             pstate, pm = plain(pstate, batch)
             for name in m:
-                out[f"step|{arch}|{i}|{name}"] = m[name]
-                out[f"plain|{arch}|{i}|{name}"] = pm[name]
+                out[f"step|{case}|{i}|{name}"] = m[name]
+                out[f"plain|{case}|{i}|{name}"] = pm[name]
+            if old is not None:
+                ostate, om = old(ostate, batch)
+                for name in om:
+                    out[f"whole|{case}|{i}|{name}"] = om[name]
         for n, t in T.leaves_with_path(TR.gather(state.params)):
-            out[f"stepped|{arch}|{n}"] = t
+            out[f"stepped|{case}|{n}"] = t
         for n, t in T.leaves_with_path(pstate.params):
-            out[f"plain_stepped|{arch}|{n}"] = t
+            out[f"plain_stepped|{case}|{n}"] = t
+        if old is not None:
+            for n, t in T.leaves_with_path(TR.gather(ostate.params)):
+                out[f"whole_stepped|{case}|{n}"] = t
+        # the clipping norm from the shards, on the stepped parameters
+        shards = [local(t) for t in T.leaves(state.params)]
+        out[f"norm_shards|{case}"] = TR.shard_global_norm(mesh, shards, T.leaves(state_sh.params))
+        out[f"norm_whole|{case}"] = adamw.global_norm(TR.gather(state.params))
+
+    # a fresh state drawn shard by shard against M.init's, cut
+    for arch in ARCHS:
+        cfg = C.get_reduced(arch)
+        sh = TR.state_shardings(cfg, mesh)
+        drawn = TR.sharded_init(mesh, opt, cfg, sh, seed=0, device="cpu")
+        cut = TR.distribute(mesh, adamw.init_state(opt, M.init(cfg, seed=0, device="cpu",
+                                                                expert_dtype=torch.float32)), sh)
+        out[f"init_differing|{arch}"] = np.array(
+            [n for (n, a), b in zip(T.leaves_with_path(drawn), T.leaves(cut))
+             if type(a) is not type(b) or not torch.equal(local(a), local(b))] or ["none"])
+
+    # memory: one step's peak allocation, the new step's and whole_gather_step's
+    mcfg = memory_cfg()
+    mdata = DataConfig(global_batch=MEMORY_BATCH[0], seq_len=MEMORY_BATCH[1])
+    mbatch = {k: torch.as_tensor(v) for k, v in SyntheticLM(mcfg, mdata).batch_at(0).items()}
+    mstep, msh, mbsh = TR.build_sharded_step(mcfg, opt, mesh, M.param_specs(mcfg), mbatch,
+                                             device="cpu")
+    shapes, _ = M.init_abstract(mcfg)
+    out["mem_params"] = np.array(sum(t.numel() for t in T.leaves(shapes)))
+    out["mem_full_state_bytes"] = np.array(16 * int(out["mem_params"]))
+    out["mem_layer_bytes"] = np.array(sum(4 * t[0].numel() for t in T.leaves(shapes["stages"])))
+    out["mem_top_bytes"] = np.array(4 * (shapes["embed"].numel() + shapes["lm_head"].numel()))
+    def minit():
+        return TR.sharded_init(mesh, opt, mcfg, msh, seed=0, device="cpu")
+
+    for name, fn in (("new", mstep), ("whole", whole_gather_step(mcfg, opt, mesh, msh, mbsh))):
+        out[f"mem_growth|{name}"] = np.array(step_growth(minit, fn, mbatch))
+    shard_bytes = [4 * local(t).numel() for t in T.leaves(minit().params)]
+    out["mem_shard_bytes"] = np.array(sum(shard_bytes))
+    out["mem_largest_shard_bytes"] = np.array(max(shard_bytes))
 
     # a trainer under the mesh: saved every step, resumed from step 1
     cfg = C.get_reduced("yi_6b")
@@ -323,6 +528,11 @@ RANK_SCRIPT = textwrap.dedent("""
     straight = TR.Trainer(cfg, opt, data, tc, mesh=mesh, resume=False, device="cpu")
     straight.run(2, quiet=True)
     want = straight.full_state()
+    # its step-2 checkpoint, written by the 8 ranks, read on one device
+    one = store.restore(ck, 2, T.map_structure(torch.zeros_like, want))
+    out["mesh_to_one_differing"] = np.array([n for (n, a), b in zip(T.leaves_with_path(one),
+                                             T.leaves(want)) if not torch.equal(a, b)] or ["none"])
+    dist.barrier()
     if rank == 0:
         shutil.rmtree(f"{ck}/step_00000002")
     dist.barrier()
@@ -337,6 +547,37 @@ RANK_SCRIPT = textwrap.dedent("""
                         resume=False, device="cpu")
     single.run(2, quiet=True)
     out["trainer_losses_single"] = np.array([h["loss"] for h in single.history])
+    # rank 0's one-device checkpoint (step 2) restored under the mesh
+    dist.barrier()
+    from_one = TR.Trainer(cfg, opt, data, dataclasses.replace(tc, ckpt_dir=f"{tmp}/single_0"),
+                          mesh=mesh, resume=True, device="cpu")
+    out["one_to_mesh_from"] = np.array(from_one.start_step)
+    out["one_to_mesh_differing"] = np.array(
+        [n for (n, a), b in zip(T.leaves_with_path(from_one.full_state()), T.leaves(single.state))
+         if not torch.equal(a, b)] or ["none"])
+
+    # rank 0 checks a restore for every rank: a corrupt newest checkpoint is
+    # dropped and every rank resumes from the one before; a manifest rank 0
+    # fails to read makes every rank raise, none left waiting for it
+    dist.barrier()
+    if rank == 0:
+        with open(f"{ck}/step_00000002/leaf_00000.npy", "r+b") as f:
+            f.write(b"corrupted!")
+    dist.barrier()
+    walked = TR.Trainer(cfg, opt, data, tc, mesh=mesh, resume=True, device="cpu")
+    out["walked_back_to"] = np.array(walked.start_step)
+    out["corrupt_left"] = np.array(os.path.exists(f"{ck}/step_00000002"))
+    dist.barrier()
+    if rank == 0:
+        manifest = json.loads(open(f"{ck}/step_00000001/manifest.json").read())
+        del next(iter(manifest["leaves"].values()))["file"]
+        open(f"{ck}/step_00000001/manifest.json", "w").write(json.dumps(manifest))
+    dist.barrier()
+    try:
+        TR.Trainer(cfg, opt, data, tc, mesh=mesh, resume=True, device="cpu")
+        out["unreadable_manifest"] = np.array("no error")
+    except Exception as e:
+        out["unreadable_manifest"] = np.array(type(e).__name__)
 
     # a straggler: rank 1 delivers step 2's batch past the deadline; every
     # rank drops that step, and none waits in a collective its peers skip
@@ -366,9 +607,6 @@ RANK_SCRIPT = textwrap.dedent("""
         except (NotImplementedError, ValueError) as e:
             return np.array(f"{type(e).__name__}: {e}")
 
-    moe = C.get_reduced("mixtral_8x7b")
-    out["refused_moe"] = refusal(lambda: TR.Trainer(moe, opt, data, tc, mesh=mesh, resume=False,
-                                                    device="cpu"))
     wired = dataclasses.replace(cfg, wire_bits=8)
     out["refused_wire"] = refusal(lambda: TR.build_sharded_step(
         wired, opt, mesh, M.param_specs(wired), batch, device="cpu"))
@@ -385,13 +623,13 @@ RANK_SCRIPT = textwrap.dedent("""
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_sharded_train")
     inputs = {}
-    for arch in STEP_ARCHS:
-        cfg = C.get_reduced(arch)
-        for k, v in SyntheticLM(cfg, DataConfig(global_batch=4, seq_len=64)).batch_at(0).items():
-            inputs[f"batch|{arch}|{k}"] = v
+    for case, (_, _, accum) in STEP_CASES.items():
+        data = DataConfig(global_batch=STEP_BATCH[0] * accum, seq_len=STEP_BATCH[1])
+        for k, v in SyntheticLM(case_cfg(case), data).batch_at(0).items():
+            inputs[f"batch|{case}|{k}"] = v
     np.savez(tmp / "inputs.npz", **inputs)
     (tmp / "setup.json").write_text(json.dumps({
-        "archs": ARCHS, "step_archs": list(STEP_ARCHS), "steps": STEPS, "opt": OPT_KW,
+        "archs": ARCHS, "cases": STEP_CASES, "steps": STEPS, "opt": OPT_KW,
         "cache_batches": list(CACHE_BATCHES), "cache_len": CACHE_LEN, "batches": list(BATCHES),
         "fix_cases": [[_enc(spec), list(shape)] for spec, shape in FIX_CASES],
         "geometries": {k: [list(shape), list(names)] for k, (shape, names) in GEOMETRIES.items()},
@@ -426,7 +664,7 @@ def test_batch_rules_match_reference(runs, mesh, what):
     assert runs["port_rules"][mesh][what] == runs["ref_rules"][mesh][what]
 
 
-@pytest.mark.parametrize("arch", STEP_ARCHS)
+@pytest.mark.parametrize("arch", STEP_CASES)
 def test_local_shards_match_the_references_addressable_shards(runs, arch):
     """Each rank's shard of each reduced parameter against the reference's
     shard on the device at the rank's mesh coordinate, exactly."""
@@ -444,7 +682,7 @@ def _metric(got, kind, arch, i, name):
     return float(got[f"{kind}|{arch}|{i}|{name}"])
 
 
-@pytest.mark.parametrize("arch", STEP_ARCHS)
+@pytest.mark.parametrize("arch", STEP_CASES)
 def test_sharded_step_matches_the_unsharded_step(runs, arch):
     """Two steps of 4 x 64 on (2, 2, 2) against the port's one-device step
     from the same state: loss, its parts and the gradient norm on every
@@ -462,7 +700,7 @@ def test_sharded_step_matches_the_unsharded_step(runs, arch):
                                    err_msg=key)
 
 
-@pytest.mark.parametrize("arch", STEP_ARCHS)
+@pytest.mark.parametrize("arch", STEP_CASES)
 def test_sharded_step_matches_the_references_compiled_step(runs, arch):
     """The same two steps against the reference's jitted sharded step, at
     `REF_STEP_TOL`."""
@@ -478,6 +716,55 @@ def test_sharded_step_matches_the_references_compiled_step(runs, arch):
                                    atol=atol, err_msg=key)
 
 
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+def test_per_leaf_reduction_matches_the_flat_one(runs, arch):
+    """The new step against `whole_gather_step` (the whole gradient all-reduced
+    flat) over the same two steps, at the unsharded step's tolerances."""
+    got = runs["ranks"][0]
+    for i in range(STEPS):
+        for name in ("loss", "ce", "grad_norm"):
+            np.testing.assert_allclose(_metric(got, "step", arch, i, name),
+                                       _metric(got, "whole", arch, i, name),
+                                       rtol=1e-5 if name != "grad_norm" else 1e-4,
+                                       err_msg=f"{arch} step {i} {name}")
+    for key in [k for k in got if k.startswith(f"stepped|{arch}|")]:
+        np.testing.assert_allclose(got[key], got["whole_" + key], rtol=2e-4, atol=2e-5,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("arch", STEP_CASES)
+def test_clipping_norm_from_shards_matches_the_whole(runs, arch):
+    for got in runs["ranks"]:
+        np.testing.assert_allclose(float(got[f"norm_shards|{arch}"]),
+                                   float(got[f"norm_whole|{arch}"]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_init_draws_init_s_shards(runs, arch):
+    """`sharded_init`'s state, drawn shard by shard, against `M.init`'s cut
+    by `distribute`: every leaf's local tensor equal, on every rank."""
+    for got in runs["ranks"]:
+        assert list(got[f"init_differing|{arch}"]) == ["none"]
+
+
+def test_sharded_step_memory_stays_below_the_bound(runs):
+    """The state a rank held before the step plus the step's peak
+    allocation (`memory_peak`), below `memory_bound` and below half of
+    the full state's bytes, on every rank."""
+    for got in runs["ranks"]:
+        peak = memory_peak(got, "new")
+        assert peak <= memory_bound(got), (peak, memory_bound(got))
+        assert peak < int(got["mem_full_state_bytes"]) // 2, peak
+
+
+def test_whole_gather_step_breaks_the_memory_bound(runs):
+    """The mutant: the step that gathers the whole model and reduces the
+    whole gradient exceeds `memory_bound` on every rank."""
+    for got in runs["ranks"]:
+        peak = memory_peak(got, "whole")
+        assert peak > memory_bound(got), (peak, memory_bound(got))
+
+
 def test_every_rank_reports_the_same_metrics(runs):
     for got in runs["ranks"][1:]:
         for key in runs["ranks"][0]:
@@ -489,6 +776,28 @@ def test_trainer_under_the_mesh_resumes_bitwise(runs):
     for got in runs["ranks"]:
         assert int(got["resumed_from"]) == 1
         assert list(got["resume_differing"]) == ["none"]
+
+
+def test_mesh_checkpoint_restores_on_one_device(runs):
+    for got in runs["ranks"]:
+        assert list(got["mesh_to_one_differing"]) == ["none"]
+
+
+def test_one_device_checkpoint_restores_under_the_mesh(runs):
+    for got in runs["ranks"]:
+        assert int(got["one_to_mesh_from"]) == 2
+        assert list(got["one_to_mesh_differing"]) == ["none"]
+
+
+def test_a_mesh_restore_walks_back_and_fails_together(runs):
+    """Rank 0 checks the checkpoints for every rank: a corrupt newest one is
+    dropped and every rank resumes from the one before; a manifest rank 0
+    fails to read (a leaf's entry without its file) raises on every rank,
+    rank 0's own error there, and no rank waits for it."""
+    for rank, got in enumerate(runs["ranks"]):
+        assert int(got["walked_back_to"]) == 1
+        assert not bool(got["corrupt_left"])
+        assert str(got["unreadable_manifest"]) == ("KeyError" if rank == 0 else "RuntimeError")
 
 
 def test_trainer_under_the_mesh_matches_the_one_device_trainer(runs):
@@ -509,7 +818,6 @@ def test_a_late_rank_drops_the_step_on_every_rank(runs):
 
 
 @pytest.mark.parametrize("what, want", [
-    ("refused_moe", "NotImplementedError: mixtral-8x7b: an MoE config under a mesh"),
     ("refused_wire", "NotImplementedError: the sharded parameter wire"),
     ("refused_launch", "ValueError: a {'data': 16, 'model': 16} mesh needs 256 ranks; "
                        "the process group has 8"),
