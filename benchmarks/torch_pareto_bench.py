@@ -354,15 +354,27 @@ def run(csv: bool = True, smoke: bool = None, device="cuda") -> dict:
     # both reference paths build nets with the SAME device selection the
     # streaming co-design engine runs (network_columns_device): numpy's and
     # torch's transcendentals may differ in the last ulp, so the exact-front
-    # equality checks below need the engine's nets, not the numpy path's
+    # equality checks below need the engine's nets, not the numpy path's.
+    # A chunk's columns, nets and result stay on the device (one copy of
+    # the decoded columns there, none back): both timed paths end in one
+    # synchronize, and only the monolithic result is read back, untimed
+    dev = require_device(device)
+
     def _grid_eval(start, stop):
         cols, topo_id = spec.chunk_cols(start, stop)
+        cols = {k: torch.as_tensor(v, device=dev) for k, v in cols.items()}
         nets = network_columns_device(cols, topo_id, spec.topologies,
-                                      device=device)
+                                      device=dev, as_numpy=False)
         return evaluate_accelerator_grid(
             wl, mixes, nets, cols,
             cols["n_mem_chiplets"] * cols["mem_bw_bytes_per_s"],
-            device=device)
+            device=dev, as_numpy=False)
+
+    def _synced(fn):
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out
 
     def eval_chunked():
         rows = 0
@@ -372,8 +384,8 @@ def run(csv: bool = True, smoke: bool = None, device="cuda") -> dict:
             rows += stop - start
         return rows
 
-    _grid_eval(0, min(cd_chunk, n_net))  # warm the chunk shape
-    cd_chunk_s, _ = _best_of(eval_chunked, repeats=3 if smoke else 2)
+    _synced(lambda: _grid_eval(0, min(cd_chunk, n_net)))  # warm the chunk shape
+    cd_chunk_s, _ = _best_of(lambda: _synced(eval_chunked), repeats=3 if smoke else 2)
 
     t0 = time.perf_counter()
     cd_front, _ = codesign_pareto(wl, mixes, topologies=TOPOLOGIES,
@@ -387,8 +399,9 @@ def run(csv: bool = True, smoke: bool = None, device="cuda") -> dict:
     peak_rss_after_chunked_mb = (
         resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024)
 
-    cd_mono_s, cd_out = _best_of(lambda: _grid_eval(0, n_net),
+    cd_mono_s, cd_out = _best_of(lambda: _synced(lambda: _grid_eval(0, n_net)),
                                  repeats=3 if smoke else 2)
+    cd_out = {k: v.cpu().numpy() for k, v in cd_out.items()}
 
     cd_pts = np.stack([cd_out[k] for k in OBJECTIVES], -1).reshape(-1, 3)
     t0 = time.perf_counter()

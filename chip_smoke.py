@@ -21,7 +21,10 @@ line, and fails if any phase fails:
                     and at the serving shapes of the ten models below, with
                     times, a library call's time as yardstick where one
                     PyTorch call computes the same function, and the card's
-                    bound for the same work
+                    bound for the same work; `photonic_mac` also on the
+                    tensor-parallel split's padded column shards of a
+                    yi-6b `ffn` weight (`MAC_SHARD`), against the global
+                    product's columns
 
 then the analytic engine (`src/repro_torch/core/`: topologies, laser and
 trimming, latency and energy, the CrossLight accelerator, the design-space
@@ -179,9 +182,13 @@ step seconds and peak memory beside the card.  Then mixtral-8x7b at
 published width and `MESH_MOE_DEPTH` layers, `MESH_STEPS` steps of
 `MESH_MOE_BATCH` through `Trainer(mesh=)` against the one-device step on
 the same state and batches, the same checks (its own path of launches,
-`mixtral-8x7b train_mesh`).  NCCL takes no two ranks on one card: the
-phase proves the path builds and launches, not that it splits work or
-memory.
+`mixtral-8x7b train_mesh`).  Then zamba2-1.2b once more through
+`Trainer(mesh=)` under the 8-bit wire (`cfg.wire_bits`: the per-layer
+gathers move int8 levels, `zamba2-1.2b train_mesh_wire`) against the first
+`MESH_STEPS` steps of `train_wire`, the same checks.  NCCL takes no two
+ranks on one card: the phase proves the path builds and launches, not
+that it splits work or memory; the `model` axis has size 1, where the
+tensor-parallel split is the identity.
 
 Last, `examples`: the five model examples (`examples/torch_quickstart.py`,
 `torch_continuous_batching.py`, `torch_serve_batched.py`, which runs the
@@ -248,7 +255,8 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.photonic_mac import (  # noqa: E402
-    dispatch, mac_plan, mac_ranges, mac_splits, photonic_mac, quantize_weights)
+    BANK, bank_absmax, dispatch, mac_plan, mac_ranges, mac_splits, photonic_mac,
+    quantize_weights)
 from repro_torch.kernels import ssm_scan as SS  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
 from repro_torch import tree as T  # noqa: E402
@@ -333,6 +341,11 @@ MAC_TIMED = ([("yi-6b", m, k, n) for m in (128, 512) for (k, n) in YI_KN]
 # many elements is compared on its first `MAC_PLAIN_ROWS` rows only
 MAC_PLAIN_ELEMS, MAC_PLAIN_ROWS = 16384 * 32000, 1024
 MAC_HEADLINE = (128, 4096, 11008)        # the shape reported in the summary line
+# the tensor-parallel split's padded shards (`ops.shard_banks`): (M, K, N,
+# ranks) and the ranks checked: columns 688 r .. 688 (r + 1) of yi-6b's
+# 11008-wide `ffn` weight as model 16 cuts it, each straddling bank edges
+MAC_SHARD = (128, 4096, 11008, 16)
+MAC_SHARD_RANKS = (1, 2)
 # the timed attention prefills (model, B, Sq, Sk, Hq, Hk, D, causal,
 # window): strided (B,S,H,D) projections, bf16; yi-6b (32/4 heads of 128)
 # and zamba2's shared attention (32/32 heads of 64, window 4096, which at
@@ -536,7 +549,48 @@ def check_photonic_mac(gen) -> dict:
         row["tflops"] = 2.0 * m * k * n / row["ms"] / 1e9
         timed.append(row)
         del w_bf16
-    return {"checks": checks, "timed": timed}
+    return {"checks": checks, "timed": timed, "shards": _mac_shards(gen, checks)}
+
+
+def _mac_shards(gen, checks: list) -> list:
+    """`MAC_SHARD`'s padded column shards: each rank's slice zero-padded out
+    to the global bank edges, quantized with the global weight's bank
+    maxima (its levels and scales those of the global quantization), the
+    kernel on whole banks, the padding sliced off; held against the plain
+    version of the same padded product and against the slice's columns of
+    the global product (its K ranges may differ: within 1e-4 of the
+    largest output), and timed beside the unpadded global product."""
+    m, k, n, parts = MAC_SHARD
+    x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device=DEV)
+    absmax = bank_absmax(w)
+    w_q, sc = quantize_weights(w, bits=8)
+    whole = photonic_mac(x, w_q, sc)
+    rows = []
+    for r in MAC_SHARD_RANKS:
+        size = n // parts
+        cols = slice(r * size, (r + 1) * size)
+        xp, wp, lo, off = ops.shard_banks(x, w[:, cols], "cols", r)
+        banks = wp.shape[1] // BANK
+        sq, ssc = quantize_weights(wp, bits=8, absmax=absmax[:, lo:lo + banks])
+        if not (torch.equal(sq[:, off:off + size], w_q[:, cols])
+                and torch.equal(ssc, sc[:, lo:lo + banks])):
+            raise AssertionError(f"photonic_mac shard {r}: levels or scales differ from the "
+                                 "global weight's")
+        got = photonic_mac(xp, sq, ssc)[:, off:off + size]
+        want = ref.photonic_mac_ref(xp, sq, ssc)[:, off:off + size]
+        what = f"mac shard {r} of {parts}: {m}x{k}x{size} of {n} columns, padded to {wp.shape[1]}"
+        checks.append(compare(got, want, 2e-2, 2e-1, what))
+        checks.append(compare(got, whole[:, cols], 0.0, 1e-4 * float(whole.abs().max()),
+                              what + ", against the global product's columns"))
+        kernel, plan = dispatch(xp, sq)
+        rows.append({"rank": r, "shape": [m, k, size], "padded_columns": wp.shape[1],
+                     "first_bank": lo, "kernel": kernel, "plan": plan.as_dict(),
+                     "ms": time_ms(lambda: photonic_mac(xp, sq, ssc)),
+                     "plain_ms": time_ms(lambda: ref.photonic_mac_ref(xp, sq, ssc)),
+                     "global_ms": time_ms(lambda: photonic_mac(x, w_q, sc)),
+                     **mac_bound_ms(m, k, size, torch.bfloat16)})
+    return rows
 
 
 def _attn_inputs(gen, b, hq, hk, sq, sk, d, dtype, model_layout=False):
@@ -913,8 +967,10 @@ def phase_kernels(only: str | None = None) -> dict:
             "max_rel_err": max(c.get("max_rel_err", 0.0) for c in mac["checks"]),
             "tolerance": "f32 rtol 1e-4 atol 1e-3; bf16 rtol 2e-2 atol 2e-1, and at the "
                          "serving shapes also within 1e-4 of the largest output; "
-                         "padded rows bit-identical",
-            "timed": mac["timed"]}
+                         "padded rows bit-identical; a padded shard's levels and scales "
+                         "equal the global weight's, its columns within 1e-4 of the "
+                         "global product's largest output",
+            "timed": mac["timed"], "shards": mac["shards"]}
     if only in (None, "flash_attention"):
         attn = check_flash_attention(gen)
         checks += attn["checks"]
@@ -2932,9 +2988,10 @@ def run_train_path(profile: bool) -> dict:
     zero_counters()
     wire = phase_train_wire(straight)
     launches["zamba2-1.2b train_wire"] = wire["launches"]
-    mesh = phase_mesh(straight)
+    mesh = phase_mesh(straight, wire)
     launches["zamba2-1.2b train_mesh"] = mesh["launches"]
     launches["mixtral-8x7b train_mesh"] = mesh["moe"]["launches"]
+    launches["zamba2-1.2b train_mesh_wire"] = mesh["wire"]["launches"]
     if profile:
         phase_train_profile()
     return launches
@@ -3111,7 +3168,51 @@ def _mesh_moe(mesh) -> dict:
     return out
 
 
-def phase_mesh(straight: dict) -> dict:
+def _mesh_wire(mesh, wire: dict) -> dict:
+    """zamba2-1.2b at published size under the `WIRE_BITS` parameter wire
+    over the mesh (`Trainer(mesh=)` with `cfg.wire_bits`: the gathers move
+    int8 levels, dequantized after them), `MESH_STEPS` steps (the counters
+    at 0 just before and read just after), against the first `MESH_STEPS`
+    steps of `train_wire` (`wire`: the one-device wire on the same flags,
+    state and batches): losses and gradient norms within `MESH_TOLERANCE`,
+    launches per step equal."""
+    cfg = dataclasses.replace(C.get(TRAIN_CFG_ID), use_photonic_mac=True, use_kernels=True,
+                              wire_bits=WIRE_BITS)
+    data = DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_wire_", dir=TRAIN_CKPT_ROOT) as tmp:
+        tcfg = TR.TrainerConfig(ckpt_dir=tmp, ckpt_every=MESH_STEPS, log_every=10 ** 9,
+                                seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        trainer = TR.Trainer(cfg, TRAIN_OPT, data, tcfg, mesh=mesh, resume=False, device=DEV)
+        trainer.run(MESH_STEPS, quiet=True)
+        torch.cuda.synchronize()
+        launches = counters()
+        hist = trainer.history
+        del trainer
+    _free()
+    sharded = {"losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+               "step_s": [h["step_s"] for h in hist], "ckpt_s": hist[-1]["ckpt_s"],
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    single = {k: wire[k][:MESH_STEPS] for k in ("losses", "grad_norms", "step_s")}
+    single["peak_memory_gb"] = wire["peak_memory_gb"]
+    want = {k: v * MESH_STEPS for k, v in wire["launches_per_step"].items()}
+    rel = {k: [abs(a - b) / abs(b) for a, b in zip(sharded[k], single[k])]
+           for k in ("losses", "grad_norms")}
+    out = {"model": cfg.name, "wire_bits": WIRE_BITS, "steps": MESH_STEPS, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "tolerance": MESH_TOLERANCE, "sharded": sharded, "single": single,
+           "launches": launches, "rel_diff": rel,
+           "bitwise": (sharded["losses"] == single["losses"]
+                       and sharded["grad_norms"] == single["grad_norms"])}
+    emit({"phase": "mesh_wire", **out})
+    assert launches == want, (launches, want)
+    assert max(rel["losses"]) < MESH_TOLERANCE["loss"], rel
+    assert max(rel["grad_norms"]) < MESH_TOLERANCE["grad_norm"], rel
+    assert all(map(math.isfinite, sharded["losses"])), sharded
+    return out
+
+
+def phase_mesh(straight: dict, wire: dict) -> dict:
     """The cross-device layer through NCCL at world size 1: a file-store
     rendezvous, `make_test_mesh(1, 1, 1)` on the card, the three
     all-reduces at zamba2-1.2b's full gradient length, the pipeline at
@@ -3119,10 +3220,12 @@ def phase_mesh(straight: dict) -> dict:
     `Trainer(mesh=)` against the first `MESH_STEPS` steps of `train`'s
     straight run (`straight`, a `Trainer(mesh=None)` on the same flags,
     state and batches): losses and gradient norms within `MESH_TOLERANCE`,
-    and its launches per step; then the sharded mixtral run (`_mesh_moe`).
-    The counters are set to 0 just before each sharded run and read just
-    after.  NCCL takes no two ranks on one card, so nothing here splits
-    work or memory (ROADMAP.md)."""
+    and its launches per step; then the sharded mixtral run (`_mesh_moe`)
+    and zamba2 under the 8-bit wire over the mesh against `train_wire`
+    (`wire`, `_mesh_wire`).  The counters are set to 0 just before each
+    sharded run and read just after.  NCCL takes no two ranks on one card,
+    so nothing here splits work or memory: the `model` axis has size 1,
+    where the tensor-parallel split is the identity (ROADMAP.md)."""
     t0 = time.perf_counter()
     out = {"phase": "mesh", "card": card(), "world_size": 1}
     rdv = tempfile.mkdtemp(prefix="chip_smoke_mesh_")      # the store lives as long as the group
@@ -3172,6 +3275,7 @@ def phase_mesh(straight: dict) -> dict:
         assert max(rel["grad_norms"]) < MESH_TOLERANCE["grad_norm"], rel
         assert all(map(math.isfinite, sharded["losses"])), sharded
         out["moe"] = _mesh_moe(mesh)
+        out["wire"] = _mesh_wire(mesh, wire)
         out["seconds"] = time.perf_counter() - t0
         emit({"phase": "mesh_total", "seconds": out["seconds"]})
     finally:

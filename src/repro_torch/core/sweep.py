@@ -475,17 +475,21 @@ def network_columns_device(cols: Mapping[str, np.ndarray],
                            topo_id: np.ndarray,
                            topologies: Sequence[str],
                            device="cuda",
+                           as_numpy: bool = True,
                            ) -> Dict[str, np.ndarray]:
     """Device-path network columns as host float64 — the analog of
     `_network_columns_arrays` through the selection the streaming engines
     use (numpy's and torch's transcendentals may differ in the last ulp, so
     exact-front comparisons against the engine build their reference nets
-    here, not on the numpy path)."""
+    here, not on the numpy path).  With ``as_numpy=False`` the columns stay
+    float64 tensors on `device` (`cols` may already be tensors there), for
+    `accelerator.evaluate_accelerator_grid` to take with no host
+    round-trip."""
     xp = TorchNS(require_device(device))
     cols_t = {k: xp.asarray(v) for k, v in cols.items()}
     topo_t = torch.as_tensor(np.asarray(topo_id, np.int64), device=xp.device)
     nets, _ = _nets_program(cols_t, topo_t, tuple(topologies), xp)
-    return _to_host(nets)
+    return _to_host(nets) if as_numpy else nets
 
 
 def _scenario_inputs(xp, scenario=None) -> Dict[str, torch.Tensor]:

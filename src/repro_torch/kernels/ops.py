@@ -14,6 +14,16 @@ Dispatch, decided by shape alone as in the reference:
     shorter lengths take `ssm_scan_chunked_ref`, which rounds to bf16 as the
     reference's chunked form does.
 
+Under a sharded train step (`photonic_matmul(shard=)`, a `Shard` that
+`models.layers.linear` makes from `parallel.actx`) the tiled-or-per-column
+choice is made on the GLOBAL (M, K, N): the rows across the batch ranks,
+and the whole weight's K and N where a rank holds a column or row slice of
+it.  Such a slice is quantized as the whole weight is: each bank's max
+over every rank's part of it (a MAX over the split, `Shard.reduce_max`),
+the slice zero-padded out to the global bank edges (zeros change neither
+a product nor a max), the unchanged kernel on whole banks, the padding
+sliced off.  A row slice's product is this rank's partial sum.
+
 Training: kernel forward, plain backward.  The kernels are forward-only;
 `photonic_matmul` is straight-through (gradients as if w were unquantized,
 the photonic weight banks being programmed from the master weights),
@@ -23,11 +33,15 @@ the photonic weight banks being programmed from the master weights),
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Callable, Optional
+
 import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_fwd
-from repro_torch.kernels.photonic_mac import BANK, photonic_mac as _mac_fwd, quantize_weights
+from repro_torch.kernels.photonic_mac import BANK, bank_absmax, quantize_weights
+from repro_torch.kernels.photonic_mac import photonic_mac as _mac_fwd
 from repro_torch.kernels.ssm_scan import check_shapes, expand_groups
 from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_fwd
 
@@ -37,11 +51,36 @@ from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_fwd
 # ---------------------------------------------------------------------------
 
 
-def _tile_quantize_any(w: torch.Tensor, bits: int):
+@dataclass(frozen=True)
+class Shard:
+    """Where one rank's product sits in the global one: `m` the global
+    rows; `split` None (the rank holds the whole weight), "cols" (columns
+    `index` * N of the (K, `parts` * N) weight) or "rows" (rows `index` * K
+    of the (`parts` * K, N) weight, with the matching columns of x);
+    `reduce_max(t)` the elementwise MAX of `t` over the `parts` ranks."""
+    m: int
+    split: Optional[str] = None
+    index: int = 0
+    parts: int = 1
+    reduce_max: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+    def global_kn(self, k: int, n: int):
+        if self.split == "cols":
+            return k, n * self.parts
+        if self.split == "rows":
+            return k * self.parts, n
+        return k, n
+
+
+def _tile_quantize_any(w: torch.Tensor, bits: int, reduce_max=None):
     """Whole-matrix quantization (per-column scale) for non-tileable shapes;
-    returns dequantized f32 weights and the scale."""
+    returns dequantized f32 weights and the scale.  `reduce_max`, for a row
+    slice of the weight, takes each column's max over every rank's rows."""
     qmax = 2 ** (bits - 1) - 1
-    scale = torch.linalg.vector_norm(w, ord=float("inf"), dim=0).clamp_min(1e-8) / qmax
+    absmax = torch.linalg.vector_norm(w, ord=float("inf"), dim=0)
+    if reduce_max is not None:
+        absmax = reduce_max(absmax)
+    scale = absmax.clamp_min(1e-8) / qmax
     w_q = (w / scale[None, :]).round_().clamp_(-qmax, qmax).mul_(scale[None, :])
     return w_q.to(torch.float32), scale
 
@@ -52,22 +91,66 @@ def uses_tiled_path(m: int, k: int, n: int) -> bool:
     return not (k % BANK or n % BANK or m % 128)
 
 
-def _photonic_fwd_impl(x, w, bits, use_kernel):
-    k, n = w.shape
-    if not uses_tiled_path(x.shape[0], k, n):
-        w_dq, _ = _tile_quantize_any(w, bits)
-        return torch.matmul(x.to(torch.float32), w_dq)
-    w_q, scale = quantize_weights(w, bits=bits)
+def shard_banks(x: torch.Tensor, w: torch.Tensor, split: str, index: int):
+    """A rank's slice of a weight zero-padded out to the global bank edges
+    it straddles, with x padded to match (a row slice's columns): returns
+    (x, w, first bank, the slice's offset in the padded weight)."""
+    dim = 1 if split == "cols" else 0
+    size = w.shape[dim]
+    start = index * size
+    lo, hi = start // BANK, -(-(start + size) // BANK)
+    before, after = start - lo * BANK, hi * BANK - start - size
+    if before or after:
+        if dim == 1:
+            w = torch.nn.functional.pad(w, (before, after))
+        else:
+            w = torch.nn.functional.pad(w, (0, 0, before, after))
+            x = torch.nn.functional.pad(x, (before, after))
+    return x, w, lo, before
+
+
+def _global_absmax(absmax: torch.Tensor, split: str, lo: int, banks: int, reduce_max):
+    """The MAX over the ranks of each bank's max: this rank's banks
+    [lo, lo + its count) placed in the global grid of `banks` along the
+    split dimension (zeros elsewhere: a max is >= 0), reduced, cut back."""
+    dim = 1 if split == "cols" else 0
+    shape = list(absmax.shape)
+    count, shape[dim] = shape[dim], banks
+    grid = torch.zeros(shape, dtype=absmax.dtype, device=absmax.device)
+    grid.narrow(dim, lo, count).copy_(absmax)
+    return reduce_max(grid).narrow(dim, lo, count)
+
+
+def _mac(x, w_q, scale, use_kernel):
     if use_kernel:
         return _mac_fwd(x.contiguous(), w_q, scale)
     return _ref.photonic_mac_ref(x, w_q, scale)
 
 
+def _photonic_fwd_impl(x, w, bits, use_kernel, shard=None):
+    k, n = w.shape
+    m = x.shape[0] if shard is None else shard.m
+    split = None if shard is None or shard.parts == 1 else shard.split
+    kg, ng = (k, n) if split is None else shard.global_kn(k, n)
+    if not uses_tiled_path(m, kg, ng):
+        w_dq, _ = _tile_quantize_any(w, bits, shard.reduce_max if split == "rows" else None)
+        return torch.matmul(x.to(torch.float32), w_dq)
+    # an unsplit weight is column slice 0 of itself: nothing padded, no MAX
+    xp, wp, lo, off = shard_banks(x, w, split or "cols", shard.index if split else 0)
+    absmax = bank_absmax(wp)
+    if split is not None and shard.reduce_max is not None:
+        absmax = _global_absmax(absmax, split, lo, (ng if split == "cols" else kg) // BANK,
+                                shard.reduce_max)
+    w_q, scale = quantize_weights(wp, bits=bits, absmax=absmax)
+    out = _mac(xp, w_q, scale, use_kernel)
+    return out[:, off:off + n] if out.shape[1] != n else out
+
+
 class _PhotonicMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, bits, use_kernel):
+    def forward(ctx, x, w, bits, use_kernel, shard):
         ctx.save_for_backward(x, w)
-        return _photonic_fwd_impl(x, w, bits, use_kernel)
+        return _photonic_fwd_impl(x, w, bits, use_kernel, shard)
 
     @staticmethod
     def backward(ctx, g):
@@ -76,15 +159,17 @@ class _PhotonicMatmul(torch.autograd.Function):
         # straight-through: the gradient flows as if w were unquantized
         dx = torch.matmul(g, w.t().to(torch.float32)).to(x.dtype)
         dw = torch.matmul(x.t().to(torch.float32), g).to(w.dtype)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def photonic_matmul(x: torch.Tensor, w: torch.Tensor, bits: int = 8,
-                    use_kernel: bool = True) -> torch.Tensor:
+                    use_kernel: bool = True, shard: Optional[Shard] = None) -> torch.Tensor:
     """out (M,N) f32 = x (M,K) @ quantize(w (K,N)): forward through the
     photonic-MAC numerics, backward straight-through to the master weights.
-    The master weight is re-quantized on every call."""
-    return _PhotonicMatmul.apply(x, w, bits, use_kernel)
+    The master weight is re-quantized on every call.  `shard` places this
+    rank's product in a sharded step's global one (module docstring); for a
+    row slice the result is this rank's partial sum."""
+    return _PhotonicMatmul.apply(x, w, bits, use_kernel, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -103,8 +188,13 @@ def uses_flash_kernel(sq: int, sk: int, q_offset: int, use_kernel: bool = True) 
     )
 
 
-def _attention_impl(q, k, v, causal, window, scale, q_offset, use_kernel):
-    if uses_flash_kernel(q.shape[2], k.shape[2], q_offset, use_kernel):
+def _attention_impl(q, k, v, causal, window, scale, q_offset, use_kernel, global_sq=None):
+    sq, sk = q.shape[2], k.shape[2]
+    # a slice of the sequence (seq_tp) takes the kernel when the whole
+    # sequence would and the slice's shape can
+    kernel = uses_flash_kernel(sq, sk, q_offset, use_kernel) and (
+        global_sq is None or uses_flash_kernel(global_sq, sk, 0, use_kernel))
+    if kernel:
         return _flash_fwd(q, k, v, causal=causal, window=window, scale=scale,
                           q_offset=q_offset)
     return _ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale,
@@ -113,10 +203,10 @@ def _attention_impl(q, k, v, causal, window, scale, q_offset, use_kernel):
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, q_offset, use_kernel):
+    def forward(ctx, q, k, v, causal, window, scale, q_offset, use_kernel, global_sq):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, window, scale, q_offset)
-        return _attention_impl(q, k, v, causal, window, scale, q_offset, use_kernel)
+        return _attention_impl(q, k, v, causal, window, scale, q_offset, use_kernel, global_sq)
 
     @staticmethod
     def backward(ctx, g):
@@ -126,14 +216,17 @@ class _Attention(torch.autograd.Function):
             out = _ref.attention_ref(*qkv, causal=causal, window=window, scale=scale,
                                      q_offset=q_offset)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def attention(q, k, v, causal: bool = True, window: int = 0, scale=None,
-              q_offset: int = 0, use_kernel: bool = True) -> torch.Tensor:
+              q_offset: int = 0, use_kernel: bool = True,
+              global_sq: Optional[int] = None) -> torch.Tensor:
     """Flash attention (kernel forward, plain backward).  q (B,Hq,Sq,D);
-    k,v (B,Hk,Sk,D) -> (B,Hq,Sq,D) f32."""
-    return _Attention.apply(q, k, v, causal, window, scale, q_offset, use_kernel)
+    k,v (B,Hk,Sk,D) -> (B,Hq,Sq,D) f32.  `global_sq`: the whole sequence's
+    length when q holds a slice of it (`q_offset` its start), on which the
+    kernel's dispatch is decided as the reference decides it."""
+    return _Attention.apply(q, k, v, causal, window, scale, q_offset, use_kernel, global_sq)
 
 
 # ---------------------------------------------------------------------------

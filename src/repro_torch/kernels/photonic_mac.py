@@ -34,9 +34,23 @@ SEQ_BLOCKS = 128   # unsplit 128-row blocks from which `mac_plan` sums K ranges 
 QUANT_CHUNK = 1 << 26   # f32 elements of the quantized quotient held at once
 
 
-def quantize_weights(w: torch.Tensor, bits: int = 8, bk: int = BANK, bn: int = BANK):
+def bank_absmax(w: torch.Tensor, bk: int = BANK, bn: int = BANK) -> torch.Tensor:
+    """max |w| of each (bk x bn) bank of w (K, N) on the zero-padded ceil
+    grid, (ceil(K/bk), ceil(N/bn)), in w's dtype: one pass (the inf-norm)."""
+    k, n = w.shape
+    kp, np_ = -(-k // bk) * bk, -(-n // bn) * bn
+    if (kp, np_) != (k, n):
+        w = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
+    return torch.linalg.vector_norm(w.reshape(kp // bk, bk, np_ // bn, bn), ord=float("inf"),
+                                    dim=(1, 3))
+
+
+def quantize_weights(w: torch.Tensor, bits: int = 8, bk: int = BANK, bn: int = BANK,
+                     absmax: torch.Tensor = None):
     """Per-(bk x bn)-tile symmetric quantization: one scale per MR weight
-    bank, range set by the bank's own max |w|.
+    bank, range set by the bank's own max |w| (`bank_absmax`), or by
+    `absmax` when given: a shard of a weight split across ranks takes its
+    banks' maxima over every rank's part of them.
 
     Non-aligned weights quantize on the zero-padded ceil grid (padding is
     exact zero, so it never widens a bank's range; an all-zero tile gets the
@@ -53,8 +67,8 @@ def quantize_weights(w: torch.Tensor, bits: int = 8, bk: int = BANK, bn: int = B
         w = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
     tiles = w.reshape(kp // bk, bk, np_ // bn, bn)
     qmax = 2 ** (bits - 1) - 1
-    # max |w| per tile in one pass (the inf-norm), (ceil(k/bk), ceil(n/bn))
-    absmax = torch.linalg.vector_norm(tiles, ord=float("inf"), dim=(1, 3))
+    if absmax is None:
+        absmax = bank_absmax(w, bk, bn)
     scale = absmax.clamp_min(1e-8) / qmax
     w_q = torch.empty((kp, np_), dtype=torch.int8, device=w.device)
     q_tiles = w_q.view(kp // bk, bk, np_ // bn, bn)

@@ -22,12 +22,15 @@ on the card, gloo with `--device cpu`):
       --arch zamba2-1.2b --mesh single --steps 20 --batch 256 --seq 4096
 
 Without torchrun's variables, or with another world size, `--mesh` raises.
-Under a mesh `--wire-bits` raises (the sharded wire is not ported); MoE
-configs train, in both `--moe-dispatch` modes.  The sharded step holds on
-each rank its shards of the f32 parameters, m, v and gradient (16/N bytes
-a parameter over the N ranks that split a leaf), plus one layer's full
-parameters and gradient while that layer runs, plus the gathered
-embedding and head while they are in use, plus the activations
+Under a mesh `--wire-bits` puts the parameter wire on the sharded step's
+gathers (int8 levels, or bf16, cross them); MoE configs train, in both
+`--moe-dispatch` modes, and the compute splits over `model`
+(tensor-parallel: heads, `ffn`, experts, vocabulary).  The sharded step
+holds on each rank its shards of the f32 parameters, m, v and gradient
+(16/N bytes a parameter over the N ranks that split a leaf), plus one
+layer's parameters and gradient as gathered (a split leaf's `model`
+slice) while that layer runs, plus the gathered embedding and head while
+they are in use, plus the activations
 (`runtime.trainer`); a checkpoint is written and read by every rank, each
 its own slices, in the one-device format.
 """

@@ -60,8 +60,9 @@ class ModelConfig:
     photonic_bits: int = 8
     # int8 weight "wire format" (§Perf): ZeRO-3 param all-gathers cross the
     # mesh at the MR weight-bank amplitude resolution (8-bit), dequantized
-    # after the wire.  Runs through `make_train_step(param_wire=)` on one
-    # device; under a mesh it raises (the sharded wire is not ported); 0 = off.
+    # after the wire.  The sharded step (`Trainer(mesh=)`) puts it on its
+    # per-layer gathers; on one device it runs through
+    # `make_train_step(param_wire=)`, which the trainer does not build; 0 = off.
     wire_bits: int = 0
     use_kernels: bool = False       # hand-written CUDA kernels (False -> plain PyTorch versions)
     remat: str = "full"             # none | full | dots

@@ -15,6 +15,16 @@ the paper's compute engine as a first-class model feature.
 The recurrent blocks (`apply_mamba`, `apply_mlstm`, `apply_slstm`) take a
 cache of views into the model's layer-stacked buffers and write their new
 state into it in place (`copy_`), as `apply_attention` does with K/V.
+
+Under a sharded train step's tensor-parallel split (`parallel.actx`) a
+block receives this rank's slice of the weights it splits, and reads the
+split from their shapes: attention its heads (`wq` by columns, `wk`/`wv`
+by KV heads or whole, `wo` by rows), the MLP its `ffn` columns, MoE its
+experts (or each expert's `ffn` columns).  A replicated activation enters
+the split through `actx.tp_copy`, and the partial results leave it
+through `actx.tp_sum`, inside `linear(split="rows")` or after the combine.
+Under `seq_tp` attention runs on this rank's slice of the sequence.  The
+recurrent blocks take whole weights and compute as on one device.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import actx
 
 Params = Dict[str, Any]
 # `keep(name, leaf)`: what an init stores of a leaf it has just drawn
@@ -73,16 +84,35 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def linear(cfg: ModelConfig, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """x (..., K) @ w (K, ...out) with optional photonic-MAC numerics."""
+def _shard(m: int, split: Optional[str]) -> Optional[ops.Shard]:
+    """Where this rank's product of `m` rows sits in a sharded step's
+    global one (`ops.Shard`); None outside a sharded step."""
+    if not actx.active():
+        return None
+    if actx.tp_size() == 1:
+        return ops.Shard(m=actx.global_rows(m))
+    return ops.Shard(m=actx.global_rows(m), split=split, index=actx.tp_rank(),
+                     parts=actx.tp_size(), reduce_max=actx.tp_max)
+
+
+def linear(cfg: ModelConfig, w: torch.Tensor, x: torch.Tensor,
+           split: Optional[str] = None) -> torch.Tensor:
+    """x (..., K) @ w (K, ...out) with optional photonic-MAC numerics.
+    `split` names the slice of a split weight this rank holds: "cols" (its
+    output columns), or "rows" (its input rows, x holding the matching
+    features), whose partial products are summed over the split here."""
     k = w.shape[0]
     out_shape = w.shape[1:]
     if cfg.use_photonic_mac:
         x2 = x.reshape(-1, k)
         w2 = w.reshape(k, -1)
-        y = ops.photonic_matmul(x2, w2, cfg.photonic_bits, cfg.use_kernels)
+        y = ops.photonic_matmul(x2, w2, cfg.photonic_bits, cfg.use_kernels,
+                                _shard(x2.shape[0], split))
+        if split == "rows":
+            y = actx.tp_sum(y)
         return y.reshape(*x.shape[:-1], *out_shape).to(x.dtype)
-    return torch.matmul(x, w.reshape(k, -1).to(x.dtype)).reshape(*x.shape[:-1], *out_shape)
+    y = torch.matmul(x, w.reshape(k, -1).to(x.dtype)).reshape(*x.shape[:-1], *out_shape)
+    return actx.tp_sum(y) if split == "rows" else y
 
 
 # the sharded train step's mean over its batch ranks (`runtime.trainer`): a
@@ -181,12 +211,37 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, *, device, layers: in
     ])
 
 
+def _local_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, hq: int):
+    """K and V (B, S, Hk, Dh), whole, cut to the KV heads of this rank's
+    `hq` query heads under a split by heads: a contiguous range of whole
+    groups, or one KV head per query head where the rank's heads straddle
+    a group's edge (the same numbers either way)."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    first = actx.tp_rank() * hq
+    idx = [(first + j) // group for j in range(hq)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if hq % n == 0 and idx == [lo + j // (hq // n) for j in range(hq)]:
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    return k[:, :, idx], v[:, :, idx]
+
+
 def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
+    """Q, K, V (B, S, H, Dh) with RoPE.  Under a split by heads (this rank
+    holds `wq`'s slice), Q is this rank's heads and K, V its groups':
+    column slices of `wk`, `wv` where the KV heads split too, else the
+    whole K and V, their gradient summed over the split (`tp_copy`)."""
     b, s, m = x.shape
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = linear(cfg, p["wq"].reshape(m, h * dh), x).reshape(b, s, h, dh)
-    k = linear(cfg, p["wk"].reshape(m, hk * dh), x).reshape(b, s, hk, dh)
-    v = linear(cfg, p["wv"].reshape(m, hk * dh), x).reshape(b, s, hk, dh)
+    dh = cfg.head_dim_
+    h, hk = p["wq"].shape[-2], p["wk"].shape[-2]
+    split = "cols" if h < cfg.n_heads else None
+    xq = actx.tp_copy(x) if split else x
+    q = linear(cfg, p["wq"].reshape(m, h * dh), xq, split).reshape(b, s, h, dh)
+    kv_split = split if hk < cfg.n_kv_heads else None
+    xkv = xq if kv_split else x
+    k = linear(cfg, p["wk"].reshape(m, hk * dh), xkv, kv_split).reshape(b, s, hk, dh)
+    v = linear(cfg, p["wv"].reshape(m, hk * dh), xkv, kv_split).reshape(b, s, hk, dh)
+    if split and not kv_split:
+        k, v = _local_kv(cfg, actx.tp_copy(k), actx.tp_copy(v), h)
     q = apply_rope(cfg, q, positions)
     k = apply_rope(cfg, k, positions)
     return q, k, v
@@ -218,8 +273,11 @@ def apply_attention(
     large, and the caller (`model._run_stages`) hands over views of its
     layer-stacked buffers.
     """
+    if cache is None and actx.seq_split():
+        return _seq_attention(cfg, p, x, positions, window=window, causal=causal)
     b, s, m = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim_
+    dh = cfg.head_dim_
+    h = p["wq"].shape[-2]                    # this rank's heads under a split
     xn = rms_norm(x, p["norm"])
     q, k, v = _qkv(cfg, p, xn, positions)
     q = q.movedim(2, 1)  # (B,H,S,Dh), a strided view
@@ -257,8 +315,37 @@ def apply_attention(
             out = decode_attention(q, cache["k"], cache["v"], pos_eff, window=0)
 
     out = out.to(x.dtype).movedim(1, 2).reshape(b, s, h * dh)
-    y = linear(cfg, p["wo"].reshape(h * dh, m), out)
+    y = linear(cfg, p["wo"].reshape(h * dh, m), out, "rows" if h < cfg.n_heads else None)
     return x + y, cache
+
+
+def _seq_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
+                   window: int, causal: bool):
+    """`seq_tp`'s training attention (the reference's `actx.constrain_seq`
+    at the block's entry): whole weights on every rank, Q from this rank's
+    slice of the sequence, K and V from every slice (gathered, their
+    gradient reduce-scattered back), the kernel at `q_offset` = the slice's
+    start, the residual on the slice, and the slices gathered back at the
+    block's exit (the reference's `constrain_unseq`, where the MLP begins;
+    the numbers are the same, and every consumer of the block finds the
+    whole sequence).  The weights' gradients, each rank's from its slice,
+    are summed over the split (`tp_copy`)."""
+    s_all = x.shape[1]
+    x = actx.constrain_seq(x)
+    positions = actx.seq_slice(positions, dim=-1)
+    p = {name: actx.tp_copy(w) for name, w in p.items()}
+    b, s, m = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim_
+    with actx.seq_rows():
+        xn = rms_norm(x, p["norm"])
+        q, k, v = _qkv(cfg, p, xn, positions)
+        k, v = actx.gather_seq(k), actx.gather_seq(v)
+        with _span("attention"):
+            out = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1), causal,
+                                window, None, actx.tp_rank() * s, cfg.use_kernels, s_all)
+        out = out.to(x.dtype).movedim(1, 2).reshape(b, s, h * dh)
+        y = linear(cfg, p["wo"].reshape(h * dh, m), out)
+    return actx.constrain_unseq(x + y), None
 
 
 def decode_attention(q, k, v, pos, *, window: int = 0):
@@ -299,16 +386,23 @@ def apply_cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     decode steps included: the reference keeps no cross-attention cache."""
     b, s, m = x.shape
     se = enc_out.shape[1]
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    dh = cfg.head_dim_
+    h, hk = p["wq"].shape[-2], p["wk"].shape[-2]     # this rank's, under a split
+    split = "cols" if h < cfg.n_heads else None
+    kv_split = split if hk < cfg.n_kv_heads else None
     xn = rms_norm(x, p["norm"])
-    q = linear(cfg, p["wq"].reshape(m, h * dh), xn).reshape(b, s, h, dh)
-    k = linear(cfg, p["wk"].reshape(m, hk * dh), enc_out).reshape(b, se, hk, dh)
-    v = linear(cfg, p["wv"].reshape(m, hk * dh), enc_out).reshape(b, se, hk, dh)
+    xq = actx.tp_copy(xn) if split else xn
+    enc = actx.tp_copy(enc_out) if kv_split else enc_out
+    q = linear(cfg, p["wq"].reshape(m, h * dh), xq, split).reshape(b, s, h, dh)
+    k = linear(cfg, p["wk"].reshape(m, hk * dh), enc, kv_split).reshape(b, se, hk, dh)
+    v = linear(cfg, p["wv"].reshape(m, hk * dh), enc, kv_split).reshape(b, se, hk, dh)
+    if split and not kv_split:
+        k, v = _local_kv(cfg, actx.tp_copy(k), actx.tp_copy(v), h)
     with _span("cross_attention"):
         out = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1),
                             False, 0, None, 0, cfg.use_kernels)
     out = out.to(x.dtype).movedim(1, 2).reshape(b, s, h * dh)
-    return x + linear(cfg, p["wo"].reshape(h * dh, m), out)
+    return x + linear(cfg, p["wo"].reshape(h * dh, m), out, split and "rows")
 
 
 # ---------------------------------------------------------------------------
@@ -329,10 +423,18 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, *, device, layers: int = 0,
 
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU with residual; under a split by `ffn` (this rank's columns of
+    `wi`, `wg` and rows of `wo`) the partial products are summed."""
+    # under seq_tp the attention block has gathered the sequence back
+    # already (`_seq_attention`): the reference's `constrain_unseq` here
     xn = rms_norm(x, p["norm"])
-    g = torch.nn.functional.silu(linear(cfg, p["wg"], xn).to(torch.float32)).to(x.dtype)
-    h = linear(cfg, p["wi"], xn) * g
-    return x + linear(cfg, p["wo"], h)
+    split = p["wi"].shape[-1] < cfg.d_ff
+    if split:
+        xn = actx.tp_copy(xn)
+    cols = "cols" if split else None
+    g = torch.nn.functional.silu(linear(cfg, p["wg"], xn, cols).to(torch.float32)).to(x.dtype)
+    h = linear(cfg, p["wi"], xn, cols) * g
+    return x + linear(cfg, p["wo"], h, "rows" if split else None)
 
 
 # ---------------------------------------------------------------------------
@@ -385,14 +487,17 @@ def top_k(probs: torch.Tensor, k: int):
 
 
 def _moe_index_path(cfg: ModelConfig, p: Params, xn, idx, gate_vals, keep, pos_ce,
-                    cap: int) -> torch.Tensor:
+                    cap: int, e_lo: int = 0) -> torch.Tensor:
     """Gather/scatter dispatch with the einsum path's capacity rule: each
     kept (token, choice) is copied into its expert's buffer slot, the
     experts run, and each result is read back and weighted by its gate in
     the compute dtype.  Dropped choices scatter into a dump slot per expert
-    (slot `cap`), which is then discarded."""
+    (slot `cap`), which is then discarded.  `p` may hold the experts
+    `e_lo` .. of a split: only their buffers are filled, and the choices
+    of other experts give zeros here (another rank's part of the sum)."""
     b, s, m = xn.shape
     e, k = cfg.n_experts, cfg.top_k
+    el = p["wi"].shape[0]
     dt = xn.dtype
     rows = torch.arange(b, device=xn.device)[:, None]
     with _span("moe.dispatch"):
@@ -403,17 +508,23 @@ def _moe_index_path(cfg: ModelConfig, p: Params, xn, idx, gate_vals, keep, pos_c
 
         def scat(vals):
             out = torch.zeros((b, e * (cap + 1)), dtype=vals.dtype, device=xn.device)
-            return out.scatter_(1, flat_slot, vals).reshape(b, e, cap + 1)[..., :cap]
+            out = out.scatter_(1, flat_slot, vals).reshape(b, e, cap + 1)[:, e_lo:e_lo + el]
+            return out[..., :cap]
 
-        slot_token = scat(s_t).reshape(b, e * cap)
-        slot_valid = scat(keep_t).reshape(b, e * cap, 1)
+        slot_token = scat(s_t).reshape(b, el * cap)
+        slot_valid = scat(keep_t).reshape(b, el * cap, 1)
         xe = torch.where(slot_valid, xn[rows, slot_token], 0)
-        xe = xe.reshape(b, e, cap, m).to(dt).movedim(0, 1)           # (E,B,C,M)
+        xe = xe.reshape(b, el, cap, m).to(dt).movedim(0, 1)          # (E,B,C,M)
     ye = _experts(p, xe)
     with _span("moe.combine"):
-        ye_b = ye.movedim(0, 1).reshape(b, e * cap, m)                # (B,E*C,M)
+        ye_b = ye.movedim(0, 1).reshape(b, el * cap, m)               # (B,E*C,M)
+        if el < e:
+            mine = keep_t & (t_e >= e_lo) & (t_e < e_lo + el)
+            t_e = torch.clamp(t_e - e_lo, 0, el - 1)
+        else:
+            mine = keep_t
         yt = ye_b[rows, t_e * cap + torch.clamp_max(pos_ce, cap - 1)]
-        yt = torch.where(keep_t[..., None], yt, 0)
+        yt = torch.where(mine[..., None], yt, 0)
         gate_t = gate_vals.transpose(1, 2).reshape(b, k * s)         # choices-major
         return (yt * gate_t[..., None].to(yt.dtype)).reshape(b, k, s, m).sum(dim=1)
 
@@ -435,11 +546,20 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor):
     the compute dtype).  Each sequence routes on its own (the capacity is per
     sequence), so a sharded step's rank routes its batch shard as the
     reference's batch-manual dispatch does; only the load-balance
-    statistics couple the ranks (`batch_mean`)."""
+    statistics couple the ranks (`batch_mean`).
+
+    Under a split by experts (this rank's `wi`, `wg`, `wo` stacks hold
+    experts e_lo ..) or by each expert's `ffn` columns, the routing is
+    computed whole on every rank, the rank dispatches to and runs its part
+    of the experts, and the partial combines are summed over the split; the
+    normed input and the gates enter the split through `tp_copy`."""
     b, s, m = x.shape
     e, k = cfg.n_experts, cfg.top_k
     f32 = torch.float32
     cap = max(1, int(cfg.capacity_factor * s * k / e))
+    el = p["wi"].shape[0]
+    e_lo = actx.tp_rank() * el if el < e else 0
+    split = el < e or p["wi"].shape[-1] < cfg.d_ff
 
     xn = rms_norm(x, p["norm"])
     with _span("moe.route"):
@@ -462,20 +582,24 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor):
             me, ce = _BATCH_MEAN(me), _BATCH_MEAN(ce)
         aux = e * torch.sum(me * ce) + 1e-3 * torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
+    if split:
+        xn, gate_vals = actx.tp_copy(xn), actx.tp_copy(gate_vals)
     if cfg.moe_dispatch == "index":
-        y = _moe_index_path(cfg, p, xn, idx, gate_vals, keep, pos_ce.long(), cap)
+        y = _moe_index_path(cfg, p, xn, idx, gate_vals, keep, pos_ce.long(), cap, e_lo)
     else:
         with _span("moe.dispatch"):
             slot = (pos_ce[..., None] == torch.arange(cap, device=x.device)).to(f32)
             disp_flat = keep[..., None] * slot[:, :, None, :]                      # (B,kS,E,C)
             dispatch = disp_flat.reshape(b, k, s, e, cap).transpose(1, 2)         # (B,S,k,E,C)
+            if el < e:
+                dispatch = dispatch[:, :, :, e_lo:e_lo + el]
             combine = (dispatch * gate_vals[..., None, None]).sum(dim=2)         # (B,S,E,C)
             dispatch = dispatch.sum(dim=2)
             xe = torch.einsum("bsec,bsm->ebcm", dispatch.to(x.dtype), xn)
         ye = _experts(p, xe)
         with _span("moe.combine"):
             y = torch.einsum("bsec,ebcm->bsm", combine.to(x.dtype), ye)
-    return x + y, aux
+    return x + (actx.tp_sum(y) if split else y), aux
 
 
 # ---------------------------------------------------------------------------

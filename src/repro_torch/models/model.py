@@ -50,6 +50,14 @@ forward (a weight used twice, zamba2's shared block or a tied embedding,
 sums its whole gradient before the gather's backward reduces it).
 Without the hook (serving, the one-device step, the wire) nothing
 changes.
+
+Under the step's tensor-parallel split (`parallel.actx`) the gather keeps
+the `model` slice of the leaves `tp_split_specs` names, and the blocks
+(`models.layers`), the embedding and the head compute on their slices: a
+vocabulary-split table looks its tokens up where they lie and sums over
+the split (one rank's row is nonzero), and a vocabulary-split head leaves
+the logits split, so the chunked cross-entropy takes its max, its sum of
+exponentials and the gold logit over the split (three small sums a chunk).
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ import torch.utils.checkpoint
 from repro_torch import require_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import actx
 from repro_torch.parallel import wire as W
 
 Params = Dict[str, Any]
@@ -280,6 +289,40 @@ def param_specs(cfg: ModelConfig) -> Params:
         s["shared_attn"] = dict(_ATTN_SPECS)
     if cfg.encoder_layers:
         s["encoder"] = {"blocks": _stacked_specs(cfg, "enc"), "norm": (None,)}
+    return s
+
+
+# the logical axes whose `model` slice a block computes on under the
+# tensor-parallel split, by parameter group; the recurrent blocks (mamba,
+# mlstm, slstm) and the router compute on whole weights
+_TP_AXES = {"attn": ("heads", "kv_heads"), "cross": ("heads", "kv_heads"),
+            "mlp": ("ffn",), "moe": ("experts", "ffn")}
+
+
+def tp_split_specs(cfg: ModelConfig) -> Params:
+    """`param_specs`' tree with, at each leaf, the logical axes whose
+    `model` slice the model computes on under the split (empty where it
+    takes the weight whole): the attention's heads (zamba2's shared block
+    and the encoder's included), the MLP's `ffn`, the experts (or their
+    `ffn`), the vocabulary of the embedding and the head."""
+    def group(g, specs):
+        axes = _TP_AXES.get(g, ())
+        return {leaf: tuple(a for a in spec if a in axes) if g != "moe" or leaf != "router"
+                else () for leaf, spec in specs.items()}
+
+    def stacked(kind):
+        return {g: group(g, _GROUP_SPECS[g]) for g in block_groups(cfg, kind)}
+
+    s: Params = {"embed": ("vocab",)}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ("vocab",)
+    s["final_norm"] = ()
+    s["stages"] = [{f"{kind}_{j}": stacked(kind) for j, kind in enumerate(kinds)}
+                   for _, kinds in stages(cfg)]
+    if has_shared_attn(cfg):
+        s["shared_attn"] = group("attn", _ATTN_SPECS)
+    if cfg.encoder_layers:
+        s["encoder"] = {"blocks": stacked("enc"), "norm": ()}
     return s
 
 
@@ -547,18 +590,45 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
     table, dt = _gathered(params["embed"]), L.compute_dtype(cfg)
+    split = table.shape[0] < cfg.vocab           # this rank's rows of a split table
+    if split:
+        lo = actx.tp_rank() * table.shape[0]
+        mine = (tokens >= lo) & (tokens < lo + table.shape[0])
+        tokens = torch.clamp(tokens - lo, 0, table.shape[0] - 1)
     if table.dtype.itemsize < dt.itemsize:
         # a table narrower than the compute dtype (the parameter wire's
         # bf16 under f32 compute): widen it first, as the reference does,
         # so that its gradient sums in the compute dtype
-        return table.to(dt)[tokens]
-    # index first, then cast: the same values as casting the whole table
-    return table[tokens].to(dt)
+        x = table.to(dt)[tokens]
+    else:
+        # index first, then cast: the same values as casting the whole table
+        x = table[tokens].to(dt)
+    if split:
+        x = actx.tp_sum(torch.where(mine[..., None], x, 0))
+    return x
 
 
 def logits_head(cfg: ModelConfig, params: Params, h: torch.Tensor):
+    """(B, S, V) f32 logits; under a split of the vocabulary this rank's
+    columns of them."""
     w = _gathered(params["embed"]).t() if cfg.tie_embeddings else _gathered(params["lm_head"])
+    if w.shape[-1] < cfg.vocab:
+        return L.linear(cfg, w, actx.tp_copy(h), "cols").to(torch.float32)
     return L.linear(cfg, w, h).to(torch.float32)
+
+
+def _split_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """sum(logsumexp - gold logit) of logits split by vocabulary over the
+    split's ranks (this rank's columns given): the max, the sum of
+    exponentials and the gold logit, each summed (or maxed) over the split."""
+    vl = logits.shape[-1]
+    lo = actx.tp_rank() * vl
+    top = actx.tp_max(torch.amax(logits.detach(), dim=-1))
+    sumexp = actx.tp_sum(torch.sum(torch.exp(logits - top[..., None]), dim=-1))
+    mine = (labels >= lo) & (labels < lo + vl)
+    gold = torch.gather(logits, -1, torch.clamp(labels - lo, 0, vl - 1)[..., None])[..., 0]
+    gold = actx.tp_sum(torch.where(mine, gold, 0))
+    return torch.sum(top + torch.log(sumexp) - gold)
 
 
 def default_positions(cfg: ModelConfig, batch: int, seq: int, offset=0, device="cuda"):
@@ -672,6 +742,8 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], device="cud
 
     def chunk_ce(hx, yx):
         logits = logits_head(cfg, params, hx)                       # (B, chunk, V) f32
+        if logits.shape[-1] < cfg.vocab:                            # split by vocabulary
+            return _split_ce(logits, yx)
         gold = torch.gather(logits, -1, yx[..., None])[..., 0]
         return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
 

@@ -22,24 +22,29 @@ nothing survives.  The model changes no numerics.
 `make_train_step(param_wire=)` trains under the parameter wire format
 (`parallel.wire`) on one device.  `build_sharded_step` and
 `Trainer(mesh=)` train over a `DeviceMesh`: DTensor-sharded state, the
-batch split over the data-parallel ranks, each weight gathered whole where
-the forward uses it and its gradient reduce-scattered straight into the
-rank's shard (`parallel.collectives`), additional `gather` and
-`grad_reduce` ranges.  As in the reference, the trainer without a mesh
-builds its step with no wire, whatever `cfg.wire_bits` says; under a mesh
-`cfg.wire_bits` raises, since the sharded wire is not ported.
+batch split over the data-parallel ranks, the compute split over `model`
+(Megatron-style tensor parallelism, `parallel.actx`), each weight
+gathered where the forward uses it and its gradient reduce-scattered
+straight into the rank's shard (`parallel.collectives`), additional
+`gather` and `grad_reduce` ranges.  As in the reference, the trainer
+without a mesh builds its step with no wire, whatever `cfg.wire_bits`
+says; under a mesh `cfg.wire_bits` puts the wire on the step's gathers
+(`wire.make_param_wire(cfg, mesh, rules, param_specs)`).
 
 What a rank holds under a mesh of N ranks (a leaf sharded N ways; a leaf
 a mesh axis does not split is held whole along that axis): 16/N bytes a
 parameter for its shards of the f32 parameters, m, v and gradient (the
-update is written into the shards in place), plus one layer's full
-parameters and their gradient while that layer runs forward, is
-recomputed or runs backward (`cfg.remat` "full", every config's default,
-and "dots", which recomputes in full here), plus the gathered embedding
-and head (and zamba2's shared attention block) while they are in use,
-plus the activations.  Under `cfg.remat="none"` autograd keeps each
-layer's gathered weights for the backward, so a rank holds the full
-parameters through the backward (ROADMAP.md, Deviations).
+update is written into the shards in place), plus one layer's parameters
+and their gradient as the gather makes them while that layer runs
+forward, is recomputed or runs backward (`cfg.remat` "full", every
+config's default, and "dots", which recomputes in full here): the leaves
+the tensor-parallel split keeps split at 1/model of their bytes (the
+attention's by heads, the MLP's by `ffn`, the experts), the others whole;
+plus the gathered embedding and head (split by vocabulary where it
+divides) and zamba2's shared attention block while they are in use, plus
+the activations.  Under `cfg.remat="none"` autograd keeps each layer's
+gathered weights for the backward, so a rank holds them all through the
+backward (ROADMAP.md, Deviations).
 """
 from __future__ import annotations
 
@@ -63,6 +68,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.parallel import actx
 from repro_torch.parallel import collectives as CC
 from repro_torch.parallel import sharding as S
 from repro_torch.parallel import wire as W
@@ -304,21 +310,53 @@ class _BatchMean(torch.autograd.Function):
         return (CC.flat_all_reduce(grad, mesh, axes) * share, None, None, None)
 
 
+class _WireGather(torch.autograd.Function):
+    """`_Gather` under the parameter wire (`parallel.wire.MeshStep`): the
+    shard crosses as int8 levels (`levels`, a pair's, or the master shard
+    `local` quantized here with `scale`) or in bf16 (`scale` None), and is
+    dequantized after the gather in `dtype`, with the scales of what the
+    gather made (`whole_scale`); the gradient goes straight through to the
+    master shard (for a pair, the `~d` carrier `local`), reduced as
+    `_Gather`'s."""
+
+    @staticmethod
+    def forward(ctx, local, levels, scale, whole_scale, dtype, mesh, placements, axes, share):
+        ctx.args = (mesh, placements, axes, share)
+        with L._span("gather"):
+            if scale is None:
+                return CC.gather_shards(local.to(dtype), mesh, placements)
+            if levels is None:
+                levels = W._levels(local.to(torch.float32), scale)
+            return CC.gather_shards(levels, mesh, placements).to(dtype) * whole_scale.to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with L._span("grad_reduce"):
+            return (CC.reduce_to_shard(grad.to(torch.float32), *ctx.args),) + (None,) * 8
+
+
 class _ShardGather:
     """The sharded step's parameter gather (`models.model.param_gather`):
     for the leaves of this step's local tree (known by identity), `_Gather`
     of the leaf, or of its layer `i`, whose placements lose the layer
     dimension (never sharded: the rules map "layers" to no axis); any other
-    tensor as it is (a replicated leaf, or a weight gathered already)."""
+    tensor as it is (a replicated leaf, or a weight gathered already).
+    A leaf in `tp_local` keeps its `model` slice (the tensor-parallel
+    split): gathered and reduced over the other axes only.  A leaf in
+    `wired` crosses under the parameter wire (`_WireGather`)."""
 
-    def __init__(self, mesh, axes, share: float, leaves, shardings):
-        from torch.distributed.tensor import Shard
+    def __init__(self, mesh, axes, share: float, leaves, shardings, tp_local, wired=None):
+        from torch.distributed.tensor import Replicate, Shard
 
         self.mesh, self.axes, self.share = mesh, axes, share
+        self.wired = wired or {}
         self.placements = {}          # id -> (the leaf's placements, a layer's)
-        for t, sh in zip(leaves, shardings):
+        for t, sh, keep in zip(leaves, shardings, tp_local):
             if _is_sharded(sh):
                 pl = S.placements(mesh, sh.spec, t.ndim)
+                if keep:
+                    pl = [Replicate() if name == "model" else p
+                          for name, p in zip(mesh.mesh_dim_names, pl)]
                 self.placements[id(t)] = (pl, [Shard(p.dim - 1) if p.is_shard() else p
                                                for p in pl])
 
@@ -328,9 +366,46 @@ class _ShardGather:
             pl = self.placements.get(id(t))
             if pl is None:
                 return x
-            return _Gather.apply(x, self.mesh, pl[i is not None], self.axes, self.share)
+            args = (self.mesh, pl[i is not None], self.axes, self.share)
+            wire = self.wired.get(id(t))
+            if wire is None:
+                return _Gather.apply(x, *args)
+            kind, levels, scale, whole, dtype = wire
+            if i is not None and kind == "pair":
+                levels, scale, whole = levels[i], scale[i], whole[i]
+            elif scale is not None and scale.ndim > x.ndim:
+                # a stack's layer under its one per-tensor scale
+                scale, whole = (t.reshape((1,) * x.ndim) for t in (scale, whole))
+            return _WireGather.apply(x, levels, scale, whole, dtype, *args)
 
         return T.map_structure(leaf, tree)
+
+
+def tp_split_leaves(cfg: ModelConfig, mesh, batch_axes, param_sh, param_specs=None) -> list:
+    """Per parameter leaf (in `T.leaves` order, `param_sh` their
+    `NamedSharding`s over `mesh`, a `DeviceMesh` or a geometry): True when
+    the tensor-parallel split keeps the leaf's `model` slice (the mesh's
+    `model` axis, of size > 1 and not among `batch_axes`, lies on a
+    dimension whose logical axis `M.tp_split_specs` names), else False
+    (the leaf is gathered whole over `model` as well)."""
+    sizes = CC.mesh_axis_sizes(mesh)
+    batch_axes = (batch_axes,) if isinstance(batch_axes, str) else tuple(batch_axes or ())
+    if sizes.get("model", 1) == 1 or "model" in batch_axes:
+        return [False] * len(param_sh)
+
+    def boxed(specs):
+        return T.leaves(S._map_specs(lambda a: SimpleNamespace(axes=a or ()), specs))
+
+    logical = boxed(M.param_specs(cfg) if param_specs is None else param_specs)
+    split = boxed(M.tp_split_specs(cfg))
+
+    def keeps(sh, lg, sp):
+        for ax, name in zip(sh.spec, lg.axes):
+            if "model" in ((ax,) if isinstance(ax, str) else tuple(ax or ())):
+                return name in sp.axes
+        return False
+
+    return [keeps(sh, lg, sp) for sh, lg, sp in zip(param_sh, logical, split)]
 
 
 def shard_global_norm(mesh, shards, shardings) -> torch.Tensor:
@@ -346,22 +421,31 @@ def shard_global_norm(mesh, shards, shardings) -> torch.Tensor:
 
 
 def _make_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, state_sh, batch_sh,
-                       accum_steps: int, device: torch.device):
+                       accum_steps: int, device: torch.device, param_specs, param_wire=None):
     axes = batch_sh["tokens"].spec[0]
     axes = (axes,) if isinstance(axes, str) else axes
     reduce = _batch_reduce(mesh, axes)
     param_sh = T.leaves(state_sh.params)
     replicated = [j for j, sh in enumerate(param_sh) if not _is_sharded(sh)]
+    tp_local = tp_split_leaves(cfg, mesh, axes, param_sh, param_specs)
+    seq_tp = cfg.parallel_strategy == "seq_tp"
 
     def step_fn(state: adamw.TrainState, batch: Dict[str, torch.Tensor]):
         local = {k: S.local_shard(mesh, batch_sh[k].spec, v) for k, v in batch.items()}
         share = local["tokens"].numel() / batch["tokens"].numel()   # this rank's tokens
-        leaves = [_to_local(p).detach().requires_grad_(True) for p in T.leaves(state.params)]
-        params = T.unflatten(state.params, leaves)
-        gather_fn = _ShardGather(mesh, axes, share, leaves, param_sh)
+        if param_wire is None:
+            leaves = [_to_local(p).detach().requires_grad_(True) for p in T.leaves(state.params)]
+            params = T.unflatten(state.params, leaves)
+            params_of, wired = (lambda: params), None
+        else:
+            wire = param_wire.mesh_step(T.map_structure(_to_local, state.params),
+                                        state_sh.params, tp_local)
+            leaves, params_of, wired = wire.leaves, wire.tree, wire.wired
+        gather_fn = _ShardGather(mesh, axes, share, leaves, param_sh, tp_local, wired)
         mean_fn = None if axes is None else (lambda x: _BatchMean.apply(x, mesh, axes, share))
-        with M.param_gather(gather_fn), L.batch_mean(mean_fn):
-            loss, metrics, grads = _accumulate(cfg, leaves, lambda: params, local,
+        with M.param_gather(gather_fn), L.batch_mean(mean_fn), actx.activation_sharding(
+                mesh, axes, "model", seq_tp=seq_tp, rows=1 / share):
+            loss, metrics, grads = _accumulate(cfg, leaves, params_of, local,
                                                accum_steps, device)
         with L._span("grad_reduce"):
             # the sharded leaves' gradients came back as this rank's shards
@@ -412,35 +496,46 @@ def build_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, param_specs
     `step(state, batch)` takes the GLOBAL batch on every rank and runs on
     the rank's shard of it (`train_batch_shardings`).  The forward and
     backward are `make_train_step`'s, on plain local tensors: each weight is
-    gathered whole where the forward uses it (`model.param_gather`: a
-    layer's weights at its body's entry, inside the checkpoint, so that the
+    gathered where the forward uses it (`model.param_gather`: a layer's
+    weights at its body's entry, inside the checkpoint, so that the
     recomputation gathers them again), and the kernels see plain,
-    contiguous, whole tensors, never a DTensor.  Each gather's backward
-    turns the weight's gradient straight into the rank's gradient shard,
-    each rank's weighted by its share of the tokens and summed over the
-    ranks the batch is split on (`collectives.reduce_to_shard`); the
-    replicated leaves' gradients are summed in one all-reduce
-    (`trine_all_reduce` over (pod, data), `flat_all_reduce` otherwise).
-    MoE layers average their load-balance statistics over the batch ranks
-    inside the forward (`layers.batch_mean`).  The clipping norm comes from
-    the shards (each block counted on one rank, one all-reduce), and AdamW
-    updates each rank's shards in place: the state passed in is the one
-    returned, with its step advanced.  The loss, its parts and the clipping
-    norm are the global batch's.  The `model`-axis ranks hold the same batch
-    shard and compute the same gradients: GSPMD splits that work in the
-    reference, and this step does not (ROADMAP.md).  The module docstring
-    counts what a rank holds.
+    contiguous tensors, never a DTensor.  On a mesh whose `model` axis the
+    batch does not span, the compute splits over it (the reference's GSPMD
+    split, here explicit: `parallel.actx`, `models.layers`): the gather
+    keeps the `model` slice of the leaves `tp_split_leaves` names (the
+    attention's heads, the MLP's `ffn`, the experts, the vocabulary), the
+    blocks compute on their slices and sum their partial results over
+    `model`, and the other leaves (mamba's, xLSTM's, an attention whose
+    heads do not divide, so that `head_dim` carries the axis) are gathered
+    whole and computed the same on every `model` rank.  Under `seq_tp`
+    attention runs on a slice of the sequence.  The photonic numerics
+    choose their path on the global batch's rows and the whole weight's
+    shape, as the reference's compiled step does (`kernels.ops.Shard`).
+    Each gather's backward turns the weight's gradient straight into the
+    rank's gradient shard, each rank's weighted by its share of the
+    tokens and summed over the ranks the batch is split on
+    (`collectives.reduce_to_shard`); the replicated leaves' gradients are
+    summed in one all-reduce (`trine_all_reduce` over (pod, data),
+    `flat_all_reduce` otherwise).  MoE layers average their load-balance
+    statistics over the batch ranks inside the forward
+    (`layers.batch_mean`).  The clipping norm comes from the shards (each
+    block counted on one rank, one all-reduce), and AdamW updates each
+    rank's shards in place: the state passed in is the one returned, with
+    its step advanced.  The loss, its parts and the clipping norm are the
+    global batch's.  The module docstring counts what a rank holds.
 
-    `cfg.wire_bits` raises `NotImplementedError` (the sharded parameter
-    wire is not ported)."""
+    `cfg.wire_bits` puts the parameter wire on the gathers
+    (`wire.MeshStep`): int8 levels (or bf16) cross, dequantized after the
+    gather, the gradient straight through to the f32 master shards."""
     device = require_device(device)
     if mesh is None:
         return make_train_step(cfg, opt, accum_steps=accum_steps, device=device)
-    if cfg.wire_bits:
-        W.make_param_wire(cfg, mesh)     # raises: the sharded wire is not ported
-    state_sh = state_shardings(cfg, mesh, param_specs)
+    specs = M.param_specs(cfg) if param_specs is None else param_specs
+    pw = (W.make_param_wire(cfg, mesh, S.rules_for(cfg, mesh), specs) if cfg.wire_bits
+          else None)
+    state_sh = state_shardings(cfg, mesh, specs)
     batch_sh = S.train_batch_shardings(cfg, mesh, batch_example)
-    step = _make_sharded_step(cfg, opt, mesh, state_sh, batch_sh, accum_steps, device)
+    step = _make_sharded_step(cfg, opt, mesh, state_sh, batch_sh, accum_steps, device, specs, pw)
     return step, state_sh, batch_sh
 
 

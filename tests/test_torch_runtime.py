@@ -382,13 +382,14 @@ def test_launch_train_wire_bits_trains_as_without_it(tmp_path, monkeypatch, caps
 
 
 def test_trainer_refuses_mesh_fabric_and_fault_injection(tmp_path):
-    """Under a mesh the parameter wire is not ported and raises before the
-    mesh is read, while an MoE config goes on to read it (it trains under a
-    mesh: `tests/test_torch_sharded_train.py`); a fabric is ported, and an
-    unknown preset name is refused as the reference's `get_fabric` refuses
-    it; a fault without a fabric raises as the reference's does."""
+    """Under a mesh the parameter wire and an MoE config both go on to read
+    the mesh (each trains under one: `tests/test_torch_tensor_parallel.py`,
+    `tests/test_torch_sharded_train.py`), so an object that is no mesh is
+    refused there; a fabric is ported, and an unknown preset name is
+    refused as the reference's `get_fabric` refuses it; a fault without a
+    fabric raises as the reference's does."""
     tc = TrainerConfig(ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(AttributeError, match="axis_names"):     # the mesh, read
         Trainer(dataclasses.replace(CFG, wire_bits=8), OPT, DATA, tc, mesh=object(),
                 resume=False, device="cpu")
     with pytest.raises(AttributeError, match="axis_names"):     # the mesh, read

@@ -40,8 +40,10 @@ Memory: on `MEMORY_CFG` (8 layers at d_model 512, whose parameters dominate
 its activations at 4 x 16), each rank's peak allocation in one step
 (`torch.profiler`, `profile_memory=True`, on top of the state it held
 before the step; the least of three steps, `step_growth`) stays below `memory_bound`: 16/N bytes a parameter
-for its shards of the parameters, m, v and gradient, one layer's full
-parameters and gradient, the embedding and head gathered with their
+for its shards of the parameters, m, v and gradient, one layer's
+parameters and gradient as its gather makes them (the tensor-parallel
+split keeps the `model` half of the attention's, the MLP's, the
+embedding's and the head's), the embedding and head gathered with their
 gradient, and a margin; and `whole_gather_step`'s peak does not.
 
 A trainer under the mesh saved at step 1 and resumed reaches the straight
@@ -131,6 +133,11 @@ MEMORY_BATCH = (4, 16)
 MEMORY_TEMPORARIES = 8
 MEMORY_SLACK = 24 << 20
 MEMORY_STEPS = 4
+# the leaves of MEMORY_CFG that the tensor-parallel split keeps split on
+# `model` (name endings), at half their bytes in `memory_bound`
+MEMORY_SPLIT = tuple(f"['{g}']['{w}']" for g, ws in (("attn", ("wq", "wk", "wv", "wo")),
+                                                     ("mlp", ("wi", "wg", "wo"))) for w in ws
+                     ) + ("['embed']", "['lm_head']")
 
 
 def memory_cfg():
@@ -220,9 +227,11 @@ def whole_gather_step(cfg, opt, mesh, state_sh, batch_sh):
 
 def memory_bound(got: Dict[str, np.ndarray]) -> int:
     """What a rank may hold in a step of `MEMORY_CFG`: its shards of the
-    parameters, m, v and gradient (16/N bytes a parameter), one layer's full
-    parameters and gradient, the embedding and head gathered with their
-    gradient, and the margin (`MEMORY_TEMPORARIES`, `MEMORY_SLACK`)."""
+    parameters, m, v and gradient (16/N bytes a parameter), one layer's
+    parameters and gradient as gathered (a leaf the tensor-parallel split
+    keeps split at half its bytes), the embedding and head gathered with
+    their gradient (split by vocabulary: half), and the margin
+    (`MEMORY_TEMPORARIES`, `MEMORY_SLACK`)."""
     return int(4 * got["mem_shard_bytes"] + 2 * got["mem_layer_bytes"]
                + 2 * got["mem_top_bytes"] + MEMORY_TEMPORARIES * got["mem_largest_shard_bytes"]
                + MEMORY_SLACK)
@@ -414,7 +423,8 @@ RANK_SCRIPT = textwrap.dedent("""
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
                             world_size=world)
     sys.path.insert(0, tests)
-    from test_torch_sharded_train import (ARCHS, DEADLINE_S, LATE_S, MEMORY_BATCH, OPT_KW,
+    from test_torch_sharded_train import (ARCHS, DEADLINE_S, LATE_S, MEMORY_BATCH, MEMORY_SPLIT,
+                                          OPT_KW,
                                           STEP_ARCHS, STEP_CASES, STEPS, case_cfg, describe_port,
                                           memory_cfg, whole_gather_step, step_growth)
     from torch.distributed.tensor import DTensor
@@ -427,6 +437,7 @@ RANK_SCRIPT = textwrap.dedent("""
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
     from repro_torch.parallel import sharding as S
+    from repro_torch.parallel import wire as W
     from repro_torch.runtime import trainer as TR
 
     mesh = make_test_mesh(data=2, model=2, pod=2, device_type="cpu")
@@ -509,8 +520,18 @@ RANK_SCRIPT = textwrap.dedent("""
     shapes, _ = M.init_abstract(mcfg)
     out["mem_params"] = np.array(sum(t.numel() for t in T.leaves(shapes)))
     out["mem_full_state_bytes"] = np.array(16 * int(out["mem_params"]))
-    out["mem_layer_bytes"] = np.array(sum(4 * t[0].numel() for t in T.leaves(shapes["stages"])))
-    out["mem_top_bytes"] = np.array(4 * (shapes["embed"].numel() + shapes["lm_head"].numel()))
+    # what a rank gathers: a leaf the tensor-parallel split keeps split
+    # on `model` (2 ways here) at half its bytes.  Which leaves split is
+    # MEMORY_CFG's own: 8 heads and 2 KV heads, a d_ff of 1024 and a
+    # vocabulary of 512 all divide by 2
+    held = {n: 4 * t.numel() // (2 if n.endswith(MEMORY_SPLIT) else 1)
+            for n, t in T.leaves_with_path(shapes)}
+    out["mem_split"] = np.array(sorted(n for (n, _), keep in zip(
+        T.leaves_with_path(shapes), TR.tp_split_leaves(mcfg, mesh, mbsh["tokens"].spec[0],
+                                                       T.leaves(msh.params))) if keep))
+    out["mem_layer_bytes"] = np.array(sum(held[n] // t.shape[0] for n, t in
+                                          T.leaves_with_path(shapes) if n.startswith("['stages']")))
+    out["mem_top_bytes"] = np.array(held["['embed']"] + held["['lm_head']"])
     def minit():
         return TR.sharded_init(mesh, opt, mcfg, msh, seed=0, device="cpu")
 
@@ -608,8 +629,7 @@ RANK_SCRIPT = textwrap.dedent("""
             return np.array(f"{type(e).__name__}: {e}")
 
     wired = dataclasses.replace(cfg, wire_bits=8)
-    out["refused_wire"] = refusal(lambda: TR.build_sharded_step(
-        wired, opt, mesh, M.param_specs(wired), batch, device="cpu"))
+    out["refused_wire"] = refusal(lambda: W.make_param_wire(wired, mesh))
     out["refused_launch"] = refusal(lambda: train.main(
         ["--arch", "yi_6b", "--reduced", "--device", "cpu", "--steps", "1",
          "--ckpt", f"{tmp}/launch", "--mesh", "single"]))
@@ -750,8 +770,11 @@ def test_sharded_init_draws_init_s_shards(runs, arch):
 def test_sharded_step_memory_stays_below_the_bound(runs):
     """The state a rank held before the step plus the step's peak
     allocation (`memory_peak`), below `memory_bound` and below half of
-    the full state's bytes, on every rank."""
+    the full state's bytes, on every rank; the leaves the step keeps split
+    are the ones the bound counts at half (`MEMORY_SPLIT`)."""
     for got in runs["ranks"]:
+        assert all(n.endswith(MEMORY_SPLIT) for n in got["mem_split"])
+        assert len(got["mem_split"]) == len(MEMORY_SPLIT)
         peak = memory_peak(got, "new")
         assert peak <= memory_bound(got), (peak, memory_bound(got))
         assert peak < int(got["mem_full_state_bytes"]) // 2, peak
@@ -818,7 +841,7 @@ def test_a_late_rank_drops_the_step_on_every_rank(runs):
 
 
 @pytest.mark.parametrize("what, want", [
-    ("refused_wire", "NotImplementedError: the sharded parameter wire"),
+    ("refused_wire", "ValueError: the wire over a mesh needs the sharding rules"),
     ("refused_launch", "ValueError: a {'data': 16, 'model': 16} mesh needs 256 ranks; "
                        "the process group has 8"),
 ])

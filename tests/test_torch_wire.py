@@ -393,8 +393,10 @@ def test_param_wire_matches_reference(arch, bits):
 
 
 def test_param_wire_refuses_a_mesh():
+    """A mesh without the rules and specs its shards are laid out by (the
+    reference's factory takes all three)."""
     cfg = C.get_reduced("yi_6b")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh"):
         W.make_param_wire(cfg, mesh=object())
     assert W.make_param_wire(cfg).bits == 0
 
