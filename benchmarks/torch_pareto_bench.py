@@ -72,7 +72,7 @@ import torch
 
 from repro_torch import require_device
 from repro_torch.core import CNN_WORKLOADS, ChipletSpec
-from repro_torch.core.accelerator import evaluate_accelerator_grid
+from repro_torch.core.accelerator import CodesignChunk, evaluate_accelerator_grid
 from repro_torch.core.power import evaluate_network
 from repro_torch.core.search import (
     OBJECTIVES,
@@ -357,11 +357,14 @@ def run(csv: bool = True, smoke: bool = None, device="cuda") -> dict:
     # equality checks below need the engine's nets, not the numpy path's.
     # A chunk's columns, nets and result stay on the device (one copy of
     # the decoded columns there, none back): both timed paths end in one
-    # synchronize, and only the monolithic result is read back, untimed
+    # synchronize, and only the monolithic result is read back, untimed.
+    # The chunked path runs each chunk as one program (`CodesignChunk`: one
+    # CUDA graph replayed per chunk on the card, as the reference's chunk is
+    # one jitted program); the monolithic path runs the functions eagerly
     dev = require_device(device)
+    program = CodesignChunk(wl, mixes, spec.topologies, cd_chunk, device=dev)
 
-    def _grid_eval(start, stop):
-        cols, topo_id = spec.chunk_cols(start, stop)
+    def _eval_cols(cols, topo_id):
         cols = {k: torch.as_tensor(v, device=dev) for k, v in cols.items()}
         nets = network_columns_device(cols, topo_id, spec.topologies,
                                       device=dev, as_numpy=False)
@@ -370,22 +373,38 @@ def run(csv: bool = True, smoke: bool = None, device="cuda") -> dict:
             cols["n_mem_chiplets"] * cols["mem_bw_bytes_per_s"],
             device=dev, as_numpy=False)
 
+    def _grid_eval(start, stop):
+        return _eval_cols(*spec.chunk_cols(start, stop))
+
     def _synced(fn):
         out = fn()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return out
 
+    def _chunk_eval(start, stop):
+        return program(*spec.chunk_cols(start, stop))
+
     def eval_chunked():
         rows = 0
         for start in range(0, n_net, cd_chunk):
             stop = min(start + cd_chunk, n_net)
-            _grid_eval(start, stop)
+            _chunk_eval(start, stop)
             rows += stop - start
         return rows
 
-    _synced(lambda: _grid_eval(0, min(cd_chunk, n_net)))  # warm the chunk shape
+    _synced(lambda: _chunk_eval(0, min(cd_chunk, n_net)))  # capture the program
     cd_chunk_s, _ = _best_of(lambda: _synced(eval_chunked), repeats=3 if smoke else 2)
+    # every chunk of the program equals the eager evaluation of the rows
+    # it ran (the last chunk padded), bit for bit (untimed)
+    cd_program_exact = True
+    for start in range(0, n_net, cd_chunk):
+        stop = min(start + cd_chunk, n_net)
+        got = _chunk_eval(start, stop)
+        cols, topo_id = program.inputs
+        want = _eval_cols(cols, topo_id.cpu())
+        cd_program_exact &= all(torch.equal(got[k], want[k][..., :stop - start])
+                                for k in want)
 
     t0 = time.perf_counter()
     cd_front, _ = codesign_pareto(wl, mixes, topologies=TOPOLOGIES,
@@ -474,6 +493,7 @@ def run(csv: bool = True, smoke: bool = None, device="cuda") -> dict:
         "chunked_points_per_s": n_joint / cd_chunk_s,
         "monolithic_points_per_s": n_joint / cd_mono_s,
         "chunked_over_monolithic": cd_chunk_s / cd_mono_s,
+        "chunk_program": "cuda_graph" if dev.type == "cuda" else "eager",
         "pareto_search_s": cd_search_s,
         "pareto_search_points_per_s": n_joint / cd_search_s,
         "monolithic_front_s": cd_mono_front_s,
@@ -525,6 +545,7 @@ def run(csv: bool = True, smoke: bool = None, device="cuda") -> dict:
         "net_front_matches_bruteforce": bool(net_front_exact),
         "codesign_front_streaming_equals_monolithic": bool(cd_fronts_equal),
         "codesign_front_matches_bruteforce": bool(cd_front_exact),
+        "codesign_chunk_program_bit_identical": bool(cd_program_exact),
         "chunked_within_ratio_bar_network":
             network["chunked_over_monolithic"] <= ratio_bar,
         "chunked_within_ratio_bar_codesign":

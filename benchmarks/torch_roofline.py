@@ -8,10 +8,12 @@ interposer-network / memory terms and the dominant bottleneck, through the
 batched accelerator evaluator (`core.accelerator.evaluate_accelerator_batch`).
 
 The PyTorch port's counterpart of `benchmarks/roofline.py`, section by
-section.  The dry-run cells are read from `artifacts/dryrun/*.json` where
-present; the repository holds none, and the port has no dry-run of its own
-yet (`launch/dryrun.py`), so `n_ok` is 0, as the reference's is on a fresh
-checkout.  The photonic roofline runs in float64 on ``device`` (default
+section.  The dry-run cells are the port's own dry-run's
+(`repro_torch.launch.dryrun`: one rank of the production mesh over a
+fake process group), read from `artifacts/torch_dryrun/*.json` (`run(
+artifacts=)` another directory); the repository holds none, so on a fresh
+checkout `n_ok` is 0 until `python -m repro_torch.launch.dryrun` writes
+them.  The photonic roofline runs in float64 on ``device`` (default
 "cuda"); the fabric pricing is host arithmetic over the reference's
 modelled TPU-class chip, not a measurement of the card.  Writes
 `artifacts/torch_roofline.json` (the run's output).
@@ -35,17 +37,18 @@ from repro_torch.core import (
 )
 from repro_torch.launch.hlo_analysis import PEAK_FLOPS
 
-ARTIFACTS = Path(__file__).resolve().parent / "artifacts" / "dryrun"
+ARTIFACTS = Path(__file__).resolve().parent / "artifacts" / "torch_dryrun"
 OUT = Path(__file__).resolve().parent / "artifacts" / "torch_roofline.json"
 
 SHAPE_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
 
 
-def load_cells(mesh: str | None = None, include_tagged: bool = False):
+def load_cells(mesh: str | None = None, include_tagged: bool = False, artifacts=None):
     """Baseline cells are `<arch>__<shape>__<mesh>.json`; variants carry an
-    extra `__<tag>` suffix and are left out unless `include_tagged`."""
+    extra `__<tag>` suffix and are left out unless `include_tagged`.
+    `artifacts`: the directory (default `ARTIFACTS`)."""
     cells = []
-    for f in sorted(ARTIFACTS.glob("*.json")):
+    for f in sorted(Path(artifacts or ARTIFACTS).glob("*.json")):
         parts = f.stem.split("__")
         tag = parts[3] if len(parts) > 3 else ""
         if tag and not include_tagged:
@@ -188,8 +191,8 @@ def photonic_markdown_table(photonic) -> str:
     return "\n".join(rows)
 
 
-def run(csv: bool = True, device="cuda") -> dict:
-    cells = load_cells()
+def run(csv: bool = True, device="cuda", artifacts=None) -> dict:
+    cells = load_cells(artifacts=artifacts)
     ok = [c for c in cells if c["status"] == "ok"]
     skip = [c for c in cells if c["status"] == "skip"]
     err = [c for c in cells if c["status"] not in ("ok", "skip")]

@@ -7,6 +7,8 @@
     python3 chip_smoke.py --only flash_attention   # stop after flash_attention's
     python3 chip_smoke.py --only ssm_scan  # stop after ssm_scan's
     python3 chip_smoke.py --only engine    # the engine phases alone (no kernel build)
+    python3 chip_smoke.py --only mesh_serve  # serving under a mesh alone
+    python3 chip_smoke.py --only dryrun    # the dry-run cells alone (no kernel build)
     python3 chip_smoke.py --profile        # also: device time by kernel per model
 
 Needs one NVIDIA Hopper GPU, `nvcc` and PyTorch built for CUDA; it raises
@@ -76,7 +78,12 @@ fields such as stage, bank and router counts exactly):
                indices, the smoke grid's card and CPU fronts compared (a
                differing index set is printed with its rows' gaps), and
                `fabrics_from_front` on the front; the bench's refine
-               sections run there too
+               sections run there too.  The bench's timed chunked path
+               runs each chunk of the 138,240-network grid as one CUDA
+               graph (`core.accelerator.CodesignChunk`), every chunk held
+               bit for bit against the eager evaluation of its rows; the
+               chunked-over-monolithic ratio is reported beside its bar
+               (1.5), not required
   engine_refine  the refinement engines: the bench's refine checks (the
                refined front weakly dominating its seeds and improving one,
                the trust-region front dominating the first-order one, its
@@ -190,6 +197,20 @@ ranks on one card: the phase proves the path builds and launches, not
 that it splits work or memory; the `model` axis has size 1, where the
 tensor-parallel split is the identity.
 
+Then `mesh_serve`: serving under a mesh (`serve/sharded.py`) through NCCL
+at world size 1: yi-6b at published width and 8 of its 32 layers, and
+zamba2-1.2b as published, each a batch-128 x 128 sharded prefill and 8
+sharded decode steps on the rank's shards and cache (the reference's
+layouts) against the one-device `prefill` and `serve_step` with kernels
+on: logits and cache bit for bit, launches equal (its own path, `<model>
+mesh_serve`), tokens/s and peaks of both.  Then `dryrun`: `python -m
+repro_torch.launch.dryrun` on yi-6b train_4k single, mixtral-8x7b
+prefill_32k multi and zamba2-1.2b long_500k single, three processes at
+once, each one rank of the production mesh over a fake process group on
+the host: each cell's bottleneck, three roofline terms and argument GiB a
+device, counts priced on the modelled TPU-class fabric, not times of the
+card.
+
 Last, `examples`: the five model examples (`examples/torch_quickstart.py`,
 `torch_continuous_batching.py`, `torch_serve_batched.py`, which runs the
 serving launcher in its own process, `torch_photonic_mac_ablation.py` and
@@ -249,6 +270,7 @@ from repro_torch import configs as C  # noqa: E402
 from repro_torch import core as EC  # noqa: E402
 from repro_torch.core import faults as EF  # noqa: E402
 from repro_torch.core import search as ESR  # noqa: E402
+from repro_torch.core.accelerator import CodesignChunk  # noqa: E402
 from repro_torch.core import sweep as ES  # noqa: E402
 from repro_torch.core.xp import TorchNS  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -271,6 +293,7 @@ from repro_torch.parallel import collectives as CC  # noqa: E402
 from repro_torch.parallel import pipeline as PP  # noqa: E402
 from repro_torch.parallel import wire as W  # noqa: E402
 from repro_torch.runtime import trainer as TR  # noqa: E402
+from repro_torch.serve import sharded as SV  # noqa: E402
 from repro_torch.serve.engine import ContinuousBatcher  # noqa: E402
 # the card's peaks, a photonic_mac product's bound, the kernel timer, the card
 from repro_torch.kernels.timing import (  # noqa: E402
@@ -1534,9 +1557,18 @@ def _codesign_chunk_breakdown(spec, mixes, wl, chunk: int, front) -> dict:
         ESR._merge_into(front, pts, idx, front.objectives, DEV)
         t3 = time.perf_counter()
     total = t3 - t0
+    # the same chunk as one CUDA graph (`CodesignChunk`: the bench's chunked
+    # path), the second of two calls (the first captures), to a synchronize
+    program = CodesignChunk(wl, mixes, spec.topologies, chunk, device=DEV)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        program(cols, topo)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
     return {"chunk": chunk, "joint_points": int(pts.shape[0]), "device_ms": (t1 - t0) * 1e3,
             "to_host_ms": (t2 - t1) * 1e3, "fold_ms": (t3 - t2) * 1e3,
-            "fold_share": (t3 - t2) / total}
+            "fold_share": (t3 - t2) / total, "graph_ms": (t5 - t4) * 1e3}
 
 
 def phase_engine_pareto(seed: int) -> dict:
@@ -1566,8 +1598,8 @@ def phase_engine_pareto(seed: int) -> dict:
     bench = pb.run(csv=False, smoke=False, device="cuda")
     exact = ("codesign_grid_at_least_1e6", "net_front_streaming_equals_monolithic",
              "net_front_matches_bruteforce", "codesign_front_streaming_equals_monolithic",
-             "codesign_front_matches_bruteforce", "pipeline_modes_bit_identical",
-             "pipeline_grid_at_least_1e6")
+             "codesign_front_matches_bruteforce", "codesign_chunk_program_bit_identical",
+             "pipeline_modes_bit_identical", "pipeline_grid_at_least_1e6")
     _require_checks({k: bench["checks"][k] for k in exact}, "engine_pareto bench")
     wl = EC.CNN_WORKLOADS["ResNet18"]()
     mixes = pb._mix_library(False)
@@ -1631,6 +1663,9 @@ def phase_engine_pareto(seed: int) -> dict:
            "pipeline": bench["pipeline"],
            "codesign": {k: v for k, v in bench["codesign"].items() if k != "front_indices"},
            "modes": modes, "one_chunk": breakdown,
+           "codesign_chunked_over_monolithic": bench["codesign"]["chunked_over_monolithic"],
+           "codesign_ratio_bar": bench["ratio_bar"],
+           "chunk_program": bench["codesign"]["chunk_program"],
            "smoke_grid_front": {"card": f_card.size, "cpu": f_cpu.size,
                                 "indices_differ": differ, "gaps": gaps},
            "fabrics": {"n": len(fabs), "names": [f.name for f in fabs[:8]],
@@ -3285,6 +3320,166 @@ def phase_mesh(straight: dict, wire: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serving under a mesh through NCCL, at world size 1
+# ---------------------------------------------------------------------------
+
+# (config id, layers served): yi-6b at published width cut to 8 of its 32
+# layers (its serving path ran all 32 already; 8 keep the phase short),
+# zamba2-1.2b as published; each a batch-128 x 128 prefill then
+# MESH_SERVE_STEPS decode steps
+MESH_SERVE = (("yi_6b", 8), ("zamba2_1p2b", None))
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_STEPS = 128, 128, 8
+
+
+def _serve_run(prefill, step, params, batch, steps) -> dict:
+    """A prefill and its decode steps, timed each to a synchronize, with
+    the counters at 0 just before and read just after, and the peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = [logits]
+    for i, tok in enumerate(steps):
+        logits, cache = step(params, cache, tok, MESH_SERVE_PROMPT + i)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    b = batch["tokens"].shape[0]
+    return {"logits": outs, "cache": cache, "launches": counters(),
+            "prefill_tokens_per_s": b * MESH_SERVE_PROMPT / (t1 - t0),
+            "decode_tokens_per_s": b * len(steps) / (t2 - t1),
+            "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _mesh_serve_model(mesh, cfg_id: str, depth) -> dict:
+    """One model's sharded prefill and decode steps (`serve.sharded`) on
+    the rank's shards and cache against the one-device `prefill` and
+    `serve_step`, bit for bit, kernels on."""
+    published = C.get(cfg_id)
+    cfg = dataclasses.replace(published, n_layers=depth or published.n_layers,
+                              use_photonic_mac=True, use_kernels=True)
+    b, s, n = MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_STEPS
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen).to(DEV)}
+    steps = [torch.randint(0, cfg.vocab, (b, 1), generator=gen).to(DEV) for _ in range(n)]
+    params = M.init(cfg, seed=SEED, device=DEV)
+    prefill, psh, _, _ = SV.build_sharded_prefill(cfg, mesh, None, batch, s + n, device=DEV)
+    step, *_ = SV.build_sharded_serve_step(cfg, mesh, None,
+                                           M.init_cache_abstract(cfg, b, s + n)[0], device=DEV)
+    one_prefill = lambda p, bt: M.prefill(cfg, p, bt, s + n, device=DEV)      # noqa: E731
+    one_step = lambda p, c, t, pos: M.serve_step(cfg, p, c, t, pos, device=DEV)  # noqa: E731
+    _serve_run(one_prefill, one_step, params, batch, steps)     # warm: the first call's costs
+    shards = TR.distribute(mesh, params, psh)
+    sharded = _serve_run(prefill, step, shards, batch, steps)
+    del shards
+    _free()
+    one = _serve_run(one_prefill, one_step, params, batch, steps)
+    bitwise = (all(torch.equal(a, c) for a, c in zip(sharded["logits"], one["logits"]))
+               and all(torch.equal(a, c) for a, c in zip(_leaves(sharded["cache"]),
+                                                          _leaves(one["cache"]))))
+    finite = all(bool(torch.isfinite(t).all()) for t in sharded["logits"])
+    out = {"model": cfg.name, "n_layers": cfg.n_layers, "published_n_layers": published.n_layers,
+           "batch": b, "prompt": s, "decode_steps": n, "bitwise": bitwise, "finite": finite,
+           "logits_shape": list(sharded["logits"][0].shape),
+           **{f"{k}_{which}": r[k] for which, r in (("sharded", sharded), ("one_device", one))
+              for k in ("prefill_tokens_per_s", "decode_tokens_per_s", "prefill_s",
+                        "decode_s", "peak_memory_gb", "launches")}}
+    del params, sharded, one
+    _free()
+    return out
+
+
+def phase_mesh_serve() -> dict:
+    """Serving under a mesh through NCCL at world size 1 (a file-store
+    rendezvous, `make_test_mesh(1, 1, 1)` on the card): for each of
+    `MESH_SERVE`, `serve.sharded`'s prefill and decode steps on the rank's
+    shards (`trainer.distribute`) and cache against the one-device
+    `prefill` and `serve_step`, kernels on: logits and cache bit for bit,
+    the launches equal, tokens/s and peaks of both (after one untimed
+    one-device run, which pays the first call's costs).  The sharded run is
+    its own path (`<model> mesh_serve`), its counters at 0 just before it
+    and read just after.  At one rank every gather is the shard itself and
+    the split and the cache's layout are the identity (ROADMAP.md)."""
+    t0 = time.perf_counter()
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_mesh_serve_")
+    here = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(here)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous", rank=0,
+                            world_size=1, device_id=here)
+    try:
+        mesh = make_test_mesh(data=1, model=1, pod=1, device_type="cuda")
+        models = [_mesh_serve_model(mesh, cfg_id, depth) for cfg_id, depth in MESH_SERVE]
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    out = {"phase": "mesh_serve", "card": card(), "world_size": 1, "models": models,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    for m in models:
+        assert m["bitwise"], f"{m['model']}: the sharded serving step differs from one device's"
+        assert m["finite"], m["model"]
+        assert m["launches_sharded"] == m["launches_one_device"], m
+    return {f"{m['model']} mesh_serve": m["launches_sharded"] for m in models}
+
+
+# ---------------------------------------------------------------------------
+# the dry-run on the production meshes
+# ---------------------------------------------------------------------------
+
+# (arch, shape, mesh) of the cells the phase runs, each in its own process
+DRYRUN_CELLS = (("yi-6b", "train_4k", "single"), ("mixtral-8x7b", "prefill_32k", "multi"),
+                ("zamba2-1.2b", "long_500k", "single"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def phase_dryrun() -> dict:
+    """`python -m repro_torch.launch.dryrun` on `DRYRUN_CELLS`, the three
+    processes at once: one rank of the production mesh over a fake process
+    group, on the host (no card, no kernel build).  Prints each cell's
+    bottleneck, its three roofline terms and its argument GiB a device:
+    host-side counts priced on the modelled TPU-class fabric constants of
+    `core/fabric.py`, not times of this card."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+                               "--shape", sh, "--mesh", m], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a, sh, m in DRYRUN_CELLS]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=DRYRUN_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    cells = []
+    for (a, sh, m), p, log in zip(DRYRUN_CELLS, procs, logs):
+        assert p.returncode == 0, f"dry-run {a} {sh} {m} exited {p.returncode}:\n{log[-3000:]}"
+        rec = json.loads((ROOT / "benchmarks" / "artifacts" / "torch_dryrun" /
+                          f"{C.ALIASES[a]}__{sh}__{m}.json").read_text())
+        assert rec["status"] == "ok", rec
+        rf = rec["roofline"]
+        cells.append({"cell": f"{a} {sh} {m}", "n_devices": rec["n_devices"],
+                      "bottleneck": rf["bottleneck"], "compute_s": rf["compute_s"],
+                      "memory_s": rf["memory_s"], "collective_s": rf["collective_s"],
+                      "args_gib_per_device": rec["memory"]["argument_size_in_bytes"] / 2 ** 30,
+                      "temp_gib_per_device": rec["memory"]["temp_size_in_bytes"] / 2 ** 30,
+                      "dot_flops": rec["hlo_stats"]["dot_flops"],
+                      "collective_bytes": rec["hlo_stats"]["collective_bytes"],
+                      "lower_s": rec["lower_s"]})
+    out = {"phase": "dryrun", "seconds": time.perf_counter() - t0,
+           "priced_on": "the modelled TPU-class fabric of core/fabric.py (metallic_ici); "
+                        "host-side counts, not H100 times", "cells": cells}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the model examples and the kernel bench
 # ---------------------------------------------------------------------------
 
@@ -3426,6 +3621,9 @@ PATHS = [
 ]
 # the training paths that run fewer than all three kernels (the others run all)
 TRAIN_PATH_NEEDS = {"mixtral-8x7b train_mesh": ("photonic_mac", "flash_attention")}
+# the kernels each sharded serving path must launch
+MESH_SERVE_NEEDS = {"yi-6b mesh_serve": ("photonic_mac", "flash_attention"),
+                    "zamba2-1.2b mesh_serve": ("photonic_mac", "flash_attention", "ssm_scan")}
 # the paths that take yi-6b's phases: the batcher's 8 ragged requests, then
 # batch 128
 BATCHER_ARCHS = ("yi-6b", "mixtral-8x7b", "qwen2-vl-72b", "yi-34b", "deepseek-67b",
@@ -3525,20 +3723,22 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "photonic_mac", "flash_attention", "ssm_scan",
-                                       "engine"],
+                                       "engine", "mesh_serve", "dryrun"],
                     default=None,
                     help="stop after this phase: a kernel's comparisons (for work on that "
-                         "kernel), or 'engine' for the engine phases alone (no kernel "
-                         "build); prints no ok line")
+                         "kernel), 'engine' for the engine phases alone (no kernel build), "
+                         "'mesh_serve' for serving under a mesh alone, 'dryrun' for the "
+                         "dry-run cells alone (no kernel build); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for decode and prefill, per model")
     ap.add_argument("--seed", type=int, default=SEED,
                     help="seed of the engine phases' sampled rows, window and fault scenarios")
     args = ap.parse_args()
     t_start = time.perf_counter()
-    dev = phase_device(build=args.only != "engine")
-    if args.only == "engine":
-        run_engine(args.seed)
+    dev = phase_device(build=args.only not in ("engine", "dryrun"))
+    if args.only in ("engine", "mesh_serve", "dryrun"):
+        {"engine": lambda: run_engine(args.seed), "mesh_serve": phase_mesh_serve,
+         "dryrun": phase_dryrun}[args.only]()
         print(dev["nvidia_smi"], flush=True)
         return
     kern = phase_kernels(only=None if args.only == "kernels" else args.only)
@@ -3558,6 +3758,11 @@ def main() -> None:
         by_path[path] = n
         for name in TRAIN_PATH_NEEDS.get(path, KERNELS):
             assert n[name] > 0, f"the {path} path never launched {name}"
+    for path, n in phase_mesh_serve().items():
+        by_path[path] = n
+        for name in MESH_SERVE_NEEDS[path]:
+            assert n[name] > 0, f"the {path} path never launched {name}"
+    phase_dryrun()
     launches = {name: sum(n[name] for n in by_path.values()) for name in KERNELS}
     phase_examples()
 

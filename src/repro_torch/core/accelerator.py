@@ -27,7 +27,7 @@ vmaps a jitted kernel over it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -416,28 +416,142 @@ def evaluate_accelerator_grid(
     not bit for bit.
     """
     dev = require_device(device)
-    lc = {k: _f64(v, dev) for k, v in layer_columns(wl).items()}
-    cc = {k: _f64(v, dev) for k, v in chiplet_mix_columns(mixes).items()}
+    consts = _grid_constants(wl, mixes, dev, mac_rate_hz, lambda_slot_energy_j,
+                             transfers_per_layer)
     shape = np.broadcast_shapes(
         *(tuple(np.shape(nets[k])) for k in MODEL_FIELDS),
         *(tuple(np.shape(dev_cols[k])) for k in EVAL_DEVICE_FIELDS),
         tuple(np.shape(mem_bw_bytes_per_s)))
     n = int(shape[0]) if shape else 1
-    nets_t = {k: _bcast_col(nets[k], n, dev) for k in MODEL_FIELDS}
-    dev_t = {k: _bcast_col(dev_cols[k], n, dev) for k in EVAL_DEVICE_FIELDS}
-    mem_bw_t = _bcast_col(mem_bw_bytes_per_s, n, dev)
     frac_t = None
     if frac is not None:
         frac_t = _f64(frac, dev)
         if frac_t.ndim == 2:                                    # (M, L)
             frac_t = frac_t[:, None, :]
-    out = _accel_mix_math(cc, frac_t, lc, nets_t, dev_t, mem_bw_t,
-                          _f64(mac_rate_hz, dev), _f64(lambda_slot_energy_j, dev),
-                          _f64(transfers_per_layer, dev),
-                          adaptive=bool(adaptive_gateways))
+    out = _grid_math(consts, nets, dev_cols, mem_bw_bytes_per_s, n, frac_t,
+                     bool(adaptive_gateways), dev)
     if not as_numpy:
         return out
     return {k: v.cpu().numpy().astype(np.float64) for k, v in out.items()}
+
+
+def _grid_constants(wl: Workload, mixes, dev, mac_rate_hz, lambda_slot_energy_j,
+                    transfers_per_layer):
+    """The grid's inputs that do not change from chunk to chunk, on `dev`:
+    (layer columns, mix columns, (MAC rate, slot energy, transfers))."""
+    lc = {k: _f64(v, dev) for k, v in layer_columns(wl).items()}
+    cc = {k: _f64(v, dev) for k, v in chiplet_mix_columns(mixes).items()}
+    return lc, cc, (_f64(mac_rate_hz, dev), _f64(lambda_slot_energy_j, dev),
+                    _f64(transfers_per_layer, dev))
+
+
+def _grid_math(consts, nets, dev_cols, mem_bw, n: int, frac_t, adaptive: bool, dev):
+    """`evaluate_accelerator_grid`'s device work on (n,) columns."""
+    lc, cc, scalars = consts
+    nets_t = {k: _bcast_col(nets[k], n, dev) for k in MODEL_FIELDS}
+    dev_t = {k: _bcast_col(dev_cols[k], n, dev) for k in EVAL_DEVICE_FIELDS}
+    mem_bw_t = _bcast_col(mem_bw, n, dev)
+    return _accel_mix_math(cc, frac_t, lc, nets_t, dev_t, mem_bw_t, *scalars,
+                           adaptive=adaptive)
+
+
+class CodesignChunk:
+    """One chunk of the co-design grid as one program: the network columns
+    (`sweep.network_columns_device`'s selection) and then
+    `evaluate_accelerator_grid` against every mix, on `chunk` rows of
+    static device buffers.  Built once per (workload, mixes, topologies,
+    chunk size, device).
+
+    On a card the program is captured as one `torch.cuda.CUDAGraph` at its
+    first call and replayed for every chunk: the eager evaluation is about
+    a thousand small float64 launches, each a few microseconds of host
+    time, which a chunk of a few thousand networks cannot hide (the
+    reference's chunk is one jitted XLA program).  The constants (layer
+    and mix columns, the scalars) are put on the device before the
+    capture, so the captured region holds no host copy, no
+    synchronisation and no shape that varies.  On the CPU the same object
+    runs the same functions eagerly.  Either way the results are the eager
+    path's, bit for bit: a graph replays the same kernels.
+
+    `__call__(cols, topo_id, valid)` takes one chunk's columns (host arrays
+    or device tensors of `chunk` rows, or fewer: a short last chunk is
+    padded by repeating its last row, as `sweep_chunked` pads) and returns
+    the (M, valid) report fields as device tensors.  They are views of the
+    program's outputs until the next call: a caller that keeps them copies
+    them first."""
+
+    def __init__(self, wl: Workload, mixes, topologies: Sequence[str], chunk: int,
+                 device="cuda", *, mac_rate_hz: float = 5e9,
+                 lambda_slot_energy_j: float = 30e-15, adaptive_gateways: bool = True,
+                 transfers_per_layer: int = 16):
+        self.device = require_device(device)
+        self.chunk = int(chunk)
+        self.topologies = tuple(topologies)
+        self._consts = _grid_constants(wl, mixes, self.device, mac_rate_hz,
+                                       lambda_slot_energy_j, transfers_per_layer)
+        self._adaptive = bool(adaptive_gateways)
+        self._cols: Optional[Dict[str, torch.Tensor]] = None
+        self._topo: Optional[torch.Tensor] = None
+        self._graph = None
+        self._out: Optional[Dict[str, torch.Tensor]] = None
+
+    def _program(self) -> Dict[str, torch.Tensor]:
+        from repro_torch.core.sweep import _nets_program  # runtime: cycle
+
+        nets, mem_bw = _nets_program(self._cols, self._topo, self.topologies,
+                                     TorchNS(self.device))
+        return _grid_math(self._consts, nets, self._cols, mem_bw, self.chunk, None,
+                          self._adaptive, self.device)
+
+    def _load(self, cols: Mapping[str, Any], topo_id) -> int:
+        """Copy one chunk into the static buffers (made at the first call),
+        padding a short chunk with its last row; returns its row count."""
+        def padded(v, dtype):
+            t = torch.as_tensor(v).to(device=self.device, dtype=dtype)
+            pad = self.chunk - t.shape[0]
+            if pad < 0:
+                raise ValueError(f"a chunk of {t.shape[0]} rows; the program takes "
+                                 f"{self.chunk}")
+            return torch.cat([t, t[-1:].expand(pad)]) if pad else t
+
+        valid = int(np.shape(topo_id)[0])
+        if self._cols is None:
+            self._cols = {k: padded(v, torch.float64).clone() for k, v in cols.items()}
+            self._topo = padded(topo_id, torch.int64).clone()
+            return valid
+        for k, v in cols.items():
+            self._cols[k].copy_(padded(v, torch.float64))
+        self._topo.copy_(padded(topo_id, torch.int64))
+        return valid
+
+    @property
+    def inputs(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """(columns, topology ids) of the rows the last call ran, padded to
+        `chunk`: the program's own buffers, to be read, not written."""
+        return self._cols, self._topo
+
+    def _capture(self) -> None:
+        warm = torch.cuda.Stream(self.device)
+        warm.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(warm):
+            self._program()
+        torch.cuda.current_stream(self.device).wait_stream(warm)
+        self._graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self._graph, capture_error_mode="thread_local"):
+            self._out = self._program()
+
+    def __call__(self, cols: Mapping[str, Any], topo_id, valid: Optional[int] = None
+                 ) -> Dict[str, torch.Tensor]:
+        rows = self._load(cols, topo_id)
+        valid = rows if valid is None else valid
+        if self.device.type != "cuda":
+            out = self._program()
+        else:
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
+            out = self._out
+        return {k: v[..., :valid] for k, v in out.items()}
 
 
 def evaluate_accelerator_batch(

@@ -107,7 +107,6 @@ from repro_torch.core.sweep import (
     SweepResult,
     _decode,
     _network_columns_arrays,
-    _nets_program,
     _run_pipeline,
     _validate_grid_values,
     grid_spec,
@@ -395,8 +394,10 @@ def codesign_pareto(
 
     Streams the network grid in chunks; each chunk is evaluated against all
     `mixes` at once through the accelerator grid kernel on `device`
-    (`core.accelerator.evaluate_accelerator_grid`), and the running front is
-    merged per chunk.  Flat front indices encode the joint design point as
+    (`core.accelerator.evaluate_accelerator_grid`, run for every chunk as
+    one `core.accelerator.CodesignChunk`: a CUDA graph on the card), and
+    the running front is merged per chunk.  Flat front indices encode the
+    joint design point as
     ``mix_id * spec.n + grid_row`` — decode with `codesign_config_at`.
     Memory is O(len(mixes) * chunk_size * n_layers), independent of grid
     size.
@@ -412,10 +413,7 @@ def codesign_pareto(
     merges happen in chunk order, so every depth yields the identical
     front.
     """
-    from repro_torch.core.accelerator import (
-        chiplet_mix_columns,
-        evaluate_accelerator_grid,
-    )
+    from repro_torch.core.accelerator import CodesignChunk, chiplet_mix_columns
 
     objectives = tuple(objectives)
     if not mixes:
@@ -443,6 +441,12 @@ def codesign_pareto(
         tables_t = {k: xp.asarray(np.asarray(v, np.float64))
                     for k, v in spec.axes.items()}
         base_t = {k: xp.asarray(v) for k, v in spec.base.items()}
+    # one program for every chunk (a CUDA graph on the card)
+    program = CodesignChunk(wl, mixes, spec.topologies, step, xp.device,
+                            mac_rate_hz=mac_rate_hz,
+                            lambda_slot_energy_j=lambda_slot_energy_j,
+                            adaptive_gateways=adaptive_gateways,
+                            transfers_per_layer=transfers_per_layer)
 
     def make_task(start):
         stop = min(start + step, n)
@@ -452,26 +456,11 @@ def codesign_pareto(
                 cols, topo_id = _decode(spec, step, tables_t, base_t, start,
                                         xp.device)
             else:
+                # the program pads a short chunk with its last row
                 cols, topo_id = spec.chunk_cols(start, stop)
-                pad = step - (stop - start)
-                if pad:  # repeat the last row: every chunk has one shape;
-                    # padded lanes are sliced off below
-                    cols = {k: np.concatenate([v, np.repeat(v[-1:], pad)])
-                            for k, v in cols.items()}
-                    topo_id = np.concatenate(
-                        [topo_id, np.repeat(topo_id[-1:], pad)])
-                cols = {k: xp.asarray(v) for k, v in cols.items()}
-                topo_id = torch.as_tensor(topo_id, device=xp.device)
-            nets, mem_bw = _nets_program(cols, topo_id, spec.topologies, xp)
-            out = evaluate_accelerator_grid(
-                wl, mixes, nets, cols, mem_bw,
-                mac_rate_hz=mac_rate_hz,
-                lambda_slot_energy_j=lambda_slot_energy_j,
-                adaptive_gateways=adaptive_gateways,
-                transfers_per_layer=transfers_per_layer,
-                as_numpy=False, device=xp.device)
             valid = stop - start
-            pts = torch.stack([out[k][:, :valid] for k in objectives], -1)
+            out = program(cols, topo_id, valid)
+            pts = torch.stack([out[k] for k in objectives], -1)
             return start, stop, pts.reshape(n_mix * valid, len(objectives)).cpu().numpy()
         return task
 

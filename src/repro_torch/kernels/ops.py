@@ -24,6 +24,16 @@ the slice zero-padded out to the global bank edges (zeros change neither
 a product nor a max), the unchanged kernel on whole banks, the padding
 sliced off.  A row slice's product is this rank's partial sum.
 
+Each kernel is also a `torch.library.custom_op` (`repro_torch::photonic_mac`,
+`::flash_attention`, `::ssm_scan`): its implementation is the wrapper
+(the launch on a CUDA tensor, the plain version on a CPU tensor), its
+fake implementation gives the output's shape and dtype, and a
+`torch.utils.flop_counter` formula its FLOPs.  Under a
+`TorchDispatchMode` (`FakeTensorMode` in `launch.dryrun`, a flop counter)
+the kernel is reached through its operator, so that the mode runs none of
+it and counts it as the card runs it; otherwise the wrapper is called
+straight (`_kernel`), without the dispatcher's work on each launch.
+
 Training: kernel forward, plain backward.  The kernels are forward-only;
 `photonic_matmul` is straight-through (gradients as if w were unquantized,
 the photonic weight banks being programmed from the master weights),
@@ -36,7 +46,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_fwd
@@ -44,6 +56,85 @@ from repro_torch.kernels.photonic_mac import BANK, bank_absmax, quantize_weights
 from repro_torch.kernels.photonic_mac import photonic_mac as _mac_fwd
 from repro_torch.kernels.ssm_scan import check_shapes, expand_groups
 from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_fwd
+
+
+# ---------------------------------------------------------------------------
+# the kernels as custom operators
+# ---------------------------------------------------------------------------
+
+
+def _kernel(op, fn, *args):
+    """`op(*args)`, the kernel's operator, under a `TorchDispatchMode`;
+    else the wrapper `fn(*args)` it holds."""
+    return op(*args) if torch._C._len_torch_dispatch_stack() else fn(*args)
+
+
+def _mac_fn(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return _mac_fwd(x, w_q, scale)
+
+
+_mac_op = torch.library.custom_op("repro_torch::photonic_mac", _mac_fn, mutates_args=())
+
+
+@_mac_op.register_fake
+def _(x, w_q, scale):
+    return x.new_empty((x.shape[0], w_q.shape[1]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.photonic_mac)
+def _mac_flops(x_shape, w_shape, scale_shape, out_shape=None, **kwargs) -> int:
+    return 2 * x_shape[0] * x_shape[1] * w_shape[1]
+
+
+def _flash_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+              scale: Optional[float], q_offset: int) -> torch.Tensor:
+    return _flash_fwd(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset)
+
+
+_flash_op = torch.library.custom_op("repro_torch::flash_attention", _flash_fn,
+                                    mutates_args=())
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, scale, q_offset):
+    return q.new_empty(tuple(q.shape), dtype=torch.float32)
+
+
+def _attention_pairs(sq: int, sk: int, causal: bool, window: int, q_offset: int) -> int:
+    """The (query, key) pairs the mask keeps: row i (at position q_offset
+    + i) sees keys up to itself (causal) and back to window - 1 before it."""
+    pos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(pos + 1, sk) if causal else np.full(sq, sk, dtype=np.int64)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(sq, dtype=np.int64)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, scale, q_offset,
+                 out_shape=None, **kwargs) -> int:
+    """Q K^T and P V over the pairs the mask keeps."""
+    b, hq, sq, d = q_shape
+    return 4 * b * hq * d * _attention_pairs(sq, k_shape[2], causal, window, q_offset)
+
+
+def _ssm_fn(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    return _ssm_fwd(x, a, b, c)
+
+
+_ssm_op = torch.library.custom_op("repro_torch::ssm_scan", _ssm_fn, mutates_args=())
+
+
+@_ssm_op.register_fake
+def _(x, a, b, c):
+    return x.new_empty(tuple(x.shape), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan)
+def _ssm_flops(x_shape, a_shape, b_shape, c_shape, out_shape=None, **kwargs) -> int:
+    """Each step's outer product x_t b_t^T into the state and its product
+    with c_t, a multiply-add per state entry each."""
+    bh, l, p = x_shape
+    return 4 * bh * l * p * b_shape[2]
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +214,7 @@ def _global_absmax(absmax: torch.Tensor, split: str, lo: int, banks: int, reduce
 
 def _mac(x, w_q, scale, use_kernel):
     if use_kernel:
-        return _mac_fwd(x.contiguous(), w_q, scale)
+        return _kernel(_mac_op, _mac_fn, x.contiguous(), w_q, scale)
     return _ref.photonic_mac_ref(x, w_q, scale)
 
 
@@ -195,8 +286,7 @@ def _attention_impl(q, k, v, causal, window, scale, q_offset, use_kernel, global
     kernel = uses_flash_kernel(sq, sk, q_offset, use_kernel) and (
         global_sq is None or uses_flash_kernel(global_sq, sk, 0, use_kernel))
     if kernel:
-        return _flash_fwd(q, k, v, causal=causal, window=window, scale=scale,
-                          q_offset=q_offset)
+        return _kernel(_flash_op, _flash_fn, q, k, v, causal, window, scale, q_offset)
     return _ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale,
                               q_offset=q_offset)
 
@@ -241,7 +331,8 @@ def uses_ssm_kernel(l: int, use_kernel: bool = True) -> bool:
 
 def _ssm_impl(x, a, b, c, use_kernel):
     if uses_ssm_kernel(x.shape[1], use_kernel):
-        return _ssm_fwd(x.contiguous(), a.contiguous(), b.contiguous(), c.contiguous())
+        return _kernel(_ssm_op, _ssm_fn, x.contiguous(), a.contiguous(), b.contiguous(),
+                       c.contiguous())
     bh = x.shape[0]
     return _ref.ssm_scan_chunked_ref(x, a, expand_groups(b, bh), expand_groups(c, bh))
 

@@ -14,20 +14,47 @@ has it, field for field.
 That module also parses compiled XLA HLO text into `HloStats`
 (`analyze_hlo`: while-loop trip counts, call-site multipliers, dot FLOPs,
 ring-weighted collective bytes, wire-dtype correction).  The torch side
-compiles no XLA HLO, so those parsers are not ported: a caller builds
-`HloStats` from its own counts, as `examples/torch_photonic_design_space.py`
-does for one decode cell.
+compiles no XLA HLO: its counterpart is `count_step(fn, n_devices)`, one
+`TorchDispatchMode` (`StepCounter`) over a step as one rank runs it (the
+dry-run runs it under `FakeTensorMode` on a fake process group,
+`launch.dryrun`), filling every `HloStats` field from the ops the rank
+dispatches:
+
+  * `dot_flops`: `torch.utils.flop_counter`'s formulas for the
+    matmul-class ops (the hand-written kernels' custom operators carry
+    their own, `kernels.ops`); `dot_bytes` their operand and result bytes;
+  * `op_result_bytes`: every op's result bytes;
+  * the collectives: every `c10d` op the rank issues, with its group's
+    size and its payload's bytes and dtype, weighted as rings as the
+    reference weights them (all-reduce 2(n-1)/n of the operand;
+    all-gather and all-to-all (n-1)/n of the larger of operand and
+    result; reduce-scatter (n-1)/n of the operand; anything else its
+    operand).  The counts come from the payload dtype itself, so
+    `collective_bytes_raw` equals `collective_bytes`: no wire-dtype
+    correction exists;
+  * `max_trip`: given by the caller (the most times one layer body runs);
+    every op is dispatched as often as it runs, so no multiplier applies.
+`StepCounter` also keeps the peak of the live bytes the step allocates
+(each new storage counted once, until it is freed): the dry-run's
+`temp_size_in_bytes`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import weakref
+from typing import Dict, List
+
+import torch
+import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.core.fabric import DEFAULT_FABRIC, get_fabric
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "ICI_BW", "HloStats", "RooflineTerms",
-           "roofline"]
+           "roofline", "StepCounter", "count_step", "COLLECTIVES"]
 
 # the metallic default fabric's constants
 PEAK_FLOPS = DEFAULT_FABRIC.peak_flops
@@ -106,3 +133,157 @@ def roofline(stats: HloStats, cost: dict,
         raw_cost_bytes=float(cost.get("bytes accessed", -1.0)),
         fabric=fb.name,
     )
+
+
+# ---------------------------------------------------------------------------
+# counting a step as one rank dispatches it
+# ---------------------------------------------------------------------------
+
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+# c10d operator -> the reference's collective kind
+_C10D_KIND = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather", "allgather_coalesced_": "all-gather",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "broadcast_": "collective-permute", "send": "collective-permute",
+    "recv_": "collective-permute",
+}
+# the result and operand positions of each operator's arguments
+_C10D_OUT_FIRST = ("allgather_", "_allgather_base_", "allgather_into_tensor_coalesced_",
+                   "allgather_coalesced_", "reduce_scatter_", "_reduce_scatter_base_",
+                   "reduce_scatter_tensor_coalesced_", "alltoall_", "alltoall_base_")
+# the reference's names of the payload dtypes (XLA's)
+_DTYPE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
+               torch.float64: "f64", torch.int8: "s8", torch.int16: "s16", torch.int32: "s32",
+               torch.int64: "s64", torch.uint8: "u8", torch.bool: "pred"}
+
+
+def _tensors(x) -> List[torch.Tensor]:
+    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+def _nbytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(x))
+
+
+def _group_size(args) -> int:
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return dist.ProcessGroup.unbox(a).size()
+            except RuntimeError:      # a ReduceOp, not the group
+                continue
+    raise ValueError("a c10d operator without a process group")
+
+
+@dataclasses.dataclass
+class CollectiveEvent:
+    kind: str
+    group_size: int
+    operand_bytes: int
+    result_bytes: int
+    dtype: str
+    moved_bytes: float      # ring-weighted
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts what one rank dispatches inside the context (`count_step`):
+    `dot_flops`, `dot_bytes`, `op_result_bytes`, `events` (one
+    `CollectiveEvent` per c10d op) and `peak_bytes`, the peak of the live
+    bytes of storages made inside the context.  Storages made before it
+    (`known`: the step's arguments) are never counted."""
+
+    def __init__(self, known=()):
+        super().__init__()
+        self.dot_flops = 0.0
+        self.dot_bytes = 0.0
+        self.op_result_bytes = 0.0
+        self.events: List[CollectiveEvent] = []
+        self.live = 0
+        self.peak_bytes = 0
+        self._ids: Dict[int, int] = {}
+        for t in _tensors(known):
+            self._watch(t.untyped_storage(), 0)
+
+    def _watch(self, st, nbytes: int) -> None:
+        key = id(st)
+        self._ids[key] = nbytes
+        self.live += nbytes
+        self.peak_bytes = max(self.peak_bytes, self.live)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self.live -= self._ids.pop(key, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        outs = _tensors(out)
+        for t in outs:
+            st = t.untyped_storage()
+            if id(st) not in self._ids:
+                self._watch(st, st.nbytes())
+        if func.namespace == "c10d":
+            self._collective(func, args)
+            return out
+        res = _nbytes(outs)
+        self.op_result_bytes += res
+        packet = func._overloadpacket
+        if packet in flop_registry:
+            self.dot_flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            self.dot_bytes += _nbytes(list(args) + list(kwargs.values())) + res
+        return out
+
+    def _collective(self, func, args) -> None:
+        name = func._overloadpacket.__name__
+        kind = _C10D_KIND.get(name)
+        if kind is None:
+            return                      # barrier, monitored waits: no payload
+        n = _group_size(args)
+        if name in _C10D_OUT_FIRST:
+            result, operand = _tensors(args[0]), _tensors(args[1])
+        else:
+            operand = _tensors(args[0])
+            result = operand
+        op_b, res_b = _nbytes(operand), _nbytes(result)
+        if kind == "all-reduce":
+            moved = 2 * (n - 1) / max(n, 1) * op_b
+        elif kind in ("all-gather", "all-to-all"):
+            moved = (n - 1) / max(n, 1) * max(res_b, op_b)
+        elif kind == "reduce-scatter":
+            moved = (n - 1) / max(n, 1) * op_b
+        else:
+            moved = float(op_b)
+        dtype = _DTYPE_NAME.get(operand[0].dtype, str(operand[0].dtype)) if operand else "?"
+        self.events.append(CollectiveEvent(kind, n, op_b, res_b, dtype, moved))
+
+    def stats(self, max_trip: int = 1) -> HloStats:
+        op_bytes = {k: 0.0 for k in COLLECTIVES}
+        op_counts = {k: 0 for k in COLLECTIVES}
+        dtype_bytes: Dict[str, float] = {}
+        for e in self.events:
+            op_bytes[e.kind] += e.moved_bytes
+            op_counts[e.kind] += 1
+            dtype_bytes[e.dtype] = dtype_bytes.get(e.dtype, 0.0) + e.moved_bytes
+        total = float(sum(op_bytes.values()))
+        return HloStats(dot_flops=float(self.dot_flops), dot_bytes=float(self.dot_bytes),
+                        op_result_bytes=float(self.op_result_bytes), collective_bytes=total,
+                        collective_op_bytes=op_bytes, collective_op_counts=op_counts,
+                        max_trip=int(max_trip), collective_dtype_bytes=dtype_bytes,
+                        collective_bytes_raw=total)
+
+
+def count_step(fn, n_devices: int, max_trip: int = 1, known=()) -> HloStats:
+    """`HloStats` of `fn()` as this rank runs it (`StepCounter`), for a
+    mesh of `n_devices` (the group sizes come from the process groups
+    themselves; `n_devices` bounds them).  `known`: tensors made before
+    the step (its arguments), whose storages are not counted as made."""
+    with StepCounter(known) as counter:
+        fn()
+    if any(e.group_size > n_devices for e in counter.events):
+        raise ValueError(f"a collective over more than the mesh's {n_devices} devices")
+    return counter.stats(max_trip)

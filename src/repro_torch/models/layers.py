@@ -24,7 +24,10 @@ experts (or each expert's `ffn` columns).  A replicated activation enters
 the split through `actx.tp_copy`, and the partial results leave it
 through `actx.tp_sum`, inside `linear(split="rows")` or after the combine.
 Under `seq_tp` attention runs on this rank's slice of the sequence.  The
-recurrent blocks take whole weights and compute as on one device.
+recurrent blocks take whole weights and compute as on one device.  Under
+a sharded serving step an attention block's K/V cache may hold a slice of
+the cache's length, or every KV head while the rank computes its own
+query heads (`_cached_attention`).
 """
 
 from __future__ import annotations
@@ -211,25 +214,29 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, *, device, layers: in
     ])
 
 
-def _local_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, hq: int):
-    """K and V (B, S, Hk, Dh), whole, cut to the KV heads of this rank's
-    `hq` query heads under a split by heads: a contiguous range of whole
-    groups, or one KV head per query head where the rank's heads straddle
-    a group's edge (the same numbers either way)."""
+def _local_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, hq: int, dim: int = 2):
+    """K and V, whole along their KV-head dimension `dim` ((B, S, Hk, Dh)
+    by default), cut to the KV heads of this rank's `hq` query heads under
+    a split by heads: a contiguous range of whole groups, or one KV head
+    per query head where the rank's heads straddle a group's edge (the
+    same numbers either way)."""
     group = cfg.n_heads // cfg.n_kv_heads
     first = actx.tp_rank() * hq
     idx = [(first + j) // group for j in range(hq)]
     lo, n = idx[0], idx[-1] - idx[0] + 1
     if hq % n == 0 and idx == [lo + j // (hq // n) for j in range(hq)]:
-        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
-    return k[:, :, idx], v[:, :, idx]
+        return k.narrow(dim, lo, n), v.narrow(dim, lo, n)
+    index = torch.tensor(idx, device=k.device)
+    return k.index_select(dim, index), v.index_select(dim, index)
 
 
-def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
+def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
+         whole_kv: bool = False):
     """Q, K, V (B, S, H, Dh) with RoPE.  Under a split by heads (this rank
     holds `wq`'s slice), Q is this rank's heads and K, V its groups':
     column slices of `wk`, `wv` where the KV heads split too, else the
-    whole K and V, their gradient summed over the split (`tp_copy`)."""
+    whole K and V, their gradient summed over the split (`tp_copy`), cut
+    to the rank's groups unless `whole_kv`."""
     b, s, m = x.shape
     dh = cfg.head_dim_
     h, hk = p["wq"].shape[-2], p["wk"].shape[-2]
@@ -240,7 +247,7 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
     xkv = xq if kv_split else x
     k = linear(cfg, p["wk"].reshape(m, hk * dh), xkv, kv_split).reshape(b, s, hk, dh)
     v = linear(cfg, p["wv"].reshape(m, hk * dh), xkv, kv_split).reshape(b, s, hk, dh)
-    if split and not kv_split:
+    if split and not kv_split and not whole_kv:
         k, v = _local_kv(cfg, actx.tp_copy(k), actx.tp_copy(v), h)
     q = apply_rope(cfg, q, positions)
     k = apply_rope(cfg, k, positions)
@@ -258,64 +265,129 @@ def apply_attention(
     cache: Optional[Params] = None,
     cache_pos: Optional[torch.Tensor] = None,
     cache_pos_max: int = 0,
+    cache_spec: Optional[Tuple] = None,
 ):
     """Pre-norm attention block with residual.  Returns (x, cache).
 
     Train: `cache` is None -> full-sequence attention (flash kernel or plain
-    version).  Prefill (S > 1): full-sequence attention, then the block's
-    K/V are written into `cache` {'k','v'} (B,Hk,Sc,Dh).  Decode (S == 1):
-    one-step attention over the cache; `cache_pos` is a scalar tensor
-    (lockstep batch) or a (B,) tensor (continuous batching: each slot at its
-    own position) and `cache_pos_max` its largest value, known on the host,
+    version).  With a cache, `_cached_attention`: prefill (S > 1) or
+    one-step decode (S == 1); `cache_pos` is a scalar tensor (lockstep
+    batch) or a (B,) tensor (continuous batching: each slot at its own
+    position) and `cache_pos_max` its largest value, known on the host,
     which tells whether any slot's cache has to roll.
 
     The cache tensors are updated in place and returned: a serving cache is
     large, and the caller (`model._run_stages`) hands over views of its
     layer-stacked buffers.
+
+    `cache_spec` (B, Hk, length, Dh): the mesh axes a sharded serving
+    step splits this rank's cache on; none of size > 1 on the length, or
+    no spec, is the one-device cache.
     """
-    if cache is None and actx.seq_split():
+    if cache is not None:
+        return _cached_attention(cfg, p, x, positions, window=window, causal=causal,
+                                 cache=cache, cache_pos=cache_pos, cache_pos_max=cache_pos_max,
+                                 axes=_length_axes(cache_spec))
+    if actx.seq_split():
         return _seq_attention(cfg, p, x, positions, window=window, causal=causal)
     b, s, m = x.shape
     dh = cfg.head_dim_
     h = p["wq"].shape[-2]                    # this rank's heads under a split
     xn = rms_norm(x, p["norm"])
     q, k, v = _qkv(cfg, p, xn, positions)
-    q = q.movedim(2, 1)  # (B,H,S,Dh), a strided view
-    k = k.movedim(2, 1)
-    v = v.movedim(2, 1)
+    with _span("attention"):
+        out = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1), causal, window,
+                            None, 0, cfg.use_kernels)
+    out = out.to(x.dtype).movedim(1, 2).reshape(b, s, h * dh)
+    y = linear(cfg, p["wo"].reshape(h * dh, m), out, "rows" if h < cfg.n_heads else None)
+    return x + y, None
 
+
+def _length_axes(cache_spec: Optional[Tuple]) -> Tuple[str, ...]:
+    """The mesh axes of size > 1 a sharded serving step splits a K/V
+    cache's length on (none without a spec)."""
+    if not cache_spec or len(cache_spec) < 3:
+        return ()
+    axes = actx.axes_of(cache_spec[2])
+    return axes if actx.axes_size(axes) > 1 else ()
+
+
+def _cached_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                      positions: torch.Tensor, *, window: int, causal: bool,
+                      cache: Params, cache_pos, cache_pos_max: int, axes: Tuple[str, ...]):
+    """`apply_attention` with a K/V cache {'k','v'} (B,Hk,L,Dh), this rank's
+    global positions [lo, lo + L) of a cache of length `wlen`.  On one
+    device, and wherever `axes` is empty, the rank holds the whole length
+    (lo = 0).  A sharded serving step may split the length over `axes`
+    (flash-decoding; `parallel.sharding.cache_shardings` puts it there when
+    the batch or the KV heads do not take the axes), and may hold every KV
+    head while the rank computes its query heads (`_qkv(whole_kv=True)`).
+
+    Prefill: full-sequence attention (this rank's query heads), then the
+    K and V of the rank's positions written (a windowed or exact-length
+    cache keeps the last `wlen`).  Decode: a full rolling window rolls by
+    one (across the blocks: each block's first position all-gathered over
+    `axes`, the counterpart of GSPMD's collective permute); the new token's
+    K and V are written by the block that owns its slot; Q's heads are made
+    whole over `model` when `model` splits the length (one token's worth:
+    every head meets this rank's positions), and `decode_attention`'s
+    softmax over the rank's positions is combined over `axes`; the rank's
+    heads of the result then enter the row-split `wo`."""
+    b, s, m = x.shape
+    dh = cfg.head_dim_
+    h = p["wq"].shape[-2]
+    xn = rms_norm(x, p["norm"])
+    q, k, v = _qkv(cfg, p, xn, positions, whole_kv=True)
+    q, k, v = q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1)
+    n_loc = cache["k"].shape[2]
+    wlen = n_loc * actx.axes_size(axes)
+    lo = actx.axes_index(axes) * n_loc
+    if k.shape[1] != cache["k"].shape[1]:
+        raise ValueError(f"{cfg.name}: this rank computes {k.shape[1]} KV heads and holds "
+                         f"{cache['k'].shape[1]} in its cache")
+    head_split = h < cfg.n_heads
+    # the rank's query heads meet their groups' KV heads alone
+    cut_kv = head_split and k.shape[1] == cfg.n_kv_heads
     with _span("attention"):   # the product and the cache, not the projections
-        if cache is None:
-            out = ops.attention(q, k, v, causal, window, None, 0, cfg.use_kernels)
-        elif s > 1:
-            # prefill: full-sequence attention, then materialize the cache
-            out = ops.attention(q, k, v, causal, window, None, 0, cfg.use_kernels)
-            wlen = cache["k"].shape[2]
-            if s >= wlen:  # windowed (or exact-length) cache: keep the last wlen
-                cache["k"].copy_(k[:, :, s - wlen:])
-                cache["v"].copy_(v[:, :, s - wlen:])
-            else:
-                start = int(cache_pos)
-                cache["k"][:, :, start:start + s].copy_(k)
-                cache["v"][:, :, start:start + s].copy_(v)
+        if s > 1:
+            kq, vq = _local_kv(cfg, k, v, h, dim=1) if cut_kv else (k, v)
+            out = ops.attention(q, kq, vq, causal, window, None, 0, cfg.use_kernels)
+            start = s - wlen if s >= wlen else -int(cache_pos)     # cache slot 0's position
+            a, z = max(lo, -start), min(lo + n_loc, s - start)     # the rows this rank holds
+            if a < z:
+                cache["k"][:, :, a - lo:z - lo].copy_(k[:, :, start + a:start + z])
+                cache["v"][:, :, a - lo:z - lo].copy_(v[:, :, start + a:start + z])
         else:
-            # single-step decode; windowed caches roll once full
-            wlen = cache["k"].shape[2]
             pos_b = torch.broadcast_to(cache_pos, (b,))
             if cache_pos_max >= wlen:
                 full = (pos_b >= wlen)[:, None, None, None]
+                nxt = (actx.axes_index(axes) + 1) % actx.axes_size(axes)
                 for name in ("k", "v"):
                     c = cache[name]
-                    c.copy_(torch.where(full, torch.roll(c, -1, dims=2), c))
+                    first = actx.axes_gather(c[:, :, :1], axes, 2)[:, :, nxt:nxt + 1]
+                    c.copy_(torch.where(full, torch.cat([c[:, :, 1:], first], dim=2), c))
             slot = torch.clamp(pos_b, max=wlen - 1)
             rows = torch.arange(b, device=x.device)
-            cache["k"][rows, :, slot] = k[:, :, 0].to(cache["k"].dtype)
-            cache["v"][rows, :, slot] = v[:, :, 0].to(cache["v"].dtype)
-            pos_eff = torch.clamp(cache_pos, max=wlen - 1)      # scalar or (B,)
-            out = decode_attention(q, cache["k"], cache["v"], pos_eff, window=0)
-
+            for name, new in (("k", k), ("v", v)):
+                c = cache[name]
+                new = new[:, :, 0].to(c.dtype)
+                if axes:   # the block that owns the slot writes it
+                    local = slot - lo
+                    mine = ((local >= 0) & (local < n_loc))[:, None, None]
+                    local = torch.clamp(local, 0, n_loc - 1)
+                    c[rows, :, local] = torch.where(mine, new, c[rows, :, local])
+                else:
+                    c[rows, :, slot] = new
+            pos_eff = torch.clamp(cache_pos, max=wlen - 1)
+            q_all = actx.gather_tp(q, 1) if head_split and "model" in axes else q
+            kc, vc = cache["k"], cache["v"]
+            if cut_kv and "model" not in axes:
+                kc, vc = _local_kv(cfg, kc, vc, h, dim=1)
+            out = decode_attention(q_all, kc, vc, pos_eff, lo=lo, axes=axes)
+            if q_all is not q:
+                out = out.narrow(1, actx.tp_rank() * h, h)
     out = out.to(x.dtype).movedim(1, 2).reshape(b, s, h * dh)
-    y = linear(cfg, p["wo"].reshape(h * dh, m), out, "rows" if h < cfg.n_heads else None)
+    y = linear(cfg, p["wo"].reshape(h * dh, m), out, "rows" if head_split else None)
     return x + y, cache
 
 
@@ -348,17 +420,22 @@ def _seq_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torc
     return actx.constrain_unseq(x + y), None
 
 
-def decode_attention(q, k, v, pos, *, window: int = 0):
+def decode_attention(q, k, v, pos, *, window: int = 0, lo: int = 0,
+                     axes: Tuple[str, ...] = ()):
     """One-step (or few-step) attention over a statically shaped KV cache.
     q (B,H,Sq,Dh); k,v (B,Hk,Sc,Dh); pos = absolute position of the last
     query: a scalar tensor, or a (B,) tensor for continuous batching.
-    Plain tensor code, as in the reference."""
+    Plain tensor code, as in the reference.  With `axes`, this rank holds
+    the cache's positions [lo, lo + Sc) of a length split over `axes`: the
+    softmax's max, sum of exponentials and weighted V of those positions
+    are combined over the ranks of `axes` (one all-reduce of the max, one
+    of the sums)."""
     b, h, sq, dh = q.shape
     hk, sc = k.shape[1], k.shape[2]
     group = h // hk
     qg = q.reshape(b, hk, group, sq, dh).to(torch.float32)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32)) * dh ** -0.5
-    kpos = torch.arange(sc, device=q.device)
+    kpos = torch.arange(lo, lo + sc, device=q.device)
     pos = torch.as_tensor(pos, device=q.device)
     back = torch.arange(sq - 1, -1, -1, device=q.device)
     qpos = (pos[:, None] if pos.ndim else pos) - back    # (B,Sq) or (Sq,)
@@ -367,9 +444,16 @@ def decode_attention(q, k, v, pos, *, window: int = 0):
         valid = valid & (kpos > qpos[..., None] - window)
     mask = valid[:, None, None] if pos.ndim else valid[None, None, None]
     s = torch.where(mask, s, torch.full_like(s, -1e30))
-    pm = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bksd->bkgqd", pm, v.to(torch.float32))
-    return out.reshape(b, h, sq, dh)
+    if not axes:
+        pm = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqs,bksd->bkgqd", pm, v.to(torch.float32))
+        return out.reshape(b, h, sq, dh)
+    top = torch.amax(s, dim=-1, keepdim=True)
+    actx.axes_max(top, axes)
+    e = torch.exp(s - top)
+    num = torch.einsum("bkgqs,bksd->bkgqd", e, v.to(torch.float32))
+    parts = actx.axes_sum(torch.cat([num, e.sum(dim=-1, keepdim=True)], dim=-1), axes)
+    return (parts[..., :dh] / parts[..., dh:]).reshape(b, h, sq, dh)
 
 
 def init_cross_attention(cfg: ModelConfig, gen: torch.Generator, *, device,

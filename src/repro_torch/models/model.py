@@ -51,6 +51,14 @@ sums its whole gradient before the gather's backward reduces it).
 Without the hook (serving, the one-device step, the wire) nothing
 changes.
 
+A sharded serving step (`serve.sharded`) runs `prefill` and `serve_step`
+on a rank's slices under the same gather and split, and under
+`cache_layout`: `init_cache` makes the rank's shards of the cache, each
+attention block reads and writes its K/V as the layout splits them
+(`layers.apply_attention(cache_spec=)`), and a recurrent block whose state
+the layout splits on a dimension other than the batch computes on it made
+whole (`_WholeState`).  Without the context nothing changes.
+
 Under the step's tensor-parallel split (`parallel.actx`) the gather keeps
 the `model` slice of the leaves `tp_split_specs` names, and the blocks
 (`models.layers`), the embedding and the head compute on their slices: a
@@ -406,13 +414,17 @@ def check_params_layout(cfg: ModelConfig, params: Params) -> None:
 
 
 def _kind_cache(cfg: ModelConfig, kind: str, repeat: int, batch: int, cache_len: int,
-                device) -> Params:
-    """The zeroed cache of `repeat` blocks of one kind, layer axis first."""
+                device, local: Optional[Callable[[Tuple[int, ...]], Tuple[int, ...]]] = None
+                ) -> Params:
+    """The zeroed cache of `repeat` blocks of one kind, layer axis first;
+    `local(shape)`, when given, maps each leaf's shape to the shape of the
+    part of it this rank holds (a sharded serving step's cache)."""
     dt = L.compute_dtype(cfg)
     f32 = torch.float32
 
     def zeros(*shape, dtype=f32):
-        return torch.zeros((repeat,) + shape, dtype=dtype, device=device)
+        shape = (repeat,) + shape
+        return torch.zeros(shape if local is None else local(shape), dtype=dtype, device=device)
 
     if kind in _ATTN_KINDS:
         w = _kind_window(cfg, kind)
@@ -437,13 +449,88 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
     kind with a leading layer axis and batch next.  Attention kinds keep
     {'k','v'} (layers, batch, kv_heads, length, head_dim), windowed kinds at
     most `window` positions; mamba {'state' f32, 'conv'}; mlstm {'C','n'}
-    f32 with batch*heads fused; slstm {'h','c','n','m'} f32, 'm' at -10."""
+    f32 with batch*heads fused; slstm {'h','c','n','m'} f32, 'm' at -10.
+    Under a sharded serving step's `cache_layout` each leaf is the rank's
+    shard of the global cache (of the layout's global batch: `batch`, the
+    rank's rows, is not read)."""
     device = require_device(device)
     cache = []
-    for repeat, kinds in stages(cfg):
-        cache.append({f"{kind}_{j}": _kind_cache(cfg, kind, repeat, batch, cache_len, device)
-                      for j, kind in enumerate(kinds)})
+    for si, (repeat, kinds) in enumerate(stages(cfg)):
+        sc = {}
+        for j, kind in enumerate(kinds):
+            name = f"{kind}_{j}"
+            local = None
+            if _CACHE_LAYOUT is not None:
+                batch = _CACHE_LAYOUT.batch
+                local = _CACHE_LAYOUT.local_shape_fn(si, name)
+            sc[name] = _kind_cache(cfg, kind, repeat, batch, cache_len, device, local)
+        cache.append(sc)
     return cache
+
+
+class CacheLayout:
+    """How a sharded serving step's rank holds the cache
+    (`serve.sharded`): `specs`, `init_cache`'s tree of `PartitionSpec`s (a
+    leaf's dimensions, the layer axis first), for a global batch of
+    `batch` rows over a mesh of axis sizes `sizes`.  What each block reads
+    of it is worked out once here, not at every step: `kv_spec[si, name]`,
+    an attention block's K/V spec without the layer axis, where the length
+    splits over ranks (else None: the block's cache is laid out as on one
+    device along its length); `state_split[si, name]`, a recurrent block's
+    {leaf: ((dim, axes), ...)} split on a dimension other than the batch
+    (empty where nothing is, the block computing on its views as they
+    are)."""
+
+    def __init__(self, specs, batch: int, sizes: Dict[str, int]):
+        self.specs, self.batch, self.sizes = specs, batch, sizes
+        self.kv_spec, self.state_split = {}, {}
+        for si, stage in enumerate(specs):
+            for name, leaves in stage.items():
+                block = {k: tuple(sp)[1:] for k, sp in leaves.items()}
+                if "k" in block:
+                    length = actx.axes_of(block["k"][2] if len(block["k"]) > 2 else None)
+                    self.kv_spec[si, name] = block["k"] if self._size(length) > 1 else None
+                    continue
+                split = {}
+                for k, sp in block.items():
+                    dims = tuple((d, actx.axes_of(part)) for d, part in enumerate(sp)
+                                 if d > 0 and self._size(actx.axes_of(part)) > 1)
+                    if dims:
+                        split[k] = dims
+                self.state_split[si, name] = split
+
+    def _size(self, axes: Tuple[str, ...]) -> int:
+        n = 1
+        for a in axes:
+            n *= self.sizes[a]
+        return n
+
+    def local_shape_fn(self, si: int, name: str):
+        """`shape -> the rank's shape` for the leaves of one block, matched
+        by their place in `_kind_cache`'s order of drawing."""
+        specs = iter(self.specs[si][name].values())
+
+        def local(shape):
+            spec = tuple(next(specs)) + (None,) * len(shape)
+            return tuple(d // self._size(actx.axes_of(part)) for d, part in zip(shape, spec))
+        return local
+
+
+# the sharded serving step's cache layout (`serve.sharded`); None: the
+# rank holds the whole cache (one device)
+_CACHE_LAYOUT: Optional[CacheLayout] = None
+
+
+@contextlib.contextmanager
+def cache_layout(layout: Optional[CacheLayout]):
+    """Within the context, `init_cache` makes the rank's shards and each
+    block reads and writes its cache as `layout` splits it."""
+    global _CACHE_LAYOUT
+    prev, _CACHE_LAYOUT = _CACHE_LAYOUT, layout
+    try:
+        yield
+    finally:
+        _CACHE_LAYOUT = prev
 
 
 # ---------------------------------------------------------------------------
@@ -452,24 +539,27 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
 
 
 def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
-                 shared: Optional[Params], cache, cache_pos, cache_pos_max, enc_out):
+                 shared: Optional[Params], cache, cache_pos, cache_pos_max, enc_out,
+                 cache_spec=None):
     """Returns (x, cache, aux); the cache views are updated in place, and
     aux is None for the kinds that have no auxiliary loss.  `enc` and `dec`
     come first: both are attention kinds, and the generic branch below
-    would drop the decoder's cross-attention."""
+    would drop the decoder's cross-attention.  `cache_spec`: how a sharded
+    serving step splits an attention block's K/V (`layers.apply_attention`)."""
     if kind == "enc":
         x, _ = L.apply_attention(cfg, p["attn"], x, positions, causal=False)
         return L.apply_mlp(cfg, p["mlp"], x), None, None
     if kind == "dec":
         x, nc = L.apply_attention(cfg, p["attn"], x, positions, cache=cache,
-                                  cache_pos=cache_pos, cache_pos_max=cache_pos_max)
+                                  cache_pos=cache_pos, cache_pos_max=cache_pos_max,
+                                  cache_spec=cache_spec)
         x = L.apply_cross_attention(cfg, p["cross"], x, enc_out)
         return L.apply_mlp(cfg, p["mlp"], x), nc, None
     if kind in _ATTN_KINDS:
         w = _kind_window(cfg, kind)
         x, nc = L.apply_attention(cfg, shared if kind == "shared_attn" else p["attn"], x,
                                   positions, window=w, cache=cache, cache_pos=cache_pos,
-                                  cache_pos_max=cache_pos_max)
+                                  cache_pos_max=cache_pos_max, cache_spec=cache_spec)
         if kind == "moe":
             x, aux = L.apply_moe(cfg, p["moe"], x)
             return x, nc, aux
@@ -483,6 +573,29 @@ def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
     if kind == "slstm":
         return (*L.apply_slstm(cfg, p["slstm"], x, cache=cache), None)
     raise ValueError(kind)
+
+
+class _WholeState(dict):
+    """A recurrent block's cache made whole along the dimensions other than
+    the batch that a sharded serving step splits (`split`,
+    `CacheLayout.state_split`; mamba's conv window on `ffn`, which the
+    rules put on `model`): the block computes whole, as it does in
+    training, and `write_back` keeps the rank's slice."""
+
+    def __init__(self, views: Params, split: Dict[str, Tuple]):
+        super().__init__(views)
+        self.views, self.split = views, split
+        for name, dims in split.items():
+            for d, axes in dims:
+                self[name] = actx.axes_gather(self[name], axes, d)
+
+    def write_back(self) -> None:
+        for name, dims in self.split.items():
+            t = self[name]
+            for d, axes in dims:
+                size = self.views[name].shape[d]
+                t = t.narrow(d, actx.axes_index(axes) * size, size)
+            self.views[name].copy_(t)
 
 
 def _layer(tree: Params, i: int) -> Params:
@@ -561,7 +674,7 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
         scache = cache[si] if cache is not None else None
         paired = W.has_pair(sp)
 
-        def body(x, i, sp=sp, scache=scache, kinds=kinds, paired=paired):
+        def body(x, i, si=si, sp=sp, scache=scache, kinds=kinds, paired=paired):
             layer_p = _gathered(sp, i)
             if paired:      # int8 wire pairs dequantize at body entry, as in the reference
                 layer_p = W.dequant_subtree(layer_p, L.compute_dtype(cfg))
@@ -569,9 +682,18 @@ def _run_stages(cfg: ModelConfig, params: Params, x, positions, *,
             for j, kind in enumerate(kinds):
                 name = f"{kind}_{j}"
                 c_j = _layer(scache[name], i) if scache is not None else None
+                spec = None
+                if c_j is not None and _CACHE_LAYOUT is not None:
+                    if kind in _ATTN_KINDS:
+                        spec = _CACHE_LAYOUT.kv_spec[si, name]
+                    elif _CACHE_LAYOUT.state_split[si, name]:
+                        c_j = _WholeState(c_j, _CACHE_LAYOUT.state_split[si, name])
                 x, _, aux = _apply_block(cfg, kind, layer_p.get(name, {}), x, positions,
                                          shared=shared, cache=c_j, cache_pos=cache_pos,
-                                         cache_pos_max=cache_pos_max, enc_out=enc_out)
+                                         cache_pos_max=cache_pos_max, enc_out=enc_out,
+                                         cache_spec=spec)
+                if isinstance(c_j, _WholeState):
+                    c_j.write_back()
                 if aux is not None:
                     aux_sum = aux if aux_sum is None else aux_sum + aux
             return x, aux_sum
@@ -785,7 +907,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     cache = init_cache(cfg, b, cache_len or (s + 1), device=device)
     x, cache, _ = _run_stages(cfg, params, x, positions, cache=cache, cache_pos=0,
                               enc_out=enc_out)
-    h = L.rms_norm(x[:, -1:], params["final_norm"])
+    h = L.rms_norm(x[:, -1:], _gathered(params["final_norm"]))
     return logits_head(cfg, params, h), cache
 
 
@@ -809,5 +931,5 @@ def serve_step(cfg: ModelConfig, params: Params, cache, tokens, pos, enc_out=Non
     positions = default_positions(cfg, b, 1, offset=pos_dev, device=device)
     x, cache, _ = _run_stages(cfg, params, x, positions, cache=cache, cache_pos=pos_dev,
                               cache_pos_max=int(pos_host.max()), enc_out=enc_out)
-    h = L.rms_norm(x, params["final_norm"])
+    h = L.rms_norm(x, _gathered(params["final_norm"]))
     return logits_head(cfg, params, h), cache

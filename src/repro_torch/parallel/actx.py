@@ -24,6 +24,11 @@ heads, `ffn` columns, experts or vocabulary rows) and the rank from here.
 ranks, so that `kernels.ops` decides the photonic path on the global
 batch, as the reference's `jit` does.
 
+A sharded serving step (`serve.sharded`) opens the same context, and uses
+`gather_tp` (the vocabulary-split logits, Q's heads made whole) and the
+`axes_*` collectives over the mesh axes a cache leaf's length is split on
+(`axes_max`, `axes_sum`, `axes_gather`; no-ops over one rank).
+
 The split is active only when the mesh has a `model` axis of size > 1
 that the batch does not span (`fsdp_all` spans it: no split).  Without the
 context (one device, serving, the unit tests) every call is a no-op, as in
@@ -44,7 +49,9 @@ from repro_torch.parallel.sharding import P, PartitionSpec, placements
 
 __all__ = ["activation_sharding", "active", "resolve", "constrain", "constrain_batch",
            "constrain_seq", "constrain_unseq", "tp_size", "tp_rank", "seq_split", "seq_rows",
-           "global_rows", "tp_copy", "tp_sum", "tp_max", "gather_seq", "seq_slice"]
+           "global_rows", "tp_copy", "tp_sum", "tp_max", "gather_seq", "seq_slice",
+           "gather_tp", "axes_of", "axes_size", "axes_index", "axes_max", "axes_sum",
+           "axes_gather"]
 
 _STATE: dict = {"mesh": None, "dp": None, "tp": None, "seq_tp": False, "rows": 1.0}
 
@@ -299,3 +306,80 @@ def constrain_unseq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     sequence; the backward keeps this rank's slice.  A no-op unless
     `seq_split`."""
     return _Unsplit.apply(x, dim) if seq_split() else x
+
+
+def gather_tp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The split's slices of `x` concatenated along `dim` (no gradient):
+    the serving step's vocabulary-split logits and its query heads made
+    whole.  `x` itself without a split."""
+    return _gather(x, dim) if tp_size() > 1 else x
+
+
+# ---------------------------------------------------------------------------
+# serving over a mesh: collectives over the axes a cache leaf is split on
+# ---------------------------------------------------------------------------
+
+
+def axes_of(part) -> Tuple[str, ...]:
+    """A `PartitionSpec` entry as a tuple of mesh axis names."""
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+def axes_size(axes: Tuple[str, ...]) -> int:
+    """The ranks along `axes` of the context's mesh (1 without it)."""
+    mesh = _STATE["mesh"]
+    n = 1
+    for a in axes if mesh is not None else ():
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return n
+
+
+def axes_index(axes: Tuple[str, ...]) -> int:
+    """This rank's block along `axes`, major first (the layout
+    `sharding.shard_index` gives a dimension split on them)."""
+    mesh = _STATE["mesh"]
+    idx = 0
+    for a in axes:
+        i = mesh.mesh_dim_names.index(a)
+        idx = idx * mesh.size(i) + mesh.get_coordinate()[i]
+    return idx
+
+
+def _axes_group(axes: Tuple[str, ...]):
+    from repro_torch.parallel.collectives import _axis_group  # runtime: cycle
+
+    return _axis_group(_STATE["mesh"], axes)
+
+
+def axes_max(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+    """The elementwise MAX of `x` over the ranks along `axes` (in place;
+    `x` itself over one rank)."""
+    if axes_size(axes) > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_axes_group(axes))
+    return x
+
+
+def axes_sum(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+    """The sum of `x` over the ranks along `axes` (in place; `x` itself
+    over one rank)."""
+    if axes_size(axes) > 1:
+        dist.all_reduce(x, group=_axes_group(axes))
+    return x
+
+
+def axes_gather(x: torch.Tensor, axes: Tuple[str, ...], dim: int) -> torch.Tensor:
+    """The blocks of `x` of the ranks along `axes`, concatenated along `dim`
+    in block order (bf16 moved as its bits; `x` itself over one rank)."""
+    n = axes_size(axes)
+    if n == 1:
+        return x
+    moved = x.movedim(dim, 0).contiguous()
+    src = moved.view(torch.int16) if moved.dtype == torch.bfloat16 else moved
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    _ALL_GATHER(out, src, group=_axes_group(axes))
+    if moved.dtype == torch.bfloat16:
+        out = out.view(torch.bfloat16)
+    return out.movedim(0, dim)

@@ -33,11 +33,14 @@ reference's replicated input, and each rank returns the whole result:
     geometry alone (`MeshGeometry`: the benches price meshes that no
     process holds; `mesh_axis_sizes` and `has_pod_axis` read either);
   * `plan_channels`: the bandwidth-matching planner for collective
-    chunking (`core.planner.plan_collective_channels`).
+    chunking (`core.planner.plan_collective_channels`);
+  * `prepare_axis_groups`: every flattened sub-mesh group made up front
+    (the dry-run's fake process group, `launch.dryrun`).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from types import SimpleNamespace
 from typing import Optional, Sequence
@@ -49,7 +52,7 @@ from repro_torch.core.planner import plan_collective_channels as plan_channels  
 
 __all__ = ["MeshGeometry", "mesh_axis_sizes", "has_pod_axis", "all_gather", "gather_shards",
            "reduce_to_shard", "flat_all_reduce", "trine_all_reduce", "compressed_all_reduce",
-           "collective_bytes_estimate", "plan_channels"]
+           "collective_bytes_estimate", "plan_channels", "prepare_axis_groups"]
 
 
 class MeshGeometry:
@@ -125,6 +128,17 @@ def _axis_group(mesh, axes: Sequence[str]):
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     return mesh[axes]._flatten().get_group()
+
+
+def prepare_axis_groups(mesh) -> None:
+    """Make the flattened group of every set of two or more of `mesh`'s
+    axes (in the mesh's order) now, so that `_axis_group` finds them made:
+    flattening reads rank coordinates from a tensor (`nonzero`), which
+    `FakeTensorMode` cannot run (`launch.dryrun`)."""
+    names = tuple(mesh.mesh_dim_names)
+    for size in range(2, len(names) + 1):
+        for axes in itertools.combinations(names, size):
+            _axis_group(mesh, axes)
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
