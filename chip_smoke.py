@@ -6,9 +6,10 @@
     python3 chip_smoke.py --only photonic_mac   # stop after photonic_mac's comparisons
     python3 chip_smoke.py --only flash_attention   # stop after flash_attention's
     python3 chip_smoke.py --only ssm_scan  # stop after ssm_scan's
-    python3 chip_smoke.py --only engine    # the engine phases alone (no kernel build)
+    python3 chip_smoke.py --only engine    # the engine phases, summary, dryrun, report (no build)
+    python3 chip_smoke.py --only engine_shard  # the sharded stream alone (no kernel build)
     python3 chip_smoke.py --only mesh_serve  # serving under a mesh alone
-    python3 chip_smoke.py --only dryrun    # the dry-run cells alone (no kernel build)
+    python3 chip_smoke.py --only dryrun    # the dry-run cells and report (no kernel build)
     python3 chip_smoke.py --profile        # also: device time by kernel per model
 
 Needs one NVIDIA Hopper GPU, `nvcc` and PyTorch built for CUDA; it raises
@@ -107,6 +108,22 @@ fields such as stage, bank and router counts exactly):
                equal to the CPU's, seconds of each on both; and
                `torch_collectives_bench.py` (host arithmetic: it runs on
                no device) and its seconds
+  engine_shard  the config axis over a process group: two processes on
+               the one card in a gloo group (a `file://` rendezvous; NCCL
+               takes no two ranks on one device), each streaming
+               `torch_sweep_bench`'s FULL_AXES grid (4096 configs) x six CNN
+               traffics with `sweep_chunked(shard=True)` at chunk 999
+               (rounded to 1000) through a `MinReducer` and `pareto_search`:
+               every rank's minima, indices and fronts bit for bit the
+               one-process card run at chunk 999; each rank's seconds
+               beside the one-process seconds
+  summary      `benchmarks/torch_run.py`'s summary over the bench dicts the
+               phases above hold (fig4, fig6, sweep, pareto, whatif and
+               roofline, resilience, collectives; none run again) and
+               `tools/lint.py`'s gate, written to
+               `benchmarks/artifacts/torch_summary.json`: every correctness
+               check True; each perf gate printed as value vs bar,
+               PASS or FAIL, reported and not required
 
 then the serving paths at full published width (bf16, photonic numerics,
 kernels on, random weights from a seed), one model at a time, at published
@@ -209,7 +226,9 @@ prefill_32k multi and zamba2-1.2b long_500k single, three processes at
 once, each one rank of the production mesh over a fake process group on
 the host: each cell's bottleneck, three roofline terms and argument GiB a
 device, counts priced on the modelled TPU-class fabric, not times of the
-card.
+card.  Then `report`: `benchmarks/torch_report.py` renders those three
+records into a temporary target, and each cell's row must hold the
+`dryrun` phase's three terms and bottleneck.
 
 Last, `examples`: the five model examples (`examples/torch_quickstart.py`,
 `torch_continuous_batching.py`, `torch_serve_batched.py`, which runs the
@@ -1032,6 +1051,9 @@ def phase_kernels(only: str | None = None) -> dict:
 # ---------------------------------------------------------------------------
 
 ENGINE_RTOL = 1e-12          # card against the port's CPU evaluation
+# the bench dicts the engine phases ran, under `benchmarks/torch_run.py`'s
+# names: the `summary` phase consolidates them without running any again
+BENCHES: dict = {}
 ENGINE_DISCRETE = ("n_wavelengths", "n_mr", "n_mzi", "n_stages", "n_laser_banks",
                    "is_electrical", "n_routers")
 STREAM_TOPOLOGIES = ("sprint", "spacx", "tree", "trine")
@@ -1097,7 +1119,7 @@ def phase_engine_fig4() -> dict:
     from benchmarks import torch_fig4_trine as fig4
     cpu = fig4.run(csv=False, device="cpu")
     t0 = time.perf_counter()
-    card = fig4.run(csv=False, device="cuda")
+    card = BENCHES["fig4"] = fig4.run(csv=False, device="cuda")
     seconds = time.perf_counter() - t0
     _require_checks(card["checks"], "engine_fig4")
     if card["params"] != cpu["params"]:
@@ -1130,7 +1152,7 @@ def phase_engine_fig6() -> dict:
     from benchmarks import torch_fig6_crosslight as fig6
     cpu = fig6.run(csv=False, device="cpu")
     t0 = time.perf_counter()
-    card = fig6.run(csv=False, device="cuda")
+    card = BENCHES["fig6"] = fig6.run(csv=False, device="cuda")
     seconds = time.perf_counter() - t0
     _require_checks(card["checks"], "engine_fig6")
     err = 0.0
@@ -1224,7 +1246,7 @@ def phase_engine_sweep() -> dict:
     `sweep_chunked(MinReducer)` bit-identical to the monolithic sweep's
     argmin for every materialize x prefetch x chunk size."""
     from benchmarks import torch_sweep_bench as sb
-    bench = sb.run(csv=False, smoke=False, device="cuda")
+    bench = BENCHES["sweep"] = sb.run(csv=False, smoke=False, device="cuda")
     _require_checks({k: bench["checks"][k] for k in bench["required_checks"]},
                     "engine_sweep bench")
     traffic = EC.CNN_WORKLOADS["ResNet18"]().traffic()
@@ -1446,7 +1468,7 @@ def phase_engine_fabric(seed: int) -> dict:
         table.setdefault(n, {})[sname] = {"cross_pod_gbps": got.cross_pod_bw_bytes_per_s / 1e9,
                                           "energy_per_bit_j": got.energy_per_bit_j}
     # the bench in full mode on the card; its cheap views again on the CPU
-    bench = rb.run(csv=False, smoke=False, device="cuda")
+    bench = BENCHES["resilience"] = rb.run(csv=False, smoke=False, device="cuda")
     _require_checks(bench["checks"], "engine_fabric resilience bench")
     assert bench["yield_grid"]["n_points"] >= 100_000, bench["yield_grid"]
     traffic = EC.CNN_WORKLOADS["ResNet18"]().traffic()
@@ -1595,7 +1617,7 @@ def phase_engine_pareto(seed: int) -> dict:
         masks.append({"cloud": name, "n": int(pts.shape[0]), "front": int(got.sum()),
                       "card_s": card_s, "cpu_check": check})
 
-    bench = pb.run(csv=False, smoke=False, device="cuda")
+    bench = BENCHES["pareto"] = pb.run(csv=False, smoke=False, device="cuda")
     exact = ("codesign_grid_at_least_1e6", "net_front_streaming_equals_monolithic",
              "net_front_matches_bruteforce", "codesign_front_streaming_equals_monolithic",
              "codesign_front_matches_bruteforce", "codesign_chunk_program_bit_identical",
@@ -1957,6 +1979,7 @@ def phase_engine_whatif() -> dict:
             res[dev] = run(dev)
             seconds[dev] = time.perf_counter() - t0
         card, cpu = res["cuda"], res["cpu"]
+        BENCHES[name] = card
         entry = {"card_s": seconds["cuda"], "cpu_s": seconds["cpu"]}
         if name == "fabric_whatif":
             _require_checks(card["checks"], "engine_whatif fabric_whatif")
@@ -1977,7 +2000,8 @@ def phase_engine_whatif() -> dict:
         err = max(err, entry["max_rel_err_vs_cpu"])
         out[name] = entry
     t0 = time.perf_counter()
-    rows = cb.run(csv=False)["rows"]
+    BENCHES["collectives"] = cb.run(csv=False)
+    rows = BENCHES["collectives"]["rows"]
     out["collectives"] = {"host_s": time.perf_counter() - t0, "rows": len(rows)}
     assert len(rows) == len(cb.GRAD_SIZES), rows
     out.update(max_rel_err_vs_cpu=err, rtol=ENGINE_RTOL, seconds=time.perf_counter() - t_phase)
@@ -1985,8 +2009,161 @@ def phase_engine_whatif() -> dict:
     return out
 
 
+# the summary's checks that hold a measured time to a bar: reported, not
+# required (the co-design ratio failed its bar on the card in PRs 25-27)
+TIMING_CHECKS = ("sweep/speedup_over_bar", "pareto/chunked_within_ratio_bar_network",
+                 "pareto/chunked_within_ratio_bar_codesign", "pareto/batched_over_scalar_bar",
+                 "pareto/pipelined_speedup_at_least_1p2")
+SHARD_WORLD = 2
+SHARD_CHUNK = 999            # rounds up to 1000 at two ranks
+SHARD_TIMEOUT_S = 300
+SHARD_RANK_SCRIPT = """
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+root, rank, world, tmp = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+sys.path.insert(0, root)
+import chip_smoke as CS
+
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                        world_size=world)
+mesh = CS.ES._config_mesh("cuda")
+arrays, seconds = CS._shard_grid()
+np.savez(f"{tmp}/rank{rank}.npz", **arrays)
+with open(f"{tmp}/rank{rank}.json", "w") as f:
+    json.dump({"seconds": seconds, "backend": dist.get_backend(),
+               "mesh": [mesh.size(), mesh.get_local_rank()]}, f)
+dist.destroy_process_group()
+"""
+
+
+class _MinAndStarts(ES.MinReducer):
+    """`MinReducer` that also records every chunk's first row (the chunk
+    size the stream used)."""
+
+    def init(self, spec):
+        return {"min": None, "starts": []}
+
+    def step(self, carry, chunk):
+        carry["min"] = super().step(carry["min"], chunk)
+        carry["starts"].append(chunk.start)
+        return carry
+
+    def finish(self, carry, spec):
+        out = super().finish(carry["min"], spec)
+        out["starts"] = carry["starts"]
+        return out
+
+
+def _shard_grid() -> tuple:
+    """`torch_sweep_bench`'s FULL_AXES grid x six CNN traffics through
+    `sweep_chunked(shard=True)` with a `MinReducer` and `pareto_search`, at
+    chunk SHARD_CHUNK on this process's card, twice: (the second run's
+    arrays, its seconds of each; the first warms the process up)."""
+    from benchmarks import torch_sweep_bench as sb
+    traffics = [f().traffic() for f in EC.CNN_WORKLOADS.values()]
+    kw = dict(topologies=sb.TOPOLOGIES, chunk_size=SHARD_CHUNK, shard=True, device="cuda",
+              **sb.FULL_AXES)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = ES.sweep_chunked(traffics, _MinAndStarts("energy_j"), **kw)
+        t1 = time.perf_counter()
+        fronts = ESR.pareto_search(traffics, **kw)
+        t2 = time.perf_counter()
+    arrays = {"min_value": np.asarray(best["value"]), "min_index": np.asarray(best["index"]),
+              "starts": np.asarray(best["starts"])}
+    for w, front in enumerate(fronts):
+        arrays[f"front{w}_indices"], arrays[f"front{w}_points"] = front.indices, front.points
+    return arrays, {"min_s": t1 - t0, "pareto_s": t2 - t1}
+
+
+def phase_engine_shard() -> dict:
+    """The engine's config axis over a process group: `SHARD_WORLD` ranks on
+    the one card, a gloo group on a `file://` rendezvous (NCCL takes no two
+    ranks on one device; the fold gathers on the host), each streaming
+    `_shard_grid` with `shard=True`; every rank's minima, indices and
+    Pareto fronts bit for bit the one-process card run of the same grid
+    and chunk, the chunk rounded up to a multiple of the world (999 to
+    1000).  Seconds of each rank beside the one-process seconds."""
+    from benchmarks import torch_sweep_bench as sb
+    t_phase = time.perf_counter()
+    n = ES.grid_spec(sb.TOPOLOGIES, **sb.FULL_AXES).n
+    one, one_s = _shard_grid()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PYTHONFAULTHANDLER="1")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", SHARD_RANK_SCRIPT, str(ROOT), str(r),
+                                   str(SHARD_WORLD), tmp], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(SHARD_WORLD)]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=SHARD_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+        wall = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"engine_shard rank {r} exited {p.returncode}:\n{log[-3000:]}"
+        ranks = [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(SHARD_WORLD)]
+        meta = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(SHARD_WORLD)]
+    rounded = -(-SHARD_CHUNK // SHARD_WORLD) * SHARD_WORLD
+    assert np.array_equal(one["starts"], np.arange(0, n, SHARD_CHUNK)), one["starts"]
+    for r, (got, m) in enumerate(zip(ranks, meta)):
+        assert m["mesh"] == [SHARD_WORLD, r] and m["backend"] == "gloo", m
+        assert np.array_equal(got["starts"], np.arange(0, n, rounded)), (r, got["starts"])
+        assert set(got) == set(one), (set(got) ^ set(one))
+        for k in one:
+            if k != "starts" and not (got[k].dtype == one[k].dtype
+                                      and np.array_equal(got[k], one[k])):
+                raise AssertionError(f"engine_shard: rank {r} {k} differs from one process")
+    out = {"phase": "engine_shard", "ranks": SHARD_WORLD, "backend": "gloo", "n_configs": n,
+           "traffics": int(one["min_index"].size), "chunk": SHARD_CHUNK,
+           "rank_chunk": rounded, "chunks": {"one_process": int(one["starts"].size),
+                                             "ranks": int(ranks[0]["starts"].size)},
+           "one_process_s": one_s, "rank_s": [m["seconds"] for m in meta],
+           "two_process_wall_s": wall, "bit_for_bit": True,
+           "front_sizes": [int(one[f"front{w}_indices"].size)
+                           for w in range(int(one["min_index"].size))],
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def phase_summary() -> dict:
+    """`benchmarks/torch_run.py`'s summary over the bench dicts the engine
+    phases hold (`BENCHES`) and `tools/lint.py`'s gate, written to
+    `benchmarks/artifacts/torch_summary.json`: every correctness check must
+    pass; each perf gate and timing check is printed with its value and
+    bar, PASS or FAIL, and not required (the harness's own verdict,
+    `summary/pass`, is printed as it comes)."""
+    from benchmarks import torch_run
+    results = dict(BENCHES)
+    results["lint"] = torch_run.lint_result()
+    summary = torch_run.write_summary(results)
+    torch_run.print_summary(summary, torch_run.write_bench9(results))
+    timing = {k: v for k, v in summary["checks"].items() if k in TIMING_CHECKS}
+    _require_checks({k: v for k, v in summary["checks"].items() if k not in TIMING_CHECKS},
+                    "summary")
+    out = {"phase": "summary", "benchmarks": sorted(results),
+           "correctness_checks": len(summary["checks"]) - len(timing),
+           "perf": {k: f"{p['value']:.6g} vs bar {p['bar']} {'PASS' if p['pass'] else 'FAIL'}"
+                    for k, p in summary["perf"].items()},
+           "timing_checks": {k: "PASS" if v else "FAIL" for k, v in timing.items()},
+           "harness_pass": summary["pass"], "refinement": summary["refinement"]}
+    emit(out)
+    return out
+
+
 def run_engine(seed: int) -> dict:
-    """The engine phases, in order; any failed check raises."""
+    """The engine phases, in order, then `engine_shard` and `summary`; any
+    failed check raises."""
     out = {"engine_fig4": phase_engine_fig4(), "engine_fig6": phase_engine_fig6(),
            "engine_sweep": phase_engine_sweep(), "engine_stream": phase_engine_stream(seed),
            "engine_availability": phase_engine_availability(seed),
@@ -1994,6 +2171,8 @@ def run_engine(seed: int) -> dict:
     out["engine_pareto"], bench, front = phase_engine_pareto(seed)
     out["engine_refine"] = phase_engine_refine(bench, front)
     out["engine_whatif"] = phase_engine_whatif()
+    out["engine_shard"] = phase_engine_shard()
+    out["summary"] = phase_summary()
     return out
 
 
@@ -3479,6 +3658,39 @@ def phase_dryrun() -> dict:
     return out
 
 
+def _dryrun_record(arch: str, shape: str, mesh: str) -> Path:
+    return ROOT / "benchmarks" / "artifacts" / "torch_dryrun" / f"{C.ALIASES[arch]}__{shape}__{mesh}.json"
+
+
+def phase_report(dry: dict) -> dict:
+    """`benchmarks/torch_report.py` on the three records the `dryrun` phase
+    wrote (copied alone into a temporary directory), into a temporary
+    target: each cell's row, in its mesh's table, must hold that phase's
+    three terms and bottleneck as the table renders them."""
+    from benchmarks import torch_report
+    with tempfile.TemporaryDirectory() as tmp:
+        records = Path(tmp) / "records"
+        records.mkdir()
+        for a, sh, m in DRYRUN_CELLS:
+            shutil.copy(_dryrun_record(a, sh, m), records)
+        target = Path(tmp) / "torch_experiments.md"
+        torch_report.main(path=target, artifacts=records)
+        text = target.read_text()
+    assert text.startswith(torch_report.HEADER) and torch_report.MARK in text
+    single, multi = text.split("### §Roofline")[1:3]
+    rows = []
+    for (a, sh, m), cell in zip(DRYRUN_CELLS, dry["cells"]):
+        rec = json.loads(_dryrun_record(a, sh, m).read_text())
+        row = (f"| {rec['arch']} | {sh} | {rec.get('strategy', '')} | {cell['compute_s']:.3f} | "
+               f"{cell['memory_s']:.3f} | {cell['collective_s']:.3f} | **{cell['bottleneck']}** |")
+        assert row in (single if m == "single" else multi), (row, text)
+        rows.append(row)
+    out = {"phase": "report", "rows": rows, "bytes": len(text),
+           "priced_on": dry["priced_on"]}
+    emit(out)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the model examples and the kernel bench
 # ---------------------------------------------------------------------------
@@ -3723,22 +3935,25 @@ def run_path(cfg_id: str, arch: str, profile: bool) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "photonic_mac", "flash_attention", "ssm_scan",
-                                       "engine", "mesh_serve", "dryrun"],
+                                       "engine", "engine_shard", "mesh_serve", "dryrun"],
                     default=None,
                     help="stop after this phase: a kernel's comparisons (for work on that "
-                         "kernel), 'engine' for the engine phases alone (no kernel build), "
-                         "'mesh_serve' for serving under a mesh alone, 'dryrun' for the "
-                         "dry-run cells alone (no kernel build); prints no ok line")
+                         "kernel), 'engine' for the engine phases alone with 'summary', "
+                         "'dryrun' and 'report' (no kernel build), 'engine_shard' for the "
+                         "sharded stream alone, 'mesh_serve' for serving under a mesh alone, "
+                         "'dryrun' for the dry-run cells and 'report' alone (no kernel build); "
+                         "prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for decode and prefill, per model")
     ap.add_argument("--seed", type=int, default=SEED,
                     help="seed of the engine phases' sampled rows, window and fault scenarios")
     args = ap.parse_args()
     t_start = time.perf_counter()
-    dev = phase_device(build=args.only not in ("engine", "dryrun"))
-    if args.only in ("engine", "mesh_serve", "dryrun"):
-        {"engine": lambda: run_engine(args.seed), "mesh_serve": phase_mesh_serve,
-         "dryrun": phase_dryrun}[args.only]()
+    dev = phase_device(build=args.only not in ("engine", "engine_shard", "dryrun"))
+    if args.only in ("engine", "engine_shard", "mesh_serve", "dryrun"):
+        {"engine": lambda: (run_engine(args.seed), phase_report(phase_dryrun())),
+         "engine_shard": phase_engine_shard, "mesh_serve": phase_mesh_serve,
+         "dryrun": lambda: phase_report(phase_dryrun())}[args.only]()
         print(dev["nvidia_smi"], flush=True)
         return
     kern = phase_kernels(only=None if args.only == "kernels" else args.only)
@@ -3762,7 +3977,7 @@ def main() -> None:
         by_path[path] = n
         for name in MESH_SERVE_NEEDS[path]:
             assert n[name] > 0, f"the {path} path never launched {name}"
-    phase_dryrun()
+    phase_report(phase_dryrun())
     launches = {name: sum(n[name] for n in by_path.values()) for name in KERNELS}
     phase_examples()
 

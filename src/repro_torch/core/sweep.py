@@ -65,6 +65,16 @@ Two materialization modes feed the same evaluation:
                            device.  Forced when ``shard=True`` or when a
                            legacy `columns_fn` callable needs host columns.
 
+With ``shard=True`` under a process group of W > 1 ranks (`_config_mesh`,
+the counterpart of the reference's config-axis `NamedSharding`), the chunk
+size rounds up to a multiple of W, every rank builds the chunk's host
+columns and evaluates its own contiguous chunk_size / W lanes on its
+device, and the fold gathers every rank's network fields and metrics back
+in rank order, so that every rank folds the whole chunk and returns the
+same reducer result.  With no process group, or at world size 1,
+``shard=True`` only forces host materialization, as the reference's does
+on one device.
+
 Bitwise reproducibility.  The reference gets it from one jitted program
 instance; here every operation is its own eager kernel, and each computes
 every element by the same correctly rounded arithmetic at any shape — the
@@ -72,8 +82,8 @@ engine does no reduction over the configuration axis, takes the same
 sequence of operations on every path, and computes 10**x with
 `TorchNS.pow10` (torch's CPU `pow` rounds its vectorised and tail lanes
 differently).  So the decoded columns equal `chunk_cols` bit for bit, and
-monolithic, chunked, host- and device-materialized runs at any prefetch
-depth fold to bit-identical reducer states.  Everything is float64 by
+monolithic, chunked, sharded, host- and device-materialized runs at any
+prefetch depth fold to bit-identical reducer states.  Everything is float64 by
 construction, independent of `torch.get_default_dtype()`.
 
 On top of either mode sits a double-buffered prefetch pipeline: a
@@ -102,8 +112,9 @@ This is the port's counterpart of the JAX package's `core/sweep.py`.  The
 columnar, batched and streaming entry points take ``device=`` (default
 "cuda", raising without a card) and return numpy arrays; the scalar
 reference (`sweep_scalar_reference`) is host numpy and takes no device.
-Sharding over several cards is not ported: ``shard=True`` only forces host
-materialization, as the reference's does on one device.
+The config-axis sharding takes its ranks from the process group the caller
+set up (`torchrun`, or `torch.distributed.init_process_group`), as the
+reference takes its devices from `jax.devices()`.
 """
 
 from __future__ import annotations
@@ -671,6 +682,49 @@ class MinReducer(ChunkReducer):
                 "config": [spec.config_at(int(k)) for k in flat_i]}
 
 
+def _config_mesh(device_type: str):
+    """A 1-D mesh ``("configs",)`` over the default process group when one
+    is initialized with more than one rank (the scale-out hook for grids
+    past one device); None in one process or at world size 1."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() <= 1:
+        return None
+    from repro_torch.launch.mesh import _make  # runtime: launch sits above core
+
+    return _make((dist.get_world_size(),), ("configs",), device_type)
+
+
+def _gather_lanes(mesh, *parts: Mapping[str, torch.Tensor]):
+    """Every rank's float64 tensors (each (..., lanes)) in the dicts
+    `parts`, as host arrays (..., W * lanes) in rank order, one dict for
+    each: one all-gather of them all packed as (rows, lanes), on the device
+    under NCCL, on the host otherwise (gloo)."""
+    import torch.distributed as dist
+
+    group, world = mesh.get_group(), mesh.size()
+    tensors = [v for d in parts for v in d.values()]
+    packed = torch.cat([v.reshape(-1, v.shape[-1]) for v in tensors]).contiguous()
+    if dist.get_backend(group) == "nccl":
+        out = packed.new_empty((world,) + tuple(packed.shape))
+        dist.all_gather_into_tensor(out, packed, group=group)
+        out = out.cpu()
+    else:
+        packed = packed.cpu()
+        bufs = [torch.empty_like(packed) for _ in range(world)]
+        dist.all_gather(bufs, packed, group=group)
+        out = torch.stack(bufs)
+    whole = out.permute(1, 0, 2).reshape(packed.shape[0], -1).numpy()
+    res, row = [], 0
+    for d in parts:
+        res.append({})
+        for k, v in d.items():
+            rows = v[..., 0].numel()
+            res[-1][k] = whole[row:row + rows].reshape(tuple(v.shape[:-1]) + (-1,))
+            row += rows
+    return res
+
+
 def _run_pipeline(starts, make_task, fold, depth: int) -> None:
     """Double-buffered chunk pipeline: at most `depth` chunk tasks in flight
     beyond the one being folded, folds strictly in submission order (so any
@@ -731,6 +785,13 @@ def sweep_chunked(
     between them.  Each chunk's results come back to the host inside its
     task, so reducers see numpy arrays.
 
+    ``shard=True`` under a process group of W > 1 ranks (`_config_mesh`)
+    rounds `chunk_size` up to a multiple of W; each rank evaluates its
+    contiguous chunk_size / W lanes of the host columns on `device` ("cuda"
+    is the rank's current card) and the fold gathers the lanes back in rank
+    order, so that every rank returns the same result, bit for bit the one
+    of world size 1.  Every rank must make the same call.
+
     `prefetch` (default: the REPRO_PREFETCH env flag, 2) chunks may be in
     flight ahead of the reducer fold; folds happen in chunk order, so every
     depth produces bit-identical reducer states.
@@ -741,7 +802,10 @@ def sweep_chunked(
     __call__ stays available as the host reference).  Any other callable
     ``columns_fn(cols, topo_id, topologies) -> (nets, dev_cols)`` runs
     legacy-style on host-materialized columns, whose returned columns may
-    carry a leading scenario axis ((S, chunk)).
+    carry a leading scenario axis ((S, chunk)).  The reference's config-axis
+    sharding assumes 1-D columns and takes no batched `columns_fn`; here
+    the lanes are cut on the last axis, the scenario's inputs go to every
+    rank whole.
     """
     xp = TorchNS(require_device(device))
     spec = grid_spec(topologies, devices=devices, **axes)
@@ -763,7 +827,19 @@ def sweep_chunked(
         materialize = "host"
 
     depth = prefetch_depth() if prefetch is None else max(0, int(prefetch))
+    mesh = _config_mesh(xp.device.type) if shard else None
     chunk_size = int(min(max(1, chunk_size), n))
+    if mesh is not None:
+        if xp.device.type == "cuda" and xp.device.index is None:
+            # the chunk tasks run on a worker thread: pin the rank's card
+            xp = TorchNS(torch.device("cuda", torch.cuda.current_device()))
+        world = mesh.size()
+        chunk_size = -(-chunk_size // world) * world
+        lanes = chunk_size // world
+        mine = slice(mesh.get_local_rank() * lanes, (mesh.get_local_rank() + 1) * lanes)
+
+    def lanes_of(v):  # this rank's lanes of a host column (all without a mesh)
+        return v if mesh is None else np.asarray(v)[..., mine]
 
     bits, xfers = _traffic_arrays(traffic)
     bits_t, xfers_t = xp.asarray(bits), xp.asarray(xfers)
@@ -790,21 +866,24 @@ def sweep_chunked(
             if legacy_fn:
                 cols, topo_id = _host_chunk(start, stop)
                 nets, dev_cols = columns_fn(cols, topo_id, spec.topologies)
-                mets = eval_math({k: xp.asarray(nets[k]) for k in MODEL_FIELDS},
-                                 {k: xp.asarray(dev_cols[k])
+                mets = eval_math({k: xp.asarray(lanes_of(nets[k])) for k in MODEL_FIELDS},
+                                 {k: xp.asarray(lanes_of(dev_cols[k]))
                                   for k in _EVAL_DEVICE_FIELDS},
                                  bits_t, xfers_t, frac_t)
                 nets = {k: np.asarray(v, np.float64) for k, v in nets.items()}
-                return start, stop, topo_id, nets, _to_host(mets)
+                return (start, stop, topo_id, nets,
+                        mets if mesh is not None else _to_host(mets))
             if materialize == "host":
                 cols, topo_id = _host_chunk(start, stop)
-                cols = {k: xp.asarray(v) for k, v in cols.items()}
-                topo_t = torch.as_tensor(topo_id, device=xp.device)
+                cols = {k: xp.asarray(lanes_of(v)) for k, v in cols.items()}
+                topo_t = torch.as_tensor(lanes_of(topo_id), device=xp.device)
             else:  # device-resident materialization: start scalar only
                 cols, topo_t = _decode(spec, chunk_size, tables_t, base_t,
                                        start, xp.device)
             nets, mets = _engine(cols, topo_t, scen_t, bits_t, xfers_t,
                                  frac_t, spec.topologies, xp)
+            if mesh is not None:  # this rank's lanes; the fold gathers them
+                return start, stop, topo_id, nets, mets
             return (start, stop, topo_t.cpu().numpy(), _to_host(nets),
                     _to_host(mets))
         return task
@@ -814,6 +893,10 @@ def sweep_chunked(
     def fold(result):
         nonlocal carry
         start, stop, topo_id, nets, mets = result
+        if mesh is not None and legacy_fn:  # every rank's lanes, in rank order
+            mets, = _gather_lanes(mesh, mets)
+        elif mesh is not None:
+            nets, mets = _gather_lanes(mesh, nets, mets)
         valid = stop - start
         out = {k: v[..., :valid] for k, v in broadcast_metrics(mets, np).items()}
         nets = {k: v[..., :valid] for k, v in nets.items()}
