@@ -429,10 +429,12 @@ KERNELS = {"photonic_mac": photonic_mac, "flash_attention": flash_attention,
 # names of the port's CUDA kernels, as the profiler shows them
 PORT_KERNEL_NAMES = ("mac_kernel", "attn_kernel", "ssm_scan_kernel")
 ATTN_KINDS = ("attn", "local", "global", "shared_attn", "moe", "enc", "dec")
-# the profiler ranges of `models/layers.py` and `models/model.py`
-# (`layers._span`); `encode` holds its blocks' `attention` ranges
+# the profiler ranges of `models/layers.py`, `models/model.py` and
+# `kernels/ops.py` (`spans.span`); `encode` holds its blocks' `attention`
+# and `photonic.quantize` ranges, `attention` a decode step's
+# `attention.decode`, `moe.route` the router's `photonic.quantize`
 SPANS = ("attention", "cross_attention", "encode", "moe.route", "moe.dispatch",
-         "moe.experts", "moe.combine")
+         "moe.experts", "moe.combine", "photonic.quantize", "attention.decode")
 
 
 def emit(obj) -> None:
@@ -2706,8 +2708,11 @@ def phase_end_to_end(cfg, params, seq: int = 128) -> dict:
 def _ranges_on_device(prof, spans=SPANS) -> dict:
     """Device ms of the kernels that start inside each profiler range's span
     on the device timeline (the device side of `record_function`).  Of
-    `SPANS`, only `encode` holds other ranges (its blocks' `attention`), so a
-    kernel counts in at most one range besides `encode`; of `TRAIN_SPANS`,
+    `SPANS`, only `encode` (its blocks' `attention` and
+    `photonic.quantize`), `attention` (a decode step's `attention.decode`)
+    and `moe.route` (the router's `photonic.quantize`, its linear being
+    photonic) hold other ranges, so a kernel counts in at most one range
+    besides those three; of `TRAIN_SPANS`,
     `loss` holds the forward's `attention` ranges, and the backward's
     kernels, launched from autograd's own thread, fall in no range."""
     dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]

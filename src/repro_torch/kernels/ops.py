@@ -5,6 +5,9 @@ Dispatch, decided by shape alone as in the reference:
     `photonic_mac` kernel) only when K, N and M are all multiples of 128;
     any other shape takes `_tile_quantize_any` (one scale per column) and a
     plain f32 matmul.  The two paths give different numbers by design.
+    On either, the weight's quantisation (and a split's MAX of its bank
+    maxima) runs inside a `photonic.quantize` profiler range
+    (`spans.span`); the product runs outside it.
   * `attention` reaches the `flash_attention` kernel when both sequence
     lengths are >= 8 and each is <= 128 or a multiple of 128, and `q_offset`
     is a multiple of the query block; other shapes take `attention_ref`.
@@ -56,6 +59,7 @@ from repro_torch.kernels.photonic_mac import BANK, bank_absmax, quantize_weights
 from repro_torch.kernels.photonic_mac import photonic_mac as _mac_fwd
 from repro_torch.kernels.ssm_scan import check_shapes, expand_groups
 from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_fwd
+from repro_torch.spans import span
 
 
 # ---------------------------------------------------------------------------
@@ -224,15 +228,17 @@ def _photonic_fwd_impl(x, w, bits, use_kernel, shard=None):
     split = None if shard is None or shard.parts == 1 else shard.split
     kg, ng = (k, n) if split is None else shard.global_kn(k, n)
     if not uses_tiled_path(m, kg, ng):
-        w_dq, _ = _tile_quantize_any(w, bits, shard.reduce_max if split == "rows" else None)
+        with span("photonic.quantize"):
+            w_dq, _ = _tile_quantize_any(w, bits, shard.reduce_max if split == "rows" else None)
         return torch.matmul(x.to(torch.float32), w_dq)
     # an unsplit weight is column slice 0 of itself: nothing padded, no MAX
     xp, wp, lo, off = shard_banks(x, w, split or "cols", shard.index if split else 0)
-    absmax = bank_absmax(wp)
-    if split is not None and shard.reduce_max is not None:
-        absmax = _global_absmax(absmax, split, lo, (ng if split == "cols" else kg) // BANK,
-                                shard.reduce_max)
-    w_q, scale = quantize_weights(wp, bits=bits, absmax=absmax)
+    with span("photonic.quantize"):
+        absmax = bank_absmax(wp)
+        if split is not None and shard.reduce_max is not None:
+            absmax = _global_absmax(absmax, split, lo, (ng if split == "cols" else kg) // BANK,
+                                    shard.reduce_max)
+        w_q, scale = quantize_weights(wp, bits=bits, absmax=absmax)
     out = _mac(xp, w_q, scale, use_kernel)
     return out[:, off:off + n] if out.shape[1] != n else out
 

@@ -41,6 +41,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import actx
+from repro_torch.spans import span
 
 Params = Dict[str, Any]
 # `keep(name, leaf)`: what an init stores of a leaf it has just drawn
@@ -134,14 +135,6 @@ def batch_mean(fn: Optional[Callable[[torch.Tensor], torch.Tensor]]):
         yield
     finally:
         _BATCH_MEAN = prev
-
-
-def _span(name: str):
-    """A named range in a `torch.profiler` trace (`chip_smoke.py --profile`
-    reads the device time under each); nothing at all when no profiler runs."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -295,7 +288,7 @@ def apply_attention(
     h = p["wq"].shape[-2]                    # this rank's heads under a split
     xn = rms_norm(x, p["norm"])
     q, k, v = _qkv(cfg, p, xn, positions)
-    with _span("attention"):
+    with span("attention"):
         out = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1), causal, window,
                             None, 0, cfg.use_kernels)
     out = out.to(x.dtype).movedim(1, 2).reshape(b, s, h * dh)
@@ -348,7 +341,7 @@ def _cached_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     head_split = h < cfg.n_heads
     # the rank's query heads meet their groups' KV heads alone
     cut_kv = head_split and k.shape[1] == cfg.n_kv_heads
-    with _span("attention"):   # the product and the cache, not the projections
+    with span("attention"):   # the product and the cache, not the projections
         if s > 1:
             kq, vq = _local_kv(cfg, k, v, h, dim=1) if cut_kv else (k, v)
             out = ops.attention(q, kq, vq, causal, window, None, 0, cfg.use_kernels)
@@ -383,7 +376,8 @@ def _cached_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
             kc, vc = cache["k"], cache["v"]
             if cut_kv and "model" not in axes:
                 kc, vc = _local_kv(cfg, kc, vc, h, dim=1)
-            out = decode_attention(q_all, kc, vc, pos_eff, lo=lo, axes=axes)
+            with span("attention.decode"):     # the product alone, not the cache writes
+                out = decode_attention(q_all, kc, vc, pos_eff, lo=lo, axes=axes)
             if q_all is not q:
                 out = out.narrow(1, actx.tp_rank() * h, h)
     out = out.to(x.dtype).movedim(1, 2).reshape(b, s, h * dh)
@@ -412,7 +406,7 @@ def _seq_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torc
         xn = rms_norm(x, p["norm"])
         q, k, v = _qkv(cfg, p, xn, positions)
         k, v = actx.gather_seq(k), actx.gather_seq(v)
-        with _span("attention"):
+        with span("attention"):
             out = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1), causal,
                                 window, None, actx.tp_rank() * s, cfg.use_kernels, s_all)
         out = out.to(x.dtype).movedim(1, 2).reshape(b, s, h * dh)
@@ -482,7 +476,7 @@ def apply_cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     v = linear(cfg, p["wv"].reshape(m, hk * dh), enc, kv_split).reshape(b, se, hk, dh)
     if split and not kv_split:
         k, v = _local_kv(cfg, actx.tp_copy(k), actx.tp_copy(v), h)
-    with _span("cross_attention"):
+    with span("cross_attention"):
         out = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1),
                             False, 0, None, 0, cfg.use_kernels)
     out = out.to(x.dtype).movedim(1, 2).reshape(b, s, h * dh)
@@ -552,7 +546,7 @@ def _experts(p: Params, xe: torch.Tensor) -> torch.Tensor:
     dtype, with the stacks cast to it as the reference casts its masters.
     Plain products: the reference runs them outside any Pallas kernel."""
     dt = xe.dtype
-    with _span("moe.experts"):
+    with span("moe.experts"):
         # in place only when no backward needs the product's input
         g = torch.nn.functional.silu(
             torch.einsum("ebcm,emf->ebcf", xe, p["wg"].to(dt)).to(torch.float32),
@@ -584,7 +578,7 @@ def _moe_index_path(cfg: ModelConfig, p: Params, xn, idx, gate_vals, keep, pos_c
     el = p["wi"].shape[0]
     dt = xn.dtype
     rows = torch.arange(b, device=xn.device)[:, None]
-    with _span("moe.dispatch"):
+    with span("moe.dispatch"):
         t_e = idx.transpose(1, 2).reshape(b, k * s)                  # expert per choice
         keep_t = keep.sum(dim=-1) > 0                                 # (B,kS)
         s_t = torch.arange(s, device=xn.device).repeat(k).expand(b, k * s)
@@ -600,7 +594,7 @@ def _moe_index_path(cfg: ModelConfig, p: Params, xn, idx, gate_vals, keep, pos_c
         xe = torch.where(slot_valid, xn[rows, slot_token], 0)
         xe = xe.reshape(b, el, cap, m).to(dt).movedim(0, 1)          # (E,B,C,M)
     ye = _experts(p, xe)
-    with _span("moe.combine"):
+    with span("moe.combine"):
         ye_b = ye.movedim(0, 1).reshape(b, el * cap, m)               # (B,E*C,M)
         if el < e:
             mine = keep_t & (t_e >= e_lo) & (t_e < e_lo + el)
@@ -646,7 +640,7 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor):
     split = el < e or p["wi"].shape[-1] < cfg.d_ff
 
     xn = rms_norm(x, p["norm"])
-    with _span("moe.route"):
+    with span("moe.route"):
         logits = linear(cfg, p["router"], xn).to(f32)                 # (B,S,E)
         probs = torch.softmax(logits, dim=-1)
         gate_vals, idx = top_k(probs, k)                              # (B,S,k)
@@ -671,7 +665,7 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor):
     if cfg.moe_dispatch == "index":
         y = _moe_index_path(cfg, p, xn, idx, gate_vals, keep, pos_ce.long(), cap, e_lo)
     else:
-        with _span("moe.dispatch"):
+        with span("moe.dispatch"):
             slot = (pos_ce[..., None] == torch.arange(cap, device=x.device)).to(f32)
             disp_flat = keep[..., None] * slot[:, :, None, :]                      # (B,kS,E,C)
             dispatch = disp_flat.reshape(b, k, s, e, cap).transpose(1, 2)         # (B,S,k,E,C)
@@ -681,7 +675,7 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor):
             dispatch = dispatch.sum(dim=2)
             xe = torch.einsum("bsec,bsm->ebcm", dispatch.to(x.dtype), xn)
         ye = _experts(p, xe)
-        with _span("moe.combine"):
+        with span("moe.combine"):
             y = torch.einsum("bsec,ebcm->bsm", combine.to(x.dtype), ye)
     return x + (actx.tp_sum(y) if split else y), aux
 

@@ -82,6 +82,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import actx
 from repro_torch.parallel import wire as W
+from repro_torch.spans import span
 
 Params = Dict[str, Any]
 
@@ -793,7 +794,7 @@ def encode(cfg: ModelConfig, params: Params, enc_embeds, device="cuda") -> torch
         return _apply_block(cfg, "enc", layer_p, x, positions, shared=None,
                             cache=None, cache_pos=None, cache_pos_max=0, enc_out=None)[0]
 
-    with L._span("encode"):
+    with span("encode"):
         for i in range(cfg.encoder_layers):
             x = _checkpoint(layer, x, i) if remat else layer(x, i)
         return L.rms_norm(x, _gathered(params["encoder"]["norm"]))

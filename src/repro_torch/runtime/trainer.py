@@ -5,7 +5,7 @@ and resumes bitwise-identically, injects failures, and accounts stragglers
 by the deadline policy (under a mesh the ranks drop a step together).
 
 train_step = forward (chunked CE, `models.model.loss_fn`) -> backward
-(autograd) -> AdamW update; each part runs inside a `layers._span` range
+(autograd) -> AdamW update; each part runs inside a `spans.span` range
 (`loss`, `backward`, `optimizer`) for a profiler.  Autograd runs the
 backward's device work on its own thread, outside the `backward` range's
 device span, so the step's device time splits as `loss`, `optimizer` and
@@ -72,6 +72,7 @@ from repro_torch.parallel import actx
 from repro_torch.parallel import collectives as CC
 from repro_torch.parallel import sharding as S
 from repro_torch.parallel import wire as W
+from repro_torch.spans import span
 
 
 class FailureInjected(RuntimeError):
@@ -104,9 +105,9 @@ def _accumulate(cfg: ModelConfig, leaves, params_of, batch: Dict[str, torch.Tens
     loss taken on `params_of()`'s tree, over `accum_steps` microbatches run
     in turn (gradients summed in f32 and averaged)."""
     def grads_of(mb):
-        with L._span("loss"):
+        with span("loss"):
             loss, metrics = M.loss_fn(cfg, params_of(), mb, device=device)
-        with L._span("backward"):
+        with span("backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
@@ -164,7 +165,7 @@ def make_train_step(cfg: ModelConfig, opt: adamw.OptConfig, param_wire=None,
     def step_fn(state: adamw.TrainState, batch: Dict[str, torch.Tensor]):
         loss, metrics, grads = _loss_and_grads(cfg, state.params, batch, param_wire,
                                                accum_steps, device)
-        with L._span("optimizer"):
+        with span("optimizer"):
             grad_tree = T.unflatten(state.params, grads)
             new_state = adamw.apply_updates(opt, state, grad_tree)
             metrics = dict(metrics, loss=loss, grad_norm=adamw.global_norm(grad_tree))
@@ -283,12 +284,12 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, local, mesh, placements, axes, share):
         ctx.args = (mesh, placements, axes, share)
-        with L._span("gather"):
+        with span("gather"):
             return CC.gather_shards(local, mesh, placements)
 
     @staticmethod
     def backward(ctx, grad):
-        with L._span("grad_reduce"):
+        with span("grad_reduce"):
             return (CC.reduce_to_shard(grad, *ctx.args),) + (None,) * 4
 
 
@@ -322,7 +323,7 @@ class _WireGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, local, levels, scale, whole_scale, dtype, mesh, placements, axes, share):
         ctx.args = (mesh, placements, axes, share)
-        with L._span("gather"):
+        with span("gather"):
             if scale is None:
                 return CC.gather_shards(local.to(dtype), mesh, placements)
             if levels is None:
@@ -331,7 +332,7 @@ class _WireGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        with L._span("grad_reduce"):
+        with span("grad_reduce"):
             return (CC.reduce_to_shard(grad.to(torch.float32), *ctx.args),) + (None,) * 8
 
 
@@ -447,7 +448,7 @@ def _make_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, state_sh, b
                 mesh, axes, "model", seq_tp=seq_tp, rows=1 / share):
             loss, metrics, grads = _accumulate(cfg, leaves, params_of, local,
                                                accum_steps, device)
-        with L._span("grad_reduce"):
+        with span("grad_reduce"):
             # the sharded leaves' gradients came back as this rank's shards
             # of the global batch's; the replicated leaves' (norm scales and
             # the like) are summed here, in one all-reduce
@@ -461,7 +462,7 @@ def _make_sharded_step(cfg: ModelConfig, opt: adamw.OptConfig, mesh, state_sh, b
                     grads[j] = f.view(grads[j].shape)
             scalars = torch.stack([loss, metrics["ce"], metrics["aux"]])
             scalars = CC.flat_all_reduce(scalars * share, mesh, axes) if axes else scalars
-        with L._span("optimizer"):
+        with span("optimizer"):
             gn = shard_global_norm(mesh, grads, param_sh)
             local_state = T.map_structure(_to_local, state)
             new_local = adamw.apply_updates(opt, local_state, T.unflatten(state.params, grads),

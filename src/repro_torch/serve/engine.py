@@ -27,6 +27,30 @@ batcher prefills from tokens alone and decodes with no encoder output, so it
 cannot serve them (ROADMAP.md, Queue 3), and the port adds no encoder
 batching the reference lacks.  M-RoPE configs decode with per-slot (3, B, 1)
 positions, equal streams at each slot's index, as the reference's do.
+
+What the batcher measures, always on:
+  * `stats`: counts of decode steps, prefill calls and their tokens, and
+    the seconds of each phase.  On a card the seconds are CUDA event pairs
+    on the device's stream, one around each admission's prefill and slot
+    write and one around each decode step up to its argmax, read once the
+    step's tokens have reached the host: the phase's interval on the
+    stream, which holds any stall on the host's launches and none of the
+    queueing behind earlier work.  On the CPU they are host-clock
+    intervals.  Nothing synchronises the card; the copy of each step's
+    tokens to the host is the loop's only wait, and the iteration's
+    seconds are in `stats` before its first token is appended.
+  * each `Request`'s stamps, on the host's `time.perf_counter()` clock:
+    `submitted` in `submit`, and `admitted` when its admission starts.  On
+    a card that start is the device's: an event recorded as the admission
+    begins, read with the step's timers as the host clock less the event's
+    distance to the end of the step the host has just waited for.  So it
+    marks when the stream reached the admission, past the earlier work
+    queued on the card, not when the host enqueued it.  On the CPU it is
+    the host clock at the start of `_admit`.
+  * profiler ranges (`spans.span`, only while a profiler runs):
+    `batcher.admit` around an admission, `batcher.decode` around a decode
+    step and its copy to the host, `batcher.emit` around the loop that
+    hands the tokens out and frees slots.
 """
 
 from __future__ import annotations
@@ -43,6 +67,7 @@ from repro_torch.core.faults import FabricUnusableError, FaultScenario
 from repro_torch.core.planner import plan_collective_channels
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass
@@ -52,6 +77,9 @@ class Request:
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # `time.perf_counter()` stamps, set by the batcher (module docstring)
+    submitted: Optional[float] = None
+    admitted: Optional[float] = None
 
 
 def _slot_update(cache_tree, slot_tree, slot: int, n_slots: int):
@@ -93,10 +121,14 @@ class ContinuousBatcher:
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.queue: List[Request] = []
         self._next_rid = 0
-        # phase times are taken with the device synchronised around every
-        # prefill call; a decode step ends in a copy to the host anyway
+        # phase seconds: event pairs on the stream (a card) or the host
+        # clock (the CPU); see the module docstring
         self.stats = {"decode_iters": 0, "decode_tokens": 0, "decode_s": 0.0,
                       "prefill_calls": 0, "prefill_tokens": 0, "prefill_s": 0.0}
+        self._card = self.device.type == "cuda"       # time on the stream, not the host
+        self._events: list = []                       # free timing events
+        self._laps: list = []                         # (stats key, start, end) unread
+        self._admits: list = []                       # (request, start event) unread
 
         # modeled photonic fabric under the per-iteration tensor-parallel
         # collectives (2 all-reduces of bf16 activations per layer, the
@@ -137,14 +169,44 @@ class ContinuousBatcher:
         self._replan()
         self.net_stats["fault_iter"] = self.net_stats["decode_iters"]
 
-    def _clock(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
+    # ---- phase timers ------------------------------------------------
+    def _mark(self):
+        """Now: an event recorded on the device's current stream (a card),
+        else the host clock."""
+        if not self._card:
+            return time.perf_counter()
+        ev = self._events.pop() if self._events else torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _lap(self, key: str, start):
+        """Charge the time since `start` (a `_mark`) to `stats[key]`: at once
+        on the host clock, at the next `_settle` on a card, where the end
+        event is returned."""
+        if not self._card:
+            self.stats[key] += time.perf_counter() - start
+            return None
+        end = self._mark()
+        self._laps.append((key, start, end))
+        return end
+
+    def _settle(self, now: float, end) -> None:
+        """Read the pending events into `stats` and the admissions' stamps,
+        and return them to the pool.  Called after a wait for the stream
+        (the decode step's copy to the host): `now` is the host clock past
+        `end`, which every pending event precedes."""
+        for req, a in self._admits:
+            req.admitted = now - a.elapsed_time(end) / 1e3
+            self._events.append(a)
+        self._admits.clear()
+        for key, a, b in self._laps:
+            self.stats[key] += a.elapsed_time(b) / 1e3
+            self._events += (a, b)
+        self._laps.clear()
 
     # ------------------------------------------------------------------
     def submit(self, prompt: List[int], max_new: int) -> Request:
-        r = Request(self._next_rid, list(prompt), max_new)
+        r = Request(self._next_rid, list(prompt), max_new, submitted=time.perf_counter())
         self._next_rid += 1
         self.queue.append(r)
         return r
@@ -155,29 +217,35 @@ class ContinuousBatcher:
         prompt token at pos len-1: the first decode step processes that token
         fresh and yields the first generated token.  Right-pad KV beyond the
         real length is position-masked and overwritten as decode advances."""
-        core = req.prompt[:-1]
-        if not core:
-            # empty prefill: reset the slot to the zero cache
-            fresh = M.init_cache(self.cfg, 1, self.max_len, device=self.device)
-            _slot_update(self.cache, fresh, slot, self.n_slots)
-        else:
-            plen = max(self.bucket,
-                       ((len(core) + self.bucket - 1) // self.bucket) * self.bucket)
-            if plen >= self.max_len:
-                raise ValueError(f"request {req.rid}: padded prompt length {plen} does not "
-                                 f"fit max_len={self.max_len}")
-            toks = np.zeros((1, plen), np.int64)
-            toks[0, :len(core)] = core
-            t0 = self._clock()
-            _, slot_cache = M.prefill(self.cfg, self.params, {"tokens": toks},
-                                      cache_len=self.max_len, device=self.device)
-            _slot_update(self.cache, slot_cache, slot, self.n_slots)
-            self.stats["prefill_s"] += self._clock() - t0
-            self.stats["prefill_calls"] += 1
-            self.stats["prefill_tokens"] += plen
-        self.slot_req[slot] = req
-        self.pos[slot] = len(req.prompt) - 1
-        self.last_tok[slot] = req.prompt[-1]
+        with span("batcher.admit"):
+            start = self._mark()
+            if self._card:
+                self._admits.append((req, start))
+            else:
+                req.admitted = start
+            core = req.prompt[:-1]
+            if not core:
+                # empty prefill: reset the slot to the zero cache
+                fresh = M.init_cache(self.cfg, 1, self.max_len, device=self.device)
+                _slot_update(self.cache, fresh, slot, self.n_slots)
+            else:
+                plen = max(self.bucket,
+                           ((len(core) + self.bucket - 1) // self.bucket) * self.bucket)
+                if plen >= self.max_len:
+                    raise ValueError(f"request {req.rid}: padded prompt length {plen} does "
+                                     f"not fit max_len={self.max_len}")
+                toks = np.zeros((1, plen), np.int64)
+                toks[0, :len(core)] = core
+                t0 = self._mark()
+                _, slot_cache = M.prefill(self.cfg, self.params, {"tokens": toks},
+                                          cache_len=self.max_len, device=self.device)
+                _slot_update(self.cache, slot_cache, slot, self.n_slots)
+                self._lap("prefill_s", t0)
+                self.stats["prefill_calls"] += 1
+                self.stats["prefill_tokens"] += plen
+            self.slot_req[slot] = req
+            self.pos[slot] = len(req.prompt) - 1
+            self.last_tok[slot] = req.prompt[-1]
 
     # ------------------------------------------------------------------
     def run(self, fault_at_iter: Optional[int] = None,
@@ -197,29 +265,33 @@ class ContinuousBatcher:
                 if self.slot_req[s] is None and self.queue:
                     self._admit(s, self.queue.pop(0))
             # lockstep decode at per-slot positions
-            t0 = self._clock()
-            logits, self.cache = M.serve_step(
-                self.cfg, self.params, self.cache, self.last_tok[:, None],
-                self.pos, device=self.device)
-            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
-            self.stats["decode_s"] += self._clock() - t0
+            with span("batcher.decode"):
+                t0 = self._mark()
+                logits, self.cache = M.serve_step(
+                    self.cfg, self.params, self.cache, self.last_tok[:, None],
+                    self.pos, device=self.device)
+                nxt = torch.argmax(logits[:, -1], dim=-1)
+                t1 = self._lap("decode_s", t0)
+                nxt = nxt.cpu().numpy()       # the loop's one wait for the device
+            self._settle(time.perf_counter(), t1)
             self.stats["decode_iters"] += 1
             self.stats["decode_tokens"] += sum(r is not None for r in self.slot_req)
             self.net_stats["decode_iters"] += 1
             if self.fabric is not None:
                 self.net_stats["modeled_net_s"] += self._net_s_per_iter
-            for s in range(self.n_slots):
-                req = self.slot_req[s]
-                if req is None:
-                    continue
-                tok = int(nxt[s])
-                req.out.append(tok)
-                self.pos[s] += 1
-                self.last_tok[s] = tok
-                hit_eos = self.eos_id is not None and tok == self.eos_id
-                if (len(req.out) >= req.max_new or hit_eos
-                        or self.pos[s] >= self.max_len - 1):
-                    req.done = True
-                    finished.append(req)
-                    self.slot_req[s] = None
+            with span("batcher.emit"):
+                for s in range(self.n_slots):
+                    req = self.slot_req[s]
+                    if req is None:
+                        continue
+                    tok = int(nxt[s])
+                    req.out.append(tok)
+                    self.pos[s] += 1
+                    self.last_tok[s] = tok
+                    hit_eos = self.eos_id is not None and tok == self.eos_id
+                    if (len(req.out) >= req.max_new or hit_eos
+                            or self.pos[s] >= self.max_len - 1):
+                        req.done = True
+                        finished.append(req)
+                        self.slot_req[s] = None
         return finished
