@@ -127,8 +127,8 @@ fields such as stage, bank and router counts exactly):
 
 then the serving paths at full published width (bf16, photonic numerics,
 kernels on, random weights from a seed), one model at a time, at published
-depth except the six larger models, each cut to the deepest stack that
-leaves 4 GB of the card free at its batch-128 prefill's peak (`DEPTH`):
+depth except the six larger models, each cut to a stack whose path
+leaves about 2 GB of the card unreserved at its peak (`DEPTH`):
 
   yi-6b        serve_continuous (ContinuousBatcher, bucketed prefill),
                serve_fabric (the same requests through a batcher modelling
@@ -152,10 +152,11 @@ leaves 4 GB of the card free at its batch-128 prefill's peak (`DEPTH`):
                128-token prompt against 1024 frames, then one decode step);
                the batcher refuses encoder-decoder configs, as the
                reference's cannot serve them
-  qwen2-vl-72b 18 of its 80 layers (3.51 GB a layer in f32; 73.2 GB of
-               weights); serve_continuous and serve_batch128 as yi-6b, with
-               M-RoPE positions (per-slot (3, B, 1) in the batcher's decode)
-  yi-34b       32 of 60 layers, deepseek-67b 24 of 95, gemma3-27b 40 of 62
+  qwen2-vl-72b 14 of its 80 layers (3.51 GB a layer in f32, and 0.88 of
+               kept int8 levels); serve_continuous and serve_batch128 as
+               yi-6b, with M-RoPE positions (per-slot (3, B, 1) in the
+               batcher's decode)
+  yi-34b       23 of 60 layers, deepseek-67b 19 of 95, gemma3-27b 28 of 62
                (its head the tied embedding, 262144 wide), each as yi-6b
   grok-1-314b  6 of 64 layers (bf16 experts, 9.66 GB a layer, d_ff 32768);
                serve_continuous and serve_batch128 as yi-6b (no window)
@@ -432,7 +433,9 @@ ATTN_KINDS = ("attn", "local", "global", "shared_attn", "moe", "enc", "dec")
 # the profiler ranges of `models/layers.py`, `models/model.py` and
 # `kernels/ops.py` (`spans.span`); `encode` holds its blocks' `attention`
 # and `photonic.quantize` ranges, `attention` a decode step's
-# `attention.decode`, `moe.route` the router's `photonic.quantize`
+# `attention.decode`, `moe.route` the router's `photonic.quantize`;
+# `photonic.quantize` times only the calls that quantise (a served weight's
+# first call after a change, training's every call, the per-column path)
 SPANS = ("attention", "cross_attention", "encode", "moe.route", "moe.dispatch",
          "moe.experts", "moe.combine", "photonic.quantize", "attention.decode")
 
@@ -982,9 +985,10 @@ def check_ssm_scan(gen) -> dict:
 
 
 def quantize_cost_ms(gen) -> dict:
-    """Device time of re-quantizing the master weights, which `photonic_matmul`
-    does on every call: per yi-6b matrix, and summed over one decode step
-    (seven matrices in each of 32 layers, plus the head)."""
+    """Device time of quantizing the master weights, which `photonic_matmul`
+    does on each call that autograd records (training) and on each change of
+    a served weight: per yi-6b matrix, and summed over one decode step's
+    matrices (seven in each of 32 layers, plus the head)."""
     per = {}
     for (k, n) in YI_KN:
         w = torch.randn((k, n), generator=gen, device=DEV)
@@ -2539,7 +2543,7 @@ E2E_TOLERANCE = {
 }
 # the dense models whose bf16 check also runs in f32, held at mixtral's f32
 # tolerance with the same argmax: at yi-34b's 32 layers and gemma3-27b's 40
-# the bf16 kernels-vs-plain gap is as large as the plain run's top-2 gap, so
+# (their depths until the kept levels cut them) the bf16 kernels-vs-plain gap is as large as the plain run's top-2 gap, so
 # a bf16 argmax flip needs a witness that tells rounding from a fault
 E2E_F32_WITNESS = ("yi-34b", "deepseek-67b", "gemma3-27b")
 # the vision end-to-end check's image: an 8 x 8 grid of patch embeddings
@@ -3845,26 +3849,24 @@ MESH_SERVE_NEEDS = {"yi-6b mesh_serve": ("photonic_mac", "flash_attention"),
 # batch 128
 BATCHER_ARCHS = ("yi-6b", "mixtral-8x7b", "qwen2-vl-72b", "yi-34b", "deepseek-67b",
                  "gemma3-27b", "grok-1-314b")
-# depth cuts (config id -> layers served): mixtral's bf16 experts are 2.82 GB
-# a layer, so 24 layers (72.7 GB of weights with the f32 attention, embedding
-# and head) leave room for batch-128 transients on an 80 GB card; a
-# qwen2-vl layer is 3.51 GB in f32 and its embedding and head 9.97 GB, so
-# 18 layers (73.2 GB) are the deepest stack that leaves 4 GB free at the
-# batch-128 prefill's peak (PERF.md, section 4).  The same rule for the
-# other four, from one measured peak each (card 85.02 GB, so the peak may
-# reach 81.02; a layer costs its f32 weights plus its share of the
-# batch-128 x 132 K/V cache, the rest of the peak is depth-independent):
-#   yi-34b      2.231 GB a layer + 0.069 cache, embedding and head 3.67;
-#               31 layers peaked at 78.65, so 32 reach about 80.95
-#   deepseek-67b  2.768 + 0.069, 6.71; 23 peaked at 75.97, so 24 reach
-#               about 78.80 and 25 about 81.64
-#   gemma3-27b  1.652 + 0.138 (16 K/V heads), tied 5.64; 38 peaked at
-#               77.21, so 40 reach about 80.79 and 41 about 82.58
-#   grok-1      10.016 (bf16 experts, 9.66 of it) + 0.069, 6.44; 5 peaked
-#               at 66.36 (the experts' f32 silu rows at d_ff 32768), so 6
-#               reach about 76.45 and 7 do not fit
-DEPTH = {"mixtral_8x7b": 24, "qwen2_vl_72b": 18, "yi_34b": 32, "deepseek_67b": 24,
-         "gemma3_27b": 40, "grok1_314b": 6}
+# depth cuts (config id -> layers served).  A layer costs its f32 weights,
+# the int8 levels `kernels/ops.py` keeps of its banked weights (a quarter of
+# their f32 bytes; the bf16 experts are plain products and keep none) and
+# its share of the batch-128 x 132 K/V cache.  Beside the kept levels the
+# caching allocator holds 2-8 GB of free fragments, so each cut is one whose
+# path, run on its own, peaks about 2 GB or more below the card's 85.02 GB
+# of reserved memory (measured: layers, allocated / reserved GB at the peak):
+#   mixtral-8x7b  24, 79.92 / 83.08 (bf16 experts 2.82 GB a layer)
+#   qwen2-vl-72b  14, 77.83 / 81.96 (3.51 f32 + 0.88 int8 a layer)
+#   yi-34b        23, 73.08 / 81.42 (2.23 + 0.56; at 25 its batch-128
+#                 prefill ran out with 77.4 allocated and 6.7 in fragments)
+#   deepseek-67b  19, 77.77 / 81.89 (2.77 + 0.69)
+#   gemma3-27b    28, 70.88 / 77.43 (1.65 + 0.41, the tied head 5.64 + 1.41;
+#                 at 31 it ran out with 76.6 allocated and 7.2 in fragments)
+#   grok-1        6, 76.98 / 79.03 (10.02, the bf16 experts 9.66 of it; 7
+#                 layers do not fit)
+DEPTH = {"mixtral_8x7b": 24, "qwen2_vl_72b": 14, "yi_34b": 23, "deepseek_67b": 19,
+         "gemma3_27b": 28, "grok1_314b": 6}
 # the end-to-end check past the window (config id -> (tokens, layers, config
 # changes)), on a model built again: mixtral in f32 at 4224 tokens, whose
 # plain attention's f32 scores take about 9 GB, which 24 layers of weights

@@ -8,6 +8,17 @@ Dispatch, decided by shape alone as in the reference:
     On either, the weight's quantisation (and a split's MAX of its bank
     maxima) runs inside a `photonic.quantize` profiler range
     (`spans.span`); the product runs outside it.
+  * On the tiled path a weight's banked levels are quantised once per
+    change of the weight: `_LEVELS` keeps, on the view's root tensor, one
+    `(w_q, scale)` per view geometry, bit width and slice, with the
+    version it was built at, and a later call whose version still matches
+    takes them (a hit: no quantise, no range).  A view shares its root's
+    version counter, so a write through any alias makes the next call a
+    miss, which replaces the entry.  It engages only where autograd
+    records nothing for the weight, the weight tracks a version (not an
+    inference tensor), no `TorchDispatchMode` runs and the quantise takes
+    no MAX over a split; any other call quantises as before: training,
+    the per-column path, a reduced split.
   * `attention` reaches the `flash_attention` kernel when both sequence
     lengths are >= 8 and each is <= 128 or a multiple of 128, and `q_offset`
     is a multiple of the query block; other shapes take `attention_ref`.
@@ -52,6 +63,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_fwd
@@ -186,10 +198,12 @@ def uses_tiled_path(m: int, k: int, n: int) -> bool:
     return not (k % BANK or n % BANK or m % 128)
 
 
-def shard_banks(x: torch.Tensor, w: torch.Tensor, split: str, index: int):
+def shard_banks(x: torch.Tensor, w: torch.Tensor, split: str, index: int,
+                pad_w: bool = True):
     """A rank's slice of a weight zero-padded out to the global bank edges
     it straddles, with x padded to match (a row slice's columns): returns
-    (x, w, first bank, the slice's offset in the padded weight)."""
+    (x, w, first bank, the slice's offset in the padded weight).  With
+    `pad_w` False (a weight whose levels are kept) w comes back as given."""
     dim = 1 if split == "cols" else 0
     size = w.shape[dim]
     start = index * size
@@ -197,9 +211,9 @@ def shard_banks(x: torch.Tensor, w: torch.Tensor, split: str, index: int):
     before, after = start - lo * BANK, hi * BANK - start - size
     if before or after:
         if dim == 1:
-            w = torch.nn.functional.pad(w, (before, after))
+            w = torch.nn.functional.pad(w, (before, after)) if pad_w else w
         else:
-            w = torch.nn.functional.pad(w, (0, 0, before, after))
+            w = torch.nn.functional.pad(w, (0, 0, before, after)) if pad_w else w
             x = torch.nn.functional.pad(x, (before, after))
     return x, w, lo, before
 
@@ -222,7 +236,13 @@ def _mac(x, w_q, scale, use_kernel):
     return _ref.photonic_mac_ref(x, w_q, scale)
 
 
-def _photonic_fwd_impl(x, w, bits, use_kernel, shard=None):
+# a weight's root tensor (the view's `_base`, or the weight) -> {the view's
+# offset, sizes, strides and dtype, the bits and the slice: (the version
+# the levels were built at, w_q, scale)}; an entry dies with its root
+_LEVELS = WeakIdKeyDictionary()
+
+
+def _photonic_fwd_impl(x, w, bits, use_kernel, shard=None, reuse=False):
     k, n = w.shape
     m = x.shape[0] if shard is None else shard.m
     split = None if shard is None or shard.parts == 1 else shard.split
@@ -232,22 +252,42 @@ def _photonic_fwd_impl(x, w, bits, use_kernel, shard=None):
             w_dq, _ = _tile_quantize_any(w, bits, shard.reduce_max if split == "rows" else None)
         return torch.matmul(x.to(torch.float32), w_dq)
     # an unsplit weight is column slice 0 of itself: nothing padded, no MAX
-    xp, wp, lo, off = shard_banks(x, w, split or "cols", shard.index if split else 0)
-    with span("photonic.quantize"):
-        absmax = bank_absmax(wp)
-        if split is not None and shard.reduce_max is not None:
-            absmax = _global_absmax(absmax, split, lo, (ng if split == "cols" else kg) // BANK,
-                                    shard.reduce_max)
-        w_q, scale = quantize_weights(wp, bits=bits, absmax=absmax)
-    out = _mac(xp, w_q, scale, use_kernel)
+    index = shard.index if split else 0
+    reduce_max = shard.reduce_max if split else None
+    entries = key = levels = None
+    if reuse and reduce_max is None:
+        root = w if w._base is None else w._base
+        entries = _LEVELS.get(root)
+        if entries is None:
+            entries = _LEVELS[root] = {}
+        key = (w.storage_offset(), w.shape, w.stride(), w.dtype, bits, split, index,
+               shard.parts if split else 1)
+        kept = entries.get(key)
+        if kept is not None and kept[0] == w._version:
+            photonic_matmul.quant_hits += 1
+            levels = kept[1:]
+        else:
+            photonic_matmul.quant_misses += 1
+    # a hit pads only x (a row slice's columns): the levels are padded already
+    xp, wp, lo, off = shard_banks(x, w, split or "cols", index, pad_w=levels is None)
+    if levels is None:
+        with span("photonic.quantize"):
+            absmax = bank_absmax(wp)
+            if reduce_max is not None:
+                absmax = _global_absmax(absmax, split, lo,
+                                        (ng if split == "cols" else kg) // BANK, reduce_max)
+            levels = quantize_weights(wp, bits=bits, absmax=absmax)
+        if entries is not None:
+            entries[key] = (w._version, *levels)
+    out = _mac(xp, *levels, use_kernel)
     return out[:, off:off + n] if out.shape[1] != n else out
 
 
 class _PhotonicMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, bits, use_kernel, shard):
+    def forward(ctx, x, w, bits, use_kernel, shard, reuse):
         ctx.save_for_backward(x, w)
-        return _photonic_fwd_impl(x, w, bits, use_kernel, shard)
+        return _photonic_fwd_impl(x, w, bits, use_kernel, shard, reuse)
 
     @staticmethod
     def backward(ctx, g):
@@ -256,17 +296,28 @@ class _PhotonicMatmul(torch.autograd.Function):
         # straight-through: the gradient flows as if w were unquantized
         dx = torch.matmul(g, w.t().to(torch.float32)).to(x.dtype)
         dw = torch.matmul(x.t().to(torch.float32), g).to(w.dtype)
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None
 
 
 def photonic_matmul(x: torch.Tensor, w: torch.Tensor, bits: int = 8,
                     use_kernel: bool = True, shard: Optional[Shard] = None) -> torch.Tensor:
     """out (M,N) f32 = x (M,K) @ quantize(w (K,N)): forward through the
     photonic-MAC numerics, backward straight-through to the master weights.
-    The master weight is re-quantized on every call.  `shard` places this
-    rank's product in a sharded step's global one (module docstring); for a
-    row slice the result is this rank's partial sum."""
-    return _PhotonicMatmul.apply(x, w, bits, use_kernel, shard)
+    On the tiled path a weight that autograd does not record is quantised
+    once per change of its version and its levels reused until then
+    (module docstring); `.quant_hits` and `.quant_misses` count the calls
+    that looked its levels up.  Any other call quantises the master.
+    `shard` places this rank's product in a sharded step's global one
+    (module docstring); for a row slice the result is this rank's partial
+    sum."""
+    # decided here: inside the Function's forward autograd records nothing
+    reuse = not (torch.is_grad_enabled() and w.requires_grad or w.is_inference()
+                 or torch._C._len_torch_dispatch_stack())
+    return _PhotonicMatmul.apply(x, w, bits, use_kernel, shard, reuse)
+
+
+photonic_matmul.quant_hits = 0
+photonic_matmul.quant_misses = 0
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,11 @@ time under each of its `SPANS`).  The ranges:
   moe.route / .dispatch /         the MoE block's parts
     .experts / .combine
   encode                          the encoder's blocks (`models/model.py`)
-  photonic.quantize               the photonic linear's weight quantisation
-                                  (`kernels/ops.py`), not its product
+  photonic.quantize               a miss's weight quantisation in the
+                                  photonic linear (`kernels/ops.py`): the
+                                  per-column path's and a banked weight's
+                                  whose levels are not kept; not a hit,
+                                  not the product
   batcher.admit / .decode / .emit an admission, a decode step and the
                                   token loop after it (`serve/engine.py`)
   loss, backward, optimizer,      the train step's parts (`runtime/trainer.py`)

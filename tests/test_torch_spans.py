@@ -6,7 +6,8 @@ one) served by `ContinuousBatcher` under `torch.profiler`.
 Ranges (`repro_torch.spans.span`): `batcher.admit` once an admission,
 `batcher.decode` and `batcher.emit` once a decode step, `attention.decode`
 once a layer of a decode step and never in a prefill, `photonic.quantize`
-once a `photonic_matmul` call with no product inside it; none constructed
+once a per-column `photonic_matmul` call or a banked one that misses the
+kept levels, none on a hit, with no product inside it; none constructed
 without a profiler.  Stamps: submitted <= admitted <= the first token's
 append, on the host clock and, on the card's path, from the admission's
 event.  Timers: the card's event pairs (fakes here, on the host clock)
@@ -19,6 +20,7 @@ import time
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._pytree import tree_map
 
 from repro_torch import configs as C
 from repro_torch.kernels import ops
@@ -27,10 +29,11 @@ from repro_torch.serve.engine import ContinuousBatcher
 
 WIDTHS = dict(n_layers=2, d_model=128, n_heads=2, n_kv_heads=2, head_dim=64, d_ff=256,
               vocab=512)
-# a 129-token prompt prefills 128 positions: the banked path; the rest and
-# every decode step (M = 2 slots) take the per-column path
-PROMPTS = [129, 9, 20, 5]
-MAX_NEWS = [3, 4, 2, 5]
+# a 129-token prompt prefills 128 positions: the banked path, which the
+# second such prompt finds quantised; the rest and every decode step (M = 2
+# slots) take the per-column path
+PROMPTS = [129, 9, 20, 5, 129]
+MAX_NEWS = [3, 4, 2, 5, 2]
 N_SLOTS, MAX_LEN, BUCKET = 2, 176, 16
 PRODUCTS = ("aten::mm", "aten::matmul", "aten::bmm", "aten::addmm", "test.mac")
 
@@ -94,15 +97,22 @@ def model():
 
 @pytest.fixture(scope="module")
 def traced(model):
-    """One traced run, each `photonic_matmul` call counted by its path and
-    each product of the photonic linear under a `test.mac` range."""
+    """One traced run, each `photonic_matmul` call counted by its path (a
+    banked call as a hit or a miss of the kept levels) and each product of
+    the photonic linear under a `test.mac` range.  On a copy of the
+    parameters, so that no earlier run has kept their levels."""
     cfg, params = model
-    calls = {"tiled": 0, "column": 0}
+    params = tree_map(torch.clone, params)
+    calls = {"tiled": 0, "miss": 0, "column": 0}
     impl, mac = ops._photonic_fwd_impl, ops._mac
 
-    def counting(x, w, bits, use_kernel, shard=None):
-        calls["tiled" if ops.uses_tiled_path(x.shape[0], *w.shape) else "column"] += 1
-        return impl(x, w, bits, use_kernel, shard)
+    def counting(x, w, *args):
+        tiled = ops.uses_tiled_path(x.shape[0], *w.shape)
+        calls["tiled" if tiled else "column"] += 1
+        misses = ops.photonic_matmul.quant_misses
+        out = impl(x, w, *args)
+        calls["miss"] += ops.photonic_matmul.quant_misses - misses
+        return out
 
     def ranged_mac(*a):
         with torch.profiler.record_function("test.mac"):
@@ -151,8 +161,10 @@ def test_decode_attention_once_per_layer_of_a_decode_step(traced):
 def test_quantize_once_per_photonic_matmul_without_the_product(traced):
     _, _, events, calls = traced
     assert calls["tiled"] > 0 and calls["column"] > 0        # both paths taken
+    # the first banked prefill quantises each weight, the second takes its levels
+    assert 0 < calls["miss"] == calls["tiled"] - calls["miss"]
     quant = _named(events, "photonic.quantize")
-    assert len(quant) == calls["tiled"] + calls["column"]
+    assert len(quant) == calls["miss"] + calls["column"]
     assert len(_named(events, "test.mac")) == calls["tiled"]
     inside = [e.name for e in events if "photonic.quantize" in _ancestors(e)]
     assert inside and not any(n in PRODUCTS for n in inside)
